@@ -1,0 +1,81 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o _build/libstereo_kernels_<hash>.so csrc/*.cu
+
+The library's name carries a hash of the sources and flags, so an edited
+source is rebuilt and a stale library is never loaded.  ``_build/`` sits
+beside this file and is listed in ``.gitignore``; nvcc's output (ptxas
+register and shared-memory counts) is kept next to the library as
+``<name>.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_HERE = Path(__file__).resolve().parent
+CSRC = _HERE / "csrc"
+BUILD_DIR = _HERE / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found on PATH, in $CUDA_HOME or $CUDA_PATH")
+    return str(path)
+
+
+def library_path() -> Path:
+    """Compile the kernels if no library for the current sources exists;
+    return its path.  Raises ``RuntimeError`` with nvcc's stderr if the
+    build fails."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    lib = BUILD_DIR / f"libstereo_kernels_{digest.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)    # atomic: a concurrent loader never sees half a file
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, with every entry point's C signature set
+    (ctypes would otherwise pass pointers as 32-bit ints)."""
+    lib = ctypes.CDLL(str(library_path()))
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.asw_volume_left_f32.argtypes = [vp, vp, vp, i32, i32, i32, i32, f32, f32, f32, vp]
+    lib.asw_volume_left_f32.restype = i32
+    lib.asw_volume_error_string.argtypes = [i32]
+    lib.asw_volume_error_string.restype = ctypes.c_char_p
+    return lib
