@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
-the sources in the checkout, holds each kernel against its plain PyTorch
-version on the card, drives the ``asw`` pipeline through
+the sources in the checkout and holds each kernel against its plain
+PyTorch version on the card; drives the ``asw`` pipeline through
 ``get_pipeline("asw")`` at the reference driver's size (375x450, D=60,
-win_size=11) and checks its output, then times kernel, plain version and
-pipeline with CUDA events.  Each phase prints one JSON line; any failure
-raises and exits non-zero.  The last three lines are the card's
-``nvidia-smi`` name and power limit, the kernel summary
-``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
+win_size=11) and the flagship ``ad_census`` pipeline through
+``get_pipeline("ad_census")`` in the FULL configuration of
+``__graft_entry__.entry()`` at the same size, each with its kernels' launch
+counts set to 0 just before and read just after, and checks their output;
+then times kernels, plain versions and pipelines with CUDA events.  Each
+phase prints one JSON line; any failure raises and exits non-zero.  The
+last three lines are the card's ``nvidia-smi`` name and power limit, the
+kernel summary ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -45,6 +48,14 @@ MIN_FINAL_AGREE = 0.99            # disp_final, kernel path vs plain path
 MAIN_PATH_CALLS = 3
 # (h, w, D, seed) timed at win_size 11: the reference size and the serving range
 TIMING_SHAPES = [(375, 450, 60, 0), (96, 256, 128, 3)]
+
+# (h, w, D, seed) for the AD-Census kernels against their plain versions:
+# small odd shapes, one with D > W, the reference size, and ROADMAP's
+# serving range (720p, D=128).
+AD_CENSUS_GEOMETRIES = [(13, 17, 5, 3), (9, 6, 10, 5), (375, 450, 60, 0), (720, 1280, 128, 1)]
+AD_CENSUS_RTOL = AD_CENSUS_ATOL = 1e-6   # expf's last ulp; AD and Hamming exact
+SERVING = (720, 1280, 128)
+MIN_WTA_AGREE = 0.995                    # card vs the CPU plain path
 
 
 def check(ok: bool, what) -> None:
@@ -214,22 +225,194 @@ def main() -> None:
           "stage_ms": stage_ms,
           "speckle_share": stage_ms["post.remove_speckles"] / pipe_ms})
 
+    ad = ad_census_phases()
+
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
           "jax was imported")
     teddy = timing[TEDDY]
     print(smi, flush=True)
-    emit({"kernels": [{
-        "name": "asw_volume_left_f32",
-        "route": "cuda",
-        "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/asw_volume.cu",
-        "replaces": "stereo_match_traditional_tpu/ops/kernels/asw_pallas.py:131",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": teddy["kernel_ms"],
-        "plain_ms": teddy["plain_ms"],
-    }]})
+    emit({"kernels": [
+        {
+            "name": "asw_volume_left_f32",
+            "route": "cuda",
+            "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/asw_volume.cu",
+            "replaces": "stereo_match_traditional_tpu/ops/kernels/asw_pallas.py:131",
+            "launches": launches,
+            "max_abs_err": max_abs,
+            "ms": teddy["kernel_ms"],
+            "plain_ms": teddy["plain_ms"],
+        },
+        {
+            "name": "ad_census_volume_f32",
+            "route": "cuda",
+            "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/ad_census_cost.cu",
+            "replaces": "stereo_match_traditional_tpu/ops/volume.py:554",
+            **ad["cost"],
+        },
+        {
+            "name": "scanline_optimize_f32",
+            "route": "cuda",
+            "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/scanline.cu",
+            "replaces": "stereo_match_traditional_tpu/ops/scanline.py:377",
+            **ad["scanline"],
+        },
+    ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
+
+
+def ad_census_phases() -> dict:
+    """The flagship's phases: its two kernels against their plain versions,
+    the FULL slice through ``get_pipeline("ad_census")``, and timings.
+    Returns each kernel's summary fields."""
+    import numpy as np
+    import torch
+
+    from stereo_match_traditional_tpu_torch import ScanlineConfig
+    from stereo_match_traditional_tpu_torch.models import get_pipeline
+    from stereo_match_traditional_tpu_torch.models.ad_census import ad_census_post
+    from stereo_match_traditional_tpu_torch.ops import aggregate, post, scanline, volume, wta
+    from stereo_match_traditional_tpu_torch.ops.kernels import ad_census_cuda, scanline_cuda
+    from stereo_match_traditional_tpu_torch.utils.convert import (
+        pair_to_torch, result_to_numpy,
+    )
+    from stereo_match_traditional_tpu_torch.utils.synthetic import (
+        bad_pixel_rate, make_pair,
+    )
+
+    # -- 6. the two kernels against their plain versions ------------------
+    cost_err = scan_err = 0.0
+    flags = [ScanlineConfig(faithful_vertical_l2=l2, faithful_vertical_p2=p2)
+             for l2 in (False, True) for p2 in (False, True)]
+    for h, w, d, seed in AD_CENSUS_GEOMETRIES:
+        L, R, _ = make_pair(h, w, min(d, w - 1), seed=seed)
+        lt, rt = pair_to_torch(L, R, "cuda")
+        for view in ("left", "right"):
+            got = ad_census_cuda.ad_census_volume_cuda(lt, rt, d, view=view)
+            want = volume.ad_census_volume(lt, rt, d, view=view)
+            ad_eq = torch.equal(ad_census_cuda.ad_volume_cuda(lt, rt, d, view),
+                                volume.ad_volume(lt, rt, d, view))
+            cen_eq = torch.equal(ad_census_cuda.census_volume_cuda(lt, rt, d, view=view),
+                                 volume.census_volume(lt, rt, d, view=view))
+            torch.cuda.synchronize()
+            rec = {"phase": "kernel_check", "kernel": "ad_census_volume_f32",
+                   "geometry": [h, w, d, view], "ad_exact": ad_eq, "census_exact": cen_eq,
+                   "max_abs_err": (got - want).abs().max().item(),
+                   "argmin_agree": (wta.wta(got) == wta.wta(want)).float().mean().item()}
+            emit(rec)
+            cost_err = max(cost_err, rec["max_abs_err"])
+            check(ad_eq and cen_eq, rec)
+            torch.testing.assert_close(got, want, rtol=AD_CENSUS_RTOL, atol=AD_CENSUS_ATOL)
+            if (h, w, d) == TEDDY:
+                check(rec["argmin_agree"] >= MIN_ARGMIN_AGREE, rec)
+        vol = volume.ad_census_volume(lt, rt, d)
+        for cfg in flags:
+            got = scanline_cuda.scanline_optimize_cuda(vol, lt, cfg)
+            want = scanline.scanline_optimize(vol, lt, cfg)
+            torch.cuda.synchronize()
+            rec = {"phase": "kernel_check", "kernel": "scanline_optimize_f32",
+                   "geometry": [h, w, d], "faithful_vertical_l2": cfg.faithful_vertical_l2,
+                   "faithful_vertical_p2": cfg.faithful_vertical_p2,
+                   "bit_exact": torch.equal(got, want),
+                   "max_abs_err": (got - want).abs().max().item()}
+            emit(rec)
+            scan_err = max(scan_err, rec["max_abs_err"])
+            check(rec["bit_exact"], rec)
+
+    # -- 7. the FULL slice through its entry point --------------------------
+    h, w, d = TEDDY
+    L, R, gt = make_pair(h, w, d, seed=0)
+    lt, rt = pair_to_torch(L, R, "cuda")
+    fn, cfg_cls = get_pipeline("ad_census")
+    full = cfg_cls(disp_range=d, scanline=ScanlineConfig(), run_post=True)  # entry()'s
+    ad_census_cuda.LAUNCHES = scanline_cuda.LAUNCHES = 0
+    for _ in range(MAIN_PATH_CALLS):
+        res = fn(lt, rt, full)
+    torch.cuda.synchronize()
+    launches = {"ad_census_volume_f32": ad_census_cuda.LAUNCHES,
+                "scanline_optimize_f32": scanline_cuda.LAUNCHES}
+    check(launches == {"ad_census_volume_f32": 2 * MAIN_PATH_CALLS,
+                       "scanline_optimize_f32": MAIN_PATH_CALLS}, launches)
+    out = result_to_numpy(res)
+    plain = result_to_numpy(fn(*pair_to_torch(L, R, "cpu"), full))
+    for f in ("disp_left", "disp_right", "disp_final"):
+        v = getattr(out, f)
+        check(v.shape == (h, w) and np.isfinite(v).all(), f)
+        check(v.min() >= 0 and v.max() <= d - 1, (f, "range"))
+    bad2 = {f: bad_pixel_rate(getattr(out, f), gt) for f in ("disp_left", "disp_final")}
+    agree = {f: float((getattr(out, f) == getattr(plain, f)).mean())
+             for f in ("disp_left", "disp_right", "disp_final")}
+    # columns x <= W - D: outside the right view's clamp triangle (exact
+    # ties there are broken alike only while every sum is exact)
+    agree["disp_right_outside_triangle"] = float(
+        (out.disp_right[:, : w - d + 1] == plain.disp_right[:, : w - d + 1]).mean())
+    emit({"phase": "slice", "pipeline": "ad_census", "config": "FULL (entry())",
+          "shape": [h, w], "disp_range": d, "launches": launches, "calls": MAIN_PATH_CALLS,
+          "bad2": bad2, "agree_with_cpu_plain_path": agree})
+    check(max(bad2.values()) <= MAX_BAD2, bad2)
+    check(agree["disp_left"] >= MIN_WTA_AGREE and agree["disp_right_outside_triangle"]
+          >= MIN_WTA_AGREE and agree["disp_final"] >= MIN_FINAL_AGREE, agree)
+
+    # -- 8. timing (CUDA events, after warm-up) ----------------------------
+    k_ms, p_ms = alternate(lambda: volume.ad_census_volume(lt, rt, d),
+                           lambda: ad_census_cuda.ad_census_volume_cuda(lt, rt, d),
+                           plain_reps=3, kernel_reps=10)
+    vol_l = ad_census_cuda.ad_census_volume_cuda(lt, rt, d)
+    vol_r = ad_census_cuda.ad_census_volume_cuda(lt, rt, d, view="right")
+    arms_l = aggregate.cross_arms(lt, full.arms)
+    arms_r = aggregate.cross_arms(rt, full.arms)
+    agg_l = aggregate.rect_mean_aggregate(vol_l, arms_l)
+    agg_r = aggregate.rect_mean_aggregate(vol_r, arms_r)
+    sk_ms, sp_ms = alternate(lambda: scanline.scanline_optimize(agg_l, lt, full.scanline),
+                             lambda: scanline_cuda.scanline_optimize_cuda(agg_l, lt, full.scanline),
+                             plain_reps=1, kernel_reps=10)
+    emit({"phase": "timing_kernels", "shape": [h, w], "disp_range": d,
+          "ad_census_volume_f32": {"kernel_ms": k_ms, "plain_ms": p_ms, "speedup": p_ms / k_ms},
+          "scanline_optimize_f32": {"kernel_ms": sk_ms, "plain_ms": sp_ms,
+                                    "speedup": sp_ms / sk_ms}})
+
+    active = cfg_cls(disp_range=d)
+    pipe = {}
+    for name, cfg in (("active", active), ("FULL", full)):
+        fn(lt, rt, cfg)
+        ms = statistics.median(cuda_ms(lambda: fn(lt, rt, cfg), 10))
+        pipe[name] = {"pipeline_ms": ms, "mpixdisp_per_s": h * w * d / (ms / 1e3) / 1e6}
+    opt = scanline_cuda.scanline_optimize_cuda(agg_l, lt, full.scanline)
+    dl, dr = wta.wta(opt), wta.wta(agg_r)
+    lr = post.lr_check_consistency(dl, dr, full.lr_gate, post.INVALID)
+    stages = {
+        "cost": lambda: (ad_census_cuda.ad_census_volume_cuda(lt, rt, d),
+                         ad_census_cuda.ad_census_volume_cuda(lt, rt, d, view="right")),
+        "arms": lambda: (aggregate.cross_arms(lt, full.arms), aggregate.cross_arms(rt, full.arms)),
+        "rect": lambda: (aggregate.rect_mean_aggregate(vol_l, arms_l),
+                         aggregate.rect_mean_aggregate(vol_r, arms_r)),
+        "scanline": lambda: scanline_cuda.scanline_optimize_cuda(agg_l, lt, full.scanline),
+        "wta": lambda: (wta.wta(opt), wta.wta(agg_r)),
+        "post": lambda: ad_census_post(dl, dr, full),
+        "post.remove_speckles": lambda: post.remove_speckles(
+            lr.disp, full.speckle_diff, full.speckle_area, invalid_value=post.INVALID),
+    }
+    stage_ms = {k: statistics.median(cuda_ms(f, 10)) for k, f in stages.items()}
+    emit({"phase": "timing_pipeline", "pipeline": "ad_census", "shape": [h, w],
+          "disp_range": d, **pipe, "stage_ms_FULL": stage_ms})
+
+    sh, sw, sd = SERVING
+    L2, R2, _ = make_pair(sh, sw, sd, seed=1)
+    l2, r2 = pair_to_torch(L2, R2, "cuda")
+    full2 = cfg_cls(disp_range=sd, scanline=ScanlineConfig(), run_post=True)
+    res2 = fn(l2, r2, full2)
+    ms2 = statistics.median(cuda_ms(lambda: fn(l2, r2, full2), 3))
+    final2 = res2.disp_final
+    check(bool(torch.isfinite(final2).all()) and final2.shape == (sh, sw), "720p disp_final")
+    emit({"phase": "timing_pipeline", "pipeline": "ad_census", "config": "FULL",
+          "shape": [sh, sw], "disp_range": sd, "pipeline_ms": ms2,
+          "mpixdisp_per_s": sh * sw * sd / (ms2 / 1e3) / 1e6})
+    return {
+        "cost": {"launches": launches["ad_census_volume_f32"], "max_abs_err": cost_err,
+                 "ms": k_ms, "plain_ms": p_ms},
+        "scanline": {"launches": launches["scanline_optimize_f32"], "max_abs_err": scan_err,
+                     "ms": sk_ms, "plain_ms": sp_ms},
+    }
 
 
 if __name__ == "__main__":

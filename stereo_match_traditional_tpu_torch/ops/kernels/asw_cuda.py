@@ -60,7 +60,7 @@ def _launch_left(
             math.log2(math.e) / space_sigma**2, float(truncation), stream,
         )
     if err != 0:
-        msg = lib.asw_volume_error_string(err).decode()
+        msg = lib.stereo_kernels_error_string(err).decode()
         raise RuntimeError(f"asw_volume_left_f32 launch failed: {msg} ({err})")
     LAUNCHES += 1
     return out

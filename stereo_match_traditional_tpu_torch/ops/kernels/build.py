@@ -1,15 +1,18 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds):
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain
+C interface (no PyTorch headers, so a build takes seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o _build/libstereo_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj>.o csrc/<name>.cu   # per source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o libstereo_kernels_<hash>.so *.o
 
-The library's name carries a hash of the sources and flags, so an edited
-source is rebuilt and a stale library is never loaded.  ``_build/`` sits
-beside this file and is listed in ``.gitignore``; nvcc's output (ptxas
-register and shared-memory counts) is kept next to the library as
+No fast-math: the kernels are held to their plain versions to the bit or
+nearly.  The library's name carries a hash of the sources and flags, so an
+edited source is rebuilt and a stale library is never loaded.  ``_build/``
+sits beside this file and is listed in ``.gitignore``; nvcc's output
+(ptxas register and shared-memory counts) is kept next to the library as
 ``<name>.log``.
 """
 
@@ -26,10 +29,8 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -56,14 +57,32 @@ def library_path() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                    for src, o in zip(sources, objs))
+    ]
+    log = []
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        log.append(out + err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if not failed:
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    lib.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, lib)    # atomic: a concurrent loader never sees half a file
     return lib
 
@@ -76,6 +95,12 @@ def library() -> ctypes.CDLL:
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.asw_volume_left_f32.argtypes = [vp, vp, vp, i32, i32, i32, i32, f32, f32, f32, vp]
     lib.asw_volume_left_f32.restype = i32
-    lib.asw_volume_error_string.argtypes = [i32]
-    lib.asw_volume_error_string.restype = ctypes.c_char_p
+    lib.ad_census_volume_f32.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
+                                         f32, f32, i32, i32, vp]
+    lib.ad_census_volume_f32.restype = i32
+    lib.scanline_optimize_f32.argtypes = [vp, vp, vp, vp, i32, i32, i32, f32, f32,
+                                          i32, i32, vp]
+    lib.scanline_optimize_f32.restype = i32
+    lib.stereo_kernels_error_string.argtypes = [i32]
+    lib.stereo_kernels_error_string.restype = ctypes.c_char_p
     return lib

@@ -153,7 +153,3 @@ extern "C" int asw_volume_left_f32(const void* left, const void* right, void* ou
       c_color, c_space, trunc);
   return (int)cudaGetLastError();
 }
-
-extern "C" const char* asw_volume_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}

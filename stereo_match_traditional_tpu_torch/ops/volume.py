@@ -79,6 +79,108 @@ def right_volume_from_left(vol_left: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# AD cost, census transform + Hamming volume, fused AD-Census
+# ---------------------------------------------------------------------------
+
+
+def ad_volume(
+    left: torch.Tensor, right: torch.Tensor, disp_range: int, view: str = "left"
+) -> torch.Tensor:
+    """Pixelwise absolute-difference volume (`AD-Census.h:75-129`).  The
+    reference's previous-d copy at the border equals the clamped-column
+    gather for a pixelwise cost, so no fill pass is needed."""
+    left = left.to(torch.float32)
+    right = right.to(torch.float32)
+    if view == "left":
+        return torch.abs(left[None] - shifted_stack(right, disp_range, "left"))
+    return torch.abs(shifted_stack(left, disp_range, "right") - right[None])
+
+
+def census_transform(img: torch.Tensor, rows: int = 9, cols: int = 7) -> torch.Tensor:
+    """Census signature per pixel as one int64 (`AD-Census.h:166-192`).
+
+    For each offset of the rows x cols window in row-major order the code
+    shifts left once and gains a 1 iff ``center > neighbor`` and the
+    neighbor lies inside the image; the centre offset takes part (always 0).
+    The JAX package keeps the same bits in two int32 words;
+    ``(hi << 32) | (lo & 0xFFFFFFFF)`` is this value.  At most 63 bits, so
+    the signature is never negative and an arithmetic shift is safe on it.
+    """
+    if rows * cols > 63:
+        raise ValueError(
+            f"census window {rows}x{cols} needs {rows * cols} bits; the "
+            "signature holds at most 63"
+        )
+    x = img.to(torch.float32)
+    h, w = x.shape
+    sig = torch.zeros((h, w), dtype=torch.int64, device=x.device)
+    for r in range(-(rows // 2), rows // 2 + 1):
+        ri = torch.arange(h, device=x.device) + r
+        r_in = (ri >= 0) & (ri < h)
+        xr = x.index_select(0, ri.clamp(0, h - 1))
+        for c in range(-(cols // 2), cols // 2 + 1):
+            ci = torch.arange(w, device=x.device) + c
+            inb = r_in[:, None] & ((ci >= 0) & (ci < w))[None, :]
+            bit = (x > xr.index_select(1, ci.clamp(0, w - 1))) & inb
+            sig = (sig << 1) | bit.to(torch.int64)
+    return sig
+
+
+def popcount64(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each non-negative int64 (SWAR; torch has no popcount)."""
+    x = x - ((x >> 1) & 0x5555555555555555)
+    x = (x & 0x3333333333333333) + ((x >> 2) & 0x3333333333333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F0F0F0F0F
+    x = x + (x >> 8)
+    x = x + (x >> 16)
+    x = x + (x >> 32)
+    return x & 0x7F
+
+
+def census_volume(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    disp_range: int,
+    rows: int = 9,
+    cols: int = 7,
+    view: str = "left",
+) -> torch.Tensor:
+    """Hamming-distance census volume (`AD-Census.h:142-269`), float32.
+
+    Signatures are computed once and gathered at the clamped match column,
+    as the JAX package does; inside the d > j triangle this differs from
+    the C++ reference, which recomputes the right signature per (pixel, d).
+    """
+    cl = census_transform(left, rows, cols)
+    cr = census_transform(right, rows, cols)
+    if view == "left":
+        x = cl[None] ^ shifted_stack(cr, disp_range, "left")
+    else:
+        x = shifted_stack(cl, disp_range, "right") ^ cr[None]
+    return popcount64(x).to(torch.float32)
+
+
+def ad_census_volume(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    disp_range: int,
+    sigma_c: float = 10.0,
+    sigma_s: float = 30.0,
+    census_rows: int = 9,
+    census_cols: int = 7,
+    view: str = "left",
+) -> torch.Tensor:
+    """Fused AD-Census cost (`AD-Census.h:271-318`):
+    ``(1 - exp(-AD/sigmaC)) + (1 - exp(-census/sigmaS))``.
+
+    The plain version of the CUDA kernel (`ops.kernels.ad_census_cuda`).
+    """
+    ad = ad_volume(left, right, disp_range, view)
+    cen = census_volume(left, right, disp_range, census_rows, census_cols, view)
+    return (1.0 - torch.exp(-ad / sigma_c)) + (1.0 - torch.exp(-cen / sigma_s))
+
+
+# ---------------------------------------------------------------------------
 # ASW (adaptive support weight) cost
 # ---------------------------------------------------------------------------
 

@@ -113,7 +113,7 @@ def test_unknown_approx_rejected():
                                cfgs.ASWConfig(approx="bogus"))
 
 
-@pytest.mark.parametrize("name", ["sad", "ncc", "ad_census", "cblsm"])
+@pytest.mark.parametrize("name", ["sad", "ncc", "cblsm"])
 def test_registry_names_unported_pipelines(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         get_pipeline(name)

@@ -24,7 +24,9 @@ def _port_modules():
 def test_port_modules_are_found():
     mods = _port_modules()
     for expected in ("ops.kernels.asw_cuda", "ops.kernels.build", "models.asw",
-                     "ops.post", "utils.convert"):
+                     "ops.post", "utils.convert", "ops.aggregate", "ops.scanline",
+                     "ops.kernels.ad_census_cuda", "ops.kernels.scanline_cuda",
+                     "models.ad_census"):
         assert f"{PKG}.{expected}" in mods
 
 

@@ -1,6 +1,6 @@
-"""Port parity: the ASW post chain of ``stereo_match_traditional_tpu_torch``
-is bit-exact with the JAX package, on random maps and on JAX's own
-disparities fed to both."""
+"""Port parity: the ASW and AD-Census post chains of
+``stereo_match_traditional_tpu_torch`` are bit-exact with the JAX package,
+on random maps and on JAX's own disparities fed to both."""
 
 import functools
 
@@ -10,11 +10,13 @@ import pytest
 import torch
 
 from stereo_match_traditional_tpu import config as cfgs
+from stereo_match_traditional_tpu.models import ad_census as jadc
 from stereo_match_traditional_tpu.models import asw as jasw
 from stereo_match_traditional_tpu.ops import post as jpost
 from stereo_match_traditional_tpu.ops import volume as jvol
 from stereo_match_traditional_tpu.ops import wta as jwta
 from stereo_match_traditional_tpu.utils.synthetic import make_pair
+from stereo_match_traditional_tpu_torch.models import ad_census as tadc
 from stereo_match_traditional_tpu_torch.models import asw as tasw
 from stereo_match_traditional_tpu_torch.ops import post as tpost
 
@@ -117,9 +119,87 @@ def test_median_filter_replicate_bit_exact(size, source):
     np.testing.assert_array_equal(got, want)
 
 
-def test_median_filter_truncate_not_ported():
-    with pytest.raises(NotImplementedError):
-        tpost.median_filter(_t(np.ones((4, 4), np.float32)), 3)
+@pytest.mark.parametrize("size", [3, 5])
+@pytest.mark.parametrize("source", ["random", "jax"])
+def test_median_filter_truncate_bit_exact(size, source):
+    """Only in-image values take part; inf entries (invalid pixels) count
+    and sort last, as in the JAX package."""
+    x = _maps(source)[0].copy()
+    rng = np.random.default_rng(15)
+    x[rng.random(x.shape) < 0.2] = np.inf
+    x[:3, :4] = np.inf                      # an all-inf corner window
+    want = np.asarray(jpost.median_filter(x, size, border="truncate"))
+    got = tpost.median_filter(_t(x), size, border="truncate").numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_median_filter_unknown_border_rejected():
+    with pytest.raises(ValueError, match="border"):
+        tpost.median_filter(_t(np.ones((4, 4), np.float32)), 3, border="reflect")
+
+
+def _with_invalid(dl, seed, share=0.1):
+    dl = dl.copy()
+    dl[np.random.default_rng(seed).random(dl.shape) < share] = np.inf
+    return dl
+
+
+@pytest.mark.parametrize("source", ["random", "jax"])
+@pytest.mark.parametrize("gate", [1.0, 2.0])
+def test_lr_check_consistency_bit_exact(source, gate):
+    """disp, occlusion and mismatch, against JAX's banded form (what its
+    pipeline runs) and its gather form; already-invalid (inf) pixels
+    included."""
+    dl, dr = _maps(source)
+    dl = _with_invalid(dl, 16)
+    got = tpost.lr_check_consistency(_t(dl), _t(dr), gate)
+    for disp_range in (_D, None):
+        want = jpost.lr_check_consistency(dl, dr, gate, disp_range=disp_range)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got.occlusion.any() and got.mismatch.any()
+
+
+def _holes(source, seed):
+    """A map with inf holes and an occlusion/mismatch split of them."""
+    dl = _with_invalid(_maps(source)[0], seed, 0.35)
+    dl[4, :] = np.inf                       # a row with no axis candidate
+    rng = np.random.default_rng(seed + 1)
+    occl = ~np.isfinite(dl) & (rng.random(dl.shape) < 0.5)
+    mism = ~np.isfinite(dl) & ~occl & (rng.random(dl.shape) < 0.7)
+    return dl, occl, mism
+
+
+@pytest.mark.parametrize("source", ["random", "jax"])
+def test_directional_candidates_bit_exact(source):
+    dl, _, _ = _holes(source, 17)
+    valid = np.isfinite(dl)
+    want_v, want_s = jpost.directional_candidates(dl, valid)
+    got_v, got_s = tpost.directional_candidates(_t(dl), _t(valid))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+
+
+@pytest.mark.parametrize("max_search", [None, _D])
+@pytest.mark.parametrize("source", ["random", "jax"])
+def test_fill_holes_8dir_bit_exact(max_search, source):
+    dl, occl, mism = _holes(source, 18)
+    want = np.asarray(jpost.fill_holes_8dir(dl, occl, mism, max_search=max_search))
+    got = tpost.fill_holes_8dir(_t(dl), _t(occl), _t(mism), max_search=max_search).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.isfinite(got).sum() > np.isfinite(dl).sum()
+
+
+@pytest.mark.parametrize("source", ["random", "jax"])
+def test_ad_census_post_bit_exact(source):
+    """The whole FULL post chain (LR check, speckles with inf and
+    8-connectivity, 8-direction fill, truncate median)."""
+    dl, dr = _maps(source)
+    cfg = cfgs.ADCensusConfig(disp_range=_D, speckle_area=6, run_post=True)
+    want = jadc.ad_census_post(jnp.asarray(dl), jnp.asarray(dr), cfg)
+    got = tadc.ad_census_post(_t(dl), _t(dr), cfg)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 @pytest.mark.parametrize("source", ["random", "jax"])
