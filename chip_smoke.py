@@ -9,9 +9,12 @@ PyTorch version on the card; drives the ``asw`` pipeline through
 ``get_pipeline("asw")`` at the reference driver's size (375x450, D=60,
 win_size=11) and the flagship ``ad_census`` pipeline through
 ``get_pipeline("ad_census")`` in the FULL configuration of
-``__graft_entry__.entry()`` at the same size, each with its kernels' launch
-counts set to 0 just before and read just after, and checks their output;
-then times kernels, plain versions and pipelines with CUDA events.  Each
+``__graft_entry__.entry()`` at the same size, then ``sad`` (active and with
+its post chain), ``ncc`` (the committed D=200 and D=60) and ``cblsm``
+(active and with its post chain) at the same size, each with its kernels'
+launch counts set to 0 just before and read just after, and checks their
+output against the ground truth and the port's CPU plain path; then times
+kernels, plain versions, pipelines and stages with CUDA events.  Each
 phase prints one JSON line; any failure raises and exits non-zero.  The
 last three lines are the card's ``nvidia-smi`` name and power limit, the
 kernel summary ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -56,6 +59,18 @@ AD_CENSUS_GEOMETRIES = [(13, 17, 5, 3), (9, 6, 10, 5), (375, 450, 60, 0), (720, 
 AD_CENSUS_RTOL = AD_CENSUS_ATOL = 1e-6   # expf's last ulp; AD and Hamming exact
 SERVING = (720, 1280, 128)
 MIN_WTA_AGREE = 0.995                    # card vs the CPU plain path
+
+# (h, w, D, winsize, seed) for the SAD kernel against its plain version:
+# small odd shapes, one with D > W, a 61x61 window (above 48 KB of shared
+# memory), the reference size (9x9 window)
+SAD_GEOMETRIES = [(13, 17, 5, 1, 3), (9, 6, 10, 3, 5), (40, 70, 8, 29, 4), (375, 450, 60, 3, 0)]
+# (h, w, D, win_size, seed) for the NCC kernel: a small odd shape, the
+# reference size at D=60 and at the committed D=200, and a window above
+# win_size 15, where the sums may round (held within NCC_WIDE_TOL)
+NCC_GEOMETRIES = [(13, 17, 5, 2, 3), (375, 450, 60, 10, 0), (375, 450, 200, 10, 0),
+                  (96, 128, 30, 17, 2)]
+NCC_WIDE_TOL = 1e-5
+MAX_BAD2_WINDOW = {"sad": 0.30, "ncc": 0.30, "cblsm": 0.20}  # tests/test_tpu_smoke.py:34-38
 
 
 def check(ok: bool, what) -> None:
@@ -226,6 +241,7 @@ def main() -> None:
           "speckle_share": stage_ms["post.remove_speckles"] / pipe_ms})
 
     ad = ad_census_phases()
+    win = window_phases()
 
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
           "jax was imported")
@@ -255,6 +271,20 @@ def main() -> None:
             "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/scanline.cu",
             "replaces": "stereo_match_traditional_tpu/ops/scanline.py:377",
             **ad["scanline"],
+        },
+        {
+            "name": "sad_volume_f32",
+            "route": "cuda",
+            "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/window_cost.cu",
+            "replaces": "stereo_match_traditional_tpu/ops/volume.py:224",
+            **win["sad_volume_f32"],
+        },
+        {
+            "name": "ncc_volume_f32",
+            "route": "cuda",
+            "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/window_cost.cu",
+            "replaces": "stereo_match_traditional_tpu/ops/volume.py:296",
+            **win["ncc_volume_f32"],
         },
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -413,6 +443,225 @@ def ad_census_phases() -> dict:
         "scanline": {"launches": launches["scanline_optimize_f32"], "max_abs_err": scan_err,
                      "ms": sk_ms, "plain_ms": sp_ms},
     }
+
+
+def window_phases() -> dict:
+    """The sad, ncc and cblsm phases: the window kernel's two entry points
+    against their plain versions, the three pipelines through
+    ``get_pipeline`` at the reference size, and timings.  Returns each
+    entry point's summary fields."""
+    import numpy as np
+    import torch
+
+    from stereo_match_traditional_tpu_torch import CBLSMConfig, NCCConfig, SADConfig
+    from stereo_match_traditional_tpu_torch.models import get_pipeline
+    from stereo_match_traditional_tpu_torch.models.cblsm import cblsm_post
+    from stereo_match_traditional_tpu_torch.models.sad import sad_post
+    from stereo_match_traditional_tpu_torch.ops import aggregate, post, volume, wta
+    from stereo_match_traditional_tpu_torch.ops.kernels import ad_census_cuda
+    from stereo_match_traditional_tpu_torch.ops.kernels import window_cost_cuda as wc
+    from stereo_match_traditional_tpu_torch.utils.convert import (
+        pair_to_torch, result_to_numpy,
+    )
+    from stereo_match_traditional_tpu_torch.utils.synthetic import (
+        bad_pixel_rate, make_pair,
+    )
+
+    def cuda_pair(h, w, d, seed):
+        L, R, _ = make_pair(h, w, min(d, w - 1), seed=seed)
+        return pair_to_torch(L, R, "cuda")
+
+    # -- 9. the window kernel against its plain version --------------------
+    err = {"sad_volume_f32": 0.0, "ncc_volume_f32": 0.0}
+    for h, w, d, win, seed in SAD_GEOMETRIES:
+        lt, rt = cuda_pair(h, w, d, seed)
+        exact = {}
+        for view in ("left", "right"):
+            for mean in (False, True):
+                got = wc.sad_volume_cuda(lt, rt, d, win, view, mean)
+                want = volume.sad_volume(lt, rt, d, win, view, mean)
+                torch.cuda.synchronize()
+                exact[f"{view}{'_mean' if mean else ''}"] = torch.equal(got, want)
+                err["sad_volume_f32"] = max(err["sad_volume_f32"],
+                                            (got - want).abs().max().item())
+        emit({"phase": "kernel_check", "kernel": "sad_volume_f32",
+              "geometry": [h, w, d, win], "bit_exact": exact})
+        check(all(exact.values()), exact)
+    for h, w, d, win, seed in NCC_GEOMETRIES:
+        lt, rt = cuda_pair(h, w, d, seed)
+        rec = {"phase": "kernel_check", "kernel": "ncc_volume_f32", "geometry": [h, w, d, win]}
+        for mode in ("ignore", "sentinel"):
+            got, interior = wc.ncc_volume_cuda(lt, rt, d, win, mode)
+            want, want_in = volume.ncc_volume(lt, rt, d, win, mode)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            err["ncc_volume_f32"] = max(err["ncc_volume_f32"], e)
+            rec[mode] = {"bit_exact": torch.equal(got, want), "max_abs_err": e,
+                         "argmax_agree": (wta.wta(got, "max") == wta.wta(want, "max"))
+                         .float().mean().item()}
+            check(torch.equal(interior, want_in), (rec, "interior"))
+            if win <= 15:
+                check(rec[mode]["bit_exact"], rec)
+            else:
+                torch.testing.assert_close(got, want, rtol=NCC_WIDE_TOL, atol=NCC_WIDE_TOL)
+        emit(rec)
+
+    # -- 10. the three slices through their entry point --------------------
+    h, w, d = TEDDY
+    L, R, gt = make_pair(h, w, d, seed=0)
+    lt, rt = pair_to_torch(L, R, "cuda")
+    lc, rc = pair_to_torch(L, R, "cpu")
+    slices = [  # (pipeline, label, config, kernel launches per call)
+        ("sad", "active", SADConfig(), {"sad_volume_f32": 1}),
+        ("sad", "run_post", SADConfig(run_post=True), {"sad_volume_f32": 2}),
+        ("ncc", "D=200 (committed)", NCCConfig(), {"ncc_volume_f32": 1}),
+        ("ncc", "D=60", NCCConfig(disp_range=60), {"ncc_volume_f32": 1}),
+        ("cblsm", "active", CBLSMConfig(), {"ad_census_volume_f32": 2}),
+        ("cblsm", "run_post", CBLSMConfig(run_post=True), {"ad_census_volume_f32": 2}),
+    ]
+    total = {"sad_volume_f32": 0, "ncc_volume_f32": 0, "ad_census_volume_f32": 0}
+    for name, label, cfg, per_call in slices:
+        fn, _ = get_pipeline(name)
+        for k in wc.LAUNCHES:
+            wc.LAUNCHES[k] = 0
+        ad_census_cuda.LAUNCHES = 0
+        for _ in range(MAIN_PATH_CALLS):
+            res = fn(lt, rt, cfg)
+        torch.cuda.synchronize()
+        launches = {**wc.LAUNCHES, "ad_census_volume_f32": ad_census_cuda.LAUNCHES}
+        check(launches == {k: per_call.get(k, 0) * MAIN_PATH_CALLS for k in launches},
+              (name, label, launches))
+        for k in total:
+            total[k] += launches[k]
+        out = result_to_numpy(res)
+        plain = result_to_numpy(fn(lc, rc, cfg))
+        dmax = cfg.max_disparity if name == "sad" else cfg.disp_range
+        agree = {}
+        for f in ("disp_left", "disp_right", "disp_final"):
+            v, p = getattr(out, f), getattr(plain, f)
+            if v is None:
+                continue
+            fin = np.isfinite(v)
+            check(v.shape == (h, w) and (fin.all() or f == "disp_final"), (name, f))
+            check(v[fin].min() >= 0 and v[fin].max() <= dmax - 1, (name, f, "range"))
+            if name == "cblsm" and f == "disp_right":   # outside the clamp triangle
+                v, p = v[:, : w - d + 1], p[:, : w - d + 1]
+            agree[f] = float((v == p).mean())
+            check(agree[f] >= (MIN_FINAL_AGREE if f == "disp_final" else MIN_WTA_AGREE),
+                  (name, label, agree))
+        bad2 = bad_pixel_rate(out.disp_left, gt)
+        emit({"phase": "slice", "pipeline": name, "config": label, "shape": [h, w],
+              "disp_range": dmax, "launches": launches, "calls": MAIN_PATH_CALLS,
+              "bad2_left": bad2, "agree_with_cpu_plain_path": agree})
+        if dmax == d:
+            check(bad2 <= MAX_BAD2_WINDOW[name], (name, label, bad2))
+
+    # -- 11. timing (CUDA events, after warm-up) ---------------------------
+    versions = {  # (plain, kernel) at the reference windows, 9x9 and 21x21
+        "sad_volume_f32": (lambda a, b, dd: volume.sad_volume(a, b, dd, 3),
+                           lambda a, b, dd: wc.sad_volume_cuda(a, b, dd, 3)),
+        "ncc_volume_f32": (lambda a, b, dd: volume.ncc_volume(a, b, dd, 10),
+                           lambda a, b, dd: wc.ncc_volume_cuda(a, b, dd, 10)),
+    }
+    serving = cuda_pair(*SERVING, 1)
+    kernel_ms = {}
+    for kernel, (a, b), dd in (("sad_volume_f32", (lt, rt), d), ("ncc_volume_f32", (lt, rt), d),
+                               ("ncc_volume_f32", (lt, rt), 200),
+                               ("sad_volume_f32", serving, SERVING[2]),
+                               ("ncc_volume_f32", serving, SERVING[2])):
+        plain_fn, kernel_fn = versions[kernel]
+        k_ms, p_ms = alternate(lambda: plain_fn(a, b, dd), lambda: kernel_fn(a, b, dd),
+                               plain_reps=3, kernel_reps=10)
+        kernel_ms[kernel, f"{a.shape[0]}x{a.shape[1]}/D={dd}"] = {
+            "kernel_ms": k_ms, "plain_ms": p_ms, "speedup": p_ms / k_ms}
+    emit({"phase": "timing_kernels", "kernel_vs_plain_ms":
+          {f"{k} @ {s}": v for (k, s), v in kernel_ms.items()}})
+
+    pipe_ms = {}
+    for name, label, cfg, _ in slices:
+        fn, _ = get_pipeline(name)
+        fn(lt, rt, cfg)
+        ms = statistics.median(cuda_ms(lambda: fn(lt, rt, cfg), 10))
+        dmax = cfg.max_disparity if name == "sad" else cfg.disp_range
+        pipe_ms[f"{name} {label}"] = {"pipeline_ms": ms,
+                                      "mpixdisp_per_s": h * w * dmax / (ms / 1e3) / 1e6}
+    emit({"phase": "timing_pipeline", "shape": [h, w], "pipelines": pipe_ms})
+
+    sc = SADConfig(run_post=True)
+    vol_l = wc.sad_volume_cuda(lt, rt, d, sc.winsize)
+    vol_r = wc.sad_volume_cuda(lt, rt, d, sc.winsize, "right")
+    dl, dr = wta.optimal_disparity(vol_l), wta.wta(vol_r)
+    lr = post.lr_check_simple(dl, dr, sc.lr_gate, post.INVALID)
+    spk = post.remove_speckles(lr.disp, sc.speckle_diff, sc.speckle_area,
+                               invalid_value=post.INVALID, background=0.0)
+    filled = post.fill_holes_8dir(spk, lr.occlusion, lr.mismatch, post.INVALID)
+    cb = CBLSMConfig(run_post=True)
+    ad_l = ad_census_cuda.ad_volume_cuda(lt, rt, d, "left")
+    ad_r = ad_census_cuda.ad_volume_cuda(lt, rt, d, "right")
+    arms_l, arms_r = aggregate.cross_arms(lt, cb.arms), aggregate.cross_arms(rt, cb.arms)
+    agg_l = aggregate.rect_mean_aggregate(ad_l, arms_l)
+    agg_r = aggregate.rect_mean_aggregate(ad_r, arms_r)
+    both = aggregate.rect_mean_aggregate(torch.cat([agg_l, agg_r]), arms_l)
+    cdl, cdr = wta.wta(both[:d]), wta.wta(both[d:])
+    clr = post.lr_check_consistency(cdl, cdr, cb.lr_gate, post.INVALID)
+    cspk = post.remove_speckles(clr.disp, cb.speckle_diff, cb.speckle_area,
+                                invalid_value=post.INVALID)
+    ncc_vol = wc.ncc_volume_cuda(lt, rt, 200, 10)[0]
+    stages = {
+        "sad run_post": {
+            "cost_left": lambda: wc.sad_volume_cuda(lt, rt, d, sc.winsize),
+            "wta_uniqueness": lambda: wta.optimal_disparity(vol_l),
+            "cost_right": lambda: wc.sad_volume_cuda(lt, rt, d, sc.winsize, "right"),
+            "wta_right": lambda: wta.wta(vol_r),
+            "post": lambda: sad_post(dl, dr, sc),
+            "post.lr_check_simple": lambda: post.lr_check_simple(dl, dr, sc.lr_gate,
+                                                                 post.INVALID),
+            "post.remove_speckles": lambda: post.remove_speckles(
+                lr.disp, sc.speckle_diff, sc.speckle_area, invalid_value=post.INVALID,
+                background=0.0),
+            "post.fill_holes_8dir": lambda: post.fill_holes_8dir(
+                spk, lr.occlusion, lr.mismatch, post.INVALID),
+            "post.median": lambda: post.median_filter(filled, 3, "truncate"),
+        },
+        "cblsm run_post": {
+            "cost": lambda: (ad_census_cuda.ad_volume_cuda(lt, rt, d, "left"),
+                             ad_census_cuda.ad_volume_cuda(lt, rt, d, "right")),
+            "arms": lambda: (aggregate.cross_arms(lt, cb.arms), aggregate.cross_arms(rt, cb.arms)),
+            "rect_pass1": lambda: (aggregate.rect_mean_aggregate(ad_l, arms_l),
+                                   aggregate.rect_mean_aggregate(ad_r, arms_r)),
+            "rect_pass2_stacked": lambda: aggregate.rect_mean_aggregate(
+                torch.cat([agg_l, agg_r]), arms_l),
+            "wta": lambda: (wta.wta(both[:d]), wta.wta(both[d:])),
+            "post": lambda: cblsm_post(cdl, cdr, cb),
+            "post.lr_check_consistency": lambda: post.lr_check_consistency(
+                cdl, cdr, cb.lr_gate, post.INVALID),
+            "post.remove_speckles": lambda: post.remove_speckles(
+                clr.disp, cb.speckle_diff, cb.speckle_area, invalid_value=post.INVALID),
+            "post.median": lambda: post.median_filter(cspk, cb.median_size, "truncate"),
+        },
+        "ncc D=200": {
+            "window_sums (4 box sums)": lambda: volume.ncc_sums(lt, rt, 10),
+            "cost (wrapper, sums included)": lambda: wc.ncc_volume_cuda(lt, rt, 200, 10),
+            "wta_argmax": lambda: wta.wta(ncc_vol, "max"),
+        },
+    }
+    stage_ms = {}
+    for pipeline, fns in stages.items():
+        stage_ms[pipeline] = {k: statistics.median(cuda_ms(f, 10)) for k, f in fns.items()}
+        emit({"phase": "timing_stages", "pipeline": pipeline, "shape": [h, w],
+              "stage_ms": stage_ms[pipeline]})
+
+    # the summary times each entry point at its pipeline's reference config
+    summary = {}
+    for kernel, dd in (("sad_volume_f32", d), ("ncc_volume_f32", 200)):
+        t = kernel_ms[kernel, f"{h}x{w}/D={dd}"]
+        summary[kernel] = {"launches": total[kernel], "max_abs_err": err[kernel],
+                           "ms": t["kernel_ms"], "plain_ms": t["plain_ms"]}
+    # ncc's ms is the wrapper's: the four plain window sums, then the kernel
+    summary["ncc_volume_f32"].update(
+        ms_covers="wrapper (plain window sums + kernel)",
+        window_sums_ms=stage_ms["ncc D=200"]["window_sums (4 box sums)"])
+    return summary
 
 
 if __name__ == "__main__":

@@ -3,11 +3,17 @@
 
 The port runs on torch tensors and never imports jax.  It grows slice by
 slice beside the JAX package, which stays the reference it is tested
-against.  Ported so far: the ``asw`` pipeline's active path, whose cost
-volume is a hand-written CUDA kernel (``ops/kernels/csrc/asw_volume.cu``),
-and the flagship ``ad_census`` pipeline with ``aggregation='rect_mean'``
-in its active and FULL forms, whose cost volume and 4-path scanline are
-hand-written CUDA kernels (``csrc/ad_census_cost.cu``, ``csrc/scanline.cu``).
+against.  Ported so far, through ``models.get_pipeline``: all five
+pipelines.  ``asw`` (active path), whose cost volume is a hand-written CUDA
+kernel (``ops/kernels/csrc/asw_volume.cu``); the flagship ``ad_census``
+with ``aggregation='rect_mean'`` in its active and FULL forms, whose cost
+volume and 4-path scanline are hand-written CUDA kernels
+(``csrc/ad_census_cost.cu``, ``csrc/scanline.cu``); ``sad`` and ``ncc``,
+whose windowed cost volumes are one hand-written CUDA kernel
+(``csrc/window_cost.cu``); and ``cblsm`` (active and post), whose AD
+volumes are the AD part of the AD-Census kernel.  Dormant variants,
+canonical aggregation, surfaces and executors are not ported
+(``ROADMAP.md`` Queue 1 items 6-9).
 
 The configuration dataclasses are the JAX package's own
 (``stereo_match_traditional_tpu.config`` imports only dataclasses), so both
@@ -23,5 +29,8 @@ __version__ = "0.1.0"
 from stereo_match_traditional_tpu.config import (  # noqa: F401
     ADCensusConfig,
     ASWConfig,
+    CBLSMConfig,
+    NCCConfig,
+    SADConfig,
     ScanlineConfig,
 )

@@ -7,3 +7,7 @@ from stereo_match_traditional_tpu_torch.ops.kernels.asw_cuda import asw_volume_c
 from stereo_match_traditional_tpu_torch.ops.kernels.scanline_cuda import (  # noqa: F401
     scanline_optimize_cuda,
 )
+from stereo_match_traditional_tpu_torch.ops.kernels.window_cost_cuda import (  # noqa: F401
+    ncc_volume_cuda,
+    sad_volume_cuda,
+)

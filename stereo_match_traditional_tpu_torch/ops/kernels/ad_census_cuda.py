@@ -13,8 +13,9 @@ import torch
 from stereo_match_traditional_tpu_torch.ops import volume
 
 # Kernel launches so far (one per call of the C entry point, which runs the
-# census and the volume kernels); a run resets it to show its path went
-# through the kernel.  Only the launch below increments it.
+# census kernel, except for the AD part, and the volume kernel); a run
+# resets it to show its path went through the kernel.  Only the launch
+# below increments it.
 LAUNCHES = 0
 
 _PARTS = {"cost": 0, "ad": 1, "census": 2}
@@ -39,7 +40,8 @@ def _launch(left, right, disp_range, rows, cols, sigma_c, sigma_s, view, part):
         raise ValueError(f"empty problem: {h}x{w}, D={disp_range}")
     lf = left.to(torch.float32).contiguous()
     rf = right.to(torch.float32).contiguous()
-    sig = torch.empty((2, h, w), dtype=torch.int64, device=lf.device)
+    # census signatures of both images; the AD part computes none
+    sig = torch.empty((2, h, w) if part != "ad" else (0,), dtype=torch.int64, device=lf.device)
     out = torch.empty((disp_range, h, w), dtype=torch.float32, device=lf.device)
     lib = library()
     with torch.cuda.device(lf.device):

@@ -74,9 +74,10 @@ cost_kernel(const float* __restrict__ left, const float* __restrict__ right,
   const size_t plane = (size_t)h * w;
   const long long* sig_l = sig;
   const long long* sig_r = sig + plane;
-  // the view's own pixel, and the row the match column moves along
+  // the view's own pixel, and the row the match column moves along; the AD
+  // part (part 1) has no signatures
   const float base = RIGHT_VIEW ? right[row + x] : left[row + x];
-  const long long base_sig = RIGHT_VIEW ? sig_r[row + x] : sig_l[row + x];
+  const long long base_sig = part == 1 ? 0 : RIGHT_VIEW ? sig_r[row + x] : sig_l[row + x];
   const float* other = RIGHT_VIEW ? left + row : right + row;
   const long long* other_sig = RIGHT_VIEW ? sig_l + row : sig_r + row;
 #pragma unroll
@@ -85,14 +86,12 @@ cost_kernel(const float* __restrict__ left, const float* __restrict__ right,
     if (d >= d_range) break;
     const int col = RIGHT_VIEW ? min(x + d, w - 1) : max(x - d, 0);
     const float ad = fabsf(base - other[col]);
-    const float ham = (float)__popcll(base_sig ^ other_sig[col]);
     float v;
     if (part == 1) {
       v = ad;
-    } else if (part == 2) {
-      v = ham;
     } else {
-      v = (1.0f - expf(-ad / sigma_c)) + (1.0f - expf(-ham / sigma_s));
+      const float ham = (float)__popcll(base_sig ^ other_sig[col]);
+      v = part == 2 ? ham : (1.0f - expf(-ad / sigma_c)) + (1.0f - expf(-ham / sigma_s));
     }
     out[(size_t)d * plane + row + x] = v;
   }
@@ -103,17 +102,20 @@ cost_kernel(const float* __restrict__ left, const float* __restrict__ right,
 // Launch on `stream`.  left, right: float32 [h, w]; sig: int64 scratch
 // [2, h, w]; out: float32 [d_range, h, w]; all contiguous on the current
 // device.  rows * cols <= 63.  right_view: 0 or 1.  part: 0 cost, 1 AD,
-// 2 Hamming.  Returns cudaGetLastError() after the launches (0 = launched).
+// 2 Hamming; the AD part skips the census launch and leaves sig untouched.
+// Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int ad_census_volume_f32(const void* left, const void* right, void* sig,
                                     void* out, int h, int w, int d_range, int rows,
                                     int cols, float sigma_c, float sigma_s,
                                     int right_view, int part, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 block(BX);
-  census_kernel<<<dim3((w + BX - 1) / BX, h, 2), block, 0, s>>>(
-      (const float*)left, (const float*)right, (long long*)sig, h, w, rows / 2, cols / 2);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (part != 1) {
+    census_kernel<<<dim3((w + BX - 1) / BX, h, 2), block, 0, s>>>(
+        (const float*)left, (const float*)right, (long long*)sig, h, w, rows / 2, cols / 2);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   const dim3 grid((w + BX - 1) / BX, h, (d_range + DC - 1) / DC);
   if (right_view) {
     cost_kernel<true><<<grid, block, 0, s>>>(

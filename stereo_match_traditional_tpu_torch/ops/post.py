@@ -1,6 +1,7 @@
 """Post-processing (torch counterpart of
-``stereo_match_traditional_tpu.ops.post``): the functions the ASW and
-AD-Census post chains run, each bit-exact with its JAX counterpart."""
+``stereo_match_traditional_tpu.ops.post``): the functions the ASW,
+AD-Census, SAD and CBLSM post chains run, each bit-exact with its JAX
+counterpart."""
 
 from __future__ import annotations
 
@@ -117,6 +118,11 @@ def remove_speckles(
     disparities differ by <= ``diff_insame``; components smaller than
     ``min_speckle_area`` become ``invalid_value``.
 
+    ``background`` is the value the SAD variant skips as a BFS seed
+    (`Sad.h:265` skips ``disp == 0``): background pixels join components
+    and count toward the area, but a component holding only background
+    pixels is never visited and survives.
+
     Only component areas reach the output, so any exact labelling gives the
     JAX result.  Here: every pixel starts labelled with its own flat index;
     each sweep takes the min label across every connected pair, hooks that
@@ -127,10 +133,10 @@ def remove_speckles(
     """
     if connectivity not in (4, 8):
         raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
-    if background is not None or block is not None:
+    if block is not None:
         raise NotImplementedError(
-            "remove_speckles(background=..., block=...) is not ported yet "
-            "(ROADMAP.md Queue 1 items 5 and 7)"
+            "remove_speckles(block=...) is not ported yet "
+            "(ROADMAP.md Queue 1 item 7, dormant variants)"
         )
     h, w = disp.shape
     d = disp.to(torch.float32)
@@ -149,10 +155,12 @@ def remove_speckles(
             break
         labels = new
 
-    vflat = valid.reshape(-1)
-    counts = torch.bincount(labels[vflat], minlength=h * w)
-    area = counts[labels].reshape(h, w)
-    kill = valid & (area < min_speckle_area)
+    def per_label(members):
+        return torch.bincount(labels[members.reshape(-1)], minlength=h * w)[labels].reshape(h, w)
+
+    kill = valid & (per_label(valid) < min_speckle_area)
+    if background is not None:
+        kill &= per_label(valid & (d != background)) > 0
     return torch.where(kill, invalid_value, d)
 
 

@@ -78,6 +78,172 @@ def right_volume_from_left(vol_left: torch.Tensor) -> torch.Tensor:
     return border_fill(shifted, "right")
 
 
+def true_div(x: torch.Tensor, n: float) -> torch.Tensor:
+    """``x / n`` by IEEE division on every device.  torch's CUDA kernels turn
+    a division by a Python number into a multiplication by its reciprocal,
+    which can differ in the last bit; a divisor tensor on ``x``'s device is
+    divided elementwise, as the JAX package's (unjitted) ops do."""
+    return torch.div(x, torch.tensor(n, dtype=x.dtype, device=x.device))
+
+
+# ---------------------------------------------------------------------------
+# box sums
+# ---------------------------------------------------------------------------
+
+
+def _window_sums(x: torch.Tensor, radius: int, dim: int) -> torch.Tensor:
+    """Sums of ``2*radius+1`` consecutive entries along ``dim`` ('valid'):
+    differences of a float64 cumulative sum with a leading zero."""
+    n = 2 * radius + 1
+    c = x.cumsum(dim)
+    c = torch.cat([torch.zeros_like(c.narrow(dim, 0, 1)), c], dim)
+    m = x.shape[dim] - n + 1
+    return c.narrow(dim, n, m) - c.narrow(dim, 0, m)
+
+
+def box_sum_valid(x: torch.Tensor, radius_r: int, radius_c: int) -> torch.Tensor:
+    """Sum over (2rr+1)x(2rc+1) windows, 'valid' mode: ``[..., Hp, Wp]`` ->
+    ``[..., Hp-2rr, Wp-2rc]`` (the JAX package's banded matmuls at HIGHEST
+    precision, `SAD/Sad.h:15-20`).
+
+    Summed in float64 and rounded once to ``x``'s dtype.  For integer
+    values whose window sums stay below 2^24 (u8 SAD terms, 128-centred NCC
+    products up to 31x31 windows) every float32 partial sum is exact too, so
+    the result is bit-exact with JAX and with the CUDA kernel in any order.
+    No conv or matmul, so TF32 never enters.
+    """
+    s = _window_sums(x.to(torch.float64), radius_r, -2)
+    return _window_sums(s, radius_c, -1).to(x.dtype)
+
+
+def box_sum_same(x: torch.Tensor, radius_r: int, radius_c: int) -> torch.Tensor:
+    """Box sum with zero padding, output the shape of the input."""
+    xp = torch.nn.functional.pad(x, (radius_c, radius_c, radius_r, radius_r))
+    return box_sum_valid(xp, radius_r, radius_c)
+
+
+# ---------------------------------------------------------------------------
+# SAD cost
+# ---------------------------------------------------------------------------
+
+
+def sad_volume(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    disp_range: int,
+    winsize: int,
+    view: str = "left",
+    mean: bool = False,
+    channel_min: bool = False,
+) -> torch.Tensor:
+    """Windowed SAD volume (`SAD/Sad.h:96-182`; ``mean`` is the window mean
+    of `CBLSM/CBLSM.h:17-22`).
+
+    The radius is ``winsize + 1`` (`SAD/Sad.h:109`): a 9x9 window for
+    winsize=3.  Inputs are the unpadded ``[H, W]`` images; they are
+    replicate-padded here (`SAD/SADmain.cpp:47-48`), the shifted stack of
+    the padded image is differenced, box-summed and border-filled.
+
+    The plain version of ``ops.kernels.window_cost_cuda.sad_volume_cuda``.
+    """
+    if channel_min:
+        raise NotImplementedError(
+            "sad_volume(channel_min=True) is not ported yet "
+            "(ROADMAP.md Queue 1 item 7, dormant variants)"
+        )
+    if view not in ("left", "right"):
+        raise ValueError(f"view must be 'left' or 'right', got {view!r}")
+    r = winsize + 1
+    lp = replicate_pad(left.to(torch.float32), r)
+    rp = replicate_pad(right.to(torch.float32), r)
+    if view == "left":
+        diff = torch.abs(lp[None] - shifted_stack(rp, disp_range, "left"))
+    else:
+        diff = torch.abs(shifted_stack(lp, disp_range, "right") - rp[None])
+    vol = box_sum_valid(diff, r, r)
+    if mean:
+        vol = true_div(vol, float((2 * r + 1) ** 2))
+    return border_fill(vol, view)
+
+
+# ---------------------------------------------------------------------------
+# NCC cost
+# ---------------------------------------------------------------------------
+
+
+def ncc_interior_mask(h: int, w: int, win_size: int, device=None) -> torch.Tensor:
+    """Pixels the NCC reference computes (loop bounds `NCC/NCC.h:72-75`);
+    the rest keep 0 disparity from `Mat::zeros` (`NCC_main.cpp:20`)."""
+    rows = torch.arange(h, device=device)[:, None]
+    cols = torch.arange(w, device=device)[None, :]
+    return (rows >= win_size) & (rows < h - win_size) & (cols >= win_size) & (cols < w - win_size)
+
+
+def ncc_sums(left: torch.Tensor, right: torch.Tensor, win_size: int):
+    """The 128-centred images and their four window sums (``sum_l``,
+    ``sum_l2``, ``sum_r``, ``sum_r2``), zero-padded as ``box_sum_same``.
+
+    Centring at 128 is exact for u8 inputs and keeps the one-pass
+    sum-of-products formula from cancelling on raw u8 magnitudes (sums near
+    1.7e7, where the float32 ulp is 2)."""
+    lf = left.to(torch.float32) - 128.0
+    rf = right.to(torch.float32) - 128.0
+    sums = box_sum_same(torch.stack([lf, lf * lf, rf, rf * rf]), win_size, win_size)
+    return lf, rf, sums.unbind(0)
+
+
+def ncc_volume(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    disp_range: int,
+    win_size: int,
+    invalid_mode: str = "ignore",
+    eps: float = 1e-12,
+):
+    """Normalized cross-correlation volume (`NCC/NCC.h:15-95`).
+
+    Returns ``(volume [D, H, W], interior [H, W] bool)``.  The volume holds
+    the correlation in [-1, 1]; where the right window would cross the left
+    edge (``j - win_size - d < 0``, `NCC.h:81-89`) it holds -2 under
+    ``invalid_mode='ignore'`` (never wins the argmax) or 255 under
+    ``'sentinel'`` (the reference's 0xff quirk, `NCC.h:59,88`).  The window
+    sums are zero-padded at the image border.  A window whose sum of squared
+    deviations is below 0.5 (flat, for u8 inputs) gets the never-wins -2,
+    as the reference's 0/0 NaN never wins its tracker (`NCC.h:46,59`).
+
+    The correlation follows the JAX package's operation order, and every
+    operation is correctly rounded, so the result is the same on every
+    device: torch's CPU float32 ``sqrt`` is not (it is an ulp off for ~0.6 %
+    of inputs), so the root is taken in float64 and rounded once.
+
+    The plain version of ``ops.kernels.window_cost_cuda.ncc_volume_cuda``.
+    """
+    sentinel = _ncc_sentinel(invalid_mode)
+    w = win_size
+    n = float((2 * w + 1) ** 2)
+    h, wd = left.shape
+    lf, rf, (sum_l, sum_l2, sum_r, sum_r2) = ncc_sums(left, right, w)
+    sum_lr = box_sum_same(lf[None] * shifted_stack(rf, disp_range, "left"), w, w)
+    sum_r_d = shifted_stack(sum_r, disp_range, "left")
+    sum_r2_d = shifted_stack(sum_r2, disp_range, "left")
+    num = sum_lr - true_div(sum_l[None] * sum_r_d, n)
+    var_l = torch.clamp(sum_l2 - true_div(sum_l * sum_l, n), min=0.0)
+    var_r = torch.clamp(sum_r2_d - true_div(sum_r_d * sum_r_d, n), min=0.0)
+    root = torch.sqrt(torch.clamp(var_l[None] * var_r, min=eps).to(torch.float64))
+    ncc = num / root.to(torch.float32)
+    ncc = torch.where((var_l[None] < 0.5) | (var_r < 0.5), -2.0, ncc)
+    cols = torch.arange(wd, device=lf.device)[None, None, :]
+    ds = torch.arange(disp_range, device=lf.device)[:, None, None]
+    vol = torch.where(cols - w - ds >= 0, ncc, sentinel)
+    return vol, ncc_interior_mask(h, wd, w, lf.device)
+
+
+def _ncc_sentinel(invalid_mode: str) -> float:
+    if invalid_mode not in ("ignore", "sentinel"):
+        raise ValueError(f"invalid_mode must be 'ignore' or 'sentinel', got {invalid_mode!r}")
+    return 255.0 if invalid_mode == "sentinel" else -2.0
+
+
 # ---------------------------------------------------------------------------
 # AD cost, census transform + Hamming volume, fused AD-Census
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Port parity for the whole ``asw`` slice: ``get_pipeline("asw")`` of the
 port against the JAX package's and against the checked-in goldens, plus the
-port's registry and carry-across helpers."""
+port's registry (all five pipelines) and carry-across helpers."""
 
 import functools
 import os
@@ -12,6 +12,7 @@ import torch
 
 from stereo_match_traditional_tpu import config as cfgs
 from stereo_match_traditional_tpu.models import get_pipeline as jax_get_pipeline
+from stereo_match_traditional_tpu.models.registry import PIPELINES as JAX_PIPELINES
 from stereo_match_traditional_tpu.utils.synthetic import make_pair
 from stereo_match_traditional_tpu_torch import ASWConfig
 from stereo_match_traditional_tpu_torch.models import StereoResult, get_pipeline
@@ -113,10 +114,15 @@ def test_unknown_approx_rejected():
                                cfgs.ASWConfig(approx="bogus"))
 
 
-@pytest.mark.parametrize("name", ["sad", "ncc", "cblsm"])
-def test_registry_names_unported_pipelines(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        get_pipeline(name)
+@pytest.mark.parametrize("name", sorted(JAX_PIPELINES))
+def test_registry_resolves_every_jax_pipeline(name):
+    """Every name of the JAX registry resolves in the port's, with the same
+    config class, and runs at 8x8 on CPU tensors."""
+    fn, cfg_cls = get_pipeline(name)
+    assert cfg_cls is JAX_PIPELINES[name][1]
+    L, R, _ = make_pair(8, 8, 3, seed=0)
+    res = fn(*pair_to_torch(L, R, "cpu"), cfg_cls(**cfgs.disp_override_kw(cfg_cls, 4)))
+    assert res.disp_left.shape == (8, 8) and torch.isfinite(res.disp_left).all()
 
 
 def test_registry_unknown_name_lists_valid_names():

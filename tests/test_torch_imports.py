@@ -26,7 +26,8 @@ def test_port_modules_are_found():
     for expected in ("ops.kernels.asw_cuda", "ops.kernels.build", "models.asw",
                      "ops.post", "utils.convert", "ops.aggregate", "ops.scanline",
                      "ops.kernels.ad_census_cuda", "ops.kernels.scanline_cuda",
-                     "models.ad_census"):
+                     "models.ad_census", "ops.kernels.window_cost_cuda", "models.sad",
+                     "models.ncc", "models.cblsm"):
         assert f"{PKG}.{expected}" in mods
 
 

@@ -15,7 +15,12 @@ import torch
 from stereo_match_traditional_tpu.config import ScanlineConfig
 from stereo_match_traditional_tpu_torch.models import get_pipeline
 from stereo_match_traditional_tpu_torch.ops import scanline, volume
-from stereo_match_traditional_tpu_torch.ops.kernels import ad_census_cuda, asw_cuda, scanline_cuda
+from stereo_match_traditional_tpu_torch.ops.kernels import (
+    ad_census_cuda,
+    asw_cuda,
+    scanline_cuda,
+    window_cost_cuda,
+)
 from stereo_match_traditional_tpu_torch.utils.convert import pair_to_torch
 from stereo_match_traditional_tpu_torch.utils.synthetic import make_pair
 
@@ -188,3 +193,117 @@ def test_scanline_kernel_checks_inputs():
         scanline_cuda.scanline_optimize_cuda(torch.zeros((1025, 8, 9)).cuda(), x.cuda())
     with pytest.raises(ValueError):
         scanline_cuda.scanline_optimize_cuda(torch.zeros((4, 8, 9)).cuda(), x[:4].cuda())
+
+
+# (h, w, D, winsize, seed) for the SAD kernel: odd shapes, D > W, a 61x61
+# window (above 48 KB of shared memory), Teddy
+SAD_GEOMETRIES = [(13, 17, 5, 1, 3), (9, 6, 10, 3, 5), (40, 70, 8, 29, 4), (375, 450, 60, 3, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mean", [False, True])
+@pytest.mark.parametrize("view", ["left", "right"])
+@pytest.mark.parametrize("h,w,d,winsize,seed", SAD_GEOMETRIES)
+def test_sad_kernel_bit_exact_on_card(h, w, d, winsize, seed, view, mean):
+    """u8 inputs: every window sum is an exact integer, so bit-exact."""
+    _need_card()
+    L, R, _ = make_pair(h, w, min(d, w - 1), seed=seed)
+    lt, rt = pair_to_torch(L, R, "cuda")
+    before = window_cost_cuda.LAUNCHES["sad_volume_f32"]
+    got = window_cost_cuda.sad_volume_cuda(lt, rt, d, winsize, view, mean)
+    torch.cuda.synchronize()
+    assert window_cost_cuda.LAUNCHES["sad_volume_f32"] == before + 1
+    assert torch.equal(got, volume.sad_volume(lt, rt, d, winsize, view, mean))
+
+
+# (h, w, D, win_size, seed) for the NCC kernel: odd shapes, Teddy at D=60
+# and at the committed D=200
+NCC_GEOMETRIES = [(13, 17, 5, 2, 3), (40, 70, 40, 3, 1), (375, 450, 60, 10, 0),
+                  (375, 450, 200, 10, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ignore", "sentinel"])
+@pytest.mark.parametrize("h,w,d,win,seed", NCC_GEOMETRIES)
+def test_ncc_kernel_bit_exact_on_card(h, w, d, win, seed, mode):
+    """u8 inputs, win_size <= 15: exact sums, IEEE epilogue: bit-exact."""
+    _need_card()
+    L, R, _ = make_pair(h, w, min(d, w - 1), seed=seed)
+    lt, rt = pair_to_torch(L, R, "cuda")
+    before = window_cost_cuda.LAUNCHES["ncc_volume_f32"]
+    got, interior = window_cost_cuda.ncc_volume_cuda(lt, rt, d, win, mode)
+    torch.cuda.synchronize()
+    assert window_cost_cuda.LAUNCHES["ncc_volume_f32"] == before + 1
+    want, want_in = volume.ncc_volume(lt, rt, d, win, mode)
+    assert torch.equal(got, want) and torch.equal(interior, want_in)
+
+
+@pytest.mark.cuda
+def test_ncc_kernel_wide_window_on_card():
+    """win_size 17: the products' window sums may round, in another order
+    than the plain version's float64 sums: within a tolerance."""
+    _need_card()
+    L, R, _ = make_pair(96, 128, 30, seed=2)
+    lt, rt = pair_to_torch(L, R, "cuda")
+    got, _ = window_cost_cuda.ncc_volume_cuda(lt, rt, 30, 17)
+    torch.testing.assert_close(got, volume.ncc_volume(lt, rt, 30, 17)[0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_sad_ncc_cblsm_pipelines_launch_kernels():
+    """sad with post: two SAD launches; ncc: one NCC launch; cblsm: two AD
+    launches of the AD-Census kernel.  Each agrees with the CPU run."""
+    _need_card()
+    L, R, _ = make_pair(40, 64, 8, seed=1)
+    runs = [("sad", dict(max_disparity=8, run_post=True), "sad_volume_f32", 2),
+            ("ncc", dict(disp_range=8, win_size=3), "ncc_volume_f32", 1),
+            ("cblsm", dict(disp_range=8, run_post=True), "ad_census_volume_f32", 2)]
+    for name, kw, kernel, n in runs:
+        fn, cfg_cls = get_pipeline(name)
+        counts = dict(window_cost_cuda.LAUNCHES, ad_census_volume_f32=ad_census_cuda.LAUNCHES)
+        res = fn(*pair_to_torch(L, R, "cuda"), cfg_cls(**kw))
+        torch.cuda.synchronize()
+        after = dict(window_cost_cuda.LAUNCHES, ad_census_volume_f32=ad_census_cuda.LAUNCHES)
+        assert after == {**counts, kernel: counts[kernel] + n}, (name, counts, after)
+        plain = fn(*pair_to_torch(L, R, "cpu"), cfg_cls(**kw))
+        field = "disp_final" if kw.get("run_post") else "disp_left"
+        agree = (getattr(res, field).cpu() == getattr(plain, field)).float().mean().item()
+        assert agree >= 0.99, (name, agree)
+
+
+@pytest.mark.parametrize("bad", ["shape", "ndim", "empty", "radius"])
+def test_window_launch_checks_inputs(bad):
+    """The window kernels' input checks raise before the library is reached."""
+    x = torch.zeros((8, 9), dtype=torch.uint8)
+    left, right, d, radius = x, x, 4, 3
+    if bad == "shape":
+        right = torch.zeros((8, 10), dtype=torch.uint8)
+    elif bad == "ndim":
+        left = right = x[None]
+    elif bad == "empty":
+        d = 0
+    else:
+        radius = window_cost_cuda.MAX_RADIUS + 1
+    with pytest.raises(ValueError):
+        window_cost_cuda._check(left, right, d, radius)
+
+
+@pytest.mark.cuda
+def test_window_kernels_reject_mixed_devices():
+    _need_card()
+    x = torch.zeros((8, 9), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        window_cost_cuda.sad_volume_cuda(x.cuda(), x, 4, 1)
+    with pytest.raises(ValueError):
+        window_cost_cuda.ncc_volume_cuda(x, x.cuda(), 4, 2)
+
+
+@pytest.mark.cuda
+def test_sad_kernel_channel_min_raises_without_launch():
+    """CUDA inputs with ``channel_min`` raise; nothing runs on the card."""
+    _need_card()
+    x = torch.zeros((6, 7, 3), dtype=torch.uint8, device="cuda")
+    before = dict(window_cost_cuda.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
+        window_cost_cuda.sad_volume_cuda(x, x, 3, 1, "left", True, True)
+    assert window_cost_cuda.LAUNCHES == before

@@ -100,9 +100,7 @@ def test_remove_speckles_serpentine():
 
 def test_remove_speckles_unported_modes_raise():
     x = _t(np.ones((4, 4), np.float32))
-    with pytest.raises(NotImplementedError):
-        tpost.remove_speckles(x, background=0.0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
         tpost.remove_speckles(x, block=2)
     with pytest.raises(ValueError):
         tpost.remove_speckles(x, connectivity=6)
