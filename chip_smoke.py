@@ -18,6 +18,12 @@ kernels, plain versions, pipelines and stages with CUDA events.  Each
 phase prints one JSON line; any failure raises and exits non-zero.  The
 last three lines are the card's ``nvidia-smi`` name and power limit, the
 kernel summary ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
+Each kernel of the summary carries its time, its plain version's, and its
+bound: the least time the card could take for the same function at the
+same shape, the larger of its bytes (every input once, the output once)
+over the card's memory rate and its operations (by the cheapest exact
+algorithm known) over the card's float32 rate.  No single PyTorch call
+computes any of the five functions, so ``library_ms`` is null.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -31,10 +37,12 @@ import subprocess
 import sys
 import time
 
-# (h, w, D, win_size, seed, view) for the kernel-against-plain check:
-# tests/test_kernels.py's three, test_tpu_smoke.py's compiled-kernel
-# geometry, the serving range D=128 and the reference driver's size.
+# (h, w, D, win_size, seed, view) for the kernel-against-plain check: a
+# window above the reference's, tests/test_kernels.py's three,
+# test_tpu_smoke.py's compiled-kernel geometry, the serving range D=128 and
+# the reference driver's size.
 KERNEL_GEOMETRIES = [
+    (40, 70, 20, 16, 3, "left"),     # a 35x35 window: 99 KB of shared memory
     (14, 18, 5, 2, 2, "left"),
     (12, 20, 4, 1, 5, "right"),
     (20, 30, 6, 11, 1, "left"),
@@ -43,7 +51,13 @@ KERNEL_GEOMETRIES = [
     (96, 256, 128, 11, 3, "left"),
     (375, 450, 60, 11, 0, "left"),
 ]
-RTOL, ATOL = 1e-4, 1e-3          # the tolerance of tests/test_kernels.py
+# The tolerance of tests/test_kernels.py.  The kernel's weight is the
+# product of two exponentials (ex2.approx, 2^-22) where the plain version
+# takes one: a few ulp on a weight, ~2e-5 on a cost of up to 40.
+RTOL, ATOL = 1e-4, 1e-3
+# The card's published peaks (NVIDIA H100 SXM data sheet), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 TEDDY = (375, 450, 60)
 MIN_ARGMIN_AGREE = 0.999          # kernel vs plain WTA at Teddy size
 MAX_BAD2 = 0.15                   # tests/test_tpu_smoke.py:36
@@ -56,8 +70,15 @@ TIMING_SHAPES = [(375, 450, 60, 0), (96, 256, 128, 3)]
 # small odd shapes, one with D > W, the reference size, and ROADMAP's
 # serving range (720p, D=128).
 AD_CENSUS_GEOMETRIES = [(13, 17, 5, 3), (9, 6, 10, 5), (375, 450, 60, 0), (720, 1280, 128, 1)]
+# (h, w, D) for the scanline kernel alone, on random costs: one row, one
+# column, one pixel, a D above the 32 lanes that is no multiple of them, and
+# rows wide enough for its 16-column blocks (W a multiple of 4, and odd with
+# D above 128)
+SCANLINE_EDGE_GEOMETRIES = [(1, 40, 7), (33, 1, 9), (1, 1, 3), (21, 45, 100),
+                            (3, 1100, 20), (2, 1061, 130)]
 AD_CENSUS_RTOL = AD_CENSUS_ATOL = 1e-6   # expf's last ulp; AD and Hamming exact
 SERVING = (720, 1280, 128)
+WIDE_D = 200                             # a D above 128, timed for the scanline at Teddy's size
 MIN_WTA_AGREE = 0.995                    # card vs the CPU plain path
 
 # (h, w, D, winsize, seed) for the SAD kernel against its plain version:
@@ -81,6 +102,16 @@ def check(ok: bool, what) -> None:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def bound(bytes_moved: float, flops: float) -> dict:
+    """``bound_ms``/``bound_by`` of a function that must move ``bytes_moved``
+    and do ``flops`` float32 operations: the larger of the two times at the
+    card's published peaks."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def cuda_ms(fn, reps: int) -> list:
@@ -243,8 +274,9 @@ def main() -> None:
     ad = ad_census_phases()
     win = window_phases()
 
-    check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
-          "jax was imported")
+    for banned in ("jax", "stereo_match_traditional_tpu"):   # the name or a dotted prefix
+        loaded = [m for m in sys.modules if m == banned or m.startswith(banned + ".")]
+        check(not loaded, (banned, "was imported", loaded[:5]))
     teddy = timing[TEDDY]
     print(smi, flush=True)
     emit({"kernels": [
@@ -254,9 +286,14 @@ def main() -> None:
             "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/asw_volume.cu",
             "replaces": "stereo_match_traditional_tpu/ops/kernels/asw_pallas.py:131",
             "launches": launches,
+            "launches_per_call": launches / MAIN_PATH_CALLS,
             "max_abs_err": max_abs,
             "ms": teddy["kernel_ms"],
             "plain_ms": teddy["plain_ms"],
+            # two u8 images in, the volume out; per window term a subtract,
+            # min(|.|, T), a multiply, an FMA and an add (the factored weight)
+            **bound(2 * h * w + 4 * d * h * w, 6.0 * d * h * w * (2 * 12 + 1) ** 2),
+            "library_ms": None,
         },
         {
             "name": "ad_census_volume_f32",
@@ -348,6 +385,20 @@ def ad_census_phases() -> dict:
             emit(rec)
             scan_err = max(scan_err, rec["max_abs_err"])
             check(rec["bit_exact"], rec)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for h, w, d in SCANLINE_EDGE_GEOMETRIES:
+        vol = torch.rand((d, h, w), device="cuda", generator=gen) * 3.0
+        img = torch.randint(0, 256, (h, w), device="cuda", generator=gen, dtype=torch.uint8)
+        exact = []
+        for cfg in flags:
+            got = scanline_cuda.scanline_optimize_cuda(vol, img, cfg)
+            want = scanline.scanline_optimize(vol, img, cfg)
+            torch.cuda.synchronize()
+            exact.append(torch.equal(got, want))
+            scan_err = max(scan_err, (got - want).abs().max().item())
+        emit({"phase": "kernel_check", "kernel": "scanline_optimize_f32",
+              "geometry": [h, w, d], "bit_exact_four_flag_combinations": exact})
+        check(all(exact), (h, w, d, exact))
 
     # -- 7. the FULL slice through its entry point --------------------------
     h, w, d = TEDDY
@@ -437,11 +488,38 @@ def ad_census_phases() -> dict:
     emit({"phase": "timing_pipeline", "pipeline": "ad_census", "config": "FULL",
           "shape": [sh, sw], "disp_range": sd, "pipeline_ms": ms2,
           "mpixdisp_per_s": sh * sw * sd / (ms2 / 1e3) / 1e6})
+    vol2 = ad_census_cuda.ad_census_volume_cuda(l2, r2, sd)
+    scan2 = statistics.median(cuda_ms(
+        lambda: scanline_cuda.scanline_optimize_cuda(vol2, l2, full2.scanline), 5))
+    emit({"phase": "timing_kernels", "shape": [sh, sw], "disp_range": sd,
+          "scanline_optimize_f32": {"kernel_ms": scan2,
+                                    **bound(8 * sd * sh * sw + 4 * sh * sw, 40.0 * sd * sh * sw)}})
+    del vol2
+    # D above 128 takes the kernel's 8-values-a-lane instance
+    wide = torch.rand((WIDE_D, h, w), device="cuda", generator=gen) * 3.0
+    scanline_cuda.scanline_optimize_cuda(wide, lt, full.scanline)
+    wide_ms = statistics.median(cuda_ms(
+        lambda: scanline_cuda.scanline_optimize_cuda(wide, lt, full.scanline), 5))
+    emit({"phase": "timing_kernels", "shape": [h, w], "disp_range": WIDE_D,
+          "scanline_optimize_f32": {"kernel_ms": wide_ms,
+                                    **bound(8 * WIDE_D * h * w + 4 * h * w,
+                                            40.0 * WIDE_D * h * w)}})
+    del wide
+    volume_bytes = 4 * d * h * w
     return {
-        "cost": {"launches": launches["ad_census_volume_f32"], "max_abs_err": cost_err,
-                 "ms": k_ms, "plain_ms": p_ms},
-        "scanline": {"launches": launches["scanline_optimize_f32"], "max_abs_err": scan_err,
-                     "ms": sk_ms, "plain_ms": sp_ms},
+        # one view: two u8 images in, the volume out; per value two
+        # exponentials' worth of arithmetic (~12 operations) and a popcount
+        "cost": {"launches": launches["ad_census_volume_f32"],
+                 "launches_per_call": launches["ad_census_volume_f32"] / MAIN_PATH_CALLS,
+                 "max_abs_err": cost_err, "ms": k_ms, "plain_ms": p_ms,
+                 **bound(2 * h * w + volume_bytes, 12.0 * d * h * w), "library_ms": None},
+        # the volume in and out and the gray image; four directions of ~10
+        # operations a value
+        "scanline": {"launches": launches["scanline_optimize_f32"],
+                     "launches_per_call": launches["scanline_optimize_f32"] / MAIN_PATH_CALLS,
+                     "max_abs_err": scan_err, "ms": sk_ms, "plain_ms": sp_ms,
+                     **bound(2 * volume_bytes + 4 * h * w, 40.0 * d * h * w),
+                     "library_ms": None},
     }
 
 
@@ -519,7 +597,10 @@ def window_phases() -> dict:
         ("cblsm", "active", CBLSMConfig(), {"ad_census_volume_f32": 2}),
         ("cblsm", "run_post", CBLSMConfig(run_post=True), {"ad_census_volume_f32": 2}),
     ]
-    total = {"sad_volume_f32": 0, "ncc_volume_f32": 0, "ad_census_volume_f32": 0}
+    # the summary's launches: those counted in each kernel's reference slice
+    reference = {("sad", "active"): "sad_volume_f32",
+                 ("ncc", "D=200 (committed)"): "ncc_volume_f32"}
+    counted = {}
     for name, label, cfg, per_call in slices:
         fn, _ = get_pipeline(name)
         for k in wc.LAUNCHES:
@@ -531,8 +612,8 @@ def window_phases() -> dict:
         launches = {**wc.LAUNCHES, "ad_census_volume_f32": ad_census_cuda.LAUNCHES}
         check(launches == {k: per_call.get(k, 0) * MAIN_PATH_CALLS for k in launches},
               (name, label, launches))
-        for k in total:
-            total[k] += launches[k]
+        if (name, label) in reference:
+            counted[reference[name, label]] = launches[reference[name, label]]
         out = result_to_numpy(res)
         plain = result_to_numpy(fn(lc, rc, cfg))
         dmax = cfg.max_disparity if name == "sad" else cfg.disp_range
@@ -652,11 +733,20 @@ def window_phases() -> dict:
               "stage_ms": stage_ms[pipeline]})
 
     # the summary times each entry point at its pipeline's reference config
+    # Bounds: two u8 images in and the volume out; a windowed sum needs no
+    # more than ~6 (SAD: |a - b| and a running box sum) or ~10 (NCC: a
+    # product, a running box sum and the epilogue) operations a value, so
+    # both are bound by their bytes.  launches: those counted while the
+    # pipeline's reference configuration (sad active, ncc D=200) was driven.
     summary = {}
-    for kernel, dd in (("sad_volume_f32", d), ("ncc_volume_f32", 200)):
+    for kernel, dd, flop in (("sad_volume_f32", d, 6.0), ("ncc_volume_f32", 200, 10.0)):
         t = kernel_ms[kernel, f"{h}x{w}/D={dd}"]
-        summary[kernel] = {"launches": total[kernel], "max_abs_err": err[kernel],
-                           "ms": t["kernel_ms"], "plain_ms": t["plain_ms"]}
+        summary[kernel] = {"launches": counted[kernel],
+                           "launches_per_call": counted[kernel] / MAIN_PATH_CALLS,
+                           "max_abs_err": err[kernel],
+                           "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+                           **bound(2 * h * w + 4 * dd * h * w, flop * dd * h * w),
+                           "library_ms": None}
     # ncc's ms is the wrapper's: the four plain window sums, then the kernel
     summary["ncc_volume_f32"].update(
         ms_covers="wrapper (plain window sums + kernel)",

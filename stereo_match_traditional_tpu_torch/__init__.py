@@ -15,9 +15,11 @@ volumes are the AD part of the AD-Census kernel.  Dormant variants,
 canonical aggregation, surfaces and executors are not ported
 (``ROADMAP.md`` Queue 1 items 6-9).
 
-The configuration dataclasses are the JAX package's own
-(``stereo_match_traditional_tpu.config`` imports only dataclasses), so both
-packages read one set of reference constants.
+The port imports nothing of the JAX package.  ``config`` and
+``utils.synthetic`` are its own copies of the JAX package's modules of the
+same names (same classes, fields, defaults and bytes), and
+``utils.convert.config_from_dict`` carries a JAX-package config across as
+plain data.
 
 Device rule: every op takes the device of its input tensors.  A kernel's
 plain PyTorch version runs only for tensors on the CPU; for a CUDA tensor
@@ -26,7 +28,7 @@ the kernel launches or the call raises.
 
 __version__ = "0.1.0"
 
-from stereo_match_traditional_tpu.config import (  # noqa: F401
+from stereo_match_traditional_tpu_torch.config import (  # noqa: F401
     ADCensusConfig,
     ASWConfig,
     CBLSMConfig,

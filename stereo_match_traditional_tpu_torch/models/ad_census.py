@@ -3,7 +3,7 @@ counterpart of ``stereo_match_traditional_tpu.models.ad_census``."""
 
 from __future__ import annotations
 
-from stereo_match_traditional_tpu.config import ADCensusConfig
+from stereo_match_traditional_tpu_torch.config import ADCensusConfig
 from stereo_match_traditional_tpu_torch.models.base import StereoResult
 from stereo_match_traditional_tpu_torch.ops import aggregate, post, wta
 from stereo_match_traditional_tpu_torch.ops.kernels import (

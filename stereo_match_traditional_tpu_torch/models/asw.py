@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from stereo_match_traditional_tpu.config import ASWConfig
+from stereo_match_traditional_tpu_torch.config import ASWConfig
 from stereo_match_traditional_tpu_torch.models.base import StereoResult
 from stereo_match_traditional_tpu_torch.ops import post, volume, wta
 from stereo_match_traditional_tpu_torch.ops.kernels import asw_volume_cuda

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from stereo_match_traditional_tpu.config import CBLSMConfig
+from stereo_match_traditional_tpu_torch.config import CBLSMConfig
 from stereo_match_traditional_tpu_torch.models.base import StereoResult
 from stereo_match_traditional_tpu_torch.ops import aggregate, post, wta
 from stereo_match_traditional_tpu_torch.ops.kernels.ad_census_cuda import ad_volume_cuda

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from stereo_match_traditional_tpu.config import NCCConfig
+from stereo_match_traditional_tpu_torch.config import NCCConfig
 from stereo_match_traditional_tpu_torch.models.base import StereoResult
 from stereo_match_traditional_tpu_torch.ops import wta
 from stereo_match_traditional_tpu_torch.ops.kernels import ncc_volume_cuda

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Tuple, Type
 
-from stereo_match_traditional_tpu import config as _cfg
+from stereo_match_traditional_tpu_torch import config as _cfg
 from stereo_match_traditional_tpu_torch.models.ad_census import ad_census_pipeline
 from stereo_match_traditional_tpu_torch.models.asw import asw_pipeline
 from stereo_match_traditional_tpu_torch.models.cblsm import cblsm_pipeline

@@ -3,7 +3,7 @@ of ``stereo_match_traditional_tpu.models.sad``."""
 
 from __future__ import annotations
 
-from stereo_match_traditional_tpu.config import SADConfig
+from stereo_match_traditional_tpu_torch.config import SADConfig
 from stereo_match_traditional_tpu_torch.models.base import StereoResult
 from stereo_match_traditional_tpu_torch.ops import post, wta
 from stereo_match_traditional_tpu_torch.ops.kernels import sad_volume_cuda

@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from stereo_match_traditional_tpu.config import CrossArmConfig
+from stereo_match_traditional_tpu_torch.config import CrossArmConfig
 
 
 class Arms(NamedTuple):

@@ -1,5 +1,5 @@
-// The four SGM directional passes of the 4-path scanline optimizer, for
-// Hopper (sm_90a).
+// The 4-path scanline optimizer (four SGM directional passes and their
+// sum), for Hopper (sm_90a).
 //
 // Replaces no Pallas kernel: the JAX package runs the recurrence as a
 // lax.scan (stereo_match_traditional_tpu/ops/scanline.py:377
@@ -14,186 +14,730 @@
 // with +inf at d = -1 and d = D, I(ref) the previous pixel of the path (or,
 // for the reference's vertical quirk, the path's first pixel), and the
 // d-1 term replaced by L(p-1, d) + P1 on vertical paths when
-// vert_dm1 = 0.  The output is (lr + rl) + (ud + du), pixel-major.
+// vert_dm1 = 0.  The output is (lr + rl) + (ud + du), d-major [D, H, W]
+// like the input.
 //
-// What bounds it: the path is sequential, so each step's latency (its
-// cost load, a warp min and a shared-memory exchange) times the longest
-// path, max(W, H) steps, as the four directions run at once.  Design: one
-// warp per path line, all four directions in one launch (blockIdx.y),
-// lane l holding d = l + 32k in registers (K = ceil(D / 32) rounded to a
-// power of two, D <= 1024).  The volume comes in pixel-major, [H, W, D],
-// so a step's D costs are one coalesced read and its D results one
-// coalesced write, and the next step's costs are loaded a step ahead.  The
-// previous step's row sits in shared memory with the two +inf pads, so
-// d +- 1 is one load.  A second kernel adds the four directional volumes.
+// What bounds it: bytes.  The function reads the volume once and writes it
+// once (2V, V = 4 D H W bytes: 0.28 ms at 720x1280, D=128 and 3.35 TB/s);
+// the arithmetic is ~8 operations per value and direction.  What sets the
+// time of an implementation is the path: every step waits for the one
+// before, and a direction's results do not fit on the chip, so three of the
+// four go through device memory once.  Design:
+//
+// * d-major in and out, no transposed copy, 11 volume trips in three
+//   launches: top-down (cost -> ud, on a second stream) beside left-right
+//   and right-left (cost -> lr in `out`, rl in scratch; blockIdx.y is the
+//   direction); then bottom-up, whose write-out stores
+//   (lr + rl) + (ud + du) over lr, so no combine pass exists.
+// * The volumes the kernel writes (lr / the result, rl, ud) have rows `wp`
+//   apart, W rounded up to a multiple of 4, so that every 4-column piece of
+//   them is one aligned 16-byte access whatever W is; only the cost volume,
+//   which the caller owns, is read by narrower copies when W is no multiple
+//   of 4.  The caller takes columns 0 .. W-1 of the result.
+// * A walker warp holds the D values of a path line: lane l has
+//   d = l K .. l K + K - 1 in registers (K = ceil(D / 32) rounded to a power
+//   of two), so d +- 1 is two shuffles a step and the min over d one
+//   integer warp reduction (redux.sync on the order-preserving integer
+//   image of the float).  A walker takes the costs of four steps from
+//   shared memory at once, walks them from registers, and puts the four
+//   results back in their place: the chain from one step to the next is
+//   arithmetic, two shuffles and the reduction, and touches no memory.  P2
+//   is computed for 32 steps at a time, one lane a step, off that chain.
+// * d-major rows do not hand a walker its D values of a step side by side,
+//   so mover warps of the same block stage tiles through shared memory with
+//   cp.async, several tiles ahead of the walker, and write the walked tiles
+//   out again.  Tiles are indexed by path step, so the right-left and
+//   bottom-up passes walk the same way as the others and only the movers
+//   mirror.  The movers' code is straight-line with offsets computed once:
+//   they, not the walkers or the memory, set the time at the reference size.
+//   - Horizontal: block = one (row, direction), one walker and three mover
+//     warps; a tile is [32 K disparities] x [32 steps], cut at multiples of
+//     32 columns, each row of it one 128-byte run of the volume, copied in
+//     by 4-byte cp.async (one lane a step) and written out as 16-byte
+//     chunks.  The chunks of a row are XOR-swizzled by the owning lane so
+//     that the walker's 128-bit accesses (32 rows, one chunk) and the
+//     movers' are both free of bank conflicts.
+//   - Vertical: block = 16 neighbouring columns (64-byte runs), or 8 where
+//     blocks of 8 all fit the card at once (W <= 8 SMs: the movers of 450 /
+//     16 = 29 blocks set the time at the reference size); walker warps of
+//     four columns each (one 16-byte chunk; their four chains interleave)
+//     and eight mover warps; a tile is 4 or 8 image rows of [32 K] x
+//     [columns].  A mover warp's access covers every row and column of one
+//     or two d, since each d of a large volume lies in another page.  The
+//     bottom-up movers also stage lr, rl and ud of a tile (16-byte cp.async
+//     past L1) and store the sum.
+// * Each block barriers once a tile; rows d >= D of every stage hold +inf
+//   and are never copied over.
+//
+// D <= 256 (K <= 8: registers of a walker, shared memory of a stage), and
+// D H wp below 2^32 (the vertical movers keep 32-bit offsets).
 //
 // Numerics: the float operations and their order are the plain version's
 // (and the JAX package's): c + min(min(l1, l2), min(l3, l4)) - m, then
 // (lr + rl) + (ud + du), IEEE division for P2, no fast-math and no
-// multiply to contract, so the result matches the plain version bit for
-// bit.
+// multiply to contract; min is exact in any order, and rounding is
+// monotone, so min_d (u_d - m) = (min_d u_d) - m.  The result matches the
+// plain version bit for bit.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <cstdint>
+#include <mutex>
+#include <type_traits>
+
 namespace {
 
-constexpr int WARPS = 4;  // path lines per block
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int GS = 4;  // steps a walker takes from registers between its shared-memory accesses
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// float <-> int whose signed order is the float order (an involution)
+__device__ __forceinline__ int ordered(int i) { return i ^ ((i >> 31) & 0x7fffffff); }
 
 __device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  }
-  return v;
+  const int r = __reduce_min_sync(FULL, ordered(__float_as_int(v)));
+  return __int_as_float(ordered(r));
 }
 
 template <int K>
-__global__ void __launch_bounds__(32 * WARPS)
-scanline_pass_kernel(const float* __restrict__ cost, const float* __restrict__ gray,
-                     float* __restrict__ dirs, int d_range, int h, int w, float p1,
-                     float p2_init, int vert_dm1, int vert_first) {
-  extern __shared__ float smem[];
-  const int dir = blockIdx.y;  // 0 left-right, 1 right-left, 2 up-down, 3 down-up
-  const bool horiz = dir < 2;
-  const bool rev = (dir & 1) != 0;
-  const int lines = horiz ? h : w;
-  const int steps = horiz ? w : h;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int line = blockIdx.x * WARPS + warp;
-  if (line >= lines) return;  // whole warps leave; no block barrier follows
-  const bool dm1 = horiz || vert_dm1 != 0;
-  const bool first_ref = !horiz && vert_first != 0;
-  float* out = dirs + (size_t)dir * d_range * h * w;
-  float* prev = smem + warp * (d_range + 2);  // prev[d + 1] = L(p-1, d)
-
-  // pixel index of path step t
-  auto pix = [&](int t) -> size_t {
-    const int s = rev ? steps - 1 - t : t;
-    return horiz ? (size_t)line * w + s : (size_t)s * w + line;
-  };
-
-  if (lane == 0) {
-    prev[0] = CUDART_INF_F;
-    prev[d_range + 1] = CUDART_INF_F;
-  }
-  size_t p = pix(0);
-  float m = CUDART_INF_F;
+__device__ __forceinline__ float tree_min(const float (&v)[K]) {
+  float t[K];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int d = lane + 32 * k;
-    if (d < d_range) {
-      const float v = cost[p * d_range + d];
-      out[p * d_range + d] = v;
-      prev[d + 1] = v;
-      m = fminf(m, v);
+  for (int k = 0; k < K; ++k) t[k] = v[k];
+#pragma unroll
+  for (int n = K / 2; n >= 1; n /= 2) {
+#pragma unroll
+    for (int k = 0; k < n; ++k) t[k] = fminf(t[k], t[k + n]);
+  }
+  return t[0];
+}
+
+// G steps of a walker warp that walks NC lines at once (their chains are
+// independent, so their instructions interleave).  c[n][j] holds the costs of
+// step j of line n on entry and the step's values on return; prev and m carry
+// the paths' state.  p2_lane[n] holds P2 of step j in lane j0 + j.  `first`:
+// step `start` starts the paths, the steps before it lie outside the image.
+template <int K, int NC, int G>
+__device__ __forceinline__ void walk_group(float (&c)[NC][G][K], float (&prev)[NC][K],
+                                           float (&m)[NC], float p1,
+                                           const float (&p2_lane)[NC], int j0, bool dm1,
+                                           bool first, int start, int lane) {
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    if (first && j < start) continue;  // before the paths
+    if (first && j == start) {
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) prev[n][k] = c[n][j][k];
+        m[n] = warp_min(tree_min<K>(prev[n]));
+      }
+      continue;
     }
-  }
-  m = warp_min(m);
-  float g_ref = gray[p];
-
-  // step t + 1's costs and gray value, loaded while step t computes
-  float next[K];
-  float g_next = 0.0f;
-  if (steps > 1) {
-    const size_t pn = pix(1);
-    g_next = gray[pn];
+    float u[NC][K], u_min[NC];
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int d = lane + 32 * k;
-      next[k] = d < d_range ? cost[pn * d_range + d] : 0.0f;
-    }
-  }
-  for (int t = 1; t < steps; ++t) {
-    p = pix(t);
-    float c[K];
+    for (int n = 0; n < NC; ++n) {
+      const float p2 = __shfl_sync(FULL, p2_lane[n], j0 + j);
+      float q[K];  // L(p-1, d) + P1
 #pragma unroll
-    for (int k = 0; k < K; ++k) c[k] = next[k];
-    const float g = g_next;
-    if (t + 1 < steps) {
-      const size_t pn = pix(t + 1);
-      g_next = gray[pn];
+      for (int k = 0; k < K; ++k) q[k] = prev[n][k] + p1;
+      float below = __shfl_up_sync(FULL, q[K - 1], 1);   // of d - 1 for k = 0
+      float above = __shfl_down_sync(FULL, q[0], 1);     // of d + 1 for k = K - 1
+      if (lane == 0) below = CUDART_INF_F;
+      if (lane == 31) above = CUDART_INF_F;
+      const float l4 = m[n] + p2;
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const int d = lane + 32 * k;
-        next[k] = d < d_range ? cost[pn * d_range + d] : 0.0f;
+        const float l2 = dm1 ? (k > 0 ? q[k > 0 ? k - 1 : 0] : below) : q[k];
+        const float l3 = k + 1 < K ? q[k + 1 < K ? k + 1 : k] : above;
+        const float rest = fminf(fminf(prev[n][k], l2), l3);  // ready before m is
+        u[n][k] = c[n][j][k] + fminf(rest, l4);
       }
+      u_min[n] = tree_min<K>(u[n]);
     }
-    const float p2 = fmaxf(p1, p2_init / (fabsf(g - g_ref) + 1.0f));
-    if (!first_ref) g_ref = g;
-    const float l4 = m + p2;
-    __syncwarp();  // the previous step's prev[] is written
-    float v[K];
-    float m_new = CUDART_INF_F;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int d = lane + 32 * k;
-      if (d < d_range) {
-        const float l1 = prev[d + 1];
-        const float l2 = (dm1 ? prev[d] : l1) + p1;
-        const float l3 = prev[d + 2] + p1;
-        v[k] = (c[k] + fminf(fminf(l1, l2), fminf(l3, l4))) - m;
-        m_new = fminf(m_new, v[k]);
-        out[p * d_range + d] = v[k];
+    for (int n = 0; n < NC; ++n) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        prev[n][k] = u[n][k] - m[n];
+        c[n][j][k] = prev[n][k];
       }
+      m[n] = warp_min(u_min[n]) - m[n];
     }
-    __syncwarp();  // every lane has read prev[] before it is overwritten
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int d = lane + 32 * k;
-      if (d < d_range) prev[d + 1] = v[k];
-    }
-    m = warp_min(m_new);
   }
 }
 
-__global__ void combine_kernel(const float* __restrict__ dirs, float* __restrict__ out,
-                               size_t n) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    out[i] = (dirs[i] + dirs[n + i]) + (dirs[2 * n + i] + dirs[3 * n + i]);
+__device__ __forceinline__ float adaptive_p2(float p1, float p2_init, float g, float g_ref) {
+  return fmaxf(p1, __fdiv_rn(p2_init, fabsf(g - g_ref) + 1.0f));
+}
+
+// The loop both kernels run, one iteration a tile, over a ring of NS stages.
+// The movers start the copies of tile ti + NS - 2 (`fetch` commits one
+// cp.async group, empty past the end) into the stage that was written out
+// an iteration ago, and write tile ti - 1 out; the walkers walk tile ti; at
+// the iteration's end tile ti + 1 has landed.  The last iteration only
+// writes tile ntiles - 1 out.
+template <int NS, bool SIDES, typename Fetch, typename FetchSides, typename WriteOut,
+          typename Walk>
+__device__ __forceinline__ void run_tiles(bool walker, int ntiles, Fetch fetch,
+                                          FetchSides fetch_sides, WriteOut write_out,
+                                          Walk walk) {
+  constexpr int AHEAD = NS - 2;
+  // cp.async groups younger than tile ti + 1's when iteration ti ends: the
+  // tiles ti + 2 .. ti + AHEAD and, with SIDES, a side group after each tile
+  constexpr int YOUNGER = SIDES ? 2 * AHEAD - 1 : AHEAD - 1;
+  if (!walker) {
+    for (int ti = 0; ti < AHEAD; ++ti) {
+      fetch(ti);
+      if (SIDES) cp_async_commit();  // an empty group where a side group will follow a tile
+    }
+    cp_async_wait<YOUNGER>();  // tile 0
   }
+  __syncthreads();
+  for (int ti = 0; ti <= ntiles; ++ti) {
+    if (!walker) {
+      fetch(ti + AHEAD);
+      if (SIDES) cp_async_wait<1>();  // the side inputs of tile ti - 1 (this thread's own)
+      if (ti > 0) write_out(ti - 1);
+      if (SIDES) fetch_sides(ti);     // over the ones just used; one group as well
+      cp_async_wait<YOUNGER>();       // tile ti + 1
+    } else if (ti < ntiles) {
+      walk(ti);
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Horizontal: block = (image row, direction); warp 0 walks, warps 1-3 move.
+// ---------------------------------------------------------------------------
+
+constexpr int HT = 32;       // steps of a tile: one lane a step for the movers
+constexpr int HS = 4;        // stages: written out, walked, landed, on its way
+constexpr int HMOVERS = 96;  // mover threads (3 warps)
+
+// Word of (d, step j) in a tile: row d, its 16-byte chunks swizzled by the
+// lane d / K that owns the row.
+template <int K>
+__device__ __forceinline__ int h_word(int d, int j) {
+  return d * HT + ((((j >> 2) ^ ((d / K) & 7)) << 2) | (j & 3));
 }
 
 template <int K>
-cudaError_t launch_passes(const float* cost, const float* gray, float* dirs, int d_range,
-                          int h, int w, float p1, float p2, int vert_dm1, int vert_first,
-                          cudaStream_t s) {
-  const int lines = h > w ? h : w;
-  const dim3 grid((lines + WARPS - 1) / WARPS, 4);
-  const size_t smem = sizeof(float) * WARPS * (d_range + 2);
-  scanline_pass_kernel<K><<<grid, 32 * WARPS, smem, s>>>(
-      cost, gray, dirs, d_range, h, w, p1, p2, vert_dm1, vert_first);
+__global__ void __launch_bounds__(32 + HMOVERS)
+scanline_horizontal_kernel(const float* __restrict__ cost, const float* __restrict__ gray,
+                           float* __restrict__ lr, float* __restrict__ rl, int d_range, int h,
+                           int w, int wp, float p1, float p2_init) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  constexpr int TILE = 32 * K * HT;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const bool rev = blockIdx.y != 0;
+  const int ntiles = (w + HT - 1) / HT;
+  const size_t plane = (size_t)h * w, plane_out = (size_t)h * wp;
+  const float* cost_row = cost + (size_t)blockIdx.x * w;
+  float* out_row = (rev ? rl : lr) + (size_t)blockIdx.x * wp;
+  // Tiles are cut at multiples of HT columns, so that the 16-byte chunks of a
+  // tile are 16-byte chunks of the output's rows; path tile ti is image tile
+  // ntiles - 1 - ti when walking right to left, and its step j the column
+  // HT - 1 - j of that tile.  The steps before `head` of the first tile of a
+  // right-left path lie beyond the image.
+  auto tile_x0 = [&](int ti) { return (rev ? ntiles - 1 - ti : ti) * HT; };
+  auto column = [&](int ti, int j) { return tile_x0(ti) + (rev ? HT - 1 - j : j); };
+  const int head = rev ? ntiles * HT - w : 0;
+
+  // rows d >= D stay so
+  for (int i = tid; i < HS * TILE; i += 32 + HMOVERS) smem[i] = CUDART_INF_F;
+  __syncthreads();
+
+  // Mover warp mw carries rows d = mw, mw + 3, ..; its lane the step.
+  const int mw = tid / 32 - 1;
+  auto fetch = [&](int in) {
+    if (in < ntiles && column(in, lane) < w) {
+      float* stage = smem + (in % HS) * TILE;
+      const float* src = cost_row + column(in, lane) + (size_t)mw * plane;
+#pragma unroll 4
+      for (int d = mw; d < d_range; d += HMOVERS / 32, src += (HMOVERS / 32) * plane) {
+        cp_async4(stage + h_word<K>(d, lane), src);
+      }
+    }
+    cp_async_commit();
+  };
+  // Write-out: a lane carries the four steps of one 16-byte chunk, a warp four
+  // rows.  The output's rows are `wp` apart, a multiple of 4, so a chunk is
+  // one aligned store; columns w .. wp - 1 receive whatever the stage held.
+  auto write_out = [&](int done) {
+    const int chunk = lane & 7;
+    const int x = rev ? column(done, chunk * 4 + 3) : column(done, chunk * 4);  // lowest column
+    if (x >= w) return;
+    const float4* stage = smem4 + (done % HS) * (TILE / 4);
+    constexpr int ROWS = HMOVERS / 8;  // rows a round of the movers carries
+    float* dst = out_row + x + (size_t)(mw * 4 + lane / 8) * plane_out;
+#pragma unroll 4
+    for (int d = mw * 4 + lane / 8; d < d_range; d += ROWS, dst += ROWS * plane_out) {
+      float4 v = stage[d * (HT / 4) + (chunk ^ ((d / K) & 7))];
+      if (rev) v = make_float4(v.w, v.z, v.y, v.x);
+      *reinterpret_cast<float4*>(dst) = v;
+    }
+  };
+
+  // P2 of the 32 steps of a tile, one lane a step; the gray values of the
+  // next tile are loaded while this one is walked.
+  const float* grow = gray + (size_t)blockIdx.x * w;
+  float ga = 0.f, gb = 0.f;
+  auto gray_pair = [&](int ti) {
+    const int x = column(ti, lane), x_ref = rev ? x + 1 : x - 1;
+    const bool ok = ti < ntiles && x < w && x_ref >= 0 && x_ref < w;
+    ga = ok ? grow[x] : 0.f;
+    gb = ok ? grow[x_ref] : 0.f;
+  };
+  float prev[1][K];
+  float m[1] = {0.f};
+  float p2_next = 0.f;
+  if (tid < 32) {
+    gray_pair(0);
+    p2_next = adaptive_p2(p1, p2_init, ga, gb);
+  }
+  auto walk = [&](int ti) {
+    const float p2_lane[1] = {p2_next};
+    gray_pair(ti + 1);
+    // the lane's rows d = lane K + k are K consecutive rows of the stage
+    float4* rows = smem4 + ((ti % HS) * TILE + lane * K * HT) / 4;
+    const int sw = lane & 7;
+    const int g_first = ti == 0 ? head / GS : 0;
+    float4 cur[K], nxt[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) cur[k] = rows[k * (HT / 4) + (g_first ^ sw)];
+#pragma unroll 1
+    for (int g = g_first; g < HT / GS; ++g) {
+      if (g + 1 < HT / GS) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) nxt[k] = rows[k * (HT / 4) + ((g + 1) ^ sw)];
+      }
+      float c[1][GS][K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        c[0][0][k] = cur[k].x; c[0][1][k] = cur[k].y; c[0][2][k] = cur[k].z; c[0][3][k] = cur[k].w;
+      }
+      walk_group<K, 1, GS>(c, prev, m, p1, p2_lane, g * GS, true, ti == 0 && g == g_first,
+                           head % GS, lane);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        rows[k * (HT / 4) + (g ^ sw)] =
+            make_float4(c[0][0][k], c[0][1][k], c[0][2][k], c[0][3][k]);
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) cur[k] = nxt[k];
+    }
+    p2_next = adaptive_p2(p1, p2_init, ga, gb);
+  };
+  run_tiles<HS, false>(tid < 32, ntiles, fetch, [](int) {}, write_out, walk);
+}
+
+// ---------------------------------------------------------------------------
+// Vertical: block = XC neighbouring columns; warp n of the first XC / 4 walks
+// columns 4 n .. 4 n + 3 (one 16-byte chunk), the others move tiles of
+// [VT image rows][32 K][XC].  SECOND = the bottom-up pass, whose movers store
+// (lr + rl) + (ud + du) over lr.
+// ---------------------------------------------------------------------------
+
+// XC, the columns of a block, is 16 (64-byte runs) or, where that would
+// leave most of the card without a block, 8.
+constexpr int NC = 4;          // columns of a walker warp
+constexpr int VMOVERS = 256;   // mover threads (8 warps)
+template <int XC> constexpr int VTHREADS = 32 * (XC / NC) + VMOVERS;
+
+// The bottom-up pass stages lr, rl and ud of one tile behind its ring where
+// they fit (K <= 4); for K = 8 its movers load them as they write out.
+template <int K, bool SECOND, int XC> struct Vertical {
+  static constexpr int VT = K >= 4 ? 4 : 8;   // image rows of a tile
+  static constexpr int G = K >= 8 ? 1 : 4;    // rows a walker takes at once
+  static constexpr bool SIDES = SECOND && K <= 4;
+  static constexpr int NS = K >= 8 ? 3 : (SIDES ? 4 : 6);  // stages
+  static constexpr int ROW = 32 * K * XC;     // words of one image row of a tile
+  static constexpr int TILE = ROW * VT;
+  static constexpr size_t BYTES = sizeof(float) * (NS + (SIDES ? 3 : 0)) * TILE;
+};
+
+// Word of (slot, column x) in an image row of a tile.  Slot k 32 + l holds
+// d = l K + k, the k-th value of walker lane l, as XC columns.  SPAN slots
+// fill the 32 banks; the 16-byte chunks of a slot are XOR-swizzled by
+// l / SPAN, and tile row r exchanges the slots of a span (slot ^ (r % SPAN)),
+// so that a walker's 128-bit access (32 slots of one k, one chunk, one row)
+// and a mover's (one slot, whole, SPAN or more rows) are free of bank
+// conflicts.
+template <int XC> struct Layout {
+  static constexpr int PP = XC / 4;    // chunks of a slot
+  static constexpr int SPAN = 8 / PP;
+  static __device__ __forceinline__ int word(int slot, int x) {
+    return slot * XC + ((((x >> 2) ^ (slot / SPAN)) & (PP - 1)) << 2) + (x & 3);
+  }
+  static __device__ __forceinline__ int row_swizzle(int r) { return r & (SPAN - 1); }
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {  // past L1
+  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async8(float* dst, const float* src) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(a), "l"(src) : "memory");
+}
+
+// Four columns of a cost row, of which the first n lie in the image, as
+// copies of WIDTH floats (the widest that every row of the volume allows).
+template <int WIDTH>
+__device__ __forceinline__ void copy_cost_piece(float* dst, const float* src, int n) {
+  if (WIDTH == 4) {
+    cp_async16(dst, src);
+  } else if (WIDTH == 2) {  // w is even, so n is 2 or 4
+    cp_async8(dst, src);
+    if (n >= 4) cp_async8(dst + 2, src + 2);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (e < n) cp_async4(dst + e, src + e);
+    }
+  }
+}
+
+__device__ __forceinline__ float4 sum4(float4 a, float4 b, float4 u, float4 v) {
+  return make_float4((a.x + b.x) + (u.x + v.x), (a.y + b.y) + (u.y + v.y),
+                     (a.z + b.z) + (u.z + v.z), (a.w + b.w) + (u.w + v.w));
+}
+
+// A mover's share of a tile: 16-byte pieces (four columns of one d and tile
+// row).  Mover `mt` carries, of tile row r = (mt / PP) % VT and columns
+// 4 (mt % PP) .. + 3 of the block, the slots s0 + STRIDE i.  A warp's access
+// thus covers all rows and columns of one or two d: device memory is
+// d-major, and every d of a large volume lies in another page.
+template <int K, int VT, int XC> struct Share {
+  static constexpr int PP = XC / 4;                   // pieces of a slot's row
+  static constexpr int SLOTS = 32 * K;
+  static constexpr int STRIDE = VMOVERS / (PP * VT);  // slots between a mover's pieces
+  static constexpr int NP = SLOTS / STRIDE;           // pieces a mover carries
+  static_assert(VMOVERS % (PP * VT) == 0 && SLOTS % STRIDE == 0 && STRIDE % 8 == 0,
+                "movers tile a stage exactly, and a mover's pieces share their swizzle");
+};
+
+template <int K, bool SECOND, int XC>
+__global__ void __launch_bounds__(VTHREADS<XC>, 1)
+scanline_vertical_kernel(const float* __restrict__ cost, const float* __restrict__ gray,
+                         float* lr, const float* __restrict__ rl, float* ud, int d_range,
+                         int h, int w, int wp, int cost_width, float p1, float p2_init,
+                         int vert_dm1, int vert_first) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  using V = Vertical<K, SECOND, XC>;
+  using Y = Layout<XC>;
+  constexpr int VT = V::VT, G = V::G, NS = V::NS, ROW = V::ROW, TILE = V::TILE;
+  constexpr bool SIDES = V::SIDES;
+  float* sides = smem + NS * TILE;  // [lr, rl, ud][TILE]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int x0 = blockIdx.x * XC;
+  const int ntiles = (h + VT - 1) / VT;
+  const size_t plane = (size_t)h * w, plane_out = (size_t)h * wp;
+  const bool dm1 = vert_dm1 != 0, first_ref = vert_first != 0;
+  auto image_row = [&](int s) { return SECOND ? h - 1 - s : s; };  // of path step s
+
+  // rows d >= D stay so
+  for (int i = tid; i < NS * TILE; i += VTHREADS<XC>) smem[i] = CUDART_INF_F;
+  __syncthreads();
+
+  // Movers.  A piece is in the image if its first column is; lr, rl and ud
+  // have rows `wp` apart, a multiple of 4, so their pieces are aligned and
+  // whole, and columns w .. wp - 1 of them hold no meaning.  The offsets of a
+  // mover's d are computed once, in 32 bits.
+  using S = Share<K, VT, XC>;
+  const int mt = tid - 32 * (XC / NC);
+  const int mx = (mt % S::PP) * 4, mr = (mt / S::PP) % VT, slot0 = mt / (S::PP * VT);
+  // piece i is STRIDE * XC * i words on
+  const int word0 = mr * ROW + Y::word(slot0 ^ Y::row_swizzle(mr), mx);
+  const bool mover_in_image = x0 + mx < w;
+  unsigned cost_d[S::NP], out_d[S::NP];  // d * plane of piece i, or ~0 for d >= D
+#pragma unroll
+  for (int i = 0; i < S::NP; ++i) {
+    const int slot = slot0 + S::STRIDE * i;
+    const int d = (slot & 31) * K + slot / 32;
+    cost_d[i] = d < d_range ? (unsigned)(d * plane) : ~0u;
+    out_d[i] = d < d_range ? (unsigned)(d * plane_out) : ~0u;
+  }
+  auto row_in_image = [&](int tile) { return mover_in_image && tile * VT + mr < h; };
+  auto cost_row = [&](int tile) {
+    return cost + (size_t)image_row(tile * VT + mr) * w + x0 + mx;
+  };
+  auto out_row = [&](int tile) { return (size_t)image_row(tile * VT + mr) * wp + x0 + mx; };
+  auto fetch_as = [&](auto width_c, int in) {
+    constexpr int WIDTH = decltype(width_c)::value;
+    float* dst = smem + (in % NS) * TILE + word0;
+    const float* src = cost_row(in);
+    const int n = w - x0 - mx;
+#pragma unroll
+    for (int i = 0; i < S::NP; ++i) {
+      if (cost_d[i] != ~0u) copy_cost_piece<WIDTH>(dst + S::STRIDE * XC * i, src + cost_d[i], n);
+    }
+  };
+  auto fetch = [&](int in) {
+    if (in < ntiles && row_in_image(in)) {
+      if (cost_width == 4) fetch_as(std::integral_constant<int, 4>{}, in);
+      else if (cost_width == 2) fetch_as(std::integral_constant<int, 2>{}, in);
+      else fetch_as(std::integral_constant<int, 1>{}, in);
+    }
+    cp_async_commit();
+  };
+  auto fetch_sides = [&](int in) {
+    if (in < ntiles && row_in_image(in)) {
+      float* dst = sides + word0;
+      const size_t o = out_row(in);
+#pragma unroll
+      for (int i = 0; i < S::NP; ++i) {
+        if (out_d[i] != ~0u) {
+          cp_async16(dst + S::STRIDE * XC * i, lr + o + out_d[i]);
+          cp_async16(dst + S::STRIDE * XC * i + TILE, rl + o + out_d[i]);
+          cp_async16(dst + S::STRIDE * XC * i + 2 * TILE, ud + o + out_d[i]);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  auto write_out = [&](int done) {
+    if (!row_in_image(done)) return;
+    const float* stage = smem + (done % NS) * TILE + word0;
+    const float* side = sides + word0;
+    const size_t o = out_row(done);
+#pragma unroll
+    for (int i = 0; i < S::NP; ++i) {
+      if (out_d[i] == ~0u) continue;
+      const int at = S::STRIDE * XC * i;
+      float4 v = *reinterpret_cast<const float4*>(stage + at);
+      if (SIDES) {
+        v = sum4(*reinterpret_cast<const float4*>(side + at),
+                 *reinterpret_cast<const float4*>(side + at + TILE),
+                 *reinterpret_cast<const float4*>(side + at + 2 * TILE), v);
+      } else if (SECOND) {
+        v = sum4(*reinterpret_cast<const float4*>(lr + o + out_d[i]),
+                 *reinterpret_cast<const float4*>(rl + o + out_d[i]),
+                 *reinterpret_cast<const float4*>(ud + o + out_d[i]), v);
+      }
+      *reinterpret_cast<float4*>((SECOND ? lr : ud) + o + out_d[i]) = v;
+    }
+  };
+
+  // Walker warp `wq` owns columns x0 + 4 wq .. + 3.  P2 of 32 steps at a time,
+  // one lane a step; the gray values of the next 32 are loaded at the start
+  // of a span of 32 and used at its end.
+  const int wq = tid / 32;
+  const bool walks = x0 + NC * wq < w;
+  float ga[NC] = {0.f, 0.f, 0.f, 0.f}, gb[NC] = {0.f, 0.f, 0.f, 0.f};
+  auto gray_pairs = [&](int span) {
+    const int s = span * 32 + lane;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      const int x = x0 + NC * wq + n;
+      const bool ok = walks && x < w && s >= 1 && s < h;
+      ga[n] = ok ? gray[(size_t)image_row(s) * w + x] : 0.f;
+      gb[n] = ok ? gray[(size_t)image_row(first_ref ? 0 : s - 1) * w + x] : 0.f;
+    }
+  };
+  int at[K];  // the lane's 16-byte chunks in row 0 of a tile
+#pragma unroll
+  for (int k = 0; k < K; ++k) at[k] = Y::word(k * 32 + lane, NC * (wq % (XC / NC))) / 4;
+  float prev[NC][K];
+  float m[NC] = {0.f, 0.f, 0.f, 0.f};
+  float p2_lane[NC] = {0.f, 0.f, 0.f, 0.f}, p2_next[NC];
+  if (tid < 32 * (XC / NC)) gray_pairs(0);
+#pragma unroll
+  for (int n = 0; n < NC; ++n) p2_next[n] = adaptive_p2(p1, p2_init, ga[n], gb[n]);
+  constexpr int TILES_PER_SPAN = 32 / VT;
+  auto walk = [&](int ti) {
+    if (!walks) return;
+    const int phase = ti % TILES_PER_SPAN;
+    if (phase == 0) {
+#pragma unroll
+      for (int n = 0; n < NC; ++n) p2_lane[n] = p2_next[n];
+      gray_pairs(ti / TILES_PER_SPAN + 1);
+    }
+    float4* stage = smem4 + (ti % NS) * (TILE / 4);
+    auto chunk_at = [&](int r, int k) {  // the lane's chunk k in tile row r
+      return r * (ROW / 4) + (at[k] ^ (Y::row_swizzle(r) * Y::PP));
+    };
+#pragma unroll
+    for (int g = 0; g < VT / G; ++g) {
+      float c[NC][G][K];
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float4 t = stage[chunk_at(g * G + j, k)];
+          c[0][j][k] = t.x; c[1][j][k] = t.y; c[2][j][k] = t.z; c[3][j][k] = t.w;
+        }
+      }
+      walk_group<K, NC, G>(c, prev, m, p1, p2_lane, phase * VT + g * G, dm1,
+                           ti == 0 && g == 0, 0, lane);
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          stage[chunk_at(g * G + j, k)] =
+              make_float4(c[0][j][k], c[1][j][k], c[2][j][k], c[3][j][k]);
+        }
+      }
+    }
+    if (phase == TILES_PER_SPAN - 1) {
+#pragma unroll
+      for (int n = 0; n < NC; ++n) p2_next[n] = adaptive_p2(p1, p2_init, ga[n], gb[n]);
+    }
+  };
+  run_tiles<NS, SIDES>(tid < 32 * (XC / NC), ntiles, fetch, fetch_sides, write_out, walk);
+}
+
+// A second stream per device (and the device's number of SMs), so that the
+// top-down pass runs beside the horizontal passes: all three need nothing but
+// the costs.  The fork and the join are events that the caller's stream
+// records or waits for, so the call as a whole stays ordered on it.  All
+// caller streams and host threads share a device's one side stream and event
+// pair: the entry point holds `launch_mutex` from the lazy set-up here to its
+// last launch, so a second caller records the events only after the first
+// has enqueued its waits on them (a wait takes the event as recorded when
+// the wait is enqueued).
+constexpr int MAX_DEVICES = 64;
+std::mutex launch_mutex;
+
+struct SideStream {
+  cudaStream_t stream = nullptr;
+  cudaEvent_t fork = nullptr, join = nullptr;
+  int device = 0;
+  int sm_count = 0;
+};
+
+cudaError_t side_stream(SideStream** out) {
+  static SideStream sides[MAX_DEVICES];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  SideStream& side = sides[device];
+  side.device = device;
+  if (side.stream == nullptr) {
+    err = cudaStreamCreateWithFlags(&side.stream, cudaStreamNonBlocking);
+    if (err == cudaSuccess) err = cudaEventCreateWithFlags(&side.fork, cudaEventDisableTiming);
+    if (err == cudaSuccess) err = cudaEventCreateWithFlags(&side.join, cudaEventDisableTiming);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&side.sm_count, cudaDevAttrMultiProcessorCount, device);
+    }
+    if (err != cudaSuccess) return err;
+  }
+  *out = &side;
+  return cudaSuccess;
+}
+
+template <int K, bool SECOND, int XC>
+cudaError_t launch_vertical(const float* cost, const float* gray, float* lr, float* rl, float* ud,
+                            int d_range, int h, int w, int wp, int cost_width, float p1,
+                            float p2, int vert_dm1, int vert_first, int device,
+                            cudaStream_t s) {
+  const size_t bytes = Vertical<K, SECOND, XC>::BYTES;
+  static bool sized[MAX_DEVICES] = {};  // per instance and device; the attribute is set once
+  if (!sized[device]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(scanline_vertical_kernel<K, SECOND, XC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    sized[device] = true;
+  }
+  scanline_vertical_kernel<K, SECOND, XC><<<(w + XC - 1) / XC, VTHREADS<XC>, bytes, s>>>(
+      cost, gray, lr, rl, ud, d_range, h, w, wp, cost_width, p1, p2, vert_dm1, vert_first);
   return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch(const float* cost, const float* gray, float* lr, float* rl, float* ud,
+                   int d_range, int h, int w, int wp, float p1, float p2, int vert_dm1,
+                   int vert_first, cudaStream_t s) {
+  // the widest copy that every row of the cost volume allows, in floats
+  const int cost_width = (w % 4 == 0 && (uintptr_t)cost % 16 == 0)  ? 4
+                         : (w % 2 == 0 && (uintptr_t)cost % 8 == 0) ? 2
+                                                                    : 1;
+  SideStream* side = nullptr;
+  cudaError_t err = side_stream(&side);
+  if (err != cudaSuccess) return err;
+  const size_t horizontal = sizeof(float) * HS * 32 * K * HT;
+  static bool sized[MAX_DEVICES] = {};  // per K and device; the attribute is set once
+  if (!sized[side->device]) {
+    err = cudaFuncSetAttribute(scanline_horizontal_kernel<K>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)horizontal);
+    if (err != cudaSuccess) return err;
+    sized[side->device] = true;
+  }
+  // top-down (side stream) beside the horizontal passes, then bottom-up
+  if ((err = cudaEventRecord(side->fork, s)) != cudaSuccess) return err;
+  if ((err = cudaStreamWaitEvent(side->stream, side->fork, 0)) != cudaSuccess) return err;
+  const bool narrow = (w + 7) / 8 <= side->sm_count;  // blocks of 8 columns all fit the card
+  err = narrow ? launch_vertical<K, false, 8>(cost, gray, lr, rl, ud, d_range, h, w, wp,
+                                              cost_width, p1, p2, vert_dm1, vert_first,
+                                              side->device, side->stream)
+               : launch_vertical<K, false, 16>(cost, gray, lr, rl, ud, d_range, h, w, wp,
+                                               cost_width, p1, p2, vert_dm1, vert_first,
+                                               side->device, side->stream);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaEventRecord(side->join, side->stream)) != cudaSuccess) return err;
+  scanline_horizontal_kernel<K><<<dim3(h, 2), 32 + HMOVERS, horizontal, s>>>(
+      cost, gray, lr, rl, d_range, h, w, wp, p1, p2);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = cudaStreamWaitEvent(s, side->join, 0)) != cudaSuccess) return err;
+  return narrow ? launch_vertical<K, true, 8>(cost, gray, lr, rl, ud, d_range, h, w, wp,
+                                              cost_width, p1, p2, vert_dm1, vert_first,
+                                              side->device, s)
+                : launch_vertical<K, true, 16>(cost, gray, lr, rl, ud, d_range, h, w, wp,
+                                               cost_width, p1, p2, vert_dm1, vert_first,
+                                               side->device, s);
 }
 
 }  // namespace
 
-// Launch on `stream`.  cost: float32 [h, w, d_range] (pixel-major); gray:
-// float32 [h, w]; dirs: float32 scratch [4, h, w, d_range]; out: float32
-// [h, w, d_range]; all contiguous on the current device;
-// 1 <= d_range <= 1024.  p1, p2 are
-// the effective penalties.  Returns cudaGetLastError() after the launches
-// (0 = launched), cudaErrorInvalidValue for d_range outside the range.
-extern "C" int scanline_optimize_f32(const void* cost, const void* gray, void* dirs,
+// Launch on `stream`.  cost: float32 [d_range, h, w]; gray: float32 [h, w];
+// scratch: float32 [2, d_range, h, wp]; out: float32 [d_range, h, wp] with
+// wp = w rounded up to a multiple of 4 (columns w .. wp - 1 of out hold no
+// meaning); all contiguous and 16-byte aligned on the current device;
+// 1 <= d_range <= 256.  p1, p2 are the effective penalties.  Returns
+// cudaGetLastError() after the launches (0 = launched),
+// cudaErrorInvalidValue for a size outside the range or a misaligned buffer.
+extern "C" int scanline_optimize_f32(const void* cost, const void* gray, void* scratch,
                                      void* out, int d_range, int h, int w, float p1,
                                      float p2, int vert_dm1, int vert_first,
                                      void* stream) {
+  const int wp = (w + 3) / 4 * 4;
+  // the vertical movers keep offsets into the volumes in 32 bits
+  if (d_range < 1 || d_range > 256 || h < 1 || w < 1 ||
+      (unsigned long long)d_range * h * wp > 0xffffffffull ||
+      ((uintptr_t)scratch | (uintptr_t)out) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const std::lock_guard<std::mutex> lock(launch_mutex);  // see SideStream
   cudaStream_t s = (cudaStream_t)stream;
   const float* c = (const float*)cost;
   const float* g = (const float*)gray;
-  float* t = (float*)dirs;
-  cudaError_t err;
-  const int k = (d_range + 31) / 32;
-  if (d_range < 1 || k > 32) return (int)cudaErrorInvalidValue;
-  if (k <= 1) err = launch_passes<1>(c, g, t, d_range, h, w, p1, p2, vert_dm1, vert_first, s);
-  else if (k <= 2) err = launch_passes<2>(c, g, t, d_range, h, w, p1, p2, vert_dm1, vert_first, s);
-  else if (k <= 4) err = launch_passes<4>(c, g, t, d_range, h, w, p1, p2, vert_dm1, vert_first, s);
-  else if (k <= 8) err = launch_passes<8>(c, g, t, d_range, h, w, p1, p2, vert_dm1, vert_first, s);
-  else if (k <= 16) err = launch_passes<16>(c, g, t, d_range, h, w, p1, p2, vert_dm1, vert_first, s);
-  else err = launch_passes<32>(c, g, t, d_range, h, w, p1, p2, vert_dm1, vert_first, s);
-  if (err != cudaSuccess) return (int)err;
-  const size_t n = (size_t)d_range * h * w;
-  combine_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(t, (float*)out, n);
-  return (int)cudaGetLastError();
+  float* lr = (float*)out;  // left-right, then the sum
+  float* rl = (float*)scratch;
+  float* ud = rl + (size_t)d_range * h * wp;
+#define SCANLINE_LAUNCH(K) \
+  return (int)launch<K>(c, g, lr, rl, ud, d_range, h, w, wp, p1, p2, vert_dm1, vert_first, s);
+  if (d_range <= 32) SCANLINE_LAUNCH(1)
+  if (d_range <= 64) SCANLINE_LAUNCH(2)
+  if (d_range <= 128) SCANLINE_LAUNCH(4)
+  SCANLINE_LAUNCH(8)
+#undef SCANLINE_LAUNCH
 }

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from stereo_match_traditional_tpu.config import ScanlineConfig
+from stereo_match_traditional_tpu_torch.config import ScanlineConfig
 
 
 def _step(prev, prev_min, c, p2_col, p1: float, l2_uses_dm1: bool):

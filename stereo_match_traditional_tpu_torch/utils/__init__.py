@@ -1,2 +1,2 @@
-"""Host-side helpers: NumPy <-> tensor carry-across, synthetic pairs,
-trace scopes."""
+"""Host-side helpers: NumPy <-> tensor and config carry-across, synthetic
+pairs, trace scopes, kernel timing."""

@@ -2,6 +2,7 @@
 ("ad_census")`` of the port against the JAX package's and against the
 checked-in goldens, in its FULL and active forms."""
 
+import dataclasses
 import functools
 import os
 
@@ -12,12 +13,14 @@ import torch
 
 from stereo_match_traditional_tpu import config as cfgs
 from stereo_match_traditional_tpu.models import get_pipeline as jax_get_pipeline
-from stereo_match_traditional_tpu.utils.synthetic import bad_pixel_rate, make_pair
 from stereo_match_traditional_tpu_torch import ADCensusConfig
 from stereo_match_traditional_tpu_torch.models import get_pipeline
 from stereo_match_traditional_tpu_torch.models.ad_census import ad_census_pipeline
 from stereo_match_traditional_tpu_torch.ops.kernels import ad_census_cuda, scanline_cuda
-from stereo_match_traditional_tpu_torch.utils.convert import pair_to_torch, result_to_numpy
+from stereo_match_traditional_tpu_torch.utils.synthetic import bad_pixel_rate, make_pair
+from stereo_match_traditional_tpu_torch.utils.convert import (
+    config_from_dict, pair_to_torch, result_to_numpy,
+)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "pipelines_seed42.npz")
 # the golden's ad_census case (tests/golden/generate_pipelines.py), which is
@@ -27,6 +30,11 @@ FULL = cfgs.ADCensusConfig(disp_range=10, scanline=cfgs.ScanlineConfig(), run_po
 # float64, JAX's float32 matmuls) can flip a near-tied argmin; WTA maps
 # agree on >= 99.5% of pixels, the post-processed map on >= 99%.
 MIN_AGREE = {"disp_left": 0.995, "disp_right": 0.995, "disp_final": 0.99}
+
+
+def port_cfg(cfg):
+    """The port's own config, carried across from the JAX package's."""
+    return config_from_dict(type(cfg).__name__, dataclasses.asdict(cfg))
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -63,7 +71,7 @@ def _golden_pair():
 @functools.lru_cache(maxsize=None)
 def _port_full():
     L, R, _ = _golden_pair()
-    return result_to_numpy(get_pipeline("ad_census")[0](*pair_to_torch(L, R, "cpu"), FULL))
+    return result_to_numpy(get_pipeline("ad_census")[0](*pair_to_torch(L, R, "cpu"), port_cfg(FULL)))
 
 
 def test_full_slice_matches_jax():
@@ -101,7 +109,7 @@ def test_full_slice_output_contract():
 def test_other_configurations_match_jax(cfg):
     L, R, _ = make_pair(37, 53, 9, seed=5)
     jres = jax_get_pipeline("ad_census")[0](jnp.asarray(L), jnp.asarray(R), cfg)
-    got = get_pipeline("ad_census")[0](*pair_to_torch(L, R, "cpu"), cfg)
+    got = get_pipeline("ad_census")[0](*pair_to_torch(L, R, "cpu"), port_cfg(cfg))
     fields = ("disp_left", "disp_right") + (("disp_final",) if cfg.run_post else ())
     _agreement(jres._asdict(), result_to_numpy(got)._asdict(), 9, fields)
     if not cfg.run_post:
@@ -114,7 +122,8 @@ def test_active_slice_at_reference_size_matches_jax():
     L, R, gt = make_pair(375, 450, 60, seed=0)
     cfg = cfgs.ADCensusConfig()
     jres = jax_get_pipeline("ad_census")[0](jnp.asarray(L), jnp.asarray(R), cfg)
-    got = result_to_numpy(get_pipeline("ad_census")[0](*pair_to_torch(L, R, "cpu"), cfg))
+    got = result_to_numpy(
+        get_pipeline("ad_census")[0](*pair_to_torch(L, R, "cpu"), port_cfg(cfg)))
     _agreement(jres._asdict(), got._asdict(), 60, ("disp_left", "disp_right"))
     assert bad_pixel_rate(got.disp_left, gt) <= 0.15     # tests/test_tpu_smoke.py:37
 
@@ -123,7 +132,7 @@ def test_cpu_tensors_launch_no_kernel():
     L, R, _ = make_pair(20, 24, 6, seed=2)
     before = (ad_census_cuda.LAUNCHES, scanline_cuda.LAUNCHES)
     cfg = cfgs.ADCensusConfig(disp_range=6, scanline=cfgs.ScanlineConfig(), run_post=True)
-    res = get_pipeline("ad_census")[0](*pair_to_torch(L, R, "cpu"), cfg)
+    res = get_pipeline("ad_census")[0](*pair_to_torch(L, R, "cpu"), port_cfg(cfg))
     assert (ad_census_cuda.LAUNCHES, scanline_cuda.LAUNCHES) == before
     assert res.disp_final.device.type == "cpu"
 
@@ -134,7 +143,7 @@ def test_registry_entry():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(cfg=cfgs.ADCensusConfig(aggregation="cross_two_pass")), "Queue 1 item 6"),
+    (dict(cfg=ADCensusConfig(aggregation="cross_two_pass")), "Queue 1 item 6"),
     (dict(return_stages=True), "Queue 1 item 8"),
 ], ids=["cross_two_pass", "return_stages"])
 def test_unported_modes_raise(kwargs, match):
@@ -146,4 +155,4 @@ def test_unported_modes_raise(kwargs, match):
 def test_unknown_aggregation_rejected():
     L, R, _ = make_pair(8, 8, 2, seed=0)
     with pytest.raises(ValueError, match="aggregation"):
-        ad_census_pipeline(*pair_to_torch(L, R, "cpu"), cfgs.ADCensusConfig(aggregation="bogus"))
+        ad_census_pipeline(*pair_to_torch(L, R, "cpu"), ADCensusConfig(aggregation="bogus"))

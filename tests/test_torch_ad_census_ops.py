@@ -2,6 +2,8 @@
 ``stereo_match_traditional_tpu_torch`` against the JAX package on the same
 seeded NumPy inputs (JAX on the CPU backend)."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,12 +16,13 @@ from stereo_match_traditional_tpu.utils.synthetic import make_pair
 from stereo_match_traditional_tpu_torch.ops import aggregate as tagg
 from stereo_match_traditional_tpu_torch.ops import volume as tvol
 from stereo_match_traditional_tpu_torch.ops.kernels import ad_census_cuda
-from stereo_match_traditional_tpu_torch.utils.convert import pair_to_torch
+from stereo_match_traditional_tpu_torch.utils.convert import config_from_dict, pair_to_torch
 
 # (h, w, D, seed): the golden pair's size, an odd shape, and D > W
 CASES = [(48, 64, 10, 42), (13, 17, 5, 3), (9, 6, 10, 5)]
 IDS = ["48x64_D10", "13x17_D5", "9x6_D10"]
 ARMS = CrossArmConfig(tao1=30)     # ADCensusConfig().arms
+PORT_ARMS = config_from_dict("CrossArmConfig", dataclasses.asdict(ARMS))
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -107,7 +110,7 @@ def test_cross_arms_bit_exact(h, w, d, seed, color):
     L, R, _ = _pair(h, w, d, seed)
     img = np.stack([L, R, L // 2], axis=-1) if color else L
     want = jagg.cross_arms(jnp.asarray(img), ARMS)
-    got = tagg.cross_arms(torch.tensor(img), ARMS)
+    got = tagg.cross_arms(torch.tensor(img), PORT_ARMS)
     for name in ("left", "right", "up", "down"):
         g = getattr(got, name)
         assert g.dtype == torch.int32
@@ -125,7 +128,8 @@ def test_rect_mean_aggregate_matches_jax(h, w, d, seed, inclusive):
     vol = np.asarray(jvol.ad_census_volume(L, R, d))
     want = np.asarray(jagg.rect_mean_aggregate(jnp.asarray(vol), jagg.cross_arms(L, ARMS),
                                                inclusive))
-    got = tagg.rect_mean_aggregate(torch.tensor(vol), tagg.cross_arms(lt, ARMS), inclusive).numpy()
+    got = tagg.rect_mean_aggregate(torch.tensor(vol), tagg.cross_arms(lt, PORT_ARMS),
+                                   inclusive).numpy()
     assert got.shape == vol.shape and got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
     assert (got.argmin(0) == want.argmin(0)).mean() >= 0.995

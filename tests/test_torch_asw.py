@@ -2,6 +2,7 @@
 port against the JAX package's and against the checked-in goldens, plus the
 port's registry (all five pipelines) and carry-across helpers."""
 
+import dataclasses
 import functools
 import os
 
@@ -13,14 +14,16 @@ import torch
 from stereo_match_traditional_tpu import config as cfgs
 from stereo_match_traditional_tpu.models import get_pipeline as jax_get_pipeline
 from stereo_match_traditional_tpu.models.registry import PIPELINES as JAX_PIPELINES
-from stereo_match_traditional_tpu.utils.synthetic import make_pair
 from stereo_match_traditional_tpu_torch import ASWConfig
+from stereo_match_traditional_tpu_torch import config as port_cfgs
 from stereo_match_traditional_tpu_torch.models import StereoResult, get_pipeline
 from stereo_match_traditional_tpu_torch.ops.kernels import asw_cuda
 from stereo_match_traditional_tpu_torch.utils.convert import (
+    config_from_dict,
     pair_to_torch,
     result_to_numpy,
 )
+from stereo_match_traditional_tpu_torch.utils.synthetic import bad_pixel_rate, make_pair
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "pipelines_seed42.npz")
 # the golden's asw case (tests/golden/generate_pipelines.py)
@@ -30,6 +33,11 @@ FIELDS = ("disp_left", "disp_right", "disp_final")
 # near-tied argmin can flip: the WTA maps must agree on >= 99.5% of pixels,
 # the post-processed map (where a flip can move a speckle or a fill) >= 99%.
 MIN_AGREE = {"disp_left": 0.995, "disp_right": 0.995, "disp_final": 0.99}
+
+
+def port_cfg(cfg):
+    """The port's own config, carried across from the JAX package's."""
+    return config_from_dict(type(cfg).__name__, dataclasses.asdict(cfg))
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,7 +51,7 @@ def _port_result(use_pallas):
     L, R, _ = _pair()
     fn, cfg_cls = get_pipeline("asw")
     assert cfg_cls is ASWConfig
-    cfg = cfgs.ASWConfig(**{**CFG.__dict__, "use_pallas": use_pallas})
+    cfg = dataclasses.replace(port_cfg(CFG), use_pallas=use_pallas)
     return result_to_numpy(fn(*pair_to_torch(L, R, "cpu"), cfg))
 
 
@@ -81,8 +89,6 @@ def test_kernel_route_on_cpu_is_the_plain_version(use_pallas):
 
 
 def test_asw_slice_accuracy_on_ground_truth():
-    from stereo_match_traditional_tpu.utils.synthetic import bad_pixel_rate
-
     _, _, gt = _pair()
     res = _port_result(False)
     assert np.isfinite(res.disp_left).all()
@@ -92,14 +98,14 @@ def test_asw_slice_accuracy_on_ground_truth():
 
 def test_run_post_false_leaves_final_empty():
     L, R, _ = make_pair(16, 20, 4, seed=0)
-    cfg = cfgs.ASWConfig(disp_range=4, win_size=1, run_post=False)
+    cfg = ASWConfig(disp_range=4, win_size=1, run_post=False)
     res = get_pipeline("asw")[0](*pair_to_torch(L, R, "cpu"), cfg)
     assert res.disp_final is None and res.disp_left.shape == (16, 20)
 
 
 @pytest.mark.parametrize("cfg", [
-    cfgs.ASWConfig(variant="lab"),
-    cfgs.ASWConfig(approx="grid"),
+    ASWConfig(variant="lab"),
+    ASWConfig(approx="grid"),
 ], ids=["lab", "grid"])
 def test_dormant_variants_not_ported(cfg):
     L, R, _ = make_pair(8, 8, 2, seed=0)
@@ -111,17 +117,20 @@ def test_unknown_approx_rejected():
     L, R, _ = make_pair(8, 8, 2, seed=0)
     with pytest.raises(ValueError, match="approx"):
         get_pipeline("asw")[0](*pair_to_torch(L, R, "cpu"),
-                               cfgs.ASWConfig(approx="bogus"))
+                               ASWConfig(approx="bogus"))
 
 
 @pytest.mark.parametrize("name", sorted(JAX_PIPELINES))
 def test_registry_resolves_every_jax_pipeline(name):
-    """Every name of the JAX registry resolves in the port's, with the same
-    config class, and runs at 8x8 on CPU tensors."""
+    """Every name of the JAX registry resolves in the port's, with the
+    port's own config class of the same name and defaults, and runs at 8x8
+    on CPU tensors."""
     fn, cfg_cls = get_pipeline(name)
-    assert cfg_cls is JAX_PIPELINES[name][1]
+    jax_cls = JAX_PIPELINES[name][1]
+    assert cfg_cls is getattr(port_cfgs, jax_cls.__name__) and cfg_cls is not jax_cls
+    assert dataclasses.asdict(cfg_cls()) == dataclasses.asdict(jax_cls())
     L, R, _ = make_pair(8, 8, 3, seed=0)
-    res = fn(*pair_to_torch(L, R, "cpu"), cfg_cls(**cfgs.disp_override_kw(cfg_cls, 4)))
+    res = fn(*pair_to_torch(L, R, "cpu"), cfg_cls(**port_cfgs.disp_override_kw(cfg_cls, 4)))
     assert res.disp_left.shape == (8, 8) and torch.isfinite(res.disp_left).all()
 
 

@@ -2,6 +2,7 @@
 port against the JAX package's and against the checked-in goldens, and
 its post chain bit for bit."""
 
+import dataclasses
 import functools
 import os
 
@@ -13,12 +14,14 @@ import torch
 from stereo_match_traditional_tpu import config as cfgs
 from stereo_match_traditional_tpu.models import cblsm as jcblsm
 from stereo_match_traditional_tpu.models import get_pipeline as jax_get_pipeline
-from stereo_match_traditional_tpu.utils.synthetic import bad_pixel_rate, make_pair
 from stereo_match_traditional_tpu_torch import CBLSMConfig
 from stereo_match_traditional_tpu_torch.models import cblsm as tcblsm
 from stereo_match_traditional_tpu_torch.models import get_pipeline
 from stereo_match_traditional_tpu_torch.ops.kernels import ad_census_cuda
-from stereo_match_traditional_tpu_torch.utils.convert import pair_to_torch, result_to_numpy
+from stereo_match_traditional_tpu_torch.utils.convert import (
+    config_from_dict, pair_to_torch, result_to_numpy,
+)
+from stereo_match_traditional_tpu_torch.utils.synthetic import bad_pixel_rate, make_pair
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "pipelines_seed42.npz")
 # the golden's cblsm case (tests/golden/generate_pipelines.py)
@@ -28,6 +31,11 @@ FIELDS = ("disp_left", "disp_right", "disp_final")
 # 255 * H * W) and breaks ties; the port's float64 SAT keeps them.  WTA maps
 # agree on >= 99.5 % of pixels, the post-processed map on >= 99 %.
 MIN_AGREE = {"disp_left": 0.995, "disp_right": 0.995, "disp_final": 0.99}
+
+
+def port_cfg(cfg):
+    """The port's own config, carried across from the JAX package's."""
+    return config_from_dict(type(cfg).__name__, dataclasses.asdict(cfg))
 
 
 def _agreement(ref, got, d, fields=FIELDS):
@@ -53,7 +61,8 @@ def _golden_pair():
 @functools.lru_cache(maxsize=None)
 def _port(cfg):
     L, R, _ = _golden_pair()
-    return result_to_numpy(get_pipeline("cblsm")[0](*pair_to_torch(L, R, "cpu"), cfg))
+    return result_to_numpy(
+        get_pipeline("cblsm")[0](*pair_to_torch(L, R, "cpu"), port_cfg(cfg)))
 
 
 @pytest.mark.parametrize("cfg", [
@@ -104,7 +113,7 @@ def test_cblsm_post_bit_exact(seed):
     dl, dr = _maps(seed)
     cfg = cfgs.CBLSMConfig(disp_range=10, speckle_area=8, run_post=True)
     want = jcblsm.cblsm_post(jnp.asarray(dl), jnp.asarray(dr), cfg)
-    got = tcblsm.cblsm_post(torch.tensor(dl), torch.tensor(dr), cfg)
+    got = tcblsm.cblsm_post(torch.tensor(dl), torch.tensor(dr), port_cfg(cfg))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
@@ -115,7 +124,8 @@ def test_cblsm_active_at_reference_size_matches_jax():
     L, R, gt = make_pair(375, 450, 60, seed=0)
     cfg = cfgs.CBLSMConfig()
     jres = jax_get_pipeline("cblsm")[0](jnp.asarray(L), jnp.asarray(R), cfg)
-    got = result_to_numpy(get_pipeline("cblsm")[0](*pair_to_torch(L, R, "cpu"), cfg))
+    got = result_to_numpy(
+        get_pipeline("cblsm")[0](*pair_to_torch(L, R, "cpu"), port_cfg(cfg)))
     _agreement(jres._asdict(), got._asdict(), 60, FIELDS[:2])
     assert bad_pixel_rate(got.disp_left, gt) <= 0.20
 
@@ -124,7 +134,7 @@ def test_cpu_tensors_launch_no_kernel():
     L, R, _ = make_pair(20, 24, 6, seed=2)
     before = ad_census_cuda.LAUNCHES
     res = get_pipeline("cblsm")[0](*pair_to_torch(L, R, "cpu"),
-                                   cfgs.CBLSMConfig(disp_range=6, run_post=True))
+                                   CBLSMConfig(disp_range=6, run_post=True))
     assert ad_census_cuda.LAUNCHES == before
     assert res.disp_final.device.type == "cpu"
 
@@ -135,12 +145,12 @@ def test_registry_entry():
 
 
 @pytest.mark.parametrize("cfg,kwargs,match", [
-    (cfgs.CBLSMConfig(cost="sad_mean"), {}, "Queue 1 item 7"),
-    (cfgs.CBLSMConfig(cost="sad_mean_v4"), {}, "Queue 1 item 7"),
-    (cfgs.CBLSMConfig(cost="local_mean"), {}, "Queue 1 item 7"),
-    (cfgs.CBLSMConfig(aggregation="rect_mean_v4"), {}, "Queue 1 item 7"),
-    (cfgs.CBLSMConfig(aggregation="cross_two_pass"), {}, "Queue 1 item 6"),
-    (cfgs.CBLSMConfig(), {"return_stages": True}, "Queue 1 item 8"),
+    (CBLSMConfig(cost="sad_mean"), {}, "Queue 1 item 7"),
+    (CBLSMConfig(cost="sad_mean_v4"), {}, "Queue 1 item 7"),
+    (CBLSMConfig(cost="local_mean"), {}, "Queue 1 item 7"),
+    (CBLSMConfig(aggregation="rect_mean_v4"), {}, "Queue 1 item 7"),
+    (CBLSMConfig(aggregation="cross_two_pass"), {}, "Queue 1 item 6"),
+    (CBLSMConfig(), {"return_stages": True}, "Queue 1 item 8"),
 ], ids=["sad_mean", "sad_mean_v4", "local_mean", "rect_mean_v4", "cross_two_pass",
         "return_stages"])
 def test_unported_modes_raise(cfg, kwargs, match):
@@ -150,7 +160,7 @@ def test_unported_modes_raise(cfg, kwargs, match):
 
 
 @pytest.mark.parametrize("cfg", [
-    cfgs.CBLSMConfig(cost="bogus"), cfgs.CBLSMConfig(aggregation="bogus"),
+    CBLSMConfig(cost="bogus"), CBLSMConfig(aggregation="bogus"),
 ], ids=["cost", "aggregation"])
 def test_unknown_options_rejected(cfg):
     L, R, _ = make_pair(8, 8, 2, seed=0)

@@ -1,5 +1,6 @@
-"""The port never imports jax: every module imports with jax blocked, and
-no source file of the port names jax in an import."""
+"""The port imports neither jax nor the JAX package: every module imports
+with both blocked, and no source file of the port names either in an
+import."""
 
 import ast
 import os
@@ -11,6 +12,12 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "stereo_match_traditional_tpu_torch"
+BLOCKED = ("jax", "stereo_match_traditional_tpu")    # the name or a dotted prefix
+
+
+def _blocked(name):
+    """``stereo_match_traditional_tpu_torch`` shares only the letters."""
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
 
 
 def _port_modules():
@@ -27,18 +34,20 @@ def test_port_modules_are_found():
                      "ops.post", "utils.convert", "ops.aggregate", "ops.scanline",
                      "ops.kernels.ad_census_cuda", "ops.kernels.scanline_cuda",
                      "models.ad_census", "ops.kernels.window_cost_cuda", "models.sad",
-                     "models.ncc", "models.cblsm"):
+                     "models.ncc", "models.cblsm", "config", "utils.synthetic"):
         assert f"{PKG}.{expected}" in mods
 
 
 def test_every_port_module_imports_without_jax():
     code = (
         "import importlib, sys\n"
-        "sys.modules['jax'] = None\n"
+        f"blocked = {BLOCKED!r}\n"
+        "for b in blocked:\n"
+        "    sys.modules[b] = None\n"
         f"for name in {_port_modules()!r}:\n"
         "    importlib.import_module(name)\n"
-        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
-        " if sys.modules[m] is not None)\n"
+        "assert not any(m == b or m.startswith(b + '.') for b in blocked"
+        " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -67,4 +76,4 @@ def test_no_jax_import_in_source(path):
         else:
             continue
         for n in names:
-            assert n != "jax" and not n.startswith("jax."), (path, n)
+            assert not _blocked(n), (path, n)

@@ -12,7 +12,7 @@ input checks are tested everywhere.
 import pytest
 import torch
 
-from stereo_match_traditional_tpu.config import ScanlineConfig
+from stereo_match_traditional_tpu_torch.config import ScanlineConfig
 from stereo_match_traditional_tpu_torch.models import get_pipeline
 from stereo_match_traditional_tpu_torch.ops import scanline, volume
 from stereo_match_traditional_tpu_torch.ops.kernels import (
@@ -25,8 +25,10 @@ from stereo_match_traditional_tpu_torch.utils.convert import pair_to_torch
 from stereo_match_traditional_tpu_torch.utils.synthetic import make_pair
 
 # (h, w, D, win_size, seed, view): tests/test_kernels.py's geometries, a
-# ragged serving-range tile and the reference driver's size.
+# ragged serving-range tile, the reference driver's size and a 35x35 window
+# (99 KB of shared memory, twice the reference window's tables).
 GEOMETRIES = [
+    (40, 70, 20, 16, 3, "left"),
     (14, 18, 5, 2, 2, "left"),
     (12, 20, 4, 1, 5, "right"),
     (20, 30, 6, 11, 1, "left"),
@@ -44,8 +46,9 @@ def _need_card():
 @pytest.mark.parametrize("h,w,d,win,seed,view", GEOMETRIES)
 def test_kernel_matches_plain_on_card(h, w, d, win, seed, view):
     """rtol 1e-4, atol 1e-3 (tests/test_kernels.py's tolerance): the kernel
-    fuses the two colour weights and the space weight into one exp, the
-    plain version multiplies three, so the last bits differ."""
+    takes the weight as the product of a left and a right factor (two
+    ex2.approx, each carrying half the space term), the plain version as
+    one exp of the summed exponent, so the last bits differ."""
     _need_card()
     L, R, _ = make_pair(h, w, min(d, w - 1), seed=seed)
     lt, rt = pair_to_torch(L, R, "cuda")
@@ -134,13 +137,26 @@ def test_ad_census_kernel_matches_plain_on_card(h, w, d, seed, view):
     ScanlineConfig(faithful_vertical_l2=True, faithful_vertical_p2=True),
     ScanlineConfig(penalty_scale="auto"),
 ], ids=["canonical", "vert_l2", "vert_p2", "vert_l2_p2", "auto_scale"])
-@pytest.mark.parametrize("h,w,d,seed", [(13, 17, 5, 3), (9, 6, 10, 5), (40, 70, 40, 1)])
+@pytest.mark.parametrize("h,w,d,seed", [(13, 17, 5, 3), (9, 6, 10, 5), (40, 70, 40, 1),
+                                         (1, 40, 7, 1), (33, 1, 9, 2), (1, 1, 3, 4),
+                                         (21, 45, 100, 6), (5, 37, 200, 10),
+                                         (3, 1100, 20, 7), (2, 1062, 40, 8),
+                                         (2, 1061, 130, 9)])
 def test_scanline_kernel_bit_exact_on_card(cfg, h, w, d, seed):
-    """Same float operations in the same order as the plain loop."""
+    """Same float operations in the same order as the plain loop; the edge
+    geometries (one row, one column, one pixel, a D above 32 that is no
+    multiple of it, a D above 128, and rows wide enough for the kernel's
+    16-column blocks with W a multiple of 4, even and odd) run on random
+    costs."""
     _need_card()
-    L, R, _ = make_pair(h, w, min(d, w - 1), seed=seed)
-    lt, rt = pair_to_torch(L, R, "cuda")
-    vol = volume.ad_census_volume(lt, rt, d)
+    if min(h, w) > 1 and w < 1000:
+        L, R, _ = make_pair(h, w, min(d, w - 1), seed=seed)
+        lt, rt = pair_to_torch(L, R, "cuda")
+        vol = volume.ad_census_volume(lt, rt, d)
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        lt = torch.randint(0, 256, (h, w), device="cuda", generator=gen, dtype=torch.uint8)
+        vol = torch.rand((d, h, w), device="cuda", generator=gen) * 3.0
     before = scanline_cuda.LAUNCHES
     got = scanline_cuda.scanline_optimize_cuda(vol, lt, cfg)
     torch.cuda.synchronize()
@@ -190,7 +206,8 @@ def test_scanline_kernel_checks_inputs():
     with pytest.raises(ValueError):
         scanline_cuda.scanline_optimize_cuda(torch.zeros((4, 8, 9)).cuda(), x)
     with pytest.raises(ValueError):
-        scanline_cuda.scanline_optimize_cuda(torch.zeros((1025, 8, 9)).cuda(), x.cuda())
+        scanline_cuda.scanline_optimize_cuda(
+            torch.zeros((scanline_cuda.MAX_DISP + 1, 8, 9)).cuda(), x.cuda())
     with pytest.raises(ValueError):
         scanline_cuda.scanline_optimize_cuda(torch.zeros((4, 8, 9)).cuda(), x[:4].cuda())
 

@@ -2,6 +2,7 @@
 ``stereo_match_traditional_tpu_torch`` are bit-exact with the JAX package,
 on random maps and on JAX's own disparities fed to both."""
 
+import dataclasses
 import functools
 
 import jax.numpy as jnp
@@ -19,8 +20,14 @@ from stereo_match_traditional_tpu.utils.synthetic import make_pair
 from stereo_match_traditional_tpu_torch.models import ad_census as tadc
 from stereo_match_traditional_tpu_torch.models import asw as tasw
 from stereo_match_traditional_tpu_torch.ops import post as tpost
+from stereo_match_traditional_tpu_torch.utils.convert import config_from_dict
 
 _D = 10
+
+
+def port_cfg(cfg):
+    """The port's own config, carried across from the JAX package's."""
+    return config_from_dict(type(cfg).__name__, dataclasses.asdict(cfg))
 
 
 def _t(a):
@@ -195,7 +202,7 @@ def test_ad_census_post_bit_exact(source):
     dl, dr = _maps(source)
     cfg = cfgs.ADCensusConfig(disp_range=_D, speckle_area=6, run_post=True)
     want = jadc.ad_census_post(jnp.asarray(dl), jnp.asarray(dr), cfg)
-    got = tadc.ad_census_post(_t(dl), _t(dr), cfg)
+    got = tadc.ad_census_post(_t(dl), _t(dr), port_cfg(cfg))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
@@ -217,7 +224,7 @@ def test_asw_post_bit_exact(source):
     dl, dr = _maps(source)
     cfg = cfgs.ASWConfig(disp_range=_D, speckle_area=6)
     want = np.asarray(jasw.asw_post(jnp.asarray(dl), jnp.asarray(dr), cfg))
-    got = tasw.asw_post(_t(dl), _t(dr), cfg).numpy()
+    got = tasw.asw_post(_t(dl), _t(dr), port_cfg(cfg)).numpy()
     np.testing.assert_array_equal(got, want)
 
 

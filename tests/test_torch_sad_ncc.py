@@ -3,6 +3,7 @@ volumes, the uniqueness WTA, speckle removal with a background value, the
 SAD post chain, and both pipelines through ``get_pipeline`` against the JAX
 package and the checked-in goldens (JAX on the CPU backend, unjitted)."""
 
+import dataclasses
 import functools
 import os
 
@@ -17,19 +18,27 @@ from stereo_match_traditional_tpu.models import sad as jsad
 from stereo_match_traditional_tpu.ops import post as jpost
 from stereo_match_traditional_tpu.ops import volume as jvol
 from stereo_match_traditional_tpu.ops import wta as jwta
-from stereo_match_traditional_tpu.utils.synthetic import bad_pixel_rate, make_pair
+from stereo_match_traditional_tpu_torch import NCCConfig, SADConfig
 from stereo_match_traditional_tpu_torch.models import get_pipeline
 from stereo_match_traditional_tpu_torch.models import sad as tsad
 from stereo_match_traditional_tpu_torch.ops import post as tpost
 from stereo_match_traditional_tpu_torch.ops import volume as tvol
 from stereo_match_traditional_tpu_torch.ops import wta as twta
 from stereo_match_traditional_tpu_torch.ops.kernels import window_cost_cuda
-from stereo_match_traditional_tpu_torch.utils.convert import pair_to_torch, result_to_numpy
+from stereo_match_traditional_tpu_torch.utils.convert import (
+    config_from_dict, pair_to_torch, result_to_numpy,
+)
+from stereo_match_traditional_tpu_torch.utils.synthetic import bad_pixel_rate, make_pair
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "pipelines_seed42.npz")
 # the golden's sad and ncc cases (tests/golden/generate_pipelines.py)
 SAD_GOLDEN = cfgs.SADConfig(max_disparity=10, winsize=1, run_post=True)
 NCC_GOLDEN = cfgs.NCCConfig(disp_range=10, win_size=3)
+
+
+def port_cfg(cfg):
+    """The port's own config, carried across from the JAX package's."""
+    return config_from_dict(type(cfg).__name__, dataclasses.asdict(cfg))
 
 
 def _t(a):
@@ -187,7 +196,7 @@ def test_sad_post_bit_exact(source):
         dl = np.where(np.isfinite(dl), dl, 0.0).astype(np.float32)
     cfg = cfgs.SADConfig(max_disparity=10, speckle_area=12, run_post=True)
     want = jsad.sad_post(jnp.asarray(dl), jnp.asarray(dr), cfg)
-    got = tsad.sad_post(_t(dl), _t(dr), cfg)
+    got = tsad.sad_post(_t(dl), _t(dr), port_cfg(cfg))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
@@ -284,7 +293,7 @@ def _agreement(ref, got, fields):
 @functools.lru_cache(maxsize=None)
 def _port(name, cfg):
     L, R, _ = _golden_pair()
-    return result_to_numpy(get_pipeline(name)[0](*pair_to_torch(L, R, "cpu"), cfg))
+    return result_to_numpy(get_pipeline(name)[0](*pair_to_torch(L, R, "cpu"), port_cfg(cfg)))
 
 
 @pytest.mark.parametrize("name,cfg,fields", [
@@ -320,7 +329,7 @@ def test_sad_active_at_reference_size_matches_jax():
     L, R, gt = make_pair(375, 450, 60, seed=0)
     cfg = cfgs.SADConfig()
     jres = jax_get_pipeline("sad")[0](jnp.asarray(L), jnp.asarray(R), cfg)
-    got = result_to_numpy(get_pipeline("sad")[0](*pair_to_torch(L, R, "cpu"), cfg))
+    got = result_to_numpy(get_pipeline("sad")[0](*pair_to_torch(L, R, "cpu"), port_cfg(cfg)))
     np.testing.assert_array_equal(got.disp_left, np.asarray(jres.disp_left))
     assert got.disp_right is None
     assert bad_pixel_rate(got.disp_left, gt) <= 0.30
@@ -330,16 +339,16 @@ def test_cpu_tensors_launch_no_kernel():
     L, R, _ = make_pair(20, 24, 6, seed=2)
     lt, rt = pair_to_torch(L, R, "cpu")
     before = dict(window_cost_cuda.LAUNCHES)
-    res = get_pipeline("sad")[0](lt, rt, cfgs.SADConfig(max_disparity=6, run_post=True))
-    get_pipeline("ncc")[0](lt, rt, cfgs.NCCConfig(disp_range=6, win_size=2))
+    res = get_pipeline("sad")[0](lt, rt, SADConfig(max_disparity=6, run_post=True))
+    get_pipeline("ncc")[0](lt, rt, NCCConfig(disp_range=6, win_size=2))
     assert window_cost_cuda.LAUNCHES == before
     assert res.disp_final.device.type == "cpu"
 
 
 @pytest.mark.parametrize("name,cfg,kwargs,match", [
-    ("ncc", cfgs.NCCConfig(disp_range=4, variant="shifted"), {}, "Queue 1 item 7"),
-    ("sad", cfgs.SADConfig(max_disparity=4), {"return_stages": True}, "Queue 1 item 8"),
-    ("ncc", cfgs.NCCConfig(disp_range=4), {"return_stages": True}, "Queue 1 item 8"),
+    ("ncc", NCCConfig(disp_range=4, variant="shifted"), {}, "Queue 1 item 7"),
+    ("sad", SADConfig(max_disparity=4), {"return_stages": True}, "Queue 1 item 8"),
+    ("ncc", NCCConfig(disp_range=4), {"return_stages": True}, "Queue 1 item 8"),
 ], ids=["ncc_shifted", "sad_return_stages", "ncc_return_stages"])
 def test_unported_modes_raise(name, cfg, kwargs, match):
     L, R, _ = make_pair(8, 8, 2, seed=0)
@@ -348,8 +357,8 @@ def test_unported_modes_raise(name, cfg, kwargs, match):
 
 
 @pytest.mark.parametrize("cfg", [
-    cfgs.NCCConfig(disp_range=4, variant="bogus"),
-    cfgs.NCCConfig(disp_range=4, invalid_mode="bogus"),
+    NCCConfig(disp_range=4, variant="bogus"),
+    NCCConfig(disp_range=4, invalid_mode="bogus"),
 ], ids=["variant", "invalid_mode"])
 def test_unknown_ncc_options_rejected(cfg):
     L, R, _ = make_pair(8, 8, 2, seed=0)

@@ -2,6 +2,7 @@
 ``stereo_match_traditional_tpu_torch`` against the JAX package's
 ``lax.scan`` on the same volume (JAX on the CPU backend)."""
 
+import dataclasses
 import functools
 
 import jax.numpy as jnp
@@ -15,6 +16,7 @@ from stereo_match_traditional_tpu.ops import volume as jvol
 from stereo_match_traditional_tpu.utils.synthetic import make_pair
 from stereo_match_traditional_tpu_torch.ops import scanline as tscan
 from stereo_match_traditional_tpu_torch.ops.kernels import scanline_cuda
+from stereo_match_traditional_tpu_torch.utils.convert import config_from_dict
 
 CONFIGS = [
     ScanlineConfig(),
@@ -40,7 +42,8 @@ def test_scanline_optimize_bit_exact(cfg, h, w, d, seed):
     exact equality, for every flag combination."""
     vol, gray = _inputs(h, w, d, seed)
     want = np.asarray(jscan.scanline_optimize(jnp.asarray(vol), jnp.asarray(gray), cfg))
-    got = tscan.scanline_optimize(torch.tensor(vol), torch.tensor(gray), cfg).numpy()
+    port_cfg = config_from_dict("ScanlineConfig", dataclasses.asdict(cfg))
+    got = tscan.scanline_optimize(torch.tensor(vol), torch.tensor(gray), port_cfg).numpy()
     assert got.shape == (d, h, w) and got.dtype == np.float32
     np.testing.assert_array_equal(got, want)
 
