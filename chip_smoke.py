@@ -83,14 +83,28 @@ MIN_WTA_AGREE = 0.995                    # card vs the CPU plain path
 
 # (h, w, D, winsize, seed) for the SAD kernel against its plain version:
 # small odd shapes, one with D > W, a 61x61 window (above 48 KB of shared
-# memory), the reference size (9x9 window)
-SAD_GEOMETRIES = [(13, 17, 5, 1, 3), (9, 6, 10, 3, 5), (40, 70, 8, 29, 4), (375, 450, 60, 3, 0)]
+# memory), the reference size (9x9 window); then the edges of the sliding
+# design: fewer rows than one run and than the window (5 < 9) with several
+# strips and a D that is no multiple of the 32-disparity chunk, one row, one
+# column, a W that is no multiple of 4 with a ragged last strip, the largest
+# radius taken (65x65), and the serving size (W a multiple of 4, 11 strips)
+SAD_GEOMETRIES = [(13, 17, 5, 1, 3), (9, 6, 10, 3, 5), (40, 70, 8, 29, 4), (375, 450, 60, 3, 0),
+                  (5, 150, 70, 3, 6), (1, 40, 7, 2, 1), (33, 1, 9, 2, 2), (20, 131, 40, 4, 7),
+                  (70, 90, 12, 31, 8), (720, 1280, 128, 3, 1)]
 # (h, w, D, win_size, seed) for the NCC kernel: a small odd shape, the
 # reference size at D=60 and at the committed D=200, and a window above
-# win_size 15, where the sums may round (held within NCC_WIDE_TOL)
+# win_size 15, where the sums may round (held within NCC_WIDE_TOL); then the
+# same edges as SAD's, D > W, the largest bit-exact window (31x31), the
+# largest radius taken (65x65, within NCC_WIDE_TOL) and the serving size
 NCC_GEOMETRIES = [(13, 17, 5, 2, 3), (375, 450, 60, 10, 0), (375, 450, 200, 10, 0),
-                  (96, 128, 30, 17, 2)]
+                  (96, 128, 30, 17, 2), (5, 150, 70, 3, 6), (1, 40, 7, 2, 1), (33, 1, 9, 2, 2),
+                  (20, 131, 40, 4, 7), (9, 6, 10, 3, 5), (70, 90, 12, 15, 8),
+                  (70, 90, 12, 32, 8), (720, 1280, 128, 10, 1)]
 NCC_WIDE_TOL = 1e-5
+# (h, w, D, radius parameter, seed) for non-integer inputs, where the sliding
+# float32 sums round along their walk (window_cost_cuda.FLOAT_RTOL): several
+# runs of rows and strips
+FLOAT_GEOMETRY = (150, 200, 40, 4, 5)
 MAX_BAD2_WINDOW = {"sad": 0.30, "ncc": 0.30, "cblsm": 0.20}  # tests/test_tpu_smoke.py:34-38
 
 
@@ -142,6 +156,24 @@ def alternate(plain, kernel, plain_reps: int, kernel_reps: int):
     k = cuda_ms(kernel, kernel_reps) + cuda_ms(kernel, kernel_reps)
     p += cuda_ms(plain, plain_reps)
     return statistics.median(k), statistics.median(p)
+
+
+def back_to_back_ms(fn, reps: int = 20) -> float:
+    """Device ms per call: ``reps`` calls enqueued back to back between two
+    CUDA events, after a warm-up call, so that the host's part of a call
+    hides behind the kernels of the calls before it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def main() -> None:
@@ -536,7 +568,7 @@ def window_phases() -> dict:
     from stereo_match_traditional_tpu_torch.models.cblsm import cblsm_post
     from stereo_match_traditional_tpu_torch.models.sad import sad_post
     from stereo_match_traditional_tpu_torch.ops import aggregate, post, volume, wta
-    from stereo_match_traditional_tpu_torch.ops.kernels import ad_census_cuda
+    from stereo_match_traditional_tpu_torch.ops.kernels import ad_census_cuda, build
     from stereo_match_traditional_tpu_torch.ops.kernels import window_cost_cuda as wc
     from stereo_match_traditional_tpu_torch.utils.convert import (
         pair_to_torch, result_to_numpy,
@@ -546,6 +578,10 @@ def window_phases() -> dict:
     )
 
     def cuda_pair(h, w, d, seed):
+        if min(h, w) == 1:   # too small for a synthetic scene: random u8 images
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            return tuple(torch.randint(0, 256, (h, w), device="cuda", generator=gen,
+                                       dtype=torch.uint8) for _ in range(2))
         L, R, _ = make_pair(h, w, min(d, w - 1), seed=seed)
         return pair_to_torch(L, R, "cuda")
 
@@ -568,6 +604,15 @@ def window_phases() -> dict:
     for h, w, d, win, seed in NCC_GEOMETRIES:
         lt, rt = cuda_pair(h, w, d, seed)
         rec = {"phase": "kernel_check", "kernel": "ncc_volume_f32", "geometry": [h, w, d, win]}
+        # the sums kernel alone: bit-exact while every sum is an exact integer
+        sums = wc.ncc_sums_cuda(lt, rt, win)
+        want_sums = volume.ncc_sums(lt, rt, win)[2]
+        rec["window_sums_bit_exact"] = [torch.equal(g, t) for g, t in zip(sums, want_sums)]
+        if win <= 15:
+            check(all(rec["window_sums_bit_exact"]), rec)
+        else:   # sums of squares above 2^24 round along the horizontal walk
+            for g, t in zip(sums, want_sums):
+                torch.testing.assert_close(g, t, rtol=NCC_WIDE_TOL, atol=0.0)
         for mode in ("ignore", "sentinel"):
             got, interior = wc.ncc_volume_cuda(lt, rt, d, win, mode)
             want, want_in = volume.ncc_volume(lt, rt, d, win, mode)
@@ -583,6 +628,33 @@ def window_phases() -> dict:
             else:
                 torch.testing.assert_close(got, want, rtol=NCC_WIDE_TOL, atol=NCC_WIDE_TOL)
         emit(rec)
+    # non-integer inputs: a u8 scene plus uniform noise for SAD, whose terms are
+    # of one sign (relative tolerance); a texture uniform over [0, 255) and its
+    # shifted, noisy copy for NCC, so that the cross sum's error, FLOAT_RTOL of
+    # the sum of its terms' magnitudes, is ~FLOAT_RTOL of sqrt(var_l * var_r) too
+    h, w, d, win, seed = FLOAT_GEOMETRY
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lt, rt = (t.float() + torch.rand((h, w), device="cuda", generator=gen)
+              for t in cuda_pair(h, w, d, seed))
+    rec = {"phase": "kernel_check", "inputs": "non-integer float32", "geometry": [h, w, d, win],
+           "rtol": wc.FLOAT_RTOL}
+    for view in ("left", "right"):
+        got = wc.sad_volume_cuda(lt, rt, d, win, view)
+        want = volume.sad_volume(lt, rt, d, win, view)
+        rec[f"sad_{view}_max_rel_err"] = ((got - want).abs() / want).max().item()
+        torch.testing.assert_close(got, want, rtol=wc.FLOAT_RTOL, atol=0.0)
+    lt = torch.rand((h, w), device="cuda", generator=gen) * 255.0
+    rt = torch.roll(lt, -3, 1) + torch.rand((h, w), device="cuda", generator=gen) * 8.0
+    n = float((2 * win + 1) ** 2)
+    for g, t, one_sign in zip(wc.ncc_sums_cuda(lt, rt, win), volume.ncc_sums(lt, rt, win)[2],
+                              (False, True, False, True)):
+        torch.testing.assert_close(g, t, rtol=wc.FLOAT_RTOL,
+                                   atol=0.0 if one_sign else wc.FLOAT_RTOL * n * 128.0)
+    got = wc.ncc_volume_cuda(lt, rt, d, win)[0]
+    want = volume.ncc_volume(lt, rt, d, win)[0]
+    rec["ncc_max_abs_err"] = (got - want).abs().max().item()
+    emit(rec)
+    torch.testing.assert_close(got, want, rtol=0.0, atol=2 * wc.FLOAT_RTOL)
 
     # -- 10. the three slices through their entry point --------------------
     h, w, d = TEDDY
@@ -645,6 +717,7 @@ def window_phases() -> dict:
                            lambda a, b, dd: wc.ncc_volume_cuda(a, b, dd, 10)),
     }
     serving = cuda_pair(*SERVING, 1)
+
     kernel_ms = {}
     for kernel, (a, b), dd in (("sad_volume_f32", (lt, rt), d), ("ncc_volume_f32", (lt, rt), d),
                                ("ncc_volume_f32", (lt, rt), 200),
@@ -653,10 +726,29 @@ def window_phases() -> dict:
         plain_fn, kernel_fn = versions[kernel]
         k_ms, p_ms = alternate(lambda: plain_fn(a, b, dd), lambda: kernel_fn(a, b, dd),
                                plain_reps=3, kernel_reps=10)
+        # kernel_ms: the wrapper, one call at a time; back_to_back_ms: 20 calls
+        # of it enqueued at once (the host's part of a call behind the kernels)
         kernel_ms[kernel, f"{a.shape[0]}x{a.shape[1]}/D={dd}"] = {
-            "kernel_ms": k_ms, "plain_ms": p_ms, "speedup": p_ms / k_ms}
+            "kernel_ms": k_ms, "back_to_back_ms": back_to_back_ms(lambda: kernel_fn(a, b, dd)),
+            "plain_ms": p_ms, "speedup": p_ms / k_ms}
     emit({"phase": "timing_kernels", "kernel_vs_plain_ms":
           {f"{k} @ {s}": v for (k, s), v in kernel_ms.items()}})
+    # The sums kernel alone: its C entry into a scratch allocated once (its
+    # wrapper's host time, ~30 us a call, is longer than the kernel).
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    sums_ms = {}
+    for a, b in ((lt, rt), serving):
+        hh, ww = a.shape
+        planes = torch.empty((8, hh, ww), device="cuda")
+
+        def sums_entry():
+            rc = lib.ncc_window_sums_f32(a.data_ptr(), b.data_ptr(), 1, planes.data_ptr(),
+                                         hh, ww, 10, stream)
+            check(rc == 0, ("ncc_window_sums_f32", "CUDA error", rc))
+        sums_ms[f"{hh}x{ww}"] = back_to_back_ms(sums_entry)
+    emit({"phase": "timing_kernels", "ncc_window_sums_f32 (C entry alone, back to back) ms":
+          sums_ms})
 
     pipe_ms = {}
     for name, label, cfg, _ in slices:
@@ -721,7 +813,8 @@ def window_phases() -> dict:
             "post.median": lambda: post.median_filter(cspk, cb.median_size, "truncate"),
         },
         "ncc D=200": {
-            "window_sums (4 box sums)": lambda: volume.ncc_sums(lt, rt, 10),
+            "window_sums (wrapper of the sums kernel)": lambda: wc.ncc_sums_cuda(lt, rt, 10),
+            "window_sums (plain: 4 box sums)": lambda: volume.ncc_sums(lt, rt, 10),
             "cost (wrapper, sums included)": lambda: wc.ncc_volume_cuda(lt, rt, 200, 10),
             "wta_argmax": lambda: wta.wta(ncc_vol, "max"),
         },
@@ -747,10 +840,11 @@ def window_phases() -> dict:
                            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
                            **bound(2 * h * w + 4 * dd * h * w, flop * dd * h * w),
                            "library_ms": None}
-    # ncc's ms is the wrapper's: the four plain window sums, then the kernel
+    # ncc's ms is the wrapper's: the sums kernel, then the volume kernel;
+    # window_sums_ms is the sums kernel alone (its C entry, back to back)
     summary["ncc_volume_f32"].update(
-        ms_covers="wrapper (plain window sums + kernel)",
-        window_sums_ms=stage_ms["ncc D=200"]["window_sums (4 box sums)"])
+        ms_covers="wrapper (sums kernel + volume kernel)",
+        window_sums_ms=sums_ms[f"{h}x{w}"])
     return summary
 
 

@@ -101,9 +101,11 @@ def library() -> ctypes.CDLL:
     lib.scanline_optimize_f32.argtypes = [vp, vp, vp, vp, i32, i32, i32, f32, f32,
                                           i32, i32, vp]
     lib.scanline_optimize_f32.restype = i32
-    lib.sad_volume_f32.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
+    lib.sad_volume_f32.argtypes = [vp, vp, i32, vp, i32, i32, i32, i32, i32, i32, vp]
     lib.sad_volume_f32.restype = i32
-    lib.ncc_volume_f32.argtypes = [vp] * 7 + [i32, i32, i32, i32, f32, f32, vp]
+    lib.ncc_window_sums_f32.argtypes = [vp, vp, i32, vp, i32, i32, i32, vp]
+    lib.ncc_window_sums_f32.restype = i32
+    lib.ncc_volume_f32.argtypes = [vp, vp, i32, vp, vp, i32, i32, i32, i32, f32, f32, vp]
     lib.ncc_volume_f32.restype = i32
     lib.stereo_kernels_error_string.argtypes = [i32]
     lib.stereo_kernels_error_string.restype = ctypes.c_char_p

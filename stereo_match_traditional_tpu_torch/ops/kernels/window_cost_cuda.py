@@ -1,24 +1,36 @@
 """CUDA windowed SAD and NCC cost volumes (``csrc/window_cost.cu``).
 
-Counterparts of ``ops.volume.sad_volume`` and ``ops.volume.ncc_volume``,
-which are their plain versions; the kernels replace the JAX package's
-``volume.sad_volume`` (`stereo_match_traditional_tpu/ops/volume.py:224`)
-and ``volume.ncc_volume`` (`:296`).  Dispatch is by the device of the
-inputs, never by a fallback: CPU tensors take the plain version; CUDA
-tensors launch the kernel or raise.
+Counterparts of ``ops.volume.sad_volume``, ``ops.volume.ncc_volume`` and
+``ops.volume.ncc_sums``, which are their plain versions; the kernels
+replace the JAX package's ``volume.sad_volume``
+(`stereo_match_traditional_tpu/ops/volume.py:224`) and
+``volume.ncc_volume`` (`:296`).  Dispatch is by the device of the inputs,
+never by a fallback: CPU tensors take the plain version; CUDA tensors
+launch the kernel or raise.
 
-Exactness: for u8-valued inputs every window sum is an integer below 2^24,
-so SAD volumes (any radius the kernel takes) and NCC volumes up to
-``win_size`` 15 are bit-exact with the plain versions; above that, or for
-non-integer inputs, the float sums round in another order and agree within
-a tolerance.  Border rule: a SAD output takes the window at the effective
-disparity ``min(d, j)`` (``min(d, W-1-j)`` for the right view) with reads
+The kernels slide their sums (a column sum down the rows of a run, a window
+sum along a short run of columns) instead of summing each window anew.
+Exactness: for u8-valued inputs every partial sum is an integer below 2^24,
+so SAD volumes (any radius the kernel takes), the four NCC window sums and
+NCC volumes up to ``win_size`` 15 are bit-exact with the plain versions.
+Above that only the last, horizontal sums round (differences of ~1e-6,
+held to 1e-5).  For non-integer inputs a sliding float32 sum carries its
+roundings along the walk, which the kernel restarts every run of at most 24
+rows and 8 columns: a sum of terms of one sign (SAD, the sums of squares)
+stays within ``FLOAT_RTOL`` of the plain version's float64 sum, and a
+signed sum (the NCC cross sums) within ``FLOAT_RTOL`` of the sum of its
+terms' magnitudes.  Both images uint8 are read by the kernels as they are;
+anything else is handed over as float32.
+
+Border rule: a SAD output takes the window at the effective disparity ``min(d, j)`` (``min(d, W-1-j)`` for the right view) with reads
 clamped into the image, which is ``border_fill`` of the padded box sum; the
 NCC cross sum is zero outside the image and the volume holds the sentinel
 where ``j - win_size - d < 0``.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -30,7 +42,16 @@ from stereo_match_traditional_tpu_torch.ops.kernels.ad_census_cuda import _on_cu
 # increment them.
 LAUNCHES = {"sad_volume_f32": 0, "ncc_volume_f32": 0}
 
-MAX_RADIUS = 32  # shared memory: base tile, band and column sums, < 63 KB
+# The widest strip a block holds is 128 columns of column sums, of which 2 *
+# radius are halo: at radius 32 a block still writes 64 columns, from 169 KB
+# of shared memory (two image bands of 24 + 2 * radius rows, the
+# double-buffered tiles of column sums and window sums) of the 227 KB a block
+# may take.  The kernels take any H, W and D >= 1.
+MAX_RADIUS = 32
+# What non-integer inputs are held to against the plain version (above): at
+# most 2 * 24 + 65 + 16 roundings of half an ulp (2^-24) each, were they all
+# of one sign.
+FLOAT_RTOL = 1e-5
 
 
 def _check(left, right, disp_range, radius):
@@ -46,12 +67,28 @@ def _check(left, right, disp_range, radius):
         raise ValueError(f"window radius must be in [1, {MAX_RADIUS}], got {radius}")
 
 
-def _count_launch(lib, name, err):
-    """Raise if the C entry point reported an error, else count the launch."""
+def _kernel_inputs(left, right):
+    """The images as the kernels read them, contiguous: both uint8 as they
+    are, anything else as float32; and the entries' ``u8`` flag."""
+    u8 = left.dtype == right.dtype == torch.uint8
+    if not u8:
+        left, right = left.to(torch.float32), right.to(torch.float32)
+    return left.contiguous(), right.contiguous(), int(u8)
+
+
+def _current(device):
+    """A context in which ``device`` is the current CUDA device; it costs
+    nothing where it already is (``torch.cuda.device`` costs ~10 us a call)."""
+    if torch.cuda.current_device() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _raise_on_error(lib, name, err):
+    """Raise if the C entry point ``name`` reported a CUDA error."""
     if err != 0:
         msg = lib.stereo_kernels_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({err})")
-    LAUNCHES[name] += 1
 
 
 def sad_volume_cuda(
@@ -64,8 +101,8 @@ def sad_volume_cuda(
     channel_min: bool = False,
 ) -> torch.Tensor:
     """Drop-in for ``ops.volume.sad_volume``: one launch of
-    ``sad_volume_f32`` per call for CUDA inputs (the window sums, then the
-    border triangle), the plain version for CPU inputs.  The kernel has no
+    ``sad_volume_f32`` per call for CUDA inputs (one kernel writes the
+    window sums and the border triangle), the plain version for CPU inputs.  The kernel has no
     ``channel_min`` mode, so CUDA inputs with it raise."""
     if not _on_cuda(left, right):
         return volume.sad_volume(left, right, disp_range, winsize, view, mean, channel_min)
@@ -79,18 +116,49 @@ def sad_volume_cuda(
     if view not in ("left", "right"):
         raise ValueError(f"view must be 'left' or 'right', got {view!r}")
     _check(left, right, disp_range, winsize + 1)
-    lf = left.to(torch.float32).contiguous()
-    rf = right.to(torch.float32).contiguous()
-    h, w = lf.shape
-    out = torch.empty((disp_range, h, w), dtype=torch.float32, device=lf.device)
+    lk, rk, u8 = _kernel_inputs(left, right)
+    h, w = lk.shape
+    out = torch.empty((disp_range, h, w), dtype=torch.float32, device=lk.device)
     lib = library()
-    with torch.cuda.device(lf.device):
+    with _current(lk.device):
         err = lib.sad_volume_f32(
-            lf.data_ptr(), rf.data_ptr(), out.data_ptr(), h, w, disp_range, winsize + 1,
+            lk.data_ptr(), rk.data_ptr(), u8, out.data_ptr(), h, w, disp_range, winsize + 1,
             int(view == "right"), int(mean), torch.cuda.current_stream().cuda_stream,
         )
-    _count_launch(lib, "sad_volume_f32", err)
+    _raise_on_error(lib, "sad_volume_f32", err)
+    LAUNCHES["sad_volume_f32"] += 1
     return out
+
+
+def _ncc_planes(like):
+    """The ``[8, H, W]`` float32 scratch the sums kernel writes: ``sum_l,
+    sum_l2, sum_r, sum_r2``, then the pairs ``(sum_l, var_l)`` and ``(sum_r,
+    var_r)`` as the volume kernel reads them."""
+    return torch.empty((8, *like.shape), dtype=torch.float32, device=like.device)
+
+
+def ncc_sums_cuda(left: torch.Tensor, right: torch.Tensor, win_size: int):
+    """The four window sums of ``ops.volume.ncc_sums`` (``sum_l, sum_l2,
+    sum_r, sum_r2`` of the 128-centred images, zero-padded, float32
+    ``[H, W]``): the sums kernel alone (``ncc_window_sums_f32``, the first of
+    ``ncc_volume_f32``'s two kernels) for CUDA inputs, the plain version for
+    CPU inputs.  It is no launch of ``ncc_volume_f32`` and is not counted."""
+    if not _on_cuda(left, right):
+        return volume.ncc_sums(left, right, win_size)[2]
+    from stereo_match_traditional_tpu_torch.ops.kernels.build import library
+
+    _check(left, right, 1, win_size)
+    lk, rk, u8 = _kernel_inputs(left, right)
+    planes = _ncc_planes(lk)
+    h, w = lk.shape
+    lib = library()
+    with _current(lk.device):
+        err = lib.ncc_window_sums_f32(
+            lk.data_ptr(), rk.data_ptr(), u8, planes.data_ptr(), h, w, win_size,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error(lib, "ncc_window_sums_f32", err)
+    return planes[:4].unbind(0)
 
 
 def ncc_volume_cuda(
@@ -101,25 +169,26 @@ def ncc_volume_cuda(
     invalid_mode: str = "ignore",
     eps: float = 1e-12,
 ):
-    """Drop-in for ``ops.volume.ncc_volume`` -> ``(volume, interior)``: the
-    centred images and their four 2-D window sums in PyTorch, then one
-    launch of ``ncc_volume_f32`` (cross sums fused with the epilogue) for
-    CUDA inputs; the plain version for CPU inputs."""
+    """Drop-in for ``ops.volume.ncc_volume`` -> ``(volume, interior)``: one
+    launch of ``ncc_volume_f32`` for CUDA inputs (the sums kernel, then the
+    cross sums fused with the epilogue); the plain version for CPU inputs."""
     if not _on_cuda(left, right):
         return volume.ncc_volume(left, right, disp_range, win_size, invalid_mode, eps)
     from stereo_match_traditional_tpu_torch.ops.kernels.build import library
 
     sentinel = volume._ncc_sentinel(invalid_mode)
     _check(left, right, disp_range, win_size)
-    lf, rf, sums = volume.ncc_sums(left.contiguous(), right.contiguous(), win_size)
-    h, w = lf.shape
-    out = torch.empty((disp_range, h, w), dtype=torch.float32, device=lf.device)
+    lk, rk, u8 = _kernel_inputs(left, right)
+    planes = _ncc_planes(lk)
+    h, w = lk.shape
+    out = torch.empty((disp_range, h, w), dtype=torch.float32, device=lk.device)
     lib = library()
-    with torch.cuda.device(lf.device):
+    with _current(lk.device):
         err = lib.ncc_volume_f32(
-            lf.data_ptr(), rf.data_ptr(), *(s.data_ptr() for s in sums), out.data_ptr(),
-            h, w, disp_range, win_size, float(eps), sentinel,
+            lk.data_ptr(), rk.data_ptr(), u8, planes.data_ptr(), out.data_ptr(), h, w,
+            disp_range, win_size, float(eps), sentinel,
             torch.cuda.current_stream().cuda_stream,
         )
-    _count_launch(lib, "ncc_volume_f32", err)
-    return out, volume.ncc_interior_mask(h, w, win_size, lf.device)
+    _raise_on_error(lib, "ncc_volume_f32", err)
+    LAUNCHES["ncc_volume_f32"] += 1
+    return out, volume.ncc_interior_mask(h, w, win_size, lk.device)

@@ -18,6 +18,7 @@ from stereo_match_traditional_tpu_torch.ops import scanline, volume
 from stereo_match_traditional_tpu_torch.ops.kernels import (
     ad_census_cuda,
     asw_cuda,
+    build,
     scanline_cuda,
     window_cost_cuda,
 )
@@ -213,8 +214,25 @@ def test_scanline_kernel_checks_inputs():
 
 
 # (h, w, D, winsize, seed) for the SAD kernel: odd shapes, D > W, a 61x61
-# window (above 48 KB of shared memory), Teddy
-SAD_GEOMETRIES = [(13, 17, 5, 1, 3), (9, 6, 10, 3, 5), (40, 70, 8, 29, 4), (375, 450, 60, 3, 0)]
+# window (above 48 KB of shared memory), Teddy; then the edges of the sliding
+# design: fewer rows than one run and than the window with several strips and
+# a D that is no multiple of the 32-disparity chunk, one row, one column, a W
+# that is no multiple of 4 with a ragged last strip, an even W that is no
+# multiple of 4 (8-byte stores), the largest radius taken (65x65), and a W
+# that is a multiple of 4 (16-byte stores) over several strips
+SAD_GEOMETRIES = [(13, 17, 5, 1, 3), (9, 6, 10, 3, 5), (40, 70, 8, 29, 4), (375, 450, 60, 3, 0),
+                  (5, 150, 70, 3, 6), (1, 40, 7, 2, 1), (33, 1, 9, 2, 2), (20, 131, 40, 4, 7),
+                  (19, 134, 33, 3, 9), (70, 90, 12, 31, 8), (60, 256, 100, 3, 1)]
+
+
+def _pair_on_card(h, w, d, seed):
+    """A synthetic scene, or random u8 images where it is too small for one."""
+    if min(h, w) == 1:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return tuple(torch.randint(0, 256, (h, w), device="cuda", generator=gen,
+                                   dtype=torch.uint8) for _ in range(2))
+    L, R, _ = make_pair(h, w, min(d, w - 1), seed=seed)
+    return pair_to_torch(L, R, "cuda")
 
 
 @pytest.mark.cuda
@@ -222,21 +240,27 @@ SAD_GEOMETRIES = [(13, 17, 5, 1, 3), (9, 6, 10, 3, 5), (40, 70, 8, 29, 4), (375,
 @pytest.mark.parametrize("view", ["left", "right"])
 @pytest.mark.parametrize("h,w,d,winsize,seed", SAD_GEOMETRIES)
 def test_sad_kernel_bit_exact_on_card(h, w, d, winsize, seed, view, mean):
-    """u8 inputs: every window sum is an exact integer, so bit-exact."""
+    """u8 inputs: every term is an integer and every sliding sum a sum over
+    part of one window, so exact: bit-exact."""
     _need_card()
-    L, R, _ = make_pair(h, w, min(d, w - 1), seed=seed)
-    lt, rt = pair_to_torch(L, R, "cuda")
+    lt, rt = _pair_on_card(h, w, d, seed)
     before = window_cost_cuda.LAUNCHES["sad_volume_f32"]
     got = window_cost_cuda.sad_volume_cuda(lt, rt, d, winsize, view, mean)
     torch.cuda.synchronize()
     assert window_cost_cuda.LAUNCHES["sad_volume_f32"] == before + 1
     assert torch.equal(got, volume.sad_volume(lt, rt, d, winsize, view, mean))
+    # float32 images holding the same integers take the kernel's other load path
+    assert torch.equal(window_cost_cuda.sad_volume_cuda(lt.float(), rt.float(), d, winsize,
+                                                        view, mean), got)
 
 
 # (h, w, D, win_size, seed) for the NCC kernel: odd shapes, Teddy at D=60
-# and at the committed D=200
+# and at the committed D=200; then the same edges as SAD's, D > W, and the
+# largest window whose sums are exact (31x31)
 NCC_GEOMETRIES = [(13, 17, 5, 2, 3), (40, 70, 40, 3, 1), (375, 450, 60, 10, 0),
-                  (375, 450, 200, 10, 0)]
+                  (375, 450, 200, 10, 0), (5, 150, 70, 3, 6), (1, 40, 7, 2, 1), (33, 1, 9, 2, 2),
+                  (20, 131, 40, 4, 7), (19, 134, 33, 3, 9), (9, 6, 10, 3, 5), (70, 90, 12, 15, 8),
+                  (60, 256, 100, 10, 1)]
 
 
 @pytest.mark.cuda
@@ -245,25 +269,75 @@ NCC_GEOMETRIES = [(13, 17, 5, 2, 3), (40, 70, 40, 3, 1), (375, 450, 60, 10, 0),
 def test_ncc_kernel_bit_exact_on_card(h, w, d, win, seed, mode):
     """u8 inputs, win_size <= 15: exact sums, IEEE epilogue: bit-exact."""
     _need_card()
-    L, R, _ = make_pair(h, w, min(d, w - 1), seed=seed)
-    lt, rt = pair_to_torch(L, R, "cuda")
+    lt, rt = _pair_on_card(h, w, d, seed)
     before = window_cost_cuda.LAUNCHES["ncc_volume_f32"]
     got, interior = window_cost_cuda.ncc_volume_cuda(lt, rt, d, win, mode)
     torch.cuda.synchronize()
     assert window_cost_cuda.LAUNCHES["ncc_volume_f32"] == before + 1
     want, want_in = volume.ncc_volume(lt, rt, d, win, mode)
     assert torch.equal(got, want) and torch.equal(interior, want_in)
+    assert torch.equal(window_cost_cuda.ncc_volume_cuda(lt.float(), rt.float(), d, win, mode)[0],
+                       got)
 
 
 @pytest.mark.cuda
-def test_ncc_kernel_wide_window_on_card():
-    """win_size 17: the products' window sums may round, in another order
-    than the plain version's float64 sums: within a tolerance."""
+@pytest.mark.parametrize("h,w,d,win,seed", NCC_GEOMETRIES)
+def test_ncc_sums_kernel_bit_exact_on_card(h, w, d, win, seed):
+    """The sums kernel alone against ``volume.ncc_sums``: bit-exact for u8
+    inputs; it is no launch of ``ncc_volume_f32``."""
     _need_card()
-    L, R, _ = make_pair(96, 128, 30, seed=2)
+    lt, rt = _pair_on_card(h, w, d, seed)
+    before = dict(window_cost_cuda.LAUNCHES)
+    got = window_cost_cuda.ncc_sums_cuda(lt, rt, win)
+    torch.cuda.synchronize()
+    assert window_cost_cuda.LAUNCHES == before
+    for g, want in zip(got, volume.ncc_sums(lt, rt, win)[2], strict=True):
+        assert torch.equal(g, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,d,win", [(96, 128, 30, 17), (70, 90, 12, 32)],
+                         ids=["win17", "largest_radius"])
+def test_ncc_kernel_wide_window_on_card(h, w, d, win):
+    """win_size above 15: the column sums are still exact, the last,
+    horizontal sums of the products may round, in another order than the
+    plain version's float64 sums: within a tolerance."""
+    _need_card()
+    L, R, _ = make_pair(h, w, d, seed=2)
     lt, rt = pair_to_torch(L, R, "cuda")
-    got, _ = window_cost_cuda.ncc_volume_cuda(lt, rt, 30, 17)
-    torch.testing.assert_close(got, volume.ncc_volume(lt, rt, 30, 17)[0], rtol=1e-5, atol=1e-5)
+    got, _ = window_cost_cuda.ncc_volume_cuda(lt, rt, d, win)
+    torch.testing.assert_close(got, volume.ncc_volume(lt, rt, d, win)[0], rtol=1e-5, atol=1e-5)
+    for g, want in zip(window_cost_cuda.ncc_sums_cuda(lt, rt, win),
+                       volume.ncc_sums(lt, rt, win)[2], strict=True):
+        torch.testing.assert_close(g, want, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_window_kernels_float_inputs_on_card():
+    """Non-integer inputs: the sliding float32 sums round along their walks
+    (restarted every run of rows and of columns).  SAD's terms are of one
+    sign: ``FLOAT_RTOL`` of the sum.  The NCC cross sum is signed: its error
+    is ``FLOAT_RTOL`` of the sum of its terms' magnitudes, which for a
+    texture uniform over [0, 255) is about ``sqrt(var_l * var_r)``, so the
+    correlation is held to twice ``FLOAT_RTOL`` absolute."""
+    _need_card()
+    h, w, d, win = 150, 200, 40, 4
+    rtol = window_cost_cuda.FLOAT_RTOL
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    lt, rt = (t.float() + torch.rand((h, w), device="cuda", generator=gen)
+              for t in _pair_on_card(h, w, d, 5))
+    for view in ("left", "right"):
+        torch.testing.assert_close(window_cost_cuda.sad_volume_cuda(lt, rt, d, win, view),
+                                   volume.sad_volume(lt, rt, d, win, view), rtol=rtol, atol=0.0)
+    lt = torch.rand((h, w), device="cuda", generator=gen) * 255.0
+    rt = torch.roll(lt, -3, 1) + torch.rand((h, w), device="cuda", generator=gen) * 8.0
+    n = float((2 * win + 1) ** 2)
+    for g, want, one_sign in zip(window_cost_cuda.ncc_sums_cuda(lt, rt, win),
+                                 volume.ncc_sums(lt, rt, win)[2], (False, True, False, True),
+                                 strict=True):
+        torch.testing.assert_close(g, want, rtol=rtol, atol=0.0 if one_sign else rtol * n * 128.0)
+    torch.testing.assert_close(window_cost_cuda.ncc_volume_cuda(lt, rt, d, win)[0],
+                               volume.ncc_volume(lt, rt, d, win)[0], rtol=0.0, atol=2 * rtol)
 
 
 @pytest.mark.cuda
@@ -288,7 +362,8 @@ def test_sad_ncc_cblsm_pipelines_launch_kernels():
         assert agree >= 0.99, (name, agree)
 
 
-@pytest.mark.parametrize("bad", ["shape", "ndim", "empty", "radius"])
+@pytest.mark.parametrize("bad", ["shape", "ndim", "empty", "radius", "radius_zero", "no_rows",
+                                 "no_columns", "negative_range", "device"])
 def test_window_launch_checks_inputs(bad):
     """The window kernels' input checks raise before the library is reached."""
     x = torch.zeros((8, 9), dtype=torch.uint8)
@@ -299,10 +374,44 @@ def test_window_launch_checks_inputs(bad):
         left = right = x[None]
     elif bad == "empty":
         d = 0
-    else:
+    elif bad == "negative_range":
+        d = -3
+    elif bad == "radius":
         radius = window_cost_cuda.MAX_RADIUS + 1
+    elif bad == "radius_zero":
+        radius = 0
+    elif bad == "no_rows":
+        left = right = x[:0]
+    elif bad == "no_columns":
+        left = right = x[:, :0]
+    else:   # two devices (no card needed for a tensor on the meta device)
+        right = torch.zeros((8, 9), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError):
         window_cost_cuda._check(left, right, d, radius)
+
+
+def test_window_launch_check_takes_the_limits():
+    """One pixel, one disparity, the smallest and the largest radius pass."""
+    x = torch.zeros((1, 1), dtype=torch.uint8)
+    window_cost_cuda._check(x, x, 1, 1)
+    window_cost_cuda._check(x, x, 1, window_cost_cuda.MAX_RADIUS)
+
+
+@pytest.mark.parametrize("dtypes,u8", [((torch.uint8, torch.uint8), 1),
+                                       ((torch.float32, torch.float32), 0),
+                                       ((torch.uint8, torch.float32), 0),
+                                       ((torch.float64, torch.int32), 0)],
+                         ids=["u8", "f32", "mixed", "other"])
+def test_window_kernel_inputs(dtypes, u8):
+    """The kernels read two uint8 images as they are; anything else goes to
+    them as float32, contiguous either way."""
+    left = (torch.arange(72).reshape(8, 9) % 251).to(dtypes[0]).t()   # not contiguous
+    right = torch.ones((9, 8), dtype=dtypes[1])
+    lk, rk, flag = window_cost_cuda._kernel_inputs(left, right)
+    want = torch.uint8 if u8 else torch.float32
+    assert flag == u8 and lk.dtype == rk.dtype == want
+    assert lk.is_contiguous() and rk.is_contiguous()
+    assert torch.equal(lk.to(torch.float64), left.to(torch.float64))
 
 
 @pytest.mark.cuda
@@ -313,6 +422,24 @@ def test_window_kernels_reject_mixed_devices():
         window_cost_cuda.sad_volume_cuda(x.cuda(), x, 4, 1)
     with pytest.raises(ValueError):
         window_cost_cuda.ncc_volume_cuda(x, x.cuda(), 4, 2)
+    with pytest.raises(ValueError):
+        window_cost_cuda.ncc_sums_cuda(x.cuda(), x, 2)
+
+
+@pytest.mark.cuda
+def test_window_kernels_reject_radius_without_launch():
+    """A radius above the kernel's raises in the wrapper; nothing is launched."""
+    _need_card()
+    x = torch.zeros((8, 9), dtype=torch.uint8, device="cuda")
+    before = dict(window_cost_cuda.LAUNCHES)
+    big = window_cost_cuda.MAX_RADIUS + 1
+    with pytest.raises(ValueError, match="radius"):
+        window_cost_cuda.sad_volume_cuda(x, x, 4, big - 1)     # radius = winsize + 1
+    with pytest.raises(ValueError, match="radius"):
+        window_cost_cuda.ncc_volume_cuda(x, x, 4, big)
+    with pytest.raises(ValueError, match="radius"):
+        window_cost_cuda.ncc_sums_cuda(x, x, big)
+    assert window_cost_cuda.LAUNCHES == before
 
 
 @pytest.mark.cuda
@@ -324,3 +451,21 @@ def test_sad_kernel_channel_min_raises_without_launch():
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
         window_cost_cuda.sad_volume_cuda(x, x, 3, 1, "left", True, True)
     assert window_cost_cuda.LAUNCHES == before
+
+
+def test_every_c_entry_has_its_signature_bound():
+    """``build.library`` sets ``argtypes`` for every ``extern "C"`` entry of
+    the sources and for nothing else (ctypes would pass a pointer of an
+    unbound entry as a 32-bit int), with as many arguments as the entry
+    takes."""
+    import inspect
+    import re
+
+    declared = {}
+    for src in sorted(build.CSRC.glob("*.cu")):
+        for name, params in re.findall(r'extern "C"\s+[\w *]+?(\w+)\(([^)]*)\)', src.read_text()):
+            declared[name] = len([p for p in params.split(",") if p.strip()])
+    bound = {name: len([a for a in args.split(",") if a.strip()])
+             for name, args in re.findall(r"lib\.(\w+)\.argtypes = \[([^\]]*)\]",
+                                          inspect.getsource(build.library))}
+    assert len(declared) >= 7 and bound == declared

@@ -265,6 +265,40 @@ def test_ncc_volume_wide_window_close():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("win", [2, 10])
+def test_ncc_sums_close_to_jax_on_float_inputs(win):
+    """Non-integer inputs (a texture plus noise), the same numpy-seeded
+    images to both packages: the port's window sums (float64, rounded once)
+    against JAX's float32 matmuls, within what the CUDA kernel's sliding
+    float32 sums are held to on the card: ``FLOAT_RTOL`` of a sum whose terms
+    are of one sign (the squares), and of the sum of the terms' magnitudes
+    (at most 128 a term) for the signed sums."""
+    rng = np.random.default_rng(14)
+    L = (rng.random((40, 56)) * 255.0).astype(np.float32)
+    R = (np.roll(L, -3, 1) + rng.random((40, 56)) * 8.0).astype(np.float32)
+    lf_t, rf_t, sums = tvol.ncc_sums(_t(L), _t(R), win)
+    lf, rf = L - np.float32(128.0), R - np.float32(128.0)
+    np.testing.assert_array_equal(lf_t.numpy(), lf)
+    np.testing.assert_array_equal(rf_t.numpy(), rf)
+    rtol = window_cost_cuda.FLOAT_RTOL
+    n = float((2 * win + 1) ** 2)
+    for got, x, one_sign in zip(sums, (lf, lf * lf, rf, rf * rf), (False, True, False, True),
+                                strict=True):
+        want = np.asarray(jvol.box_sum_same(x, win, win))
+        np.testing.assert_allclose(got.numpy(), want, rtol=rtol,
+                                   atol=0.0 if one_sign else rtol * n * 128.0)
+
+
+def test_ncc_sums_cuda_takes_plain_version_on_cpu():
+    L, R, _ = make_pair(20, 30, 6, seed=13)
+    lt, rt = pair_to_torch(L, R, "cpu")
+    before = dict(window_cost_cuda.LAUNCHES)
+    got = window_cost_cuda.ncc_sums_cuda(lt, rt, 3)
+    assert window_cost_cuda.LAUNCHES == before
+    for g, want in zip(got, tvol.ncc_sums(lt, rt, 3)[2], strict=True):
+        assert torch.equal(g, want)
+
+
 def test_ncc_volume_cuda_takes_plain_version_on_cpu():
     L, R, _ = make_pair(20, 30, 6, seed=13)
     lt, rt = pair_to_torch(L, R, "cpu")
