@@ -70,6 +70,16 @@ TIMING_SHAPES = [(375, 450, 60, 0), (96, 256, 128, 3)]
 # small odd shapes, one with D > W, the reference size, and ROADMAP's
 # serving range (720p, D=128).
 AD_CENSUS_GEOMETRIES = [(13, 17, 5, 3), (9, 6, 10, 5), (375, 450, 60, 0), (720, 1280, 128, 1)]
+# (h, w, D, seed) for the AD-Census kernel alone, both views from one launch:
+# one row, one column, W < 32, W % 4 != 0 over two 128-column strips with a D
+# that is no multiple of the 32-disparity chunk, D > W over three chunks, D=256
+AD_CENSUS_EDGE_GEOMETRIES = [(1, 40, 7, 1), (33, 1, 9, 2), (9, 20, 12, 4), (20, 131, 33, 7),
+                             (6, 9, 70, 8), (16, 300, 256, 9)]
+# census windows other than the pipelines' 9 x 7 (the kernel's general census)
+OTHER_WINDOWS = [(5, 5), (1, 63)]
+# D * H * W above 2^31 (ROADMAP Queue 1 item 9's 4K size), left view: its row
+# H - 5 against the plain version on the 9-row band around it
+HUGE = (2160, 3840, 256)
 # (h, w, D) for the scanline kernel alone, on random costs: one row, one
 # column, one pixel, a D above the 32 lanes that is no multiple of them, and
 # rows wide enough for its 16-column blocks (W a multiple of 4, and odd with
@@ -174,6 +184,22 @@ def back_to_back_ms(fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_pair(h, w, d, seed):
+    """A synthetic scene on the card, or random u8 images where it is too
+    small for one."""
+    import torch
+
+    from stereo_match_traditional_tpu_torch.utils.convert import pair_to_torch
+    from stereo_match_traditional_tpu_torch.utils.synthetic import make_pair
+
+    if min(h, w) == 1:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return tuple(torch.randint(0, 256, (h, w), device="cuda", generator=gen,
+                                   dtype=torch.uint8) for _ in range(2))
+    L, R, _ = make_pair(h, w, min(d, w - 1), seed=seed)
+    return pair_to_torch(L, R, "cuda")
 
 
 def main() -> None:
@@ -383,27 +409,58 @@ def ad_census_phases() -> dict:
     cost_err = scan_err = 0.0
     flags = [ScanlineConfig(faithful_vertical_l2=l2, faithful_vertical_p2=p2)
              for l2 in (False, True) for p2 in (False, True)]
-    for h, w, d, seed in AD_CENSUS_GEOMETRIES:
-        L, R, _ = make_pair(h, w, min(d, w - 1), seed=seed)
-        lt, rt = pair_to_torch(L, R, "cuda")
-        for view in ("left", "right"):
-            got = ad_census_cuda.ad_census_volume_cuda(lt, rt, d, view=view)
-            want = volume.ad_census_volume(lt, rt, d, view=view)
-            ad_eq = torch.equal(ad_census_cuda.ad_volume_cuda(lt, rt, d, view),
-                                volume.ad_volume(lt, rt, d, view))
-            cen_eq = torch.equal(ad_census_cuda.census_volume_cuda(lt, rt, d, view=view),
-                                 volume.census_volume(lt, rt, d, view=view))
-            torch.cuda.synchronize()
-            rec = {"phase": "kernel_check", "kernel": "ad_census_volume_f32",
-                   "geometry": [h, w, d, view], "ad_exact": ad_eq, "census_exact": cen_eq,
-                   "max_abs_err": (got - want).abs().max().item(),
-                   "argmin_agree": (wta.wta(got) == wta.wta(want)).float().mean().item()}
-            emit(rec)
-            cost_err = max(cost_err, rec["max_abs_err"])
-            check(ad_eq and cen_eq, rec)
-            torch.testing.assert_close(got, want, rtol=AD_CENSUS_RTOL, atol=AD_CENSUS_ATOL)
+    for h, w, d, seed in AD_CENSUS_GEOMETRIES + AD_CENSUS_EDGE_GEOMETRIES:
+        lt, rt = cuda_pair(h, w, d, seed)
+        # one launch, both views: the cost, its two integer parts, the u8
+        # images against the same integers as float32 (tables against the
+        # direct formula), and the single-view entries (one null output)
+        got = ad_census_cuda.ad_census_volumes_cuda(lt, rt, d)
+        want = volume.ad_census_volumes(lt, rt, d)
+        ad = ad_census_cuda.ad_volumes_cuda(lt, rt, d)
+        cen = ad_census_cuda._launch(lt, rt, d, 9, 7, 1.0, 1.0, "both", "census")
+        as_float = ad_census_cuda.ad_census_volumes_cuda(lt.float(), rt.float(), d)
+        single = [ad_census_cuda.ad_census_volume_cuda(lt, rt, d, view=v) for v in ("left", "right")]
+        torch.cuda.synchronize()
+        rec = {"phase": "kernel_check", "kernel": "ad_census_volume_f32", "geometry": [h, w, d]}
+        for i, view in enumerate(("left", "right")):
+            rec[view] = {
+                "ad_exact": torch.equal(ad[i], volume.ad_volume(lt, rt, d, view)),
+                "census_exact": torch.equal(cen[i], volume.census_volume(lt, rt, d, view=view)),
+                "u8_equals_float32": torch.equal(got[i], as_float[i]),
+                "single_view_equal": torch.equal(got[i], single[i]),
+                "max_abs_err": (got[i] - want[i]).abs().max().item(),
+                "argmin_agree": (wta.wta(got[i]) == wta.wta(want[i])).float().mean().item()}
+        emit(rec)
+        for i, view in enumerate(("left", "right")):
+            r = rec[view]
+            cost_err = max(cost_err, r["max_abs_err"])
+            check(got[i].shape == (d, h, w) and r["ad_exact"] and r["census_exact"]
+                  and r["u8_equals_float32"] and r["single_view_equal"], rec)
+            torch.testing.assert_close(got[i], want[i], rtol=AD_CENSUS_RTOL, atol=AD_CENSUS_ATOL)
             if (h, w, d) == TEDDY:
-                check(rec["argmin_agree"] >= MIN_ARGMIN_AGREE, rec)
+                check(r["argmin_agree"] >= MIN_ARGMIN_AGREE, rec)
+        del got, want, ad, cen, as_float, single
+    # a census window other than 9 x 7 takes the kernel's general census
+    h, w, d = TEDDY
+    lt, rt = cuda_pair(h, w, d, 0)
+    for rows, cols in OTHER_WINDOWS:
+        cen = ad_census_cuda._launch(lt, rt, d, rows, cols, 1.0, 1.0, "both", "census")
+        got = ad_census_cuda.ad_census_volumes_cuda(lt, rt, d, 10.0, 30.0, rows, cols)
+        want = volume.ad_census_volumes(lt, rt, d, 10.0, 30.0, rows, cols)
+        torch.cuda.synchronize()
+        rec = {"phase": "kernel_check", "kernel": "ad_census_volume_f32",
+               "geometry": [h, w, d, f"census {rows}x{cols}"],
+               "census_exact": [torch.equal(c, volume.census_volume(lt, rt, d, rows, cols, v))
+                                for c, v in zip(cen, ("left", "right"))],
+               "max_abs_err": max((g - x).abs().max().item() for g, x in zip(got, want))}
+        emit(rec)
+        check(all(rec["census_exact"]), rec)
+        for g, x in zip(got, want):
+            torch.testing.assert_close(g, x, rtol=AD_CENSUS_RTOL, atol=AD_CENSUS_ATOL)
+        cost_err = max(cost_err, rec["max_abs_err"])
+    cost_err = max(cost_err, huge_check())
+    for h, w, d, seed in AD_CENSUS_GEOMETRIES:
+        lt, rt = cuda_pair(h, w, d, seed)
         vol = volume.ad_census_volume(lt, rt, d)
         for cfg in flags:
             got = scanline_cuda.scanline_optimize_cuda(vol, lt, cfg)
@@ -444,7 +501,7 @@ def ad_census_phases() -> dict:
     torch.cuda.synchronize()
     launches = {"ad_census_volume_f32": ad_census_cuda.LAUNCHES,
                 "scanline_optimize_f32": scanline_cuda.LAUNCHES}
-    check(launches == {"ad_census_volume_f32": 2 * MAIN_PATH_CALLS,
+    check(launches == {"ad_census_volume_f32": MAIN_PATH_CALLS,
                        "scanline_optimize_f32": MAIN_PATH_CALLS}, launches)
     out = result_to_numpy(res)
     plain = result_to_numpy(fn(*pair_to_torch(L, R, "cpu"), full))
@@ -467,11 +524,12 @@ def ad_census_phases() -> dict:
           >= MIN_WTA_AGREE and agree["disp_final"] >= MIN_FINAL_AGREE, agree)
 
     # -- 8. timing (CUDA events, after warm-up) ----------------------------
-    k_ms, p_ms = alternate(lambda: volume.ad_census_volume(lt, rt, d),
-                           lambda: ad_census_cuda.ad_census_volume_cuda(lt, rt, d),
-                           plain_reps=3, kernel_reps=10)
-    vol_l = ad_census_cuda.ad_census_volume_cuda(lt, rt, d)
-    vol_r = ad_census_cuda.ad_census_volume_cuda(lt, rt, d, view="right")
+    cost_ms = cost_timing()
+    emit({"phase": "timing_kernels", "ad_census_volume_f32 (both views)": cost_ms})
+    sh, sw, sd = SERVING
+    l2, r2 = cuda_pair(sh, sw, sd, 1)
+    teddy_cost = cost_ms[f"{h}x{w}/D={d}"]
+    vol_l, vol_r = ad_census_cuda.ad_census_volumes_cuda(lt, rt, d)
     arms_l = aggregate.cross_arms(lt, full.arms)
     arms_r = aggregate.cross_arms(rt, full.arms)
     agg_l = aggregate.rect_mean_aggregate(vol_l, arms_l)
@@ -480,7 +538,6 @@ def ad_census_phases() -> dict:
                              lambda: scanline_cuda.scanline_optimize_cuda(agg_l, lt, full.scanline),
                              plain_reps=1, kernel_reps=10)
     emit({"phase": "timing_kernels", "shape": [h, w], "disp_range": d,
-          "ad_census_volume_f32": {"kernel_ms": k_ms, "plain_ms": p_ms, "speedup": p_ms / k_ms},
           "scanline_optimize_f32": {"kernel_ms": sk_ms, "plain_ms": sp_ms,
                                     "speedup": sp_ms / sk_ms}})
 
@@ -494,8 +551,7 @@ def ad_census_phases() -> dict:
     dl, dr = wta.wta(opt), wta.wta(agg_r)
     lr = post.lr_check_consistency(dl, dr, full.lr_gate, post.INVALID)
     stages = {
-        "cost": lambda: (ad_census_cuda.ad_census_volume_cuda(lt, rt, d),
-                         ad_census_cuda.ad_census_volume_cuda(lt, rt, d, view="right")),
+        "cost": lambda: ad_census_cuda.ad_census_volumes_cuda(lt, rt, d),
         "arms": lambda: (aggregate.cross_arms(lt, full.arms), aggregate.cross_arms(rt, full.arms)),
         "rect": lambda: (aggregate.rect_mean_aggregate(vol_l, arms_l),
                          aggregate.rect_mean_aggregate(vol_r, arms_r)),
@@ -509,9 +565,6 @@ def ad_census_phases() -> dict:
     emit({"phase": "timing_pipeline", "pipeline": "ad_census", "shape": [h, w],
           "disp_range": d, **pipe, "stage_ms_FULL": stage_ms})
 
-    sh, sw, sd = SERVING
-    L2, R2, _ = make_pair(sh, sw, sd, seed=1)
-    l2, r2 = pair_to_torch(L2, R2, "cuda")
     full2 = cfg_cls(disp_range=sd, scanline=ScanlineConfig(), run_post=True)
     res2 = fn(l2, r2, full2)
     ms2 = statistics.median(cuda_ms(lambda: fn(l2, r2, full2), 3))
@@ -539,12 +592,17 @@ def ad_census_phases() -> dict:
     del wide
     volume_bytes = 4 * d * h * w
     return {
-        # one view: two u8 images in, the volume out; per value two
-        # exponentials' worth of arithmetic (~12 operations) and a popcount
+        # both views at Teddy from one launch: two u8 images in, two volumes
+        # out; per value, computed once, ~12 operations (AD, XOR, popcount,
+        # two table lookups or exponentials, an add)
         "cost": {"launches": launches["ad_census_volume_f32"],
                  "launches_per_call": launches["ad_census_volume_f32"] / MAIN_PATH_CALLS,
-                 "max_abs_err": cost_err, "ms": k_ms, "plain_ms": p_ms,
-                 **bound(2 * h * w + volume_bytes, 12.0 * d * h * w), "library_ms": None},
+                 "max_abs_err": cost_err, "ms": teddy_cost["kernel_ms"],
+                 "plain_ms": teddy_cost["plain_ms"],
+                 "bound_ms": teddy_cost["bound_ms"], "bound_by": teddy_cost["bound_by"],
+                 "library_ms": None, "ms_covers": "both views, one launch",
+                 "back_to_back_ms": teddy_cost["kernel_back_to_back_ms"],
+                 "at_720p": cost_ms[f"{sh}x{sw}/D={sd}"]},
         # the volume in and out and the gray image; four directions of ~10
         # operations a value
         "scanline": {"launches": launches["scanline_optimize_f32"],
@@ -553,6 +611,78 @@ def ad_census_phases() -> dict:
                      **bound(2 * volume_bytes + 4 * h * w, 40.0 * d * h * w),
                      "library_ms": None},
     }
+
+
+def cost_timing() -> dict:
+    """The AD-Census cost kernel's wrapper, both views from one launch, at
+    Teddy and at 720p: the cost one call at a time (median, CUDA events)
+    against its plain version in turns, and 20 calls back to back; the AD
+    part (cblsm's) one call at a time and back to back."""
+    import torch
+
+    from stereo_match_traditional_tpu_torch.ops import volume
+    from stereo_match_traditional_tpu_torch.ops.kernels import ad_census_cuda as ac
+
+    out = {}
+    for hh, ww, dd, seed in ((*TEDDY, 0), (*SERVING, 1)):
+        a, b = cuda_pair(hh, ww, dd, seed)
+        rec = {}
+        rec["kernel_ms"], rec["plain_ms"] = alternate(
+            lambda: volume.ad_census_volumes(a, b, dd), lambda: ac.ad_census_volumes_cuda(a, b, dd),
+            plain_reps=3 if hh == TEDDY[0] else 2, kernel_reps=10)
+        rec["kernel_back_to_back_ms"] = back_to_back_ms(lambda: ac.ad_census_volumes_cuda(a, b, dd))
+        ac.ad_volumes_cuda(a, b, dd)
+        torch.cuda.synchronize()
+        rec["ad_part_ms"] = statistics.median(cuda_ms(lambda: ac.ad_volumes_cuda(a, b, dd), 20))
+        rec["ad_part_back_to_back_ms"] = back_to_back_ms(lambda: ac.ad_volumes_cuda(a, b, dd))
+        # two u8 images in, two volumes out; per value, computed once, ~12
+        # operations (AD, XOR, popcount, two table lookups, an add)
+        rec.update(bound(2 * a.numel() + 8 * dd * a.numel(), 12.0 * dd * a.numel()))
+        out[f"{hh}x{ww}/D={dd}"] = rec
+    return out
+
+
+def huge_check() -> float:
+    """D * H * W above 2^31: the left view of a random u8 pair at ``HUGE``
+    (2.12e9 values, 8.5 GB), its row H - 5 against the 9-row band around it.
+    A row's census reads four rows up and down, so the band's middle row has
+    the same signatures: the AD and Hamming parts equal the plain version's,
+    the cost equals the kernel's on the band bit for bit and the plain
+    version within ``AD_CENSUS_RTOL``.  Each volume is freed before the next.
+    Returns the cost's largest difference from the plain version."""
+    import torch
+
+    from stereo_match_traditional_tpu_torch.ops import volume
+    from stereo_match_traditional_tpu_torch.ops.kernels import ad_census_cuda
+
+    h, w, d = HUGE
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    lt, rt = (torch.randint(0, 256, (h, w), device="cuda", generator=gen, dtype=torch.uint8)
+              for _ in range(2))
+    y = h - 5
+    bl, br = lt[y - 4 : y + 5].contiguous(), rt[y - 4 : y + 5].contiguous()
+    plain = {"ad": volume.ad_volume, "census": volume.census_volume,
+             "cost": volume.ad_census_volume}
+    rec = {"phase": "kernel_check", "kernel": "ad_census_volume_f32", "geometry": [h, w, d, "left"],
+           "values": d * h * w, "row": y}
+    for part, fn in plain.items():
+        vol = ad_census_cuda._launch(lt, rt, d, 9, 7, 10.0, 30.0, "left", part)
+        row = vol[:, y].clone()
+        del vol
+        on_band = ad_census_cuda._launch(bl, br, d, 9, 7, 10.0, 30.0, "left", part)[:, 4]
+        want = fn(bl, br, d)[:, 4]
+        torch.cuda.synchronize()
+        rec[part] = {"equals_kernel_on_band": torch.equal(row, on_band),
+                     "equals_plain": torch.equal(row, want),
+                     "max_abs_err": (row - want).abs().max().item()}
+        if part == "cost":
+            check(rec[part]["equals_kernel_on_band"], rec)
+            torch.testing.assert_close(row, want, rtol=AD_CENSUS_RTOL, atol=AD_CENSUS_ATOL)
+        else:
+            check(rec[part]["equals_plain"], rec)
+    emit(rec)
+    torch.cuda.empty_cache()
+    return rec["cost"]["max_abs_err"]
 
 
 def window_phases() -> dict:
@@ -576,14 +706,6 @@ def window_phases() -> dict:
     from stereo_match_traditional_tpu_torch.utils.synthetic import (
         bad_pixel_rate, make_pair,
     )
-
-    def cuda_pair(h, w, d, seed):
-        if min(h, w) == 1:   # too small for a synthetic scene: random u8 images
-            gen = torch.Generator(device="cuda").manual_seed(seed)
-            return tuple(torch.randint(0, 256, (h, w), device="cuda", generator=gen,
-                                       dtype=torch.uint8) for _ in range(2))
-        L, R, _ = make_pair(h, w, min(d, w - 1), seed=seed)
-        return pair_to_torch(L, R, "cuda")
 
     # -- 9. the window kernel against its plain version --------------------
     err = {"sad_volume_f32": 0.0, "ncc_volume_f32": 0.0}
@@ -666,8 +788,8 @@ def window_phases() -> dict:
         ("sad", "run_post", SADConfig(run_post=True), {"sad_volume_f32": 2}),
         ("ncc", "D=200 (committed)", NCCConfig(), {"ncc_volume_f32": 1}),
         ("ncc", "D=60", NCCConfig(disp_range=60), {"ncc_volume_f32": 1}),
-        ("cblsm", "active", CBLSMConfig(), {"ad_census_volume_f32": 2}),
-        ("cblsm", "run_post", CBLSMConfig(run_post=True), {"ad_census_volume_f32": 2}),
+        ("cblsm", "active", CBLSMConfig(), {"ad_census_volume_f32": 1}),
+        ("cblsm", "run_post", CBLSMConfig(run_post=True), {"ad_census_volume_f32": 1}),
     ]
     # the summary's launches: those counted in each kernel's reference slice
     reference = {("sad", "active"): "sad_volume_f32",
@@ -769,8 +891,7 @@ def window_phases() -> dict:
                                invalid_value=post.INVALID, background=0.0)
     filled = post.fill_holes_8dir(spk, lr.occlusion, lr.mismatch, post.INVALID)
     cb = CBLSMConfig(run_post=True)
-    ad_l = ad_census_cuda.ad_volume_cuda(lt, rt, d, "left")
-    ad_r = ad_census_cuda.ad_volume_cuda(lt, rt, d, "right")
+    ad_l, ad_r = ad_census_cuda.ad_volumes_cuda(lt, rt, d)
     arms_l, arms_r = aggregate.cross_arms(lt, cb.arms), aggregate.cross_arms(rt, cb.arms)
     agg_l = aggregate.rect_mean_aggregate(ad_l, arms_l)
     agg_r = aggregate.rect_mean_aggregate(ad_r, arms_r)
@@ -797,8 +918,7 @@ def window_phases() -> dict:
             "post.median": lambda: post.median_filter(filled, 3, "truncate"),
         },
         "cblsm run_post": {
-            "cost": lambda: (ad_census_cuda.ad_volume_cuda(lt, rt, d, "left"),
-                             ad_census_cuda.ad_volume_cuda(lt, rt, d, "right")),
+            "cost": lambda: ad_census_cuda.ad_volumes_cuda(lt, rt, d),
             "arms": lambda: (aggregate.cross_arms(lt, cb.arms), aggregate.cross_arms(rt, cb.arms)),
             "rect_pass1": lambda: (aggregate.rect_mean_aggregate(ad_l, arms_l),
                                    aggregate.rect_mean_aggregate(ad_r, arms_r)),

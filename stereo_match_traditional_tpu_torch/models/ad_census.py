@@ -7,7 +7,7 @@ from stereo_match_traditional_tpu_torch.config import ADCensusConfig
 from stereo_match_traditional_tpu_torch.models.base import StereoResult
 from stereo_match_traditional_tpu_torch.ops import aggregate, post, wta
 from stereo_match_traditional_tpu_torch.ops.kernels import (
-    ad_census_volume_cuda,
+    ad_census_volumes_cuda,
     scanline_optimize_cuda,
 )
 from stereo_match_traditional_tpu_torch.utils.profiling import stage_scope
@@ -29,7 +29,12 @@ def ad_census_post(disp_l, disp_r, cfg: ADCensusConfig):
 
 
 def ad_census_pipeline(
-    left, right, cfg: ADCensusConfig = ADCensusConfig(), return_stages: bool = False
+    left,
+    right,
+    cfg: ADCensusConfig = ADCensusConfig(),
+    left_color=None,
+    right_color=None,
+    return_stages: bool = False,
 ) -> StereoResult:
     """Active path (`main.cpp:58-84`): fused AD+Census volumes L+R -> cross
     arms per image -> vertical-first rectangle-mean aggregation
@@ -38,8 +43,13 @@ def ad_census_pipeline(
     aggregated left volume (`main.cpp:86-89`); ``cfg.run_post``, the post
     chain of :func:`ad_census_post` (`main.cpp:91-94`).
 
-    The cost volume and the scanline are CUDA kernels for CUDA tensors and
-    their plain versions for CPU tensors.
+    The cost volumes (both views in one launch) and the scanline are CUDA
+    kernels for CUDA tensors and their plain versions for CPU tensors.
+
+    ``left_color`` / ``right_color`` take the reference's position; as in
+    the JAX package, only ``aggregation='cross_two_pass'`` reads them (its
+    arms come from the colour images), so the ported aggregations ignore
+    them.
     """
     if cfg.aggregation == "cross_two_pass":
         raise NotImplementedError(
@@ -61,8 +71,7 @@ def ad_census_pipeline(
     kw = dict(sigma_c=cfg.sigma_c, sigma_s=cfg.sigma_s,
               census_rows=cfg.census_rows, census_cols=cfg.census_cols)
     with stage_scope("cost_volume"):
-        vol_l = ad_census_volume_cuda(left, right, d, view="left", **kw)
-        vol_r = ad_census_volume_cuda(left, right, d, view="right", **kw)
+        vol_l, vol_r = ad_census_volumes_cuda(left, right, d, **kw)
 
     agg_l, agg_r = vol_l, vol_r
     if cfg.aggregation == "rect_mean":

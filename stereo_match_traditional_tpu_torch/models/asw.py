@@ -40,7 +40,12 @@ def asw_post(disp_l: torch.Tensor, disp_r: torch.Tensor, cfg: ASWConfig) -> torc
 
 
 def asw_pipeline(
-    left: torch.Tensor, right: torch.Tensor, cfg: ASWConfig = ASWConfig()
+    left: torch.Tensor,
+    right: torch.Tensor,
+    cfg: ASWConfig = ASWConfig(),
+    left_lab=None,
+    right_lab=None,
+    return_stages: bool = False,
 ) -> StereoResult:
     """Active reference path (`ASWeight.cpp:60-78`): 25x25 bilateral-weight
     truncated-AD volume (left; right by the shift identity) -> dual WTA ->
@@ -49,6 +54,10 @@ def asw_pipeline(
     ``cfg.use_pallas`` None or True takes the CUDA kernel
     (`ops.kernels.asw_volume_cuda`, which runs the plain version for CPU
     tensors); False takes the plain ``ops.volume.asw_volume``.
+
+    ``left_lab`` / ``right_lab`` take the reference's position; only
+    ``variant='lab'`` reads them, which is not ported, as
+    ``return_stages=True`` is not.
     """
     if cfg.variant == "lab":
         raise NotImplementedError(
@@ -62,6 +71,11 @@ def asw_pipeline(
         )
     if cfg.approx != "none":
         raise ValueError(f"unknown ASW approx {cfg.approx!r}; expected 'none' or 'grid'")
+    if return_stages:
+        raise NotImplementedError(
+            "return_stages=True is not ported yet (ROADMAP.md Queue 1 item 8, "
+            "surfaces: return_stages + checkpoint)"
+        )
     kw = dict(
         disp_range=cfg.disp_range,
         win_size=cfg.win_size,

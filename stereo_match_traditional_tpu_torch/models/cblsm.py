@@ -8,7 +8,7 @@ import torch
 from stereo_match_traditional_tpu_torch.config import CBLSMConfig
 from stereo_match_traditional_tpu_torch.models.base import StereoResult
 from stereo_match_traditional_tpu_torch.ops import aggregate, post, wta
-from stereo_match_traditional_tpu_torch.ops.kernels.ad_census_cuda import ad_volume_cuda
+from stereo_match_traditional_tpu_torch.ops.kernels.ad_census_cuda import ad_volumes_cuda
 from stereo_match_traditional_tpu_torch.utils.profiling import stage_scope
 
 
@@ -68,14 +68,13 @@ def cblsm_pipeline(
     pass after the first aggregates both volumes with the left arms, as one
     stacked ``[2D, H, W]`` pass.  ``run_post`` runs :func:`cblsm_post`.
 
-    The AD volumes are the AD part of the CUDA AD-Census kernel for CUDA
-    tensors and its plain version for CPU tensors.
+    The AD volumes are the AD part of the CUDA AD-Census kernel, both views
+    in one launch, for CUDA tensors and its plain version for CPU tensors.
     """
     _check_config(cfg, return_stages)
     d = cfg.disp_range
     with stage_scope("cost_volume"):
-        agg_l = ad_volume_cuda(left, right, d, "left")
-        agg_r = ad_volume_cuda(left, right, d, "right")
+        agg_l, agg_r = ad_volumes_cuda(left, right, d)
 
     if cfg.aggregation == "rect_mean":
         with stage_scope("arms"):

@@ -9,11 +9,14 @@ cumsums) plus four corner picks per pixel.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from stereo_match_traditional_tpu_torch.config import CrossArmConfig
+
+# The JAX package's rect_mean_aggregate layouts; each runs the port's one layout
+RECT_LAYOUTS = ("auto", "dmajor", "pixel_major")
 
 
 class Arms(NamedTuple):
@@ -124,7 +127,13 @@ def _rect_sums(vol: torch.Tensor, i0, i1, j0, j1) -> torch.Tensor:
     return out.reshape(d, h, w).to(vol.dtype)
 
 
-def rect_mean_aggregate(vol: torch.Tensor, arms: Arms, inclusive: bool = True) -> torch.Tensor:
+def rect_mean_aggregate(
+    vol: torch.Tensor,
+    arms: Arms,
+    inclusive: bool = True,
+    max_span: Optional[int] = None,
+    layout: str = "auto",
+) -> torch.Tensor:
     """Per-pixel arm-rectangle mean over each disparity slice of ``vol``
     [D, H, W].
 
@@ -133,7 +142,17 @@ def rect_mean_aggregate(vol: torch.Tensor, arms: Arms, inclusive: bool = True) -
     ``inclusive=False`` the dormant exclusive-upper `Aggregation`
     (`CrossArm.cpp:104-145`).  Where an exclusive rectangle is empty the
     centre cost is kept (the reference divides 0/0 there).
+
+    ``max_span`` and ``layout`` take the JAX package's positions and values
+    so that its call sites copy across.  There they choose how the TPU
+    gathers (a row-chunked gather source bounded by ``max_span``; the
+    ``'dmajor'`` or ``'pixel_major'`` SAT layout): the TPU layouts are not
+    ported (ROADMAP.md, North star), so every ``layout`` runs the port's one
+    layout and ``max_span`` changes nothing.  An unknown ``layout`` raises
+    ``ValueError``.
     """
+    if layout not in RECT_LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; expected one of {RECT_LAYOUTS}")
     h, w = vol.shape[-2:]
     ii = torch.arange(h, device=vol.device, dtype=torch.int64)[:, None]
     jj = torch.arange(w, device=vol.device, dtype=torch.int64)[None, :]

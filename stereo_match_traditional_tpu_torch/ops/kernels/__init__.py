@@ -2,6 +2,7 @@
 
 from stereo_match_traditional_tpu_torch.ops.kernels.ad_census_cuda import (  # noqa: F401
     ad_census_volume_cuda,
+    ad_census_volumes_cuda,
 )
 from stereo_match_traditional_tpu_torch.ops.kernels.asw_cuda import asw_volume_cuda  # noqa: F401
 from stereo_match_traditional_tpu_torch.ops.kernels.scanline_cuda import (  # noqa: F401

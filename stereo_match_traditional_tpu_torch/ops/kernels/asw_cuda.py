@@ -16,6 +16,7 @@ import math
 import torch
 
 from stereo_match_traditional_tpu_torch.ops import volume
+from stereo_match_traditional_tpu_torch.ops.kernels.launch import stream
 
 # Kernel launches so far; a run resets it to show its path went through
 # the kernel.  Only the launch below increments it.
@@ -53,11 +54,10 @@ def _launch_left(
     lib = library()
     out = torch.empty((disp_range, h, w), dtype=torch.float32, device=left.device)
     with torch.cuda.device(left.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = lib.asw_volume_left_f32(
             left.data_ptr(), right.data_ptr(), out.data_ptr(), h, w, disp_range,
             radius, math.log2(math.e) / (2.0 * color_sigma**2),
-            math.log2(math.e) / space_sigma**2, float(truncation), stream,
+            math.log2(math.e) / space_sigma**2, float(truncation), stream(left.device),
         )
     if err != 0:
         msg = lib.stereo_kernels_error_string(err).decode()

@@ -95,8 +95,8 @@ def library() -> ctypes.CDLL:
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.asw_volume_left_f32.argtypes = [vp, vp, vp, i32, i32, i32, i32, f32, f32, f32, vp]
     lib.asw_volume_left_f32.restype = i32
-    lib.ad_census_volume_f32.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                                         f32, f32, i32, i32, vp]
+    lib.ad_census_volume_f32.argtypes = [vp, vp, i32, vp, vp, vp, i32, i32, i32, i32, i32,
+                                         f32, f32, i32, vp]
     lib.ad_census_volume_f32.restype = i32
     lib.scanline_optimize_f32.argtypes = [vp, vp, vp, vp, i32, i32, i32, f32, f32,
                                           i32, i32, vp]

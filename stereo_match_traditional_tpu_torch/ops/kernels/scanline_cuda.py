@@ -11,6 +11,7 @@ import torch
 
 from stereo_match_traditional_tpu_torch.config import ScanlineConfig
 from stereo_match_traditional_tpu_torch.ops import scanline
+from stereo_match_traditional_tpu_torch.ops.kernels.launch import stream
 
 # Kernel launches so far (one per call of the C entry point, which runs the
 # horizontal and the two vertical kernels); a run resets it to show its path
@@ -58,7 +59,7 @@ def scanline_optimize_cuda(
         err = lib.scanline_optimize_f32(
             c.data_ptr(), g.data_ptr(), scratch.data_ptr(), out.data_ptr(), d, h, w,
             float(p1), float(p2), int(not cfg.faithful_vertical_l2),
-            int(cfg.faithful_vertical_p2), torch.cuda.current_stream().cuda_stream,
+            int(cfg.faithful_vertical_p2), stream(c.device),
         )
     if err != 0:
         msg = lib.stereo_kernels_error_string(err).decode()

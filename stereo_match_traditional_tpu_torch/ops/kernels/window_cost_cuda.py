@@ -30,12 +30,16 @@ where ``j - win_size - d < 0``.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from stereo_match_traditional_tpu_torch.ops import volume
-from stereo_match_traditional_tpu_torch.ops.kernels.ad_census_cuda import _on_cuda
+from stereo_match_traditional_tpu_torch.ops.kernels.launch import (
+    current,
+    kernel_inputs,
+    on_cuda,
+    raise_on_error,
+    stream,
+)
 
 # Kernel launches so far, one per call of each C entry point; a run resets
 # them to show its path went through the kernels.  Only the launches below
@@ -67,30 +71,6 @@ def _check(left, right, disp_range, radius):
         raise ValueError(f"window radius must be in [1, {MAX_RADIUS}], got {radius}")
 
 
-def _kernel_inputs(left, right):
-    """The images as the kernels read them, contiguous: both uint8 as they
-    are, anything else as float32; and the entries' ``u8`` flag."""
-    u8 = left.dtype == right.dtype == torch.uint8
-    if not u8:
-        left, right = left.to(torch.float32), right.to(torch.float32)
-    return left.contiguous(), right.contiguous(), int(u8)
-
-
-def _current(device):
-    """A context in which ``device`` is the current CUDA device; it costs
-    nothing where it already is (``torch.cuda.device`` costs ~10 us a call)."""
-    if torch.cuda.current_device() == device.index:
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
-def _raise_on_error(lib, name, err):
-    """Raise if the C entry point ``name`` reported a CUDA error."""
-    if err != 0:
-        msg = lib.stereo_kernels_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
-
-
 def sad_volume_cuda(
     left: torch.Tensor,
     right: torch.Tensor,
@@ -104,7 +84,7 @@ def sad_volume_cuda(
     ``sad_volume_f32`` per call for CUDA inputs (one kernel writes the
     window sums and the border triangle), the plain version for CPU inputs.  The kernel has no
     ``channel_min`` mode, so CUDA inputs with it raise."""
-    if not _on_cuda(left, right):
+    if not on_cuda(left, right):
         return volume.sad_volume(left, right, disp_range, winsize, view, mean, channel_min)
     from stereo_match_traditional_tpu_torch.ops.kernels.build import library
 
@@ -116,16 +96,16 @@ def sad_volume_cuda(
     if view not in ("left", "right"):
         raise ValueError(f"view must be 'left' or 'right', got {view!r}")
     _check(left, right, disp_range, winsize + 1)
-    lk, rk, u8 = _kernel_inputs(left, right)
+    lk, rk, u8 = kernel_inputs(left, right)
     h, w = lk.shape
     out = torch.empty((disp_range, h, w), dtype=torch.float32, device=lk.device)
     lib = library()
-    with _current(lk.device):
+    with current(lk.device):
         err = lib.sad_volume_f32(
             lk.data_ptr(), rk.data_ptr(), u8, out.data_ptr(), h, w, disp_range, winsize + 1,
-            int(view == "right"), int(mean), torch.cuda.current_stream().cuda_stream,
+            int(view == "right"), int(mean), stream(lk.device),
         )
-    _raise_on_error(lib, "sad_volume_f32", err)
+    raise_on_error(lib, "sad_volume_f32", err)
     LAUNCHES["sad_volume_f32"] += 1
     return out
 
@@ -143,21 +123,21 @@ def ncc_sums_cuda(left: torch.Tensor, right: torch.Tensor, win_size: int):
     ``[H, W]``): the sums kernel alone (``ncc_window_sums_f32``, the first of
     ``ncc_volume_f32``'s two kernels) for CUDA inputs, the plain version for
     CPU inputs.  It is no launch of ``ncc_volume_f32`` and is not counted."""
-    if not _on_cuda(left, right):
+    if not on_cuda(left, right):
         return volume.ncc_sums(left, right, win_size)[2]
     from stereo_match_traditional_tpu_torch.ops.kernels.build import library
 
     _check(left, right, 1, win_size)
-    lk, rk, u8 = _kernel_inputs(left, right)
+    lk, rk, u8 = kernel_inputs(left, right)
     planes = _ncc_planes(lk)
     h, w = lk.shape
     lib = library()
-    with _current(lk.device):
+    with current(lk.device):
         err = lib.ncc_window_sums_f32(
             lk.data_ptr(), rk.data_ptr(), u8, planes.data_ptr(), h, w, win_size,
-            torch.cuda.current_stream().cuda_stream,
+            stream(lk.device),
         )
-    _raise_on_error(lib, "ncc_window_sums_f32", err)
+    raise_on_error(lib, "ncc_window_sums_f32", err)
     return planes[:4].unbind(0)
 
 
@@ -172,23 +152,23 @@ def ncc_volume_cuda(
     """Drop-in for ``ops.volume.ncc_volume`` -> ``(volume, interior)``: one
     launch of ``ncc_volume_f32`` for CUDA inputs (the sums kernel, then the
     cross sums fused with the epilogue); the plain version for CPU inputs."""
-    if not _on_cuda(left, right):
+    if not on_cuda(left, right):
         return volume.ncc_volume(left, right, disp_range, win_size, invalid_mode, eps)
     from stereo_match_traditional_tpu_torch.ops.kernels.build import library
 
     sentinel = volume._ncc_sentinel(invalid_mode)
     _check(left, right, disp_range, win_size)
-    lk, rk, u8 = _kernel_inputs(left, right)
+    lk, rk, u8 = kernel_inputs(left, right)
     planes = _ncc_planes(lk)
     h, w = lk.shape
     out = torch.empty((disp_range, h, w), dtype=torch.float32, device=lk.device)
     lib = library()
-    with _current(lk.device):
+    with current(lk.device):
         err = lib.ncc_volume_f32(
             lk.data_ptr(), rk.data_ptr(), u8, planes.data_ptr(), out.data_ptr(), h, w,
             disp_range, win_size, float(eps), sentinel,
-            torch.cuda.current_stream().cuda_stream,
+            stream(lk.device),
         )
-    _raise_on_error(lib, "ncc_volume_f32", err)
+    raise_on_error(lib, "ncc_volume_f32", err)
     LAUNCHES["ncc_volume_f32"] += 1
     return out, volume.ncc_interior_mask(h, w, win_size, lk.device)

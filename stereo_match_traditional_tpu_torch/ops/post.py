@@ -25,12 +25,16 @@ def lr_check_simple(
     disp_right: torch.Tensor,
     gate: float = 5.0,
     invalid_value: float = INVALID,
+    disp_range: Optional[int] = None,
 ) -> LRResult:
     """Integer-index LR check (`SAD/Sad.h:184-222`, `ASW/ASW.h:108-145`).
 
     Compares dL(j) with dR(j - int(dL)); |diff| > gate invalidates the
     pixel, classified as occlusion when dL < dR else mismatch.  The column
     is clamped into the image (the reference reads out of bounds).
+
+    ``disp_range`` is accepted and ignored: in the JAX package it selects a
+    banded shift+select for the TPU, which gives the gather's values.
     """
     h, w = disp_left.shape
     dl = disp_left.to(torch.float32)
@@ -49,6 +53,7 @@ def lr_check_consistency(
     disp_right: torch.Tensor,
     gate: float = 1.0,
     invalid_value: float = INVALID,
+    disp_range: Optional[int] = None,
 ) -> LRResult:
     """Canonical rounded LR check (`AD-CensusV1/PostProcessing.h:72-135`).
 
@@ -58,8 +63,9 @@ def lr_check_consistency(
       col_rl = int(col_right + dR + 0.5): occlusion iff dL(col_rl) > dL(j)
       (:110-122), mismatch when col_rl leaves (0, W).
 
-    Column reads are gathers; the JAX package's banded shift+select gives
-    the same values for WTA maps in ``[0, D)``.
+    Column reads are gathers; the JAX package's banded shift+select, which
+    its ``disp_range`` selects, gives the same values for WTA maps in
+    ``[0, D)``, so ``disp_range`` is accepted and ignored.
     """
     h, w = disp_left.shape
     dl = disp_left.to(torch.float32)
@@ -108,6 +114,7 @@ def remove_speckles(
     min_speckle_area: int = 80,
     invalid_value: float = INVALID,
     background: Optional[float] = None,
+    max_iters: Optional[int] = None,
     connectivity: int = 8,
     block: Optional[int] = None,
 ) -> torch.Tensor:
@@ -129,7 +136,10 @@ def remove_speckles(
     min onto both old labels, and pointer-jumps once (``label[label]``).
     Labels always name a pixel of their own component and only decrease,
     so the loop stops at the fixpoint, where each component holds one
-    label.  The loop checks for the fixpoint on the host once per sweep.
+    label.  The loop checks for the fixpoint on the host once per sweep
+    and stops after at most ``max_iters`` sweeps; ``None`` takes the JAX
+    package's cap, ``32 + 8 * max(1, (h*w - 1).bit_length())``, which real
+    maps (<= 20 sweeps) never reach.
     """
     if connectivity not in (4, 8):
         raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
@@ -139,12 +149,14 @@ def remove_speckles(
             "(ROADMAP.md Queue 1 item 7, dormant variants)"
         )
     h, w = disp.shape
+    if max_iters is None:
+        max_iters = 32 + 8 * max(1, (h * w - 1).bit_length())
     d = disp.to(torch.float32)
     valid = torch.isfinite(d) & (d != invalid_value)
     src, dst = _speckle_edges(d, valid, diff_insame, connectivity)
 
     labels = torch.arange(h * w, device=d.device)
-    while True:
+    for _ in range(max_iters):
         ls, ld = labels[src], labels[dst]
         m = torch.minimum(ls, ld)
         new = labels.clone()

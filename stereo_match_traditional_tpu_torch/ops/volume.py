@@ -346,6 +346,29 @@ def ad_census_volume(
     return (1.0 - torch.exp(-ad / sigma_c)) + (1.0 - torch.exp(-cen / sigma_s))
 
 
+def ad_census_volumes(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    disp_range: int,
+    sigma_c: float = 10.0,
+    sigma_s: float = 30.0,
+    census_rows: int = 9,
+    census_cols: int = 7,
+):
+    """Both views ``(vol_l, vol_r)`` of :func:`ad_census_volume`: the plain
+    version of ``ops.kernels.ad_census_cuda.ad_census_volumes_cuda``."""
+    return tuple(
+        ad_census_volume(left, right, disp_range, sigma_c, sigma_s, census_rows, census_cols, v)
+        for v in ("left", "right")
+    )
+
+
+def ad_volumes(left: torch.Tensor, right: torch.Tensor, disp_range: int):
+    """Both views ``(vol_l, vol_r)`` of :func:`ad_volume`: the plain version
+    of ``ops.kernels.ad_census_cuda.ad_volumes_cuda``."""
+    return tuple(ad_volume(left, right, disp_range, v) for v in ("left", "right"))
+
+
 # ---------------------------------------------------------------------------
 # ASW (adaptive support weight) cost
 # ---------------------------------------------------------------------------

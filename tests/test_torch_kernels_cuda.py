@@ -19,6 +19,7 @@ from stereo_match_traditional_tpu_torch.ops.kernels import (
     ad_census_cuda,
     asw_cuda,
     build,
+    launch,
     scanline_cuda,
     window_cost_cuda,
 )
@@ -113,8 +114,9 @@ AD_CENSUS_GEOMETRIES = [(13, 17, 5, 3), (9, 6, 10, 5), (375, 450, 60, 0)]
 @pytest.mark.parametrize("h,w,d,seed", AD_CENSUS_GEOMETRIES)
 @pytest.mark.parametrize("view", ["left", "right"])
 def test_ad_census_kernel_matches_plain_on_card(h, w, d, seed, view):
-    """AD and Hamming parts exact; the cost within rtol/atol 1e-6 (expf's
-    last ulp; torch divides by a scalar through its reciprocal)."""
+    """The single-view drop-ins, one launch each: AD and Hamming parts
+    exact; the cost within rtol/atol 1e-6 (expf's last ulp; torch divides
+    by a scalar through its reciprocal)."""
     _need_card()
     L, R, _ = make_pair(h, w, min(d, w - 1), seed=seed)
     lt, rt = pair_to_torch(L, R, "cuda")
@@ -165,9 +167,62 @@ def test_scanline_kernel_bit_exact_on_card(cfg, h, w, d, seed):
     assert torch.equal(got, scanline.scanline_optimize(vol, lt, cfg))
 
 
+# (h, w, D, seed) beyond AD_CENSUS_GEOMETRIES for the both-view entry: one
+# row, one column, W < 32, W % 4 != 0 over two strips with a D that is no
+# multiple of the 32-disparity chunk, D > W over chunks, D=256, and 720p
+AD_CENSUS_EDGES = [(1, 40, 7, 1), (33, 1, 9, 2), (9, 20, 12, 4), (20, 131, 33, 7),
+                   (6, 9, 70, 8), (16, 300, 256, 9), (720, 1280, 128, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,d,seed", AD_CENSUS_GEOMETRIES + AD_CENSUS_EDGES)
+def test_ad_census_both_views_on_card(h, w, d, seed):
+    """One launch writes both views: the cost within rtol/atol 1e-6 of the
+    plain version, the AD and Hamming parts exact; u8 images (tables for
+    the exponentials) give the bits of the same integers as float32 (the
+    direct formula)."""
+    _need_card()
+    lt, rt = _pair_on_card(h, w, d, seed)
+    before = ad_census_cuda.LAUNCHES
+    vol_l, vol_r = ad_census_cuda.ad_census_volumes_cuda(lt, rt, d)
+    torch.cuda.synchronize()
+    assert ad_census_cuda.LAUNCHES == before + 1
+    for got, want in zip((vol_l, vol_r), volume.ad_census_volumes(lt, rt, d), strict=True):
+        assert got.shape == (d, h, w) and got.is_contiguous()
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    for got, want in zip(ad_census_cuda.ad_volumes_cuda(lt, rt, d), volume.ad_volumes(lt, rt, d),
+                         strict=True):
+        assert torch.equal(got, want)
+    census = ad_census_cuda._launch(lt, rt, d, 9, 7, 1.0, 1.0, "both", "census")
+    for got, view in zip(census, ("left", "right"), strict=True):
+        assert torch.equal(got, volume.census_volume(lt, rt, d, view=view))
+    as_float = ad_census_cuda.ad_census_volumes_cuda(lt.float(), rt.float(), d)
+    assert torch.equal(as_float[0], vol_l) and torch.equal(as_float[1], vol_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", [(5, 5), (3, 7), (1, 63), (63, 1)])
+def test_ad_census_other_windows_on_card(rows, cols):
+    """A census window other than the pipelines' 9 x 7 takes the kernel's
+    general census: the Hamming part exact and the cost within 1e-6 for
+    both views, from one launch each."""
+    _need_card()
+    lt, rt = _pair_on_card(37, 150, 20, 6)
+    before = ad_census_cuda.LAUNCHES
+    cen = ad_census_cuda._launch(lt, rt, 20, rows, cols, 1.0, 1.0, "both", "census")
+    cost = ad_census_cuda.ad_census_volumes_cuda(lt, rt, 20, 10.0, 30.0, rows, cols)
+    torch.cuda.synchronize()
+    assert ad_census_cuda.LAUNCHES == before + 2
+    for i, view in enumerate(("left", "right")):
+        assert torch.equal(cen[i], volume.census_volume(lt, rt, 20, rows, cols, view))
+        torch.testing.assert_close(
+            cost[i], volume.ad_census_volume(lt, rt, 20, 10.0, 30.0, rows, cols, view),
+            rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.cuda
 def test_ad_census_pipeline_launches_kernels():
-    """FULL: two cost launches (left, right) and one scanline launch per
+    """FULL: one cost launch (both views) and one scanline launch per
     call; the disparities agree with the same pipeline on CPU tensors."""
     _need_card()
     L, R, _ = make_pair(40, 64, 8, seed=1)
@@ -176,7 +231,7 @@ def test_ad_census_pipeline_launches_kernels():
     before = (ad_census_cuda.LAUNCHES, scanline_cuda.LAUNCHES)
     res = fn(*pair_to_torch(L, R, "cuda"), cfg)
     torch.cuda.synchronize()
-    assert (ad_census_cuda.LAUNCHES, scanline_cuda.LAUNCHES) == (before[0] + 2, before[1] + 1)
+    assert (ad_census_cuda.LAUNCHES, scanline_cuda.LAUNCHES) == (before[0] + 1, before[1] + 1)
     plain = fn(*pair_to_torch(L, R, "cpu"), cfg)
     for f in ("disp_left", "disp_final"):
         agree = (getattr(res, f).cpu() == getattr(plain, f)).float().mean().item()
@@ -342,13 +397,14 @@ def test_window_kernels_float_inputs_on_card():
 
 @pytest.mark.cuda
 def test_sad_ncc_cblsm_pipelines_launch_kernels():
-    """sad with post: two SAD launches; ncc: one NCC launch; cblsm: two AD
-    launches of the AD-Census kernel.  Each agrees with the CPU run."""
+    """sad with post: two SAD launches; ncc: one NCC launch; cblsm: one AD
+    launch of the AD-Census kernel (both views).  Each agrees with the CPU
+    run."""
     _need_card()
     L, R, _ = make_pair(40, 64, 8, seed=1)
     runs = [("sad", dict(max_disparity=8, run_post=True), "sad_volume_f32", 2),
             ("ncc", dict(disp_range=8, win_size=3), "ncc_volume_f32", 1),
-            ("cblsm", dict(disp_range=8, run_post=True), "ad_census_volume_f32", 2)]
+            ("cblsm", dict(disp_range=8, run_post=True), "ad_census_volume_f32", 1)]
     for name, kw, kernel, n in runs:
         fn, cfg_cls = get_pipeline(name)
         counts = dict(window_cost_cuda.LAUNCHES, ad_census_volume_f32=ad_census_cuda.LAUNCHES)
@@ -407,7 +463,7 @@ def test_window_kernel_inputs(dtypes, u8):
     them as float32, contiguous either way."""
     left = (torch.arange(72).reshape(8, 9) % 251).to(dtypes[0]).t()   # not contiguous
     right = torch.ones((9, 8), dtype=dtypes[1])
-    lk, rk, flag = window_cost_cuda._kernel_inputs(left, right)
+    lk, rk, flag = launch.kernel_inputs(left, right)
     want = torch.uint8 if u8 else torch.float32
     assert flag == u8 and lk.dtype == rk.dtype == want
     assert lk.is_contiguous() and rk.is_contiguous()
