@@ -11,10 +11,15 @@ win_size=11) and the flagship ``ad_census`` pipeline through
 ``get_pipeline("ad_census")`` in the FULL configuration of
 ``__graft_entry__.entry()`` at the same size, then ``sad`` (active and with
 its post chain), ``ncc`` (the committed D=200 and D=60) and ``cblsm``
-(active and with its post chain) at the same size, each with its kernels'
-launch counts set to 0 just before and read just after, and checks their
+(active and with its post chain) at the same size, and the canonical
+AD-Census family (``aggregation='cross_two_pass'``: ad_census active and
+FULL at the same size and at 720x1280, D=128, cblsm at the same size),
+each with its kernels' launch counts set to 0 just before and read just
+after, and checks their
 output against the ground truth and the port's CPU plain path; then times
-kernels, plain versions, pipelines and stages with CUDA events.  Each
+kernels, plain versions, pipelines and stages with CUDA events (the
+canonical family's stages by the pipeline's own ``stereo/<stage>`` ranges
+under ``torch.profiler``).  Each
 phase prints one JSON line; any failure raises and exits non-zero.  The
 last three lines are the card's ``nvidia-smi`` name and power limit, the
 kernel summary ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -23,7 +28,7 @@ bound: the least time the card could take for the same function at the
 same shape, the larger of its bytes (every input once, the output once)
 over the card's memory rate and its operations (by the cheapest exact
 algorithm known) over the card's float32 rate.  No single PyTorch call
-computes any of the five functions, so ``library_ms`` is null.
+computes any of the six functions, so ``library_ms`` is null.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -32,6 +37,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -117,6 +123,21 @@ NCC_WIDE_TOL = 1e-5
 FLOAT_GEOMETRY = (150, 200, 40, 4, 5)
 MAX_BAD2_WINDOW = {"sad": 0.30, "ncc": 0.30, "cblsm": 0.20}  # tests/test_tpu_smoke.py:34-38
 
+# (h, w, D) for the canonical scanline kernel against its plain version, both
+# views, on random costs and u8 images: one row, one column, W < 32, a W that
+# is no multiple of 4, D > W, D = 256 (8 values a lane), 4 values a lane over
+# many tiles of both directions, the reference size and the serving size
+CANONICAL_GEOMETRIES = [(1, 40, 7), (33, 1, 9), (9, 20, 12), (9, 21, 12), (6, 9, 70),
+                        (16, 300, 256), (40, 70, 100), (375, 450, 60), (720, 1280, 128)]
+# ... and on non-integer float32 images (the kernel's other image type)
+CANONICAL_FLOAT_GEOMETRIES = [(9, 21, 12), (40, 70, 100)]
+# bad-2.0 of the JAX package's canonical family on make_pair(h, w, D, seed=0)
+# (BASELINE.md:672-675; hardware-independent): held within CANONICAL_BAD2_TOL
+# at the reference size, printed beside the port's at 720p
+CANONICAL_BAD2 = {("active", TEDDY): 0.0737, ("FULL", TEDDY): 0.0852,
+                  ("active", SERVING): 0.2262, ("FULL", SERVING): 0.2425}
+CANONICAL_BAD2_TOL = 0.005
+
 
 def check(ok: bool, what) -> None:
     """Raise (also under ``python -O``) when a check fails."""
@@ -184,6 +205,57 @@ def back_to_back_ms(fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiled_stages(fn, reps: int) -> dict:
+    """Per-call ms of each ``stereo/<stage>`` range that the pipeline marks
+    (``utils.profiling.stage_scope``) over ``reps`` calls of ``fn`` under
+    ``torch.profiler``, after a warm-up call, read from its trace: of the
+    device work launched inside the range (by torch or through a C entry),
+    ``device_ms`` its kernels', copies' and fills' time summed and
+    ``device_span_ms`` from the first start to the last end; ``host_ms`` the
+    range on the host (with the profiler's own overhead)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    ranges, launches, work = [], [], {}
+    for e in events:
+        cat, args = e.get("cat", ""), e.get("args") or {}
+        if cat == "user_annotation" and e["name"].startswith("stereo/"):
+            ranges.append(e)
+        elif cat.startswith("cuda_") and "correlation" in args:  # the launching API calls
+            launches.append(e)
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset") and "correlation" in args:
+            work.setdefault(args["correlation"], []).append(e)
+    stages = {}
+    for r in ranges:
+        # one host thread launches all the work, so a launch inside the span
+        # of the range is a launch of the range
+        done = [w for e in launches if r["ts"] <= e["ts"] <= r["ts"] + r["dur"]
+                for w in work.get(e["args"]["correlation"], ())]
+        rec = stages.setdefault(r["name"][len("stereo/"):],
+                                {"device_ms": 0.0, "device_span_ms": 0.0, "host_ms": 0.0})
+        rec["host_ms"] += r["dur"] / 1e3 / reps
+        if done:
+            rec["device_ms"] += sum(w["dur"] for w in done) / 1e3 / reps
+            rec["device_span_ms"] += (max(w["ts"] + w["dur"] for w in done)
+                                      - min(w["ts"] for w in done)) / 1e3 / reps
+    check(stages and all(r["device_ms"] > 0 for r in stages.values()),
+          ("profiled stages", stages, sorted({e.get("cat", "") for e in events})))
+    return stages
 
 
 def cuda_pair(h, w, d, seed):
@@ -331,6 +403,7 @@ def main() -> None:
 
     ad = ad_census_phases()
     win = window_phases()
+    canon = canonical_phases()
 
     for banned in ("jax", "stereo_match_traditional_tpu"):   # the name or a dotted prefix
         loaded = [m for m in sys.modules if m == banned or m.startswith(banned + ".")]
@@ -380,6 +453,13 @@ def main() -> None:
             "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/window_cost.cu",
             "replaces": "stereo_match_traditional_tpu/ops/volume.py:296",
             **win["ncc_volume_f32"],
+        },
+        {
+            "name": "scanline_canonical_f32",
+            "route": "cuda",
+            "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/scanline_canonical.cu",
+            "replaces": "stereo_match_traditional_tpu/ops/scanline.py:326",
+            **canon,
         },
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -966,6 +1046,176 @@ def window_phases() -> dict:
         ms_covers="wrapper (sums kernel + volume kernel)",
         window_sums_ms=sums_ms[f"{h}x{w}"])
     return summary
+
+
+def canonical_phases() -> dict:
+    """The canonical family's phases: the canonical scanline kernel against
+    its plain version, ``get_pipeline("ad_census")`` with
+    ``aggregation='cross_two_pass'`` active and FULL at the reference size
+    and at 720p, ``get_pipeline("cblsm")`` with it at the reference size, and
+    timings.  Returns the kernel's summary fields."""
+    import numpy as np
+    import torch
+
+    from stereo_match_traditional_tpu_torch import ADCensusConfig, CBLSMConfig, ScanlineConfig
+    from stereo_match_traditional_tpu_torch.models import get_pipeline
+    from stereo_match_traditional_tpu_torch.ops import aggregate, scanline
+    from stereo_match_traditional_tpu_torch.ops.kernels import (
+        ad_census_cuda, scanline_canonical_cuda, scanline_cuda,
+    )
+    from stereo_match_traditional_tpu_torch.utils.convert import (
+        pair_to_torch, result_to_numpy,
+    )
+    from stereo_match_traditional_tpu_torch.utils.synthetic import (
+        bad_pixel_rate, make_pair,
+    )
+
+    canonical = scanline_canonical_cuda.scanline_optimize_canonical_cuda
+
+    # -- 12. the canonical scanline kernel against its plain version -------
+    max_abs = 0.0
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    geometries = ([(g, torch.uint8) for g in CANONICAL_GEOMETRIES]
+                  + [(g, torch.float32) for g in CANONICAL_FLOAT_GEOMETRIES])
+    for (h, w, d), dtype in geometries:
+        vol = torch.rand((d, h, w), device="cuda", generator=gen) * 2.0
+        if dtype == torch.uint8:
+            lt, rt = (torch.randint(0, 256, (h, w), device="cuda", generator=gen, dtype=dtype)
+                      for _ in range(2))
+        else:
+            lt, rt = (torch.rand((h, w), device="cuda", generator=gen) * 255.0 for _ in range(2))
+        rec = {"phase": "kernel_check", "kernel": "scanline_canonical_f32", "geometry": [h, w, d],
+               "images": str(dtype).replace("torch.", "")}
+        for view in ("left", "right"):
+            got = canonical(vol, lt, rt, 1.0, 3.0, 15.0, view)
+            want = scanline.scanline_optimize_canonical(vol, lt, rt, 1.0, 3.0, 15.0, view)
+            torch.cuda.synchronize()
+            rec[view] = {"bit_exact": torch.equal(got, want),
+                         "max_abs_err": (got - want).abs().max().item()}
+            max_abs = max(max_abs, rec[view]["max_abs_err"])
+        emit(rec)
+        check(rec["left"]["bit_exact"] and rec["right"]["bit_exact"], rec)
+
+    # -- 13. the canonical family through its entry points -----------------
+    h, w, d = TEDDY
+    fn = get_pipeline("ad_census")[0]
+    full_scan = ScanlineConfig()
+    runs = [  # (pipeline, label, config, shape, launches per call: cost, canonical, scanline.cu)
+        ("ad_census", "canonical active", ADCensusConfig(
+            disp_range=d, aggregation="cross_two_pass"), TEDDY, (1, 0, 0)),
+        ("ad_census", "canonical FULL", ADCensusConfig(
+            disp_range=d, aggregation="cross_two_pass", scanline=full_scan, run_post=True),
+         TEDDY, (1, 2, 0)),
+        ("cblsm", "cross_two_pass", CBLSMConfig(disp_range=d, aggregation="cross_two_pass"),
+         TEDDY, (1, 0, 0)),
+        ("ad_census", "canonical active", ADCensusConfig(
+            disp_range=SERVING[2], aggregation="cross_two_pass"), SERVING, (1, 0, 0)),
+        ("ad_census", "canonical FULL", ADCensusConfig(
+            disp_range=SERVING[2], aggregation="cross_two_pass", scanline=full_scan,
+            run_post=True), SERVING, (1, 2, 0)),
+    ]
+    counted = None
+    pipe_ms = {}
+    for name, label, cfg, (hh, ww, dd), per_call in runs:
+        L, R, gt = make_pair(hh, ww, dd, seed=0)
+        lt, rt = pair_to_torch(L, R, "cuda")
+        pfn = get_pipeline(name)[0]
+        ad_census_cuda.LAUNCHES = scanline_canonical_cuda.LAUNCHES = scanline_cuda.LAUNCHES = 0
+        res = pfn(lt, rt, cfg)
+        torch.cuda.synchronize()
+        launches = {"ad_census_volume_f32": ad_census_cuda.LAUNCHES,
+                    "scanline_canonical_f32": scanline_canonical_cuda.LAUNCHES,
+                    "scanline_optimize_f32": scanline_cuda.LAUNCHES}
+        check(tuple(launches.values()) == per_call, (name, label, launches))
+        if (name, label, hh) == ("ad_census", "canonical FULL", h):
+            counted = launches["scanline_canonical_f32"]
+        out = result_to_numpy(res)
+        rec = {"phase": "slice", "pipeline": name, "config": label, "shape": [hh, ww],
+               "disp_range": dd, "launches": launches}
+        for f in ("disp_left", "disp_right"):
+            v = getattr(out, f)
+            check(v.shape == (hh, ww) and np.isfinite(v).all() and v.min() >= 0
+                  and v.max() <= dd - 1, (name, label, f))
+        final = out.disp_final if cfg.run_post else out.disp_left
+        rec["bad2"] = bad_pixel_rate(final, gt)
+        key = (label.split()[-1], (hh, ww, dd))
+        if name == "ad_census":
+            rec["bad2_of_the_jax_package"] = CANONICAL_BAD2[key]
+        if (hh, ww, dd) == TEDDY:
+            # the port's CPU plain path on the same pair
+            plain = result_to_numpy(pfn(*pair_to_torch(L, R, "cpu"), cfg))
+            agree = {}
+            for f in ("disp_left", "disp_right", "disp_final"):
+                v, p = getattr(out, f), getattr(plain, f)
+                if v is not None:
+                    agree[f] = float((v == p).mean())
+            rec["agree_with_cpu_plain_path"] = agree
+        emit(rec)
+        if (hh, ww, dd) == TEDDY:
+            check(min(v for f, v in agree.items() if f != "disp_final") >= MIN_WTA_AGREE
+                  and agree.get("disp_final", 1.0) >= MIN_FINAL_AGREE, rec)
+            if name == "ad_census":
+                check(abs(rec["bad2"] - CANONICAL_BAD2[key]) <= CANONICAL_BAD2_TOL, rec)
+            else:
+                check(rec["bad2"] <= MAX_BAD2_WINDOW["cblsm"], rec)
+        pfn(lt, rt, cfg)
+        reps = 5 if hh == h else 2
+        pipe_ms[f"{name} {label} @ {hh}x{ww}/D={dd}"] = statistics.median(
+            cuda_ms(lambda: pfn(lt, rt, cfg), reps))
+        del res, out
+    emit({"phase": "timing_pipeline", "pipelines_ms": pipe_ms})
+
+    # -- 14. stages (the pipeline's stage_scope ranges) and the kernel ------
+    kernel = {}
+    for hh, ww, dd in (TEDDY, SERVING):
+        L, R, _ = make_pair(hh, ww, dd, seed=0)
+        lt, rt = pair_to_torch(L, R, "cuda")
+        cfg = ADCensusConfig(disp_range=dd, aggregation="cross_two_pass", scanline=full_scan,
+                             run_post=True)
+        emit({"phase": "timing_stages", "pipeline": "ad_census canonical FULL",
+              "shape": [hh, ww], "disp_range": dd,
+              "stage_ms": profiled_stages(lambda: fn(lt, rt, cfg), 3 if hh == h else 2)})
+        # the kernel on the volumes the main path gives it: bit for bit with
+        # its plain version, both views, then timed one view at a time
+        # (median) and back to back
+        cp = cfg.cross_params
+        vols = ad_census_cuda.ad_census_volumes_cuda(lt, rt, dd)
+        aggs = [aggregate.cross_aggregate(v, aggregate.canonical_cross_arms(img, cp), cp.num_iters)
+                for v, img in zip(vols, (lt, rt))]
+        del vols
+        rec = {}
+        for view, agg in zip(("left", "right"), aggs):
+            got = canonical(agg, lt, rt, cp.so_p1, cp.so_p2, cp.so_tso, view)
+            want = scanline.scanline_optimize_canonical(agg, lt, rt, cp.so_p1, cp.so_p2,
+                                                        cp.so_tso, view)
+            torch.cuda.synchronize()
+            rec[f"bit_exact_{view}"] = torch.equal(got, want)
+            max_abs = max(max_abs, (got - want).abs().max().item())
+            del got, want
+        check(rec["bit_exact_left"] and rec["bit_exact_right"],
+              ("scanline_canonical_f32 on the aggregated volumes", hh, ww, dd, rec))
+        agg_l = aggs[0]
+        one = lambda: canonical(agg_l, lt, rt, cp.so_p1, cp.so_p2, cp.so_tso, "left")  # noqa: E731
+        rec.update(kernel_ms=statistics.median(cuda_ms(one, 10 if hh == h else 5)),
+                   back_to_back_ms=back_to_back_ms(one, 20 if hh == h else 5))
+        if (hh, ww, dd) == TEDDY:
+            rec["plain_ms"] = statistics.median(cuda_ms(lambda: scanline.scanline_optimize_canonical(
+                agg_l, lt, rt, cp.so_p1, cp.so_p2, cp.so_tso, "left"), 2))
+        # the volume in and out once and the two u8 images; ~15 operations a
+        # value and direction
+        rec.update(bound(8 * dd * hh * ww + 2 * hh * ww, 60.0 * dd * hh * ww))
+        rec["share_of_bound"] = rec["bound_ms"] / rec["kernel_ms"]
+        kernel[f"{hh}x{ww}/D={dd}"] = rec
+        del aggs, agg_l
+        torch.cuda.empty_cache()
+    emit({"phase": "timing_kernels", "scanline_canonical_f32 (one view)": kernel})
+    teddy = kernel[f"{h}x{w}/D={d}"]
+    return {"launches": counted, "launches_per_call": counted, "max_abs_err": max_abs,
+            "ms": teddy["kernel_ms"], "plain_ms": teddy["plain_ms"],
+            "bound_ms": teddy["bound_ms"], "bound_by": teddy["bound_by"], "library_ms": None,
+            "ms_covers": "one view (one C-entry call)",
+            "back_to_back_ms": teddy["back_to_back_ms"],
+            "at_720p": kernel[f"{SERVING[0]}x{SERVING[1]}/D={SERVING[2]}"]}
 
 
 if __name__ == "__main__":

@@ -8,6 +8,7 @@ from stereo_match_traditional_tpu_torch.models.base import StereoResult
 from stereo_match_traditional_tpu_torch.ops import aggregate, post, wta
 from stereo_match_traditional_tpu_torch.ops.kernels import (
     ad_census_volumes_cuda,
+    scanline_optimize_canonical_cuda,
     scanline_optimize_cuda,
 )
 from stereo_match_traditional_tpu_torch.utils.profiling import stage_scope
@@ -43,21 +44,19 @@ def ad_census_pipeline(
     aggregated left volume (`main.cpp:86-89`); ``cfg.run_post``, the post
     chain of :func:`ad_census_post` (`main.cpp:91-94`).
 
-    The cost volumes (both views in one launch) and the scanline are CUDA
-    kernels for CUDA tensors and their plain versions for CPU tensors.
+    ``aggregation='cross_two_pass'`` is the canonical AD-Census family (the
+    vendored ``ADCensusOption``, `CBLSM/adcensus_types.h:45-75`, with
+    ``cfg.cross_params``): canonical arms, from ``left_color`` /
+    ``right_color`` when given (the only aggregation that reads them) ->
+    the two-pass cross aggregation -> with ``cfg.scanline``, the
+    tso-scheduled canonical scanline of both volumes (``so_p1``, ``so_p2``,
+    ``so_tso``) -> WTA -> with ``cfg.run_post``,
+    :func:`ad_census_post_canonical`.
 
-    ``left_color`` / ``right_color`` take the reference's position; as in
-    the JAX package, only ``aggregation='cross_two_pass'`` reads them (its
-    arms come from the colour images), so the ported aggregations ignore
-    them.
+    The cost volumes (both views in one launch) and both scanlines are CUDA
+    kernels for CUDA tensors and their plain versions for CPU tensors.
     """
-    if cfg.aggregation == "cross_two_pass":
-        raise NotImplementedError(
-            "ADCensusConfig(aggregation='cross_two_pass') and its canonical "
-            "scanline and post are not ported yet (ROADMAP.md Queue 1 item 6, "
-            "canonical family)"
-        )
-    if cfg.aggregation not in ("rect_mean", "none"):
+    if cfg.aggregation not in ("rect_mean", "cross_two_pass", "none"):
         raise ValueError(
             f"unknown aggregation {cfg.aggregation!r}; "
             "expected 'rect_mean', 'cross_two_pass' or 'none'"
@@ -73,6 +72,8 @@ def ad_census_pipeline(
     with stage_scope("cost_volume"):
         vol_l, vol_r = ad_census_volumes_cuda(left, right, d, **kw)
 
+    canonical = cfg.aggregation == "cross_two_pass"
+    cp = cfg.cross_params
     agg_l, agg_r = vol_l, vol_r
     if cfg.aggregation == "rect_mean":
         with stage_scope("aggregate"):
@@ -81,10 +82,25 @@ def ad_census_pipeline(
             for _ in range(cfg.agg_iters):
                 agg_l = aggregate.rect_mean_aggregate(agg_l, arms_l)
                 agg_r = aggregate.rect_mean_aggregate(agg_r, arms_r)
+    elif canonical:
+        with stage_scope("arms"):
+            arms_l = aggregate.canonical_cross_arms(
+                left if left_color is None else left_color, cp)
+            arms_r = aggregate.canonical_cross_arms(
+                right if right_color is None else right_color, cp)
+        with stage_scope("aggregate"):
+            agg_l = aggregate.cross_aggregate(vol_l, arms_l, cp.num_iters)
+            agg_r = aggregate.cross_aggregate(vol_r, arms_r, cp.num_iters)
 
     if cfg.scanline is not None:
         with stage_scope("scanline"):
-            agg_l = scanline_optimize_cuda(agg_l, left, cfg.scanline)
+            if canonical:
+                agg_l = scanline_optimize_canonical_cuda(
+                    agg_l, left, right, cp.so_p1, cp.so_p2, cp.so_tso, "left")
+                agg_r = scanline_optimize_canonical_cuda(
+                    agg_r, left, right, cp.so_p1, cp.so_p2, cp.so_tso, "right")
+            else:
+                agg_l = scanline_optimize_cuda(agg_l, left, cfg.scanline)
 
     with stage_scope("wta"):
         disp_l = wta.wta(agg_l, "min")
@@ -93,5 +109,52 @@ def ad_census_pipeline(
     disp_final = occl = mism = None
     if cfg.run_post:
         with stage_scope("post"):
-            disp_final, occl, mism = ad_census_post(disp_l, disp_r, cfg)
+            if canonical:
+                disp_final, occl, mism = ad_census_post_canonical(
+                    disp_l, disp_r, agg_l, arms_l, cfg,
+                    irv_d_chunk=irv_auto_d_chunk(*disp_l.shape, d))
+            else:
+                disp_final, occl, mism = ad_census_post(disp_l, disp_r, cfg)
     return StereoResult(disp_l, disp_r, disp_final, occl, mism)
+
+
+def irv_auto_d_chunk(h: int, w: int, disp_range: int, budget_bytes: float = 256e6):
+    """``d_chunk`` for :func:`post.iterative_region_voting` at an [h, w]
+    map, the JAX package's rule as it is: ``None`` (the monolithic
+    ``[D, H, W]`` histogram) up to 512 MB of one-hots, else the power of two
+    at or below ``budget_bytes`` worth of slices, at least 8 and at most
+    ``disp_range // 2``.  Chunking is exact, so any rule gives the same
+    bits; keeping the reference's rule keeps the port's chunks equal to the
+    reference's at every shape."""
+    if disp_range * h * w * 4 <= 512e6:
+        return None
+    raw = max(8, min(int(budget_bytes / (h * w * 4)), disp_range // 2))
+    return 1 << (raw.bit_length() - 1)
+
+
+def ad_census_post_canonical(disp_l, disp_r, agg_l, arms_l, cfg: ADCensusConfig,
+                             irv_d_chunk=None):
+    """Canonical post chain of ``aggregation='cross_two_pass'``: LR check at
+    ``lrcheck_thres`` -> iterative region voting -> discontinuity adjustment
+    on ``agg_l`` -> truncate median, each stage but the median gated by its
+    ``do_*`` flag (`adcensus_types.h:72-75`).  Returns ``(disp, occlusion,
+    mismatch)``; the two masks are None without the LR check.
+    ``irv_d_chunk`` bounds the voting histogram's memory (exact)."""
+    cp = cfg.cross_params
+    d = disp_l
+    occl = mism = None
+    if cp.do_lr_check:
+        with stage_scope("lr_check"):
+            lr = post.lr_check_consistency(disp_l, disp_r, cp.lrcheck_thres, post.INVALID)
+        d, occl, mism = lr.disp, lr.occlusion, lr.mismatch
+    if cp.do_filling:
+        with stage_scope("region_voting"):
+            d = post.iterative_region_voting(
+                d, arms_l, cfg.disp_range, cp.irv_ts, cp.irv_th,
+                invalid_value=post.INVALID, d_chunk=irv_d_chunk)
+    if cp.do_discontinuity_adjustment:
+        with stage_scope("discontinuity_adjustment"):
+            d = post.discontinuity_adjustment(d, agg_l, post.INVALID)
+    with stage_scope("median"):
+        d = post.median_filter(d, cfg.median_size, border="truncate")
+    return d, occl, mism

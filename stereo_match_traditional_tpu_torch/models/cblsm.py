@@ -40,12 +40,7 @@ def _check_config(cfg: CBLSMConfig, return_stages: bool) -> None:
             "CBLSMConfig(aggregation='rect_mean_v4') is not ported yet "
             "(ROADMAP.md Queue 1 item 7, dormant variants)"
         )
-    if cfg.aggregation == "cross_two_pass":
-        raise NotImplementedError(
-            "CBLSMConfig(aggregation='cross_two_pass') is not ported yet "
-            "(ROADMAP.md Queue 1 item 6, canonical family)"
-        )
-    if cfg.aggregation not in ("rect_mean", "none"):
+    if cfg.aggregation not in ("rect_mean", "cross_two_pass", "none"):
         raise ValueError(
             f"unknown aggregation {cfg.aggregation!r}; expected 'rect_mean', "
             "'rect_mean_v4', 'cross_two_pass' or 'none'"
@@ -66,7 +61,10 @@ def cblsm_pipeline(
     `CBLSM.cpp:146-150`) -> plain WTA (`CBLSM.h:383-407`).  With
     ``second_pass_left_arms`` (the committed quirk, `CBLSM.cpp:150`) every
     pass after the first aggregates both volumes with the left arms, as one
-    stacked ``[2D, H, W]`` pass.  ``run_post`` runs :func:`cblsm_post`.
+    stacked ``[2D, H, W]`` pass.  ``aggregation='cross_two_pass'`` (the
+    vendored CrossAggregator, `CBLSM.cpp:138-143`, commented out there)
+    aggregates each volume with the canonical arms of its gray image and
+    ``cfg.cross_params`` instead.  ``run_post`` runs :func:`cblsm_post`.
 
     The AD volumes are the AD part of the CUDA AD-Census kernel, both views
     in one launch, for CUDA tensors and its plain version for CPU tensors.
@@ -90,6 +88,14 @@ def cblsm_pipeline(
                 else:
                     agg_l = aggregate.rect_mean_aggregate(agg_l, arms_l)
                     agg_r = aggregate.rect_mean_aggregate(agg_r, arms_r)
+    elif cfg.aggregation == "cross_two_pass":
+        cp = cfg.cross_params
+        with stage_scope("arms"):
+            arms_l = aggregate.canonical_cross_arms(left, cp)
+            arms_r = aggregate.canonical_cross_arms(right, cp)
+        with stage_scope("aggregate"):
+            agg_l = aggregate.cross_aggregate(agg_l, arms_l, cp.num_iters)
+            agg_r = aggregate.cross_aggregate(agg_r, arms_r, cp.num_iters)
 
     with stage_scope("wta"):
         disp_l = wta.wta(agg_l, "min")

@@ -1,10 +1,12 @@
 """Cost aggregation (torch counterpart of
-``stereo_match_traditional_tpu.ops.aggregate``): cross arms and the
-arm-rectangle mean.
+``stereo_match_traditional_tpu.ops.aggregate``): cross arms (the
+reference's and the canonical CrossAggregator's), the arm-rectangle mean
+and the two-pass cross aggregation.
 
-Arm growth is a leading-ones count over a stack of ``max_length`` shifted
-threshold predicates; the rectangle mean is a summed-area table (two
-cumsums) plus four corner picks per pixel.
+Arm growth is a leading-ones count over a stack of shifted threshold
+predicates; the rectangle mean is a summed-area table (two cumsums) plus
+four corner picks per pixel; a cross pass is a prefix sum along one axis
+plus two picks per pixel.
 """
 
 from __future__ import annotations
@@ -13,10 +15,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from stereo_match_traditional_tpu_torch.config import CrossArmConfig
+from stereo_match_traditional_tpu_torch.config import CrossAggregatorParams, CrossArmConfig
 
 # The JAX package's rect_mean_aggregate layouts; each runs the port's one layout
 RECT_LAYOUTS = ("auto", "dmajor", "pixel_major")
+# The JAX package's cross_aggregate methods; each runs the port's one layout
+CROSS_METHODS = ("auto", "matmul", "gather", "pixel_major")
 
 
 class Arms(NamedTuple):
@@ -90,6 +94,46 @@ def cross_arms(img: torch.Tensor, cfg: CrossArmConfig) -> Arms:
         right=_arm_one_direction(img, cfg, 1, +1),
         up=_arm_one_direction(img, cfg, 0, -1),
         down=_arm_one_direction(img, cfg, 0, +1),
+    )
+
+
+def _canonical_arm_one_direction(
+    img: torch.Tensor, params: CrossAggregatorParams, axis: int, sign: int
+) -> torch.Tensor:
+    """Arm length along one direction by the vendored CrossAggregator's
+    rules (`cross_aggregator.cpp:135-269`): the pixel at offset o (1-based)
+    extends the arm iff it is in bounds, its max channel difference to the
+    centre is < t1, to the pixel at offset o - 1 is < t1 (for o > 1), and to
+    the centre is < t2 beyond L2; the arm is the number of leading such
+    offsets, capped at min(L1, 255)."""
+    n = min(params.cross_l1, 255)
+    size = img.shape[axis]
+    pos = torch.arange(size, device=img.device)
+    offs = torch.arange(1, n + 1, device=img.device)
+    tgt = pos[None, :] + sign * offs[:, None]                  # [n, size]
+    shape = [n, 1, 1]
+    shape[axis + 1] = size
+    inb = ((tgt >= 0) & (tgt <= size - 1)).reshape(shape)
+
+    color = img.dim() == 3
+    shifts = _directional_shifts(img, n, axis, sign)
+    d_center = _max_channel_diff(shifts, img[None], color)
+    d_prev = _max_channel_diff(shifts, torch.cat([img[None], shifts[:-1]]), color)
+    ok = (d_center < params.cross_t1) & inb
+    ok[1:] &= d_prev[1:] < params.cross_t1
+    beyond_l2 = (offs > params.cross_l2).reshape(n, 1, 1)
+    ok &= ~beyond_l2 | (d_center < params.cross_t2)
+    return ok.to(torch.int32).cumprod(dim=0).sum(dim=0, dtype=torch.int32)
+
+
+def canonical_cross_arms(img: torch.Tensor, params: CrossAggregatorParams) -> Arms:
+    """All four arms of one image, gray ``[H, W]`` or colour ``[H, W, 3]``,
+    by the vendored Ethan-Li CrossAggregator (`cross_aggregator.cpp:76-86`)."""
+    return Arms(
+        left=_canonical_arm_one_direction(img, params, 1, -1),
+        right=_canonical_arm_one_direction(img, params, 1, +1),
+        up=_canonical_arm_one_direction(img, params, 0, -1),
+        down=_canonical_arm_one_direction(img, params, 0, +1),
     )
 
 
@@ -170,3 +214,88 @@ def rect_mean_aggregate(
     )
     mean = total / count.clamp(min=1).to(vol.dtype)
     return torch.where(count > 0, mean, vol)
+
+
+def _span_sum(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, dim: int) -> torch.Tensor:
+    """``sum x[lo <= t < hi]`` along ``dim`` (-1 or -2) of ``x`` [..., H, W]
+    with ``[H, W]`` bounds in ``[0, size]``: a prefix sum along ``dim`` with
+    a zero in front and two picks per pixel, rounded to ``x``'s dtype once.
+
+    Floating ``x`` sums in float64 and is rounded once: the AD-Census costs
+    (0, or float32 values in [2^-5, 2), all multiples of 2^-28) and their
+    first-pass span sums add exactly there whatever the summation order, and
+    later passes carry 29 bits more than float32 keeps, so the CPU and the
+    card give the same float32 but for a sum within ~2^-29 of a rounding
+    boundary.  Integer ``x`` sums in its own dtype, exactly."""
+    acc = torch.float64 if x.is_floating_point() else x.dtype
+    h, w = x.shape[-2:]
+    pad = (1, 0) if dim == -1 else (0, 0, 1, 0)
+    cs = torch.nn.functional.pad(x.cumsum(dim=dim, dtype=acc), pad)
+    flat = cs.reshape(*cs.shape[:-2], -1)
+    if dim == -1:       # rows of W + 1 prefix values
+        base = torch.arange(h, device=x.device)[:, None] * (w + 1)
+    else:               # H + 1 rows of W
+        base = torch.arange(w, device=x.device)[None, :]
+        lo, hi = lo * w, hi * w
+    out = (flat.index_select(-1, (base + hi).reshape(-1))
+           - flat.index_select(-1, (base + lo).reshape(-1)))
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def _hsum(x: torch.Tensor, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """``sum_{t=-left..right} x[..., i, j+t]`` (`cross_aggregator.cpp:362-364`),
+    clipped to the image."""
+    w = x.shape[-1]
+    jj = torch.arange(w, device=x.device)[None, :]
+    return _span_sum(x, (jj - left.to(torch.int64)).clamp(0, w),
+                     (jj + right.to(torch.int64) + 1).clamp(0, w), -1)
+
+
+def _vsum(x: torch.Tensor, up: torch.Tensor, down: torch.Tensor) -> torch.Tensor:
+    """``sum_{t=-up..down} x[..., i+t, j]`` (`cross_aggregator.cpp:367-369`),
+    clipped to the image."""
+    h = x.shape[-2]
+    ii = torch.arange(h, device=x.device)[:, None]
+    return _span_sum(x, (ii - up.to(torch.int64)).clamp(0, h),
+                     (ii + down.to(torch.int64) + 1).clamp(0, h), -2)
+
+
+def cross_aggregate(
+    vol: torch.Tensor,
+    arms: Arms,
+    num_iters: int = 4,
+    horizontal_first: bool = True,
+    max_arm: Optional[int] = None,
+    method: str = "auto",
+    span_cap: Optional[int] = None,
+) -> torch.Tensor:
+    """Iterative two-pass cross aggregation (`cross_aggregator.cpp:89-118,
+    327-394`): each iteration sums every d-slice of ``vol`` [D, H, W] along
+    one axis inside each pixel's arm span, then along the other axis inside
+    the arm span of the first pass's result, divides by the matching
+    support-pixel count (`cross_aggregator.cpp:271-325`), and flips the pass
+    order.
+
+    ``max_arm``, ``method`` and ``span_cap`` take the JAX package's
+    positions and values so that its call sites copy across.  There they
+    choose how the TPU sums a span (banded selects, dense band matmuls, a
+    pixel-major layout, its row-chunk halos): the TPU layouts are not
+    ported, so every ``method`` runs the port's one layout, a float64
+    prefix sum along the axis and two picks rounded to float32 once a pass,
+    and ``max_arm`` and ``span_cap`` change nothing.  An unknown ``method``
+    raises ``ValueError``.
+    """
+    if method not in CROSS_METHODS:
+        raise ValueError(f"method must be one of {CROSS_METHODS}: {method!r}")
+    ones = torch.ones(vol.shape[-2:], dtype=torch.float32, device=vol.device)
+    sup_h_first = _vsum(_hsum(ones, arms.left, arms.right), arms.up, arms.down)
+    sup_v_first = _hsum(_vsum(ones, arms.up, arms.down), arms.left, arms.right)
+    out = vol
+    hf = horizontal_first
+    for _ in range(num_iters):
+        if hf:
+            out = _vsum(_hsum(out, arms.left, arms.right), arms.up, arms.down) / sup_h_first
+        else:
+            out = _hsum(_vsum(out, arms.up, arms.down), arms.left, arms.right) / sup_v_first
+        hf = not hf
+    return out

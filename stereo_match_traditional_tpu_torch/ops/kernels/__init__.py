@@ -5,6 +5,9 @@ from stereo_match_traditional_tpu_torch.ops.kernels.ad_census_cuda import (  # n
     ad_census_volumes_cuda,
 )
 from stereo_match_traditional_tpu_torch.ops.kernels.asw_cuda import asw_volume_cuda  # noqa: F401
+from stereo_match_traditional_tpu_torch.ops.kernels.scanline_canonical_cuda import (  # noqa: F401
+    scanline_optimize_canonical_cuda,
+)
 from stereo_match_traditional_tpu_torch.ops.kernels.scanline_cuda import (  # noqa: F401
     scanline_optimize_cuda,
 )

@@ -1,7 +1,7 @@
 """Post-processing (torch counterpart of
 ``stereo_match_traditional_tpu.ops.post``): the functions the ASW,
-AD-Census, SAD and CBLSM post chains run, each bit-exact with its JAX
-counterpart."""
+AD-Census (reference and canonical), SAD and CBLSM post chains run, each
+bit-exact with its JAX counterpart."""
 
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from stereo_match_traditional_tpu_torch.ops.aggregate import _hsum, _vsum
 from stereo_match_traditional_tpu_torch.ops.volume import replicate_pad
 
 INVALID = float("inf")
@@ -333,3 +334,103 @@ def fill_holes_8dir(
     d = _fill_from_candidates(d, mismatch & ~torch.isfinite(d), False, max_axis, max_diag)
     d = _fill_from_candidates(d, ~torch.isfinite(d), False, max_axis, max_diag)
     return torch.where(torch.isfinite(d), d, invalid_value)
+
+
+# ---------------------------------------------------------------------------
+# canonical AD-Census post components (the vendored `ADCensusOption`'s
+# irv_ts / irv_th / do_discontinuity_adjustment, `CBLSM/adcensus_types.h:72-75`)
+# ---------------------------------------------------------------------------
+
+
+def iterative_region_voting(
+    disp: torch.Tensor,
+    arms,
+    disp_range: int,
+    ts: float = 20.0,
+    th: float = 0.4,
+    num_iters: int = 5,
+    invalid_value: float = INVALID,
+    max_arm: Optional[int] = None,
+    d_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Canonical iterative region voting (`irv_ts` / `irv_th`,
+    `adcensus_types.h:73`).
+
+    Each iteration every valid pixel votes its rounded disparity into its
+    cross support region (a horizontal arm span, then a vertical one, as in
+    `aggregate.cross_aggregate`); an invalid pixel takes the plurality
+    disparity where the region holds more than ``ts`` votes and the winning
+    bin more than ``th`` of them.  Pixels filled in one iteration vote in
+    the next.  ``arms`` is an `aggregate.Arms`.
+
+    The votes are integer prefix sums of the one-hot slices, so every count
+    is exact; ``d_chunk`` bounds memory to ``d_chunk`` slices at a time, and
+    the strict ``>`` running argmax over ascending chunks keeps argmax's
+    first-maximum rule, so chunked and monolithic results agree bit for bit.
+    ``max_arm`` takes the JAX package's position (a TPU pick strategy there)
+    and changes nothing.
+    """
+    d_chunk = disp_range if d_chunk is None else min(d_chunk, disp_range)
+
+    def bin_votes(dint, ds):
+        onehot = (dint[None] == ds[:, None, None]).to(torch.int32)
+        return _vsum(_hsum(onehot, arms.left, arms.right), arms.up, arms.down)
+
+    def histogram(dint):
+        total = torch.zeros(dint.shape, dtype=torch.int32, device=dint.device)
+        bestv = torch.full(dint.shape, -1, dtype=torch.int32, device=dint.device)
+        best = torch.zeros(dint.shape, dtype=torch.int64, device=dint.device)
+        for c0 in range(0, disp_range, d_chunk):
+            ds = torch.arange(c0, c0 + d_chunk, device=dint.device, dtype=torch.float32)
+            votes = bin_votes(dint, ds)
+            cv, ci = votes.max(dim=0)
+            upd = cv > bestv
+            total += votes.sum(dim=0, dtype=torch.int32)
+            bestv = torch.where(upd, cv, bestv)
+            best = torch.where(upd, ci + c0, best)
+        return total.to(torch.float32), bestv.to(torch.float32), best
+
+    for _ in range(num_iters):
+        valid = disp != invalid_value
+        dint = torch.where(valid, torch.round(disp), -1.0)
+        total, bestv, best = histogram(dint)
+        fill = ~valid & (total > ts) & (bestv > th * total)
+        disp = torch.where(fill, best.to(disp.dtype), disp)
+    return disp
+
+
+def discontinuity_adjustment(
+    disp: torch.Tensor, cost_vol: torch.Tensor, invalid_value: float = INVALID
+) -> torch.Tensor:
+    """Canonical discontinuity adjustment (`do_discontinuity_adjustment`,
+    `adcensus_types.h:74`; Mei et al. §V-D).
+
+    Where a horizontal neighbour's disparity differs by more than 1, the
+    pixel takes whichever of the two neighbours' disparities has the lower
+    cost at this pixel in ``cost_vol`` [D, H, W] (the volume the disparities
+    were selected from), if lower than its own.  Each cost is one gather
+    along d at the clamped, rounded disparity: the value JAX's masked
+    minimum picks.
+    """
+    d_n = cost_vol.shape[0]
+    valid = disp != invalid_value
+    left_n = torch.cat([disp[:, :1], disp[:, :-1]], dim=1)
+    right_n = torch.cat([disp[:, 1:], disp[:, -1:]], dim=1)
+    left_ok = valid & (left_n != invalid_value)
+    right_ok = valid & (right_n != invalid_value)
+    edge = (left_ok & (torch.abs(disp - left_n) > 1.0)) | (
+        right_ok & (torch.abs(disp - right_n) > 1.0)
+    )
+
+    def cost_at(d, ok):
+        idx = torch.round(d).clamp(0, d_n - 1).to(torch.int64)
+        c = torch.gather(cost_vol, 0, idx[None]).squeeze(0)
+        return torch.where(ok, c, float("inf"))
+
+    c_self = cost_at(disp, valid)
+    c_left = cost_at(left_n, left_ok)
+    c_right = cost_at(right_n, right_ok)
+    best = torch.where(c_left < c_self, left_n, disp)
+    best_c = torch.minimum(c_left, c_self)
+    best = torch.where(c_right < best_c, right_n, best)
+    return torch.where(edge, best, disp)

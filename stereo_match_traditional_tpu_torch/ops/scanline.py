@@ -14,6 +14,11 @@ plain version of the CUDA kernel (`ops.kernels.scanline_cuda`): a Python
 loop over the path steps of each of the four passes, every line of the
 perpendicular axis in one ``[D, M]`` step, in the JAX package's float
 order, so the two agree bit for bit.
+
+``scanline_optimize_canonical`` is the canonical AD-Census form of the same
+recurrence (penalties scaled per step, disparity and line by the colour
+differences along the path in both images), the plain version of
+`ops.kernels.scanline_canonical_cuda`.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from stereo_match_traditional_tpu_torch.config import ScanlineConfig
+from stereo_match_traditional_tpu_torch.ops.volume import shifted_stack
 
 
 def _step(prev, prev_min, c, p2_col, p1: float, l2_uses_dm1: bool):
@@ -94,3 +100,87 @@ def scanline_optimize(
     ud = _directional_pass(cost, gray, 0, False, p1, p2, vert_dm1, vert_p2)
     du = _directional_pass(cost, gray, 0, True, p1, p2, vert_dm1, vert_p2)
     return (lr + rl) + (ud + du)
+
+
+def canonical_scale(g1_cur, g1_prev, g2_cur, g2_prev, tso: float) -> torch.Tensor:
+    """The canonical tso penalty scale per (path step, d, line): from
+    D1 = |g1(p) - g1(p-r)| (base image, ``[N, M]``) and
+    D2 = |g2(p, d) - g2(p-r, d)| (match image at the match column,
+    ``[N, D, M]``), 1.0 where neither reaches ``tso``, 0.25 where one does
+    and 0.1 (float32) where both do (Mei et al.; the vendored
+    ``ADCensusOption``'s ``so_tso``, `CBLSM/adcensus_types.h:72`)."""
+    over1 = (torch.abs(g1_cur - g1_prev) >= tso)[..., None, :]
+    over2 = torch.abs(g2_cur - g2_prev) >= tso
+    return torch.where(over1 & over2, 0.1, torch.where(over1 | over2, 0.25, 1.0))
+
+
+def _make_canonical_step(p1_base: float, p2_base: float):
+    """The canonical min-plus step ``(prev, prev_min, cost_t, scale_t) ->
+    (out, min_d out)`` on ``[D, M]``, with penalties ``p1_base * scale`` and
+    ``p2_base * scale`` per (d, line), in the JAX package's float order."""
+
+    def step(prev, prev_min, c, sc):
+        p1c = p1_base * sc
+        p2c = p2_base * sc
+        inf_row = torch.full_like(prev[..., :1, :], float("inf"))
+        l1 = prev
+        l2 = torch.cat([inf_row, prev[..., :-1, :]], dim=-2) + p1c
+        l3 = torch.cat([prev[..., 1:, :], inf_row], dim=-2) + p1c
+        l4 = prev_min[..., None, :] + p2c
+        out = (c + torch.minimum(torch.minimum(l1, l2), torch.minimum(l3, l4))
+               - prev_min[..., None, :])
+        return out, out.amin(dim=-2)
+
+    return step
+
+
+def _canonical_pass(cost, g1, g2, p1_base: float, p2_base: float, tso: float) -> torch.Tensor:
+    """One directional pass with the canonical penalty schedule.
+
+    cost: ``[N, D, M]`` (N the path axis); g1: ``[N, M]`` the base image
+    along the path; g2: ``[N, D, M]`` the match image at the match column.
+    The first step's neighbour is the pixel itself (its scale is unused).
+    """
+    scale = canonical_scale(g1, torch.cat([g1[:1], g1[:-1]]),
+                            g2, torch.cat([g2[:1], g2[:-1]]), tso)
+    step = _make_canonical_step(p1_base, p2_base)
+    out = torch.empty_like(cost)
+    prev = cost[0]
+    prev_min = prev.amin(dim=-2)
+    out[0] = prev
+    for t in range(1, cost.shape[0]):
+        prev, prev_min = step(prev, prev_min, cost[t], scale[t])
+        out[t] = prev
+    return out
+
+
+def scanline_optimize_canonical(
+    cost: torch.Tensor,
+    left: torch.Tensor,
+    right: torch.Tensor,
+    p1: float = 1.0,
+    p2: float = 3.0,
+    tso: float = 15.0,
+    view: str = "left",
+) -> torch.Tensor:
+    """Canonical AD-Census 4-path scanline optimizer of one view's volume
+    ``cost`` [D, H, W]: the four directional passes of
+    :func:`_canonical_pass`, averaged, ``((lr + rl) + (ud + du)) * 0.25``.
+
+    The base image is the view's own gray image, the match image the other
+    one, read at column ``x - d`` (left view) or ``x + d`` (right view),
+    clamped to the image, as :func:`volume.shifted_stack` builds it.
+    """
+    d = cost.shape[0]
+    base = (left if view == "left" else right).to(torch.float32)
+    match = (right if view == "left" else left).to(torch.float32)
+    g2 = shifted_stack(match, d, view)                 # [D, H, W]
+
+    def both_ways(c, g1, g2_):
+        fwd = _canonical_pass(c, g1, g2_, p1, p2, tso)
+        rev = _canonical_pass(c.flip(0), g1.flip(0), g2_.flip(0), p1, p2, tso)
+        return fwd + rev.flip(0)
+
+    horiz = both_ways(cost.permute(2, 0, 1), base.T, g2.permute(2, 0, 1))   # [W, D, H]
+    vert = both_ways(cost.permute(1, 0, 2), base, g2.permute(1, 0, 2))      # [H, D, W]
+    return (horiz.permute(1, 2, 0) + vert.permute(1, 0, 2)) * 0.25

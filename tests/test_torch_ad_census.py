@@ -105,7 +105,9 @@ def test_full_slice_output_contract():
     cfgs.ADCensusConfig(disp_range=9, run_post=True),
     cfgs.ADCensusConfig(disp_range=9, scanline=cfgs.ScanlineConfig(
         faithful_vertical_l2=True, faithful_vertical_p2=True, penalty_scale="auto")),
-], ids=["no_aggregation", "agg_iters_2", "post_without_scanline", "quirk_scanline"])
+    cfgs.ADCensusConfig(disp_range=9, aggregation="cross_two_pass"),
+], ids=["no_aggregation", "agg_iters_2", "post_without_scanline", "quirk_scanline",
+        "cross_two_pass"])
 def test_other_configurations_match_jax(cfg):
     L, R, _ = make_pair(37, 53, 9, seed=5)
     jres = jax_get_pipeline("ad_census")[0](jnp.asarray(L), jnp.asarray(R), cfg)
@@ -143,9 +145,8 @@ def test_registry_entry():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(cfg=ADCensusConfig(aggregation="cross_two_pass")), "Queue 1 item 6"),
     (dict(return_stages=True), "Queue 1 item 8"),
-], ids=["cross_two_pass", "return_stages"])
+], ids=["return_stages"])
 def test_unported_modes_raise(kwargs, match):
     L, R, _ = make_pair(8, 8, 2, seed=0)
     with pytest.raises(NotImplementedError, match=match):

@@ -71,7 +71,10 @@ def _port(cfg):
     cfgs.CBLSMConfig(disp_range=10, agg_passes=3),
     cfgs.CBLSMConfig(disp_range=10, agg_passes=1),
     cfgs.CBLSMConfig(disp_range=10, aggregation="none"),
-], ids=["post", "post_own_arms", "three_passes", "one_pass", "no_aggregation"])
+    cfgs.CBLSMConfig(disp_range=10, aggregation="cross_two_pass"),
+    cfgs.CBLSMConfig(disp_range=10, aggregation="cross_two_pass", run_post=True),
+], ids=["post", "post_own_arms", "three_passes", "one_pass", "no_aggregation",
+        "cross_two_pass", "cross_two_pass_post"])
 def test_cblsm_slice_matches_jax(cfg):
     L, R, _ = _golden_pair()
     jres = jax_get_pipeline("cblsm")[0](jnp.asarray(L), jnp.asarray(R), cfg)
@@ -149,10 +152,8 @@ def test_registry_entry():
     (CBLSMConfig(cost="sad_mean_v4"), {}, "Queue 1 item 7"),
     (CBLSMConfig(cost="local_mean"), {}, "Queue 1 item 7"),
     (CBLSMConfig(aggregation="rect_mean_v4"), {}, "Queue 1 item 7"),
-    (CBLSMConfig(aggregation="cross_two_pass"), {}, "Queue 1 item 6"),
     (CBLSMConfig(), {"return_stages": True}, "Queue 1 item 8"),
-], ids=["sad_mean", "sad_mean_v4", "local_mean", "rect_mean_v4", "cross_two_pass",
-        "return_stages"])
+], ids=["sad_mean", "sad_mean_v4", "local_mean", "rect_mean_v4", "return_stages"])
 def test_unported_modes_raise(cfg, kwargs, match):
     L, R, _ = make_pair(8, 8, 2, seed=0)
     with pytest.raises(NotImplementedError, match=match):

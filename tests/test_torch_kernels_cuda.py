@@ -12,7 +12,11 @@ input checks are tested everywhere.
 import pytest
 import torch
 
-from stereo_match_traditional_tpu_torch.config import ScanlineConfig
+from stereo_match_traditional_tpu_torch.config import (
+    ADCensusConfig,
+    CBLSMConfig,
+    ScanlineConfig,
+)
 from stereo_match_traditional_tpu_torch.models import get_pipeline
 from stereo_match_traditional_tpu_torch.ops import scanline, volume
 from stereo_match_traditional_tpu_torch.ops.kernels import (
@@ -20,6 +24,7 @@ from stereo_match_traditional_tpu_torch.ops.kernels import (
     asw_cuda,
     build,
     launch,
+    scanline_canonical_cuda,
     scanline_cuda,
     window_cost_cuda,
 )
@@ -525,3 +530,95 @@ def test_every_c_entry_has_its_signature_bound():
              for name, args in re.findall(r"lib\.(\w+)\.argtypes = \[([^\]]*)\]",
                                           inspect.getsource(build.library))}
     assert len(declared) >= 7 and bound == declared
+
+
+# (h, w, D) for the canonical scanline kernel: one row, one column, W < 32,
+# W % 4 != 0, D > W, D = 256 (8 values a lane), 4 values a lane over many
+# tiles of both directions, the reference size and the serving size
+CANONICAL_GEOMETRIES = [(1, 40, 7), (33, 1, 9), (9, 20, 12), (9, 21, 12), (6, 9, 70),
+                        (16, 300, 256), (40, 70, 100), (375, 450, 60), (720, 1280, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["left", "right"])
+@pytest.mark.parametrize("h,w,d", CANONICAL_GEOMETRIES)
+def test_canonical_scanline_kernel_bit_exact_on_card(h, w, d, view):
+    """The plain version's float operations in its order, no contraction:
+    bit for bit, on random costs and images (all three penalty scales)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(h + w + d)
+    vol = torch.rand((d, h, w), device="cuda", generator=gen) * 2.0
+    lt, rt = (torch.randint(0, 256, (h, w), device="cuda", generator=gen, dtype=torch.uint8)
+              for _ in range(2))
+    before = scanline_canonical_cuda.LAUNCHES
+    got = scanline_canonical_cuda.scanline_optimize_canonical_cuda(vol, lt, rt, 1.0, 3.0, 15.0,
+                                                                   view)
+    torch.cuda.synchronize()
+    assert scanline_canonical_cuda.LAUNCHES == before + 1
+    assert got.is_contiguous() and got.shape == (d, h, w)
+    want = scanline.scanline_optimize_canonical(vol, lt, rt, 1.0, 3.0, 15.0, view)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["left", "right"])
+@pytest.mark.parametrize("h,w,d", [(9, 21, 12), (40, 70, 100)])
+def test_canonical_scanline_kernel_float_images_on_card(h, w, d, view):
+    """Non-integer float32 images take the kernel's float32 image path: bit
+    for bit with the plain version, and a u8 pair gives the same bits as the
+    same pair in float32."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(h * w + d)
+    vol = torch.rand((d, h, w), device="cuda", generator=gen) * 2.0
+    lt, rt = (torch.rand((h, w), device="cuda", generator=gen) * 255.0 for _ in range(2))
+    fn = scanline_canonical_cuda.scanline_optimize_canonical_cuda
+    got = fn(vol, lt, rt, 1.0, 3.0, 15.0, view)
+    want = scanline.scanline_optimize_canonical(vol, lt, rt, 1.0, 3.0, 15.0, view)
+    assert torch.equal(got, want)
+    lu, ru = lt.to(torch.uint8), rt.to(torch.uint8)
+    assert torch.equal(fn(vol, lu, ru, 1.0, 3.0, 15.0, view),
+                       fn(vol, lu.float(), ru.float(), 1.0, 3.0, 15.0, view))
+
+
+@pytest.mark.cuda
+def test_canonical_scanline_kernel_checks_inputs():
+    """D above 256, images on another device and an unknown view raise and
+    launch nothing."""
+    _need_card()
+    fn = scanline_canonical_cuda.scanline_optimize_canonical_cuda
+    img = torch.zeros((8, 9), dtype=torch.uint8, device="cuda")
+    before = scanline_canonical_cuda.LAUNCHES
+    with pytest.raises(ValueError, match="D <= 256"):
+        fn(torch.zeros((scanline_canonical_cuda.MAX_DISP + 1, 8, 9), device="cuda"), img, img)
+    with pytest.raises(ValueError, match="one device"):
+        fn(torch.zeros((4, 8, 9), device="cuda"), img.cpu(), img)
+    with pytest.raises(ValueError, match="view"):
+        fn(torch.zeros((4, 8, 9), device="cuda"), img, img, view="up")
+    with pytest.raises(ValueError):
+        fn(torch.zeros((4, 8, 9), device="cuda"), img[:4], img)
+    assert scanline_canonical_cuda.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline,cfg,per_call", [
+    ("ad_census", ADCensusConfig(disp_range=8, aggregation="cross_two_pass"), (1, 0, 0)),
+    ("ad_census", ADCensusConfig(disp_range=8, aggregation="cross_two_pass",
+                                 scanline=ScanlineConfig(), run_post=True), (1, 2, 0)),
+    ("cblsm", CBLSMConfig(disp_range=8, aggregation="cross_two_pass"), (1, 0, 0)),
+], ids=["ad_census_active", "ad_census_FULL", "cblsm"])
+def test_canonical_pipelines_launch_kernels(pipeline, cfg, per_call):
+    """Launches per call (cost, canonical scanline, scanline.cu), and the
+    maps of the same pipeline on CPU tensors."""
+    _need_card()
+    L, R, _ = make_pair(40, 64, 8, seed=1)
+    fn = get_pipeline(pipeline)[0]
+    kernels = (ad_census_cuda, scanline_canonical_cuda, scanline_cuda)
+    before = [k.LAUNCHES for k in kernels]
+    res = fn(*pair_to_torch(L, R, "cuda"), cfg)
+    torch.cuda.synchronize()
+    assert tuple(k.LAUNCHES - b for k, b in zip(kernels, before)) == per_call
+    plain = fn(*pair_to_torch(L, R, "cpu"), cfg)
+    for f in ("disp_left", "disp_right", "disp_final"):
+        if getattr(res, f) is not None:
+            agree = (getattr(res, f).cpu() == getattr(plain, f)).float().mean().item()
+            assert agree >= 0.99, (f, agree)
