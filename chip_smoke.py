@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -125,12 +126,18 @@ MAX_BAD2_WINDOW = {"sad": 0.30, "ncc": 0.30, "cblsm": 0.20}  # tests/test_tpu_sm
 
 # (h, w, D) for the canonical scanline kernel against its plain version, both
 # views, on random costs and u8 images: one row, one column, W < 32, a W that
-# is no multiple of 4, D > W, D = 256 (8 values a lane), 4 values a lane over
-# many tiles of both directions, the reference size and the serving size
+# is no multiple of 4, D > W, D = 256 (8 values a lane) with W % 4 == 0 and
+# != 0, 4 values a lane over many tiles of both directions, the reference
+# size and the serving size
 CANONICAL_GEOMETRIES = [(1, 40, 7), (33, 1, 9), (9, 20, 12), (9, 21, 12), (6, 9, 70),
-                        (16, 300, 256), (40, 70, 100), (375, 450, 60), (720, 1280, 128)]
+                        (16, 300, 256), (16, 301, 256), (40, 70, 100), (375, 450, 60),
+                        (720, 1280, 128)]
 # ... and on non-integer float32 images (the kernel's other image type)
 CANONICAL_FLOAT_GEOMETRIES = [(9, 21, 12), (40, 70, 100)]
+# (p1, p2, tso) other than the defaults (1, 3, 15), at the two geometries
+# above: every edge bit set (tso 0, the clamp triangle's too), none set (tso
+# 300), other penalties
+CANONICAL_PARAMETERS = [(1.0, 3.0, 0.0), (1.0, 3.0, 300.0), (0.5, 2.0, 15.0)]
 # bad-2.0 of the JAX package's canonical family on make_pair(h, w, D, seed=0)
 # (BASELINE.md:672-675; hardware-independent): held within CANONICAL_BAD2_TOL
 # at the reference size, printed beside the port's at 720p
@@ -207,21 +214,16 @@ def back_to_back_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiled_stages(fn, reps: int) -> dict:
-    """Per-call ms of each ``stereo/<stage>`` range that the pipeline marks
-    (``utils.profiling.stage_scope``) over ``reps`` calls of ``fn`` under
-    ``torch.profiler``, after a warm-up call, read from its trace: of the
-    device work launched inside the range (by torch or through a C entry),
-    ``device_ms`` its kernels', copies' and fills' time summed and
-    ``device_span_ms`` from the first start to the last end; ``host_ms`` the
-    range on the host (with the profiler's own overhead)."""
+def traced_events(fn, reps: int) -> list:
+    """The complete events ("X") of a ``torch.profiler`` trace of ``reps``
+    calls of ``fn``, host and card, as the exported trace holds them (its
+    kernels carry their names and the correlation ids of their launches,
+    also of launches made through a C entry)."""
     import tempfile
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
@@ -230,7 +232,22 @@ def profiled_stages(fn, reps: int) -> dict:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+            return [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+
+def profiled_stages(fn, reps: int) -> dict:
+    """Per-call ms of each ``stereo/<stage>`` range that the pipeline marks
+    (``utils.profiling.stage_scope``) over ``reps`` calls of ``fn`` under
+    ``torch.profiler``, after a warm-up call, read from its trace: of the
+    device work launched inside the range (by torch or through a C entry),
+    ``device_ms`` its kernels', copies' and fills' time summed and
+    ``device_span_ms`` from the first start to the last end; ``host_ms`` the
+    range on the host (with the profiler's own overhead)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    events = traced_events(fn, reps)
     ranges, launches, work = [], [], {}
     for e in events:
         cat, args = e.get("cat", ""), e.get("args") or {}
@@ -1048,6 +1065,36 @@ def window_phases() -> dict:
     return summary
 
 
+def c_entry_footprint(call) -> dict:
+    """What one call of the canonical scanline wrapper takes besides its
+    time, measured: the memory it allocates at its peak and, of that, the
+    scratch it frees again (the peak less what the call leaves allocated:
+    its output), and the kernels one call of its C entry launches, counted
+    and timed in a ``torch.profiler`` trace of one call."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    scratch = peak - torch.cuda.memory_allocated()
+    del out
+    # the wrapper launches nothing of its own on these inputs (float32
+    # contiguous costs, u8 images), so every kernel in the trace is the C
+    # entry's
+    events = traced_events(call, 1)
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    names = [re.search(r"\w+_kernel(<[^>]*>)?", e["name"]) for e in kernels]
+    check(kernels and all(n and ("canonical" in n[0] or "edge_bits" in n[0]) for n in names),
+          ("kernels of one C-entry call", [e["name"] for e in kernels],
+           sorted({e.get("cat", "") for e in events})))
+    return {"scratch_bytes": scratch, "peak_bytes_of_a_call": peak - base,
+            "kernels_in_one_c_entry_call": len(kernels),
+            "kernel_ms_in_one_call": [[n[0], e["dur"] / 1e3] for n, e in zip(names, kernels)]}
+
+
 def canonical_phases() -> dict:
     """The canonical family's phases: the canonical scanline kernel against
     its plain version, ``get_pipeline("ad_census")`` with
@@ -1075,9 +1122,12 @@ def canonical_phases() -> dict:
     # -- 12. the canonical scanline kernel against its plain version -------
     max_abs = 0.0
     gen = torch.Generator(device="cuda").manual_seed(12)
-    geometries = ([(g, torch.uint8) for g in CANONICAL_GEOMETRIES]
-                  + [(g, torch.float32) for g in CANONICAL_FLOAT_GEOMETRIES])
-    for (h, w, d), dtype in geometries:
+    default = (1.0, 3.0, 15.0)
+    geometries = ([(g, torch.uint8, default) for g in CANONICAL_GEOMETRIES]
+                  + [(g, torch.float32, default) for g in CANONICAL_FLOAT_GEOMETRIES]
+                  + [(g, torch.uint8, p) for g in CANONICAL_FLOAT_GEOMETRIES
+                     for p in CANONICAL_PARAMETERS])
+    for (h, w, d), dtype, (p1, p2, tso) in geometries:
         vol = torch.rand((d, h, w), device="cuda", generator=gen) * 2.0
         if dtype == torch.uint8:
             lt, rt = (torch.randint(0, 256, (h, w), device="cuda", generator=gen, dtype=dtype)
@@ -1085,10 +1135,10 @@ def canonical_phases() -> dict:
         else:
             lt, rt = (torch.rand((h, w), device="cuda", generator=gen) * 255.0 for _ in range(2))
         rec = {"phase": "kernel_check", "kernel": "scanline_canonical_f32", "geometry": [h, w, d],
-               "images": str(dtype).replace("torch.", "")}
+               "images": str(dtype).replace("torch.", ""), "p1_p2_tso": [p1, p2, tso]}
         for view in ("left", "right"):
-            got = canonical(vol, lt, rt, 1.0, 3.0, 15.0, view)
-            want = scanline.scanline_optimize_canonical(vol, lt, rt, 1.0, 3.0, 15.0, view)
+            got = canonical(vol, lt, rt, p1, p2, tso, view)
+            want = scanline.scanline_optimize_canonical(vol, lt, rt, p1, p2, tso, view)
             torch.cuda.synchronize()
             rec[view] = {"bit_exact": torch.equal(got, want),
                          "max_abs_err": (got - want).abs().max().item()}
@@ -1197,7 +1247,8 @@ def canonical_phases() -> dict:
         agg_l = aggs[0]
         one = lambda: canonical(agg_l, lt, rt, cp.so_p1, cp.so_p2, cp.so_tso, "left")  # noqa: E731
         rec.update(kernel_ms=statistics.median(cuda_ms(one, 10 if hh == h else 5)),
-                   back_to_back_ms=back_to_back_ms(one, 20 if hh == h else 5))
+                   back_to_back_ms=back_to_back_ms(one, 20 if hh == h else 5),
+                   **c_entry_footprint(one))
         if (hh, ww, dd) == TEDDY:
             rec["plain_ms"] = statistics.median(cuda_ms(lambda: scanline.scanline_optimize_canonical(
                 agg_l, lt, rt, cp.so_p1, cp.so_p2, cp.so_tso, "left"), 2))
@@ -1205,6 +1256,7 @@ def canonical_phases() -> dict:
         # value and direction
         rec.update(bound(8 * dd * hh * ww + 2 * hh * ww, 60.0 * dd * hh * ww))
         rec["share_of_bound"] = rec["bound_ms"] / rec["kernel_ms"]
+        rec["share_of_bound_back_to_back"] = rec["bound_ms"] / rec["back_to_back_ms"]
         kernel[f"{hh}x{ww}/D={dd}"] = rec
         del aggs, agg_l
         torch.cuda.empty_cache()

@@ -9,8 +9,9 @@ C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -shared -o libstereo_kernels_<hash>.so *.o
 
 No fast-math: the kernels are held to their plain versions to the bit or
-nearly.  The library's name carries a hash of the sources and flags, so an
-edited source is rebuilt and a stale library is never loaded.  ``_build/``
+nearly.  The library's name carries a hash of the sources, the headers they
+share (``csrc/*.cuh``) and the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.  ``_build/``
 sits beside this file and is listed in ``.gitignore``; nvcc's output
 (ptxas register and shared-memory counts) is kept next to the library as
 ``<name>.log``.
@@ -44,16 +45,22 @@ def _nvcc() -> str:
     return str(path)
 
 
+def library_name(csrc: Path = CSRC) -> str:
+    """The library's file name: a hash of every source and header in
+    ``csrc`` and of the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return f"libstereo_kernels_{digest.hexdigest()[:16]}.so"
+
+
 def library_path() -> Path:
     """Compile the kernels if no library for the current sources exists;
     return its path.  Raises ``RuntimeError`` with nvcc's stderr if the
     build fails."""
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    lib = BUILD_DIR / f"libstereo_kernels_{digest.hexdigest()[:16]}.so"
+    lib = BUILD_DIR / library_name()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(exist_ok=True)

@@ -78,50 +78,19 @@
 // multiply to contract; min is exact in any order, and rounding is
 // monotone, so min_d (u_d - m) = (min_d u_d) - m.  The result matches the
 // plain version bit for bit.
+//
+// The tiles' machinery (copies, the ring of stages, the layouts, the
+// movers) lives in scanline_tiles.cuh, shared with scanline_canonical.cu.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <atomic>
 #include <cstdint>
 #include <mutex>
-#include <type_traits>
+
+#include "scanline_tiles.cuh"
 
 namespace {
-
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int GS = 4;  // steps a walker takes from registers between its shared-memory accesses
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// float <-> int whose signed order is the float order (an involution)
-__device__ __forceinline__ int ordered(int i) { return i ^ ((i >> 31) & 0x7fffffff); }
-
-__device__ __forceinline__ float warp_min(float v) {
-  const int r = __reduce_min_sync(FULL, ordered(__float_as_int(v)));
-  return __int_as_float(ordered(r));
-}
-
-template <int K>
-__device__ __forceinline__ float tree_min(const float (&v)[K]) {
-  float t[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) t[k] = v[k];
-#pragma unroll
-  for (int n = K / 2; n >= 1; n /= 2) {
-#pragma unroll
-    for (int k = 0; k < n; ++k) t[k] = fminf(t[k], t[k + n]);
-  }
-  return t[0];
-}
 
 // G steps of a walker warp that walks NC lines at once (their chains are
 // independent, so their instructions interleave).  c[n][j] holds the costs of
@@ -182,57 +151,9 @@ __device__ __forceinline__ float adaptive_p2(float p1, float p2_init, float g, f
   return fmaxf(p1, __fdiv_rn(p2_init, fabsf(g - g_ref) + 1.0f));
 }
 
-// The loop both kernels run, one iteration a tile, over a ring of NS stages.
-// The movers start the copies of tile ti + NS - 2 (`fetch` commits one
-// cp.async group, empty past the end) into the stage that was written out
-// an iteration ago, and write tile ti - 1 out; the walkers walk tile ti; at
-// the iteration's end tile ti + 1 has landed.  The last iteration only
-// writes tile ntiles - 1 out.
-template <int NS, bool SIDES, typename Fetch, typename FetchSides, typename WriteOut,
-          typename Walk>
-__device__ __forceinline__ void run_tiles(bool walker, int ntiles, Fetch fetch,
-                                          FetchSides fetch_sides, WriteOut write_out,
-                                          Walk walk) {
-  constexpr int AHEAD = NS - 2;
-  // cp.async groups younger than tile ti + 1's when iteration ti ends: the
-  // tiles ti + 2 .. ti + AHEAD and, with SIDES, a side group after each tile
-  constexpr int YOUNGER = SIDES ? 2 * AHEAD - 1 : AHEAD - 1;
-  if (!walker) {
-    for (int ti = 0; ti < AHEAD; ++ti) {
-      fetch(ti);
-      if (SIDES) cp_async_commit();  // an empty group where a side group will follow a tile
-    }
-    cp_async_wait<YOUNGER>();  // tile 0
-  }
-  __syncthreads();
-  for (int ti = 0; ti <= ntiles; ++ti) {
-    if (!walker) {
-      fetch(ti + AHEAD);
-      if (SIDES) cp_async_wait<1>();  // the side inputs of tile ti - 1 (this thread's own)
-      if (ti > 0) write_out(ti - 1);
-      if (SIDES) fetch_sides(ti);     // over the ones just used; one group as well
-      cp_async_wait<YOUNGER>();       // tile ti + 1
-    } else if (ti < ntiles) {
-      walk(ti);
-    }
-    __syncthreads();
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Horizontal: block = (image row, direction); warp 0 walks, warps 1-3 move.
 // ---------------------------------------------------------------------------
-
-constexpr int HT = 32;       // steps of a tile: one lane a step for the movers
-constexpr int HS = 4;        // stages: written out, walked, landed, on its way
-constexpr int HMOVERS = 96;  // mover threads (3 warps)
-
-// Word of (d, step j) in a tile: row d, its 16-byte chunks swizzled by the
-// lane d / K that owns the row.
-template <int K>
-__device__ __forceinline__ int h_word(int d, int j) {
-  return d * HT + ((((j >> 2) ^ ((d / K) & 7)) << 2) | (j & 3));
-}
 
 template <int K>
 __global__ void __launch_bounds__(32 + HMOVERS)
@@ -241,64 +162,26 @@ scanline_horizontal_kernel(const float* __restrict__ cost, const float* __restri
                            int w, int wp, float p1, float p2_init) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  constexpr int TILE = 32 * K * HT;
+  const HorizontalBlock<K> hb(cost, lr, rl, d_range, h, w, wp);
+  constexpr int TILE = HorizontalBlock<K>::TILE;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const bool rev = blockIdx.y != 0;
-  const int ntiles = (w + HT - 1) / HT;
-  const size_t plane = (size_t)h * w, plane_out = (size_t)h * wp;
-  const float* cost_row = cost + (size_t)blockIdx.x * w;
-  float* out_row = (rev ? rl : lr) + (size_t)blockIdx.x * wp;
-  // Tiles are cut at multiples of HT columns, so that the 16-byte chunks of a
-  // tile are 16-byte chunks of the output's rows; path tile ti is image tile
-  // ntiles - 1 - ti when walking right to left, and its step j the column
-  // HT - 1 - j of that tile.  The steps before `head` of the first tile of a
-  // right-left path lie beyond the image.
-  auto tile_x0 = [&](int ti) { return (rev ? ntiles - 1 - ti : ti) * HT; };
-  auto column = [&](int ti, int j) { return tile_x0(ti) + (rev ? HT - 1 - j : j); };
-  const int head = rev ? ntiles * HT - w : 0;
+  const bool rev = hb.rev;
+  const int ntiles = hb.ntiles, head = hb.head;  // steps before head lie beyond the image
 
   // rows d >= D stay so
   for (int i = tid; i < HS * TILE; i += 32 + HMOVERS) smem[i] = CUDART_INF_F;
   __syncthreads();
 
-  // Mover warp mw carries rows d = mw, mw + 3, ..; its lane the step.
-  const int mw = tid / 32 - 1;
-  auto fetch = [&](int in) {
-    if (in < ntiles && column(in, lane) < w) {
-      float* stage = smem + (in % HS) * TILE;
-      const float* src = cost_row + column(in, lane) + (size_t)mw * plane;
-#pragma unroll 4
-      for (int d = mw; d < d_range; d += HMOVERS / 32, src += (HMOVERS / 32) * plane) {
-        cp_async4(stage + h_word<K>(d, lane), src);
-      }
-    }
-    cp_async_commit();
-  };
-  // Write-out: a lane carries the four steps of one 16-byte chunk, a warp four
-  // rows.  The output's rows are `wp` apart, a multiple of 4, so a chunk is
-  // one aligned store; columns w .. wp - 1 receive whatever the stage held.
-  auto write_out = [&](int done) {
-    const int chunk = lane & 7;
-    const int x = rev ? column(done, chunk * 4 + 3) : column(done, chunk * 4);  // lowest column
-    if (x >= w) return;
-    const float4* stage = smem4 + (done % HS) * (TILE / 4);
-    constexpr int ROWS = HMOVERS / 8;  // rows a round of the movers carries
-    float* dst = out_row + x + (size_t)(mw * 4 + lane / 8) * plane_out;
-#pragma unroll 4
-    for (int d = mw * 4 + lane / 8; d < d_range; d += ROWS, dst += ROWS * plane_out) {
-      float4 v = stage[d * (HT / 4) + (chunk ^ ((d / K) & 7))];
-      if (rev) v = make_float4(v.w, v.z, v.y, v.x);
-      *reinterpret_cast<float4*>(dst) = v;
-    }
-  };
+  auto fetch = [&](int in) { hb.fetch(smem, in, [](int) {}); };
+  auto write_out = [&](int done) { hb.write_out(smem4, done); };
 
   // P2 of the 32 steps of a tile, one lane a step; the gray values of the
   // next tile are loaded while this one is walked.
   const float* grow = gray + (size_t)blockIdx.x * w;
   float ga = 0.f, gb = 0.f;
   auto gray_pair = [&](int ti) {
-    const int x = column(ti, lane), x_ref = rev ? x + 1 : x - 1;
+    const int x = hb.column(ti, lane), x_ref = rev ? x + 1 : x - 1;
     const bool ok = ti < ntiles && x < w && x_ref >= 0 && x_ref < w;
     ga = ok ? grow[x] : 0.f;
     gb = ok ? grow[x_ref] : 0.f;
@@ -353,84 +236,10 @@ scanline_horizontal_kernel(const float* __restrict__ cost, const float* __restri
 // (lr + rl) + (ud + du) over lr.
 // ---------------------------------------------------------------------------
 
-// XC, the columns of a block, is 16 (64-byte runs) or, where that would
-// leave most of the card without a block, 8.
-constexpr int NC = 4;          // columns of a walker warp
-constexpr int VMOVERS = 256;   // mover threads (8 warps)
-template <int XC> constexpr int VTHREADS = 32 * (XC / NC) + VMOVERS;
-
-// The bottom-up pass stages lr, rl and ud of one tile behind its ring where
-// they fit (K <= 4); for K = 8 its movers load them as they write out.
-template <int K, bool SECOND, int XC> struct Vertical {
-  static constexpr int VT = K >= 4 ? 4 : 8;   // image rows of a tile
-  static constexpr int G = K >= 8 ? 1 : 4;    // rows a walker takes at once
-  static constexpr bool SIDES = SECOND && K <= 4;
-  static constexpr int NS = K >= 8 ? 3 : (SIDES ? 4 : 6);  // stages
-  static constexpr int ROW = 32 * K * XC;     // words of one image row of a tile
-  static constexpr int TILE = ROW * VT;
-  static constexpr size_t BYTES = sizeof(float) * (NS + (SIDES ? 3 : 0)) * TILE;
-};
-
-// Word of (slot, column x) in an image row of a tile.  Slot k 32 + l holds
-// d = l K + k, the k-th value of walker lane l, as XC columns.  SPAN slots
-// fill the 32 banks; the 16-byte chunks of a slot are XOR-swizzled by
-// l / SPAN, and tile row r exchanges the slots of a span (slot ^ (r % SPAN)),
-// so that a walker's 128-bit access (32 slots of one k, one chunk, one row)
-// and a mover's (one slot, whole, SPAN or more rows) are free of bank
-// conflicts.
-template <int XC> struct Layout {
-  static constexpr int PP = XC / 4;    // chunks of a slot
-  static constexpr int SPAN = 8 / PP;
-  static __device__ __forceinline__ int word(int slot, int x) {
-    return slot * XC + ((((x >> 2) ^ (slot / SPAN)) & (PP - 1)) << 2) + (x & 3);
-  }
-  static __device__ __forceinline__ int row_swizzle(int r) { return r & (SPAN - 1); }
-};
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {  // past L1
-  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async8(float* dst, const float* src) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(a), "l"(src) : "memory");
-}
-
-// Four columns of a cost row, of which the first n lie in the image, as
-// copies of WIDTH floats (the widest that every row of the volume allows).
-template <int WIDTH>
-__device__ __forceinline__ void copy_cost_piece(float* dst, const float* src, int n) {
-  if (WIDTH == 4) {
-    cp_async16(dst, src);
-  } else if (WIDTH == 2) {  // w is even, so n is 2 or 4
-    cp_async8(dst, src);
-    if (n >= 4) cp_async8(dst + 2, src + 2);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (e < n) cp_async4(dst + e, src + e);
-    }
-  }
-}
-
 __device__ __forceinline__ float4 sum4(float4 a, float4 b, float4 u, float4 v) {
   return make_float4((a.x + b.x) + (u.x + v.x), (a.y + b.y) + (u.y + v.y),
                      (a.z + b.z) + (u.z + v.z), (a.w + b.w) + (u.w + v.w));
 }
-
-// A mover's share of a tile: 16-byte pieces (four columns of one d and tile
-// row).  Mover `mt` carries, of tile row r = (mt / PP) % VT and columns
-// 4 (mt % PP) .. + 3 of the block, the slots s0 + STRIDE i.  A warp's access
-// thus covers all rows and columns of one or two d: device memory is
-// d-major, and every d of a large volume lies in another page.
-template <int K, int VT, int XC> struct Share {
-  static constexpr int PP = XC / 4;                   // pieces of a slot's row
-  static constexpr int SLOTS = 32 * K;
-  static constexpr int STRIDE = VMOVERS / (PP * VT);  // slots between a mover's pieces
-  static constexpr int NP = SLOTS / STRIDE;           // pieces a mover carries
-  static_assert(VMOVERS % (PP * VT) == 0 && SLOTS % STRIDE == 0 && STRIDE % 8 == 0,
-                "movers tile a stage exactly, and a mover's pieces share their swizzle");
-};
 
 template <int K, bool SECOND, int XC>
 __global__ void __launch_bounds__(VTHREADS<XC>, 1)
@@ -444,96 +253,20 @@ scanline_vertical_kernel(const float* __restrict__ cost, const float* __restrict
   using Y = Layout<XC>;
   constexpr int VT = V::VT, G = V::G, NS = V::NS, ROW = V::ROW, TILE = V::TILE;
   constexpr bool SIDES = V::SIDES;
-  float* sides = smem + NS * TILE;  // [lr, rl, ud][TILE]
+  const VerticalMovers<K, SECOND, XC> mv(cost, lr, rl, ud, smem, d_range, h, w, wp);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int x0 = blockIdx.x * XC;
-  const int ntiles = (h + VT - 1) / VT;
-  const size_t plane = (size_t)h * w, plane_out = (size_t)h * wp;
+  const int x0 = mv.x0, ntiles = mv.ntiles;
   const bool dm1 = vert_dm1 != 0, first_ref = vert_first != 0;
-  auto image_row = [&](int s) { return SECOND ? h - 1 - s : s; };  // of path step s
 
   // rows d >= D stay so
   for (int i = tid; i < NS * TILE; i += VTHREADS<XC>) smem[i] = CUDART_INF_F;
   __syncthreads();
 
-  // Movers.  A piece is in the image if its first column is; lr, rl and ud
-  // have rows `wp` apart, a multiple of 4, so their pieces are aligned and
-  // whole, and columns w .. wp - 1 of them hold no meaning.  The offsets of a
-  // mover's d are computed once, in 32 bits.
-  using S = Share<K, VT, XC>;
-  const int mt = tid - 32 * (XC / NC);
-  const int mx = (mt % S::PP) * 4, mr = (mt / S::PP) % VT, slot0 = mt / (S::PP * VT);
-  // piece i is STRIDE * XC * i words on
-  const int word0 = mr * ROW + Y::word(slot0 ^ Y::row_swizzle(mr), mx);
-  const bool mover_in_image = x0 + mx < w;
-  unsigned cost_d[S::NP], out_d[S::NP];  // d * plane of piece i, or ~0 for d >= D
-#pragma unroll
-  for (int i = 0; i < S::NP; ++i) {
-    const int slot = slot0 + S::STRIDE * i;
-    const int d = (slot & 31) * K + slot / 32;
-    cost_d[i] = d < d_range ? (unsigned)(d * plane) : ~0u;
-    out_d[i] = d < d_range ? (unsigned)(d * plane_out) : ~0u;
-  }
-  auto row_in_image = [&](int tile) { return mover_in_image && tile * VT + mr < h; };
-  auto cost_row = [&](int tile) {
-    return cost + (size_t)image_row(tile * VT + mr) * w + x0 + mx;
-  };
-  auto out_row = [&](int tile) { return (size_t)image_row(tile * VT + mr) * wp + x0 + mx; };
-  auto fetch_as = [&](auto width_c, int in) {
-    constexpr int WIDTH = decltype(width_c)::value;
-    float* dst = smem + (in % NS) * TILE + word0;
-    const float* src = cost_row(in);
-    const int n = w - x0 - mx;
-#pragma unroll
-    for (int i = 0; i < S::NP; ++i) {
-      if (cost_d[i] != ~0u) copy_cost_piece<WIDTH>(dst + S::STRIDE * XC * i, src + cost_d[i], n);
-    }
-  };
-  auto fetch = [&](int in) {
-    if (in < ntiles && row_in_image(in)) {
-      if (cost_width == 4) fetch_as(std::integral_constant<int, 4>{}, in);
-      else if (cost_width == 2) fetch_as(std::integral_constant<int, 2>{}, in);
-      else fetch_as(std::integral_constant<int, 1>{}, in);
-    }
-    cp_async_commit();
-  };
-  auto fetch_sides = [&](int in) {
-    if (in < ntiles && row_in_image(in)) {
-      float* dst = sides + word0;
-      const size_t o = out_row(in);
-#pragma unroll
-      for (int i = 0; i < S::NP; ++i) {
-        if (out_d[i] != ~0u) {
-          cp_async16(dst + S::STRIDE * XC * i, lr + o + out_d[i]);
-          cp_async16(dst + S::STRIDE * XC * i + TILE, rl + o + out_d[i]);
-          cp_async16(dst + S::STRIDE * XC * i + 2 * TILE, ud + o + out_d[i]);
-        }
-      }
-    }
-    cp_async_commit();
-  };
+  auto fetch = [&](int in) { mv.fetch(in, cost_width, [](int) {}); };
+  auto fetch_sides = [&](int in) { mv.fetch_sides(in); };
   auto write_out = [&](int done) {
-    if (!row_in_image(done)) return;
-    const float* stage = smem + (done % NS) * TILE + word0;
-    const float* side = sides + word0;
-    const size_t o = out_row(done);
-#pragma unroll
-    for (int i = 0; i < S::NP; ++i) {
-      if (out_d[i] == ~0u) continue;
-      const int at = S::STRIDE * XC * i;
-      float4 v = *reinterpret_cast<const float4*>(stage + at);
-      if (SIDES) {
-        v = sum4(*reinterpret_cast<const float4*>(side + at),
-                 *reinterpret_cast<const float4*>(side + at + TILE),
-                 *reinterpret_cast<const float4*>(side + at + 2 * TILE), v);
-      } else if (SECOND) {
-        v = sum4(*reinterpret_cast<const float4*>(lr + o + out_d[i]),
-                 *reinterpret_cast<const float4*>(rl + o + out_d[i]),
-                 *reinterpret_cast<const float4*>(ud + o + out_d[i]), v);
-      }
-      *reinterpret_cast<float4*>((SECOND ? lr : ud) + o + out_d[i]) = v;
-    }
+    mv.write_out(done, [](float4 a, float4 b, float4 u, float4 v) { return sum4(a, b, u, v); });
   };
 
   // Walker warp `wq` owns columns x0 + 4 wq .. + 3.  P2 of 32 steps at a time,
@@ -548,8 +281,8 @@ scanline_vertical_kernel(const float* __restrict__ cost, const float* __restrict
     for (int n = 0; n < NC; ++n) {
       const int x = x0 + NC * wq + n;
       const bool ok = walks && x < w && s >= 1 && s < h;
-      ga[n] = ok ? gray[(size_t)image_row(s) * w + x] : 0.f;
-      gb[n] = ok ? gray[(size_t)image_row(first_ref ? 0 : s - 1) * w + x] : 0.f;
+      ga[n] = ok ? gray[(size_t)mv.image_row(s) * w + x] : 0.f;
+      gb[n] = ok ? gray[(size_t)mv.image_row(first_ref ? 0 : s - 1) * w + x] : 0.f;
     }
   };
   int at[K];  // the lane's 16-byte chunks in row 0 of a tile
@@ -613,7 +346,6 @@ scanline_vertical_kernel(const float* __restrict__ cost, const float* __restrict
 // last launch, so a second caller records the events only after the first
 // has enqueued its waits on them (a wait takes the event as recorded when
 // the wait is enqueued).
-constexpr int MAX_DEVICES = 64;
 std::mutex launch_mutex;
 
 struct SideStream {
@@ -650,14 +382,10 @@ cudaError_t launch_vertical(const float* cost, const float* gray, float* lr, flo
                             float p2, int vert_dm1, int vert_first, int device,
                             cudaStream_t s) {
   const size_t bytes = Vertical<K, SECOND, XC>::BYTES;
-  static bool sized[MAX_DEVICES] = {};  // per instance and device; the attribute is set once
-  if (!sized[device]) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(scanline_vertical_kernel<K, SECOND, XC>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-    sized[device] = true;
-  }
+  static std::atomic<bool> sized[MAX_DEVICES];  // per instance and device, false at first
+  const cudaError_t err =
+      allow_shared_bytes(sized[device], scanline_vertical_kernel<K, SECOND, XC>, bytes);
+  if (err != cudaSuccess) return err;
   scanline_vertical_kernel<K, SECOND, XC><<<(w + XC - 1) / XC, VTHREADS<XC>, bytes, s>>>(
       cost, gray, lr, rl, ud, d_range, h, w, wp, cost_width, p1, p2, vert_dm1, vert_first);
   return cudaGetLastError();
@@ -675,13 +403,9 @@ cudaError_t launch(const float* cost, const float* gray, float* lr, float* rl, f
   cudaError_t err = side_stream(&side);
   if (err != cudaSuccess) return err;
   const size_t horizontal = sizeof(float) * HS * 32 * K * HT;
-  static bool sized[MAX_DEVICES] = {};  // per K and device; the attribute is set once
-  if (!sized[side->device]) {
-    err = cudaFuncSetAttribute(scanline_horizontal_kernel<K>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)horizontal);
-    if (err != cudaSuccess) return err;
-    sized[side->device] = true;
-  }
+  static std::atomic<bool> sized[MAX_DEVICES];  // per K and device, false at first
+  err = allow_shared_bytes(sized[side->device], scanline_horizontal_kernel<K>, horizontal);
+  if (err != cudaSuccess) return err;
   // top-down (side stream) beside the horizontal passes, then bottom-up
   if ((err = cudaEventRecord(side->fork, s)) != cudaSuccess) return err;
   if ((err = cudaStreamWaitEvent(side->stream, side->fork, 0)) != cudaSuccess) return err;

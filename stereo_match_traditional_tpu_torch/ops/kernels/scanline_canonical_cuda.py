@@ -14,12 +14,21 @@ from stereo_match_traditional_tpu_torch.ops.kernels.launch import (
     current, kernel_inputs, raise_on_error, stream,
 )
 
-# Kernel launches so far (one per call of the C entry point, which runs the
-# four passes and their combination for one view); a run resets it to show
-# its path went through the kernel.  Only the launch below increments it.
+# Kernel launches so far (one per call of the C entry point, which writes
+# the edge bits and runs the four passes of one view, the last storing their
+# mean); a run resets it to show its path went through the kernel.  Only the
+# launch below increments it.
 LAUNCHES = 0
 
-MAX_DISP = 256   # 8 values a lane in a warp
+MAX_DISP = 256           # 8 values a lane in a walker warp; shared memory of a stage
+MAX_VALUES = 2**32 - 1   # the kernel keeps offsets into the volumes in 32 bits
+
+
+def edge_bit_words(h: int, w: int) -> int:
+    """32-bit words of the kernel's four edge-bit planes (``[4, H, RW]``,
+    ``RW = (W + 640 + 31) // 32``; ``csrc/scanline_canonical.cu``'s header
+    describes them), which follow rl and ud in its scratch."""
+    return 4 * h * ((w + 640 + 31) // 32)
 
 
 def scanline_optimize_canonical_cuda(
@@ -35,8 +44,10 @@ def scanline_optimize_canonical_cuda(
     the C entry per view for CUDA inputs, the plain version for CPU inputs.
 
     ``cost`` is the view's d-major ``[D, H, W]`` volume, ``left`` / ``right``
-    the gray images (read as they are when both are uint8, else as float32);
-    the result is a contiguous float32 ``[D, H, W]``."""
+    the gray images (read as they are when both are uint8, else as float32).
+    The kernel writes d-major volumes whose rows are padded to a multiple of
+    4 columns (16-byte rows); the result is the float32 ``[D, H, W]`` view of
+    such a volume, contiguous when ``W`` is a multiple of 4."""
     global LAUNCHES
     devices = {t.device for t in (cost, left, right)}
     if len(devices) != 1:
@@ -52,13 +63,16 @@ def scanline_optimize_canonical_cuda(
         raise ValueError(f"cost must be [D, H, W] and the images [H, W], got {tuple(cost.shape)}, "
                          f"{tuple(left.shape)} and {tuple(right.shape)}")
     d, h, w = cost.shape
-    if not 1 <= d <= MAX_DISP or h < 1 or w < 1:
+    wp = -(-w // 4) * 4
+    if not 1 <= d <= MAX_DISP or h < 1 or w < 1 or d * h * wp > MAX_VALUES:
         raise ValueError(f"canonical scanline kernel takes 1 <= D <= {MAX_DISP} and a "
-                         f"non-empty image, got D={d}, {h}x{w}")
+                         f"non-empty volume below 2^32 values, got D={d}, {h}x{w}")
     c = cost.to(torch.float32).contiguous()
     lf, rf, u8 = kernel_inputs(left, right)
-    scratch = torch.empty((3, d, h, w), dtype=torch.float32, device=c.device)  # rl, ud, du
-    out = torch.empty((d, h, w), dtype=torch.float32, device=c.device)
+    # rl and ud, [2, D, H, wp], then the edge bits
+    scratch = torch.empty(2 * d * h * wp + edge_bit_words(h, w), dtype=torch.float32,
+                          device=c.device)
+    out = torch.empty((d, h, wp), dtype=torch.float32, device=c.device)
     lib = library()
     with current(c.device):
         err = lib.scanline_canonical_f32(
@@ -66,4 +80,4 @@ def scanline_optimize_canonical_cuda(
             d, h, w, float(p1), float(p2), float(tso), int(view == "right"), stream(c.device))
     raise_on_error(lib, "scanline_canonical_f32", err)
     LAUNCHES += 1
-    return out
+    return out[:, :, :w]

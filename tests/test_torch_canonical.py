@@ -195,6 +195,192 @@ def test_scanline_optimize_canonical_near_compiled_jax(view):
     assert _ulps(got.numpy(), np.asarray(want)) <= 8
 
 
+@pytest.mark.parametrize("p1,p2,tso", [(1.0, 3.0, 0.0), (0.5, 2.0, 15.0), (0.5, 2.0, 0.0)],
+                         ids=["tso0", "p1_0.5_p2_2", "p1_0.5_p2_2_tso0"])
+@pytest.mark.parametrize("view", ["left", "right"])
+def test_scanline_optimize_canonical_other_parameters_match_jax(p1, p2, tso, view):
+    """Bit-exact with unjitted JAX at tso = 0 (every scale 0.1: |dg| >= 0
+    always holds, in the clamp triangle too) and at non-default P1 / P2."""
+    cost, L, R = _scanline_inputs(12, 6, 9, 31)
+    got = tscan.scanline_optimize_canonical(_t(cost), _t(L), _t(R), p1, p2, tso, view)
+    with jax.disable_jit():
+        want = jscan.scanline_optimize_canonical(jnp.asarray(cost), jnp.asarray(L),
+                                                 jnp.asarray(R), p1, p2, tso, view)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# A model of csrc/scanline_canonical.cu's edge bits, in its own index
+# arithmetic: the prologue's four bit planes, the words the movers stage for
+# a tile, and the funnel shift and bit each walker lane reads at a step.
+# Held against the plain version's penalty scales, it checks the kernel's
+# indexing without the card.
+PAD = 256
+SCALES = np.array([1.0, 0.25, 0.1], np.float32)
+
+
+def _row_words(w):
+    return (w + 640 + 31) // 32
+
+
+def _edge_planes(base, match, tso):
+    """The prologue's planes [base h, base v, match h, match v] as uint32
+    words [4, H, RW]."""
+    h, w = base.shape
+    cols = np.arange(_row_words(w) * 32) - PAD
+    zero = np.float32(0.0) >= np.float32(tso)
+
+    def horizontal(g):
+        inside = (cols >= 1) & (cols < w)
+        c = np.where(inside, cols, 1 if w > 1 else 0)
+        return np.where(inside, np.abs(g[:, c] - g[:, np.maximum(c - 1, 0)]) >= tso, zero)
+
+    def vertical(g):
+        c = np.clip(cols, 0, w - 1)
+        out = np.zeros((h, cols.size), bool)
+        out[1:] = np.abs(g[1:, c] - g[:-1, c]) >= tso
+        return out
+
+    g1, g2 = base.astype(np.float32), match.astype(np.float32)
+    bits = np.stack([horizontal(g1), vertical(g1), horizontal(g2), vertical(g2)])
+    weights = (np.uint64(1) << np.arange(32, dtype=np.uint64))
+    words = (bits.reshape(4, h, -1, 32).astype(np.uint64) * weights).sum(-1)
+    return words.astype(np.uint64)
+
+
+def _funnel(lo, hi, shift):
+    return ((int(hi) << 32 | int(lo)) >> (shift & 31)) & 0xFFFFFFFF
+
+
+def _word(words, i):
+    assert 0 <= i < len(words), ("bit row word out of range", i, len(words))
+    return int(words[i])
+
+
+def _k_of(d_range):
+    return next(k for k in (1, 2, 4, 8) if d_range <= 32 * k)
+
+
+def _koff(k, kk, right):
+    return k if right else kk - 1 - k
+
+
+def _model_horizontal(planes, h, w, d_range, right, rev):
+    """Scale [W path steps, D, H] that the kernel's horizontal walkers use;
+    NaN at the first step and where no lane holds d."""
+    kk = _k_of(d_range)
+    mb = kk + 4
+    ntiles = -(-w // 32)
+    head = ntiles * 32 - w if rev else 0
+    out = np.full((w, d_range, h), np.nan, np.float32)
+    for y in range(h):
+        for ti in range(ntiles):
+            x0 = (ntiles - 1 - ti if rev else ti) * 32
+            w0 = (x0 + PAD) // 32
+            stage = ([_word(planes[2, y], w0 - (0 if right else kk) + i) for i in range(mb)]
+                     + [_word(planes[0, y], w0 + i) for i in range(2)])
+            for lane in range(32):
+                lane_bit = lane * kk if right else 32 * kk - lane * kk - (kk - 1)
+                for g in range(8):
+                    p0 = 32 - 4 * g if rev else 4 * g
+                    plo = p0 - 3 if rev else p0
+                    b1 = _funnel(stage[mb + (plo >> 5)], stage[mb + (plo >> 5) + 1], plo & 31)
+                    for j in range(4):
+                        step = 4 * g + j
+                        x = x0 + (31 - step if rev else step)
+                        t = w - 1 - x if rev else x
+                        if ti == 0 and step < head or x >= w or t == 0:
+                            continue
+                        o1 = b1 >> (3 - j if rev else j) & 1
+                        b = (p0 - j if rev else p0 + j) + lane_bit
+                        assert 0 <= b >> 5 and (b >> 5) + 1 < mb
+                        o2 = _funnel(stage[b >> 5], stage[(b >> 5) + 1], b & 31)
+                        for k in range(kk):
+                            d = lane * kk + k
+                            if d < d_range:
+                                out[t, d, y] = SCALES[o1 + (o2 >> _koff(k, kk, right) & 1)]
+    return out
+
+
+def _model_vertical(planes, h, w, d_range, right, bottom_up, xc_block):
+    """Scale [H path steps, D, W] that the kernel's vertical walkers use,
+    for blocks of ``xc_block`` columns; NaN at the first step."""
+    kk = _k_of(d_range)
+    mb = kk + 4
+    out = np.full((h, d_range, w), np.nan, np.float32)
+    for x0 in range(0, w, xc_block):
+        mo = (x0 + PAD - (0 if right else 32 * kk - 1)) >> 5
+        bo = (x0 + PAD) >> 5
+        for s in range(1, h):
+            q = h - s if bottom_up else s
+            stage = ([_word(planes[3, q], mo + i) for i in range(mb)]
+                     + [_word(planes[1, q], bo)])
+            for wq in range(xc_block // 4):
+                xc = x0 + 4 * wq
+                if xc >= w:
+                    continue
+                o1 = stage[mb] >> (((x0 + PAD) & 31) + 4 * wq)
+                for lane in range(32):
+                    mbit = xc + PAD + (lane * kk if right else -lane * kk - (kk - 1)) - 32 * mo
+                    assert 0 <= mbit >> 5 and (mbit >> 5) + 1 < mb
+                    o2 = _funnel(stage[mbit >> 5], stage[(mbit >> 5) + 1], mbit & 31)
+                    for n in range(4):
+                        for k in range(kk):
+                            d = lane * kk + k
+                            if xc + n < w and d < d_range:
+                                bits = (o1 >> n & 1) + (o2 >> (n + _koff(k, kk, right)) & 1)
+                                out[s, d, xc + n] = SCALES[bits]
+    return out
+
+
+def _plain_scales(base, match, d_range, tso, view):
+    """The plain version's scales of the four passes, each [path steps, D,
+    lines], as ``scanline_optimize_canonical`` builds them."""
+    from stereo_match_traditional_tpu_torch.ops.volume import shifted_stack
+
+    g1 = torch.tensor(base, dtype=torch.float32)
+    g2 = shifted_stack(torch.tensor(match, dtype=torch.float32), d_range, view)
+
+    def scales(a, b):
+        return tscan.canonical_scale(a, torch.cat([a[:1], a[:-1]]), b,
+                                     torch.cat([b[:1], b[:-1]]), tso).numpy()
+
+    horiz = (g1.T, g2.permute(2, 0, 1))
+    vert = (g1, g2.permute(1, 0, 2))
+    return {"lr": scales(*horiz), "rl": scales(*(t.flip(0) for t in horiz)),
+            "ud": scales(*vert), "du": scales(*(t.flip(0) for t in vert))}
+
+
+@pytest.mark.parametrize("tso", [0.0, 15.0, 300.0])
+@pytest.mark.parametrize("h,w,d", [(9, 21, 12), (6, 9, 70), (5, 70, 33), (3, 40, 256),
+                                   (2, 33, 40)],
+                         ids=["K1", "D>W,K4", "K2,3tiles", "D>W,K8", "K2,head31,H2"])
+def test_kernel_edge_bit_model_matches_plain_scale(h, w, d, tso):
+    """Element for element, the scale the kernel's walkers take at every
+    path step after the first, disparity and line, for all four directions,
+    both views and both vertical block widths, equals the plain version's
+    ``canonical_scale`` (D > W covers the whole clamp triangle)."""
+    from stereo_match_traditional_tpu_torch.ops.kernels import scanline_canonical_cuda
+
+    rng = np.random.default_rng(h * w + d)
+    left = rng.integers(0, 40, (h, w)).astype(np.uint8)
+    right = rng.integers(0, 40, (h, w)).astype(np.uint8)
+    for view in ("left", "right"):
+        base, match = (left, right) if view == "left" else (right, left)
+        planes = _edge_planes(base, match, tso)
+        assert planes.size == scanline_canonical_cuda.edge_bit_words(h, w)
+        want = _plain_scales(base, match, d, tso, view)
+        got = {"lr": _model_horizontal(planes, h, w, d, view == "right", False),
+               "rl": _model_horizontal(planes, h, w, d, view == "right", True)}
+        for xc_block in (8, 16):
+            got["ud"] = _model_vertical(planes, h, w, d, view == "right", False, xc_block)
+            got["du"] = _model_vertical(planes, h, w, d, view == "right", True, xc_block)
+            for name, g in got.items():
+                assert not np.isnan(g[1:]).any() and np.isnan(g[0]).all(), (view, name)
+                np.testing.assert_array_equal(g[1:], want[name][1:], err_msg=f"{view} {name}")
+        if tso == 15.0:
+            assert {float(v) for v in np.unique(want["lr"][1:])} == {float(v) for v in SCALES}
+
+
 def _voting_inputs(h=17, w=23, d=10, seed=7):
     rng = np.random.default_rng(seed)
     disp = rng.integers(0, d, (h, w)).astype(np.float32)

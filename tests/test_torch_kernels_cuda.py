@@ -532,11 +532,32 @@ def test_every_c_entry_has_its_signature_bound():
     assert len(declared) >= 7 and bound == declared
 
 
+def test_library_name_covers_sources_and_headers(tmp_path):
+    """The built library's name changes with a byte of any source or of a
+    header the sources share, so an edited header is never served by a
+    stale library (no card needed)."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers and build.library_name(csrc) == build.library_name()
+    names = {build.library_name(csrc)}
+    for path in (headers[0], csrc / "scanline.cu"):
+        path.write_bytes(path.read_bytes() + b"\n")
+        names.add(build.library_name(csrc))
+    assert len(names) == 3
+    for src in ("scanline.cu", "scanline_canonical.cu"):
+        assert '#include "scanline_tiles.cuh"' in (build.CSRC / src).read_text()
+
+
 # (h, w, D) for the canonical scanline kernel: one row, one column, W < 32,
-# W % 4 != 0, D > W, D = 256 (8 values a lane), 4 values a lane over many
-# tiles of both directions, the reference size and the serving size
+# W % 4 != 0, D > W, D = 256 (8 values a lane) with W % 4 == 0 and != 0, 4
+# values a lane over many tiles of both directions, the reference size and
+# the serving size
 CANONICAL_GEOMETRIES = [(1, 40, 7), (33, 1, 9), (9, 20, 12), (9, 21, 12), (6, 9, 70),
-                        (16, 300, 256), (40, 70, 100), (375, 450, 60), (720, 1280, 128)]
+                        (16, 300, 256), (16, 301, 256), (40, 70, 100), (375, 450, 60),
+                        (720, 1280, 128)]
 
 
 @pytest.mark.cuda
@@ -555,8 +576,29 @@ def test_canonical_scanline_kernel_bit_exact_on_card(h, w, d, view):
                                                                    view)
     torch.cuda.synchronize()
     assert scanline_canonical_cuda.LAUNCHES == before + 1
-    assert got.is_contiguous() and got.shape == (d, h, w)
+    # a view of rows padded to a multiple of 4 columns
+    assert got.shape == (d, h, w) and got.is_contiguous() == (w % 4 == 0)
     want = scanline.scanline_optimize_canonical(vol, lt, rt, 1.0, 3.0, 15.0, view)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["left", "right"])
+@pytest.mark.parametrize("p1,p2,tso", [(1.0, 3.0, 0.0), (1.0, 3.0, 300.0), (0.5, 2.0, 15.0)],
+                         ids=["tso0", "tso300", "p1_0.5_p2_2"])
+@pytest.mark.parametrize("h,w,d", [(9, 21, 12), (40, 70, 100)])
+def test_canonical_scanline_kernel_other_parameters_on_card(h, w, d, p1, p2, tso, view):
+    """Bit for bit with the plain version where every edge bit is set
+    (tso 0, the clamp triangle's too), where none is (tso 300) and at
+    non-default penalties."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(h + w + d + int(tso))
+    vol = torch.rand((d, h, w), device="cuda", generator=gen) * 2.0
+    lt, rt = (torch.randint(0, 256, (h, w), device="cuda", generator=gen, dtype=torch.uint8)
+              for _ in range(2))
+    got = scanline_canonical_cuda.scanline_optimize_canonical_cuda(vol, lt, rt, p1, p2, tso,
+                                                                   view)
+    want = scanline.scanline_optimize_canonical(vol, lt, rt, p1, p2, tso, view)
     assert torch.equal(got, want)
 
 
@@ -582,8 +624,8 @@ def test_canonical_scanline_kernel_float_images_on_card(h, w, d, view):
 
 @pytest.mark.cuda
 def test_canonical_scanline_kernel_checks_inputs():
-    """D above 256, images on another device and an unknown view raise and
-    launch nothing."""
+    """D above 256, images on another device, an unknown view and a volume
+    of 2^32 values raise and launch nothing."""
     _need_card()
     fn = scanline_canonical_cuda.scanline_optimize_canonical_cuda
     img = torch.zeros((8, 9), dtype=torch.uint8, device="cuda")
@@ -596,6 +638,12 @@ def test_canonical_scanline_kernel_checks_inputs():
         fn(torch.zeros((4, 8, 9), device="cuda"), img, img, view="up")
     with pytest.raises(ValueError):
         fn(torch.zeros((4, 8, 9), device="cuda"), img[:4], img)
+    # D H wp of 2^32 values (the movers' 32-bit offsets), a volume that is
+    # never materialised
+    big = torch.zeros((1, 1, 1), device="cuda").expand(256, 4096, 4096)
+    img = torch.zeros((4096, 4096), dtype=torch.uint8, device="cuda")
+    with pytest.raises(ValueError, match="2\\^32"):
+        fn(big, img, img)
     assert scanline_canonical_cuda.LAUNCHES == before
 
 
