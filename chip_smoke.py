@@ -19,7 +19,12 @@ after, and checks their
 output against the ground truth and the port's CPU plain path; then times
 kernels, plain versions, pipelines and stages with CUDA events (the
 canonical family's stages by the pipeline's own ``stereo/<stage>`` ranges
-under ``torch.profiler``).  Each
+under ``torch.profiler``).  Then the serving surfaces: each pipeline's
+``return_stages`` and its re-entry from the saved stages
+(``finish_from_volumes``), the command line as a subprocess, and
+``serve_pairs`` over the prefetching ``PairLoader`` with its launch counts,
+its ms a pair over a served stream of 240 pairs and the card's idle
+share.  Each
 phase prints one JSON line; any failure raises and exits non-zero.  The
 last three lines are the card's ``nvidia-smi`` name and power limit, the
 kernel summary ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -144,6 +149,25 @@ CANONICAL_PARAMETERS = [(1.0, 3.0, 0.0), (1.0, 3.0, 300.0), (0.5, 2.0, 15.0)]
 CANONICAL_BAD2 = {("active", TEDDY): 0.0737, ("FULL", TEDDY): 0.0852,
                   ("active", SERVING): 0.2262, ("FULL", SERVING): 0.2425}
 CANONICAL_BAD2_TOL = 0.005
+# The stages each configuration's return_stages=True gives, by the JAX
+# package's names (its models/*.py)
+COST = ["cost_left", "cost_right"]
+AGGREGATED = COST + ["aggregated_left", "aggregated_right"]
+ARMS_LEFT = [f"arms_left_{k}" for k in ("left", "right", "up", "down")]
+SURFACE_STAGES = {"asw": COST, "ad_census": AGGREGATED, "sad": COST[:1], "ncc": COST[:1],
+                  "cblsm": AGGREGATED, "ad_census FULL": AGGREGATED,
+                  "ad_census canonical FULL": AGGREGATED + ARMS_LEFT}
+SERVED_PAIRS = 8                          # make_pair seeds 0-7, served in batches of 3
+SERVE_BATCH = 3
+# The timed served stream: the 8 PGM pairs cycled to SERVE_STREAM pairs a
+# window, SERVE_WINDOWS windows of each way of serving, in turns; and one
+# window of SERVE_TRACED pairs under torch.profiler for the idle share
+SERVE_STREAM = 240
+SERVE_WINDOWS = 3
+SERVE_TRACED = 96
+# The trace categories of the card's own work: kernels, copies, fills
+DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
+TRACE_TRIES = 3
 
 
 def check(ok: bool, what) -> None:
@@ -218,21 +242,30 @@ def traced_events(fn, reps: int) -> list:
     """The complete events ("X") of a ``torch.profiler`` trace of ``reps``
     calls of ``fn``, host and card, as the exported trace holds them (its
     kernels carry their names and the correlation ids of their launches,
-    also of launches made through a C entry)."""
+    also of launches made through a C entry).
+
+    A trace that holds the launches but no event of the card at all is
+    taken again, up to TRACE_TRIES times: the profiler has been seen to
+    lose every device event of a short trace (H100, torch 2.11), which
+    no ``fn`` here can cause."""
     import tempfile
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            return [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+        if any(e.get("cat") in DEVICE_EVENTS for e in events):
+            break
+    return events
 
 
 def profiled_stages(fn, reps: int) -> dict:
@@ -255,7 +288,7 @@ def profiled_stages(fn, reps: int) -> dict:
             ranges.append(e)
         elif cat.startswith("cuda_") and "correlation" in args:  # the launching API calls
             launches.append(e)
-        elif cat in ("kernel", "gpu_memcpy", "gpu_memset") and "correlation" in args:
+        elif cat in DEVICE_EVENTS and "correlation" in args:
             work.setdefault(args["correlation"], []).append(e)
     stages = {}
     for r in ranges:
@@ -421,6 +454,7 @@ def main() -> None:
     ad = ad_census_phases()
     win = window_phases()
     canon = canonical_phases()
+    surfaces_phase(kind)
 
     for banned in ("jax", "stereo_match_traditional_tpu"):   # the name or a dotted prefix
         loaded = [m for m in sys.modules if m == banned or m.startswith(banned + ".")]
@@ -1093,6 +1127,217 @@ def c_entry_footprint(call) -> dict:
     return {"scratch_bytes": scratch, "peak_bytes_of_a_call": peak - base,
             "kernels_in_one_c_entry_call": len(kernels),
             "kernel_ms_in_one_call": [[n[0], e["dur"] / 1e3] for n, e in zip(names, kernels)]}
+
+
+def busy_share(events, window) -> float:
+    """The share of the ``window`` event's span in which the card ran a
+    kernel, a copy or a fill (their union, from a ``traced_events`` list)."""
+    start, end = window["ts"], window["ts"] + window["dur"]
+    spans = sorted((max(e["ts"], start), min(e["ts"] + e["dur"], end)) for e in events
+                   if e.get("cat") in DEVICE_EVENTS)
+    busy, reach = 0.0, start
+    for a, b in spans:
+        if b > max(a, reach):
+            busy += b - max(a, reach)
+            reach = b
+    return busy / window["dur"]
+
+
+def surfaces_phase(kind: str) -> None:
+    """The serving surfaces on the card at the reference size: every
+    pipeline's ``return_stages`` and re-entry from its saved stages
+    (``utils.checkpoint``, ``models.registry.finish_from_volumes``), the
+    command line as a subprocess, and ``serve_pairs`` over the
+    prefetching ``PairLoader``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stereo_match_traditional_tpu_torch import (
+        ADCensusConfig, ASWConfig, CBLSMConfig, NCCConfig, SADConfig, ScanlineConfig,
+    )
+    from stereo_match_traditional_tpu_torch.models import get_pipeline
+    from stereo_match_traditional_tpu_torch.models.batch import serve_pairs
+    from stereo_match_traditional_tpu_torch.models.registry import finish_from_volumes
+    from stereo_match_traditional_tpu_torch.ops.kernels import (
+        ad_census_cuda, asw_cuda, scanline_canonical_cuda, scanline_cuda, window_cost_cuda,
+    )
+    from stereo_match_traditional_tpu_torch.utils import checkpoint, loader
+    from stereo_match_traditional_tpu_torch.utils.convert import pair_to_torch
+    from stereo_match_traditional_tpu_torch.utils.io import read_pfm
+    from stereo_match_traditional_tpu_torch.utils.synthetic import bad_pixel_rate, make_pair
+
+    h, w, d = TEDDY
+    L, R, gt = make_pair(h, w, d, seed=0)
+    lt, rt = pair_to_torch(L, R, "cuda")
+
+    def same(a, b) -> bool:
+        return all((x is None and y is None) or (x is not None and y is not None
+                                                 and torch.equal(x, y)) for x, y in zip(a, b))
+
+    start = time.perf_counter()
+
+    # -- 15. stages and re-entry, each pipeline's reference configuration --
+    configs = {"asw": ASWConfig(), "ad_census": ADCensusConfig(), "sad": SADConfig(),
+               "ncc": NCCConfig(), "cblsm": CBLSMConfig(),
+               "ad_census FULL": ADCensusConfig(scanline=ScanlineConfig(), run_post=True),
+               "ad_census canonical FULL": ADCensusConfig(
+                   aggregation="cross_two_pass", scanline=ScanlineConfig(), run_post=True)}
+    for label, cfg in configs.items():
+        name = label.split()[0]
+        fn = get_pipeline(name)[0]
+        want = fn(lt, rt, cfg)
+        res, stages = fn(lt, rt, cfg, return_stages=True)
+        torch.cuda.synchronize()
+        dd = getattr(cfg, "disp_range", getattr(cfg, "max_disparity", None))
+        layout = {k: [list(v.shape), str(v.dtype).replace("torch.", "")]
+                  for k, v in stages.items()}
+        check(list(stages) == SURFACE_STAGES[label], (label, "stage names", list(stages)))
+        check(all(v == ([[dd, h, w], "float32"] if k.startswith(("cost", "aggregated"))
+                        else [[h, w], "int32"]) for k, v in layout.items()),
+              (label, "stage shapes", layout))
+        check(same(res, want), (label, "the result with stages differs from the one without"))
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            checkpoint.save_result(tmp, res, meta={"pipeline": name})
+            for k, v in stages.items():
+                checkpoint.save_array(tmp, k, v)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            loaded = {k: checkpoint.load_array(tmp, k) for k in stages}
+            load_ms = (time.perf_counter() - t0) * 1e3
+        vols = [loaded.get("aggregated_left", loaded["cost_left"]),
+                loaded.get("aggregated_right", loaded.get("cost_right"))]
+        arms = ({k[len("arms_left_"):]: loaded[k] for k in ARMS_LEFT}
+                if ARMS_LEFT[0] in loaded else None)
+        got = finish_from_volumes(name, *vols, cfg, arms)     # NumPy: to the card
+        check(got.disp_left.is_cuda and same(got, want),
+              (label, "finish_from_volumes differs from the original run"))
+        # timed on volumes already on the card
+        vols = [None if v is None else torch.from_numpy(v).cuda() for v in vols]
+        arms = None if arms is None else {k: torch.from_numpy(a).cuda() for k, a in arms.items()}
+        finish = lambda: finish_from_volumes(name, *vols, cfg, arms)  # noqa: E731
+        pipeline = lambda: fn(lt, rt, cfg)  # noqa: E731
+        finish()
+        emit({"phase": "surfaces", "part": "stages and re-entry", "pipeline": label,
+              "shape": [h, w], "disp_range": dd, "stages": layout,
+              "result_with_stages_bit_exact": True, "reentry_bit_exact": True,
+              "finish_from_volumes_ms": statistics.median(cuda_ms(finish, 3)),
+              "pipeline_ms": statistics.median(cuda_ms(pipeline, 3)),
+              "save_host_ms": save_ms, "load_host_ms": load_ms,
+              "saved_bytes": sum(v.nbytes for v in loaded.values())})
+        del want, res, stages, got, loaded, vols, arms
+        torch.cuda.empty_cache()
+
+    # -- 16. the command line, as a user runs it ----------------------------
+    root = os.path.dirname(os.path.abspath(__file__))
+    cli = [sys.executable, "-m", "stereo_match_traditional_tpu_torch.cli"]
+    with tempfile.TemporaryDirectory() as tmp:
+        pfm = os.path.join(tmp, "d.pfm")
+        # both commands at once: each process takes seconds to reach the card
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cli + args, cwd=root, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for args in (["run", "ad_census", "--synthetic", f"{h}x{w}", "--disp-range",
+                               str(d), "--save-stages", os.path.join(tmp, "stages"),
+                               "--out-pfm", pfm],
+                              ["info"])]
+        (run_out, run_err), (info_out, info_err) = (p.communicate(timeout=600) for p in procs)
+        cli_s = time.perf_counter() - t0
+        check(procs[0].returncode == 0, ("cli run", procs[0].returncode, run_err[-2000:]))
+        check(procs[1].returncode == 0, ("cli info", procs[1].returncode, info_err[-2000:]))
+        summary = json.loads(run_out.strip().splitlines()[-1])
+        want = get_pipeline("ad_census")[0](lt, rt, ADCensusConfig(disp_range=d))
+        pfm_exact = bool(np.array_equal(read_pfm(pfm), want.disp_left.cpu().numpy()))
+        saved = sorted(os.listdir(os.path.join(tmp, "stages")))
+    devices = json.loads(info_out)["devices"]
+    emit({"phase": "surfaces", "part": "cli", "summary": summary, "pfm_bit_exact": pfm_exact,
+          "saved": saved, "info_devices": devices, "seconds_both_commands": cli_s})
+    check(summary["device"] == "cuda" and summary["shape"] == [h, w]
+          and summary["bad_2.0"] < MAX_BAD2, ("cli run summary", summary))
+    check(pfm_exact, "the CLI's PFM differs from the in-process map")
+    check(saved == sorted(["manifest.json"] + [f"{k}.npy" for k in
+                                               SURFACE_STAGES["ad_census"] + ["disp_left",
+                                                                              "disp_right"]]),
+          ("cli stages", saved))
+    check(devices and devices[0] == kind, ("cli info does not name the card", devices))
+
+    # -- 17. serving over the prefetching pair loader -----------------------
+    cfg = ADCensusConfig()
+    pairs = [make_pair(h, w, d, seed=s)[:2] for s in range(SERVED_PAIRS)]
+    fn = get_pipeline("ad_census")[0]
+    single = [fn(*pair_to_torch(a, b, "cuda"), cfg).disp_left.cpu().numpy() for a, b in pairs]
+    counters = (ad_census_cuda, asw_cuda, scanline_cuda, scanline_canonical_cuda)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for k, (a, b) in enumerate(pairs):
+            paths.append((os.path.join(tmp, f"l{k}.pgm"), os.path.join(tmp, f"r{k}.pgm")))
+            loader.write_pnm(paths[-1][0], a)
+            loader.write_pnm(paths[-1][1], b)
+
+        def served():
+            return list(serve_pairs("ad_census", loader.PairLoader(paths), batch_size=SERVE_BATCH))
+
+        for m in counters:
+            m.LAUNCHES = 0
+        window_cost_cuda.LAUNCHES = dict.fromkeys(window_cost_cuda.LAUNCHES, 0)
+        out = served()
+        launches = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES for m in counters}
+        launches.update(window_cost_cuda.LAUNCHES)
+        check(len(out) == SERVED_PAIRS and all(np.array_equal(a, b) for a, b in zip(out, single)),
+              "served maps differ from the single-pair calls")
+        check(launches == {"ad_census_cuda": SERVED_PAIRS, "asw_cuda": 0, "scanline_cuda": 0,
+                           "scanline_canonical_cuda": 0, "sad_volume_f32": 0,
+                           "ncc_volume_f32": 0}, ("launches while serving", launches))
+        emit({"phase": "surfaces", "part": "serving", "pipeline": "ad_census",
+              "shape": [h, w], "disp_range": d, "pairs": SERVED_PAIRS,
+              "batch_size": SERVE_BATCH, "bit_exact_with_single_calls": True,
+              "launches": launches, "bad2_first_pair": bad_pixel_rate(out[0], gt)})
+
+        # -- 18. the served stream, timed: the files cycled ------------------
+        cycles = SERVE_STREAM // SERVED_PAIRS
+        ways = {
+            "over PairLoader": lambda: list(serve_pairs(
+                "ad_census", loader.PairLoader(paths * cycles), batch_size=SERVE_BATCH)),
+            "over pairs in memory": lambda: list(serve_pairs(
+                "ad_census", pairs * cycles, batch_size=SERVE_BATCH)),
+        }
+        ms_a_pair = {k: [] for k in ways}
+        for k in range(SERVE_WINDOWS):
+            for way in (list(ways) if k % 2 == 0 else list(ways)[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = ways[way]()
+                ms_a_pair[way].append((time.perf_counter() - t0) * 1e3 / SERVE_STREAM)
+                check(len(out) == SERVE_STREAM
+                      and all(np.array_equal(m, single[i % SERVED_PAIRS])
+                              for i, m in enumerate(out)), (way, "served maps differ"))
+
+        def window():
+            with torch.profiler.record_function("serve_window"):
+                list(serve_pairs("ad_census", loader.PairLoader(
+                    paths * (SERVE_TRACED // SERVED_PAIRS)), batch_size=SERVE_BATCH))
+
+        events = traced_events(window, 1)
+    spans = [e for e in events
+             if e.get("name") == "serve_window" and e.get("cat") == "user_annotation"]
+    check(len(spans) == 1, ("serve_window ranges in the trace", len(spans)))
+    busy = busy_share(events, spans[0])
+    # the card's busy time a pair, from the trace, against the untraced
+    # stream's host time a pair: the profiler slows the host
+    busy_ms = busy * spans[0]["dur"] / 1e3 / SERVE_TRACED
+    loader_ms = statistics.median(ms_a_pair["over PairLoader"])
+    emit({"phase": "surfaces", "part": "served stream", "pipeline": "ad_census",
+          "shape": [h, w], "disp_range": d, "pairs_a_window": SERVE_STREAM,
+          "batch_size": SERVE_BATCH, "windows_of_each": SERVE_WINDOWS,
+          "ms_a_pair": {k: {"median": statistics.median(v), "min": min(v), "max": max(v),
+                            "windows": v} for k, v in ms_a_pair.items()},
+          "traced_pairs": SERVE_TRACED, "traced_ms_a_pair": spans[0]["dur"] / 1e3 / SERVE_TRACED,
+          "idle_share_of_traced_window": 1.0 - busy,
+          "card_busy_ms_a_pair": busy_ms,
+          "idle_share_against_untraced_median": 1.0 - busy_ms / loader_ms,
+          "surfaces_seconds": time.perf_counter() - start})
 
 
 def canonical_phases() -> dict:

@@ -11,12 +11,17 @@ volume and 4-path scanline are hand-written CUDA kernels
 (``csrc/ad_census_cost.cu``, ``csrc/scanline.cu``); ``sad`` and ``ncc``,
 whose windowed cost volumes are one hand-written CUDA kernel
 (``csrc/window_cost.cu``); and ``cblsm`` (active and post), whose AD
-volumes are the AD part of the AD-Census kernel.  Dormant variants,
-canonical aggregation, surfaces and executors are not ported
-(``ROADMAP.md`` Queue 1 items 6-9).
+volumes are the AD part of the AD-Census kernel; the canonical family
+(``aggregation='cross_two_pass'``) with its own scanline kernel
+(``csrc/scanline_canonical.cu``).  Around them: stage re-entry
+(``return_stages``, ``utils.checkpoint``, ``models.registry.
+finish_from_volumes``), ``utils.io``, batching and serving
+(``models.batch`` over ``utils.loader.PairLoader``) and the command line
+``cli`` (``stereo-torch``).  Dormant variants, the bench and the executors
+are not ported (``ROADMAP.md`` Queue 1 items 7-9).
 
-The port imports nothing of the JAX package.  ``config`` and
-``utils.synthetic`` are its own copies of the JAX package's modules of the
+The port imports nothing of the JAX package.  ``config``, ``utils.io``
+and ``utils.synthetic`` are its own copies of the JAX package's modules of the
 same names (same classes, fields, defaults and bytes), and
 ``utils.convert.config_from_dict`` carries a JAX-package config across as
 plain data.

@@ -29,6 +29,27 @@ def ad_census_post(disp_l, disp_r, cfg: ADCensusConfig):
     return dmap, lr.occlusion, lr.mismatch
 
 
+def ad_census_finish(vol_l, vol_r, cfg: ADCensusConfig, arms_left=None) -> StereoResult:
+    """WTA per aggregated volume and the post chain, :func:`ad_census_post`
+    or, for ``cross_two_pass``, :func:`ad_census_post_canonical` voting over
+    ``arms_left`` (the left image's arms): the end of
+    :func:`ad_census_pipeline`, where `registry.finish_from_volumes`
+    re-enters."""
+    with stage_scope("wta"):
+        disp_l = wta.wta(vol_l, "min")
+        disp_r = wta.wta(vol_r, "min")
+    disp_final = occl = mism = None
+    if cfg.run_post:
+        with stage_scope("post"):
+            if cfg.aggregation == "cross_two_pass":
+                disp_final, occl, mism = ad_census_post_canonical(
+                    disp_l, disp_r, vol_l, arms_left, cfg,
+                    irv_d_chunk=irv_auto_d_chunk(*disp_l.shape, cfg.disp_range))
+            else:
+                disp_final, occl, mism = ad_census_post(disp_l, disp_r, cfg)
+    return StereoResult(disp_l, disp_r, disp_final, occl, mism)
+
+
 def ad_census_pipeline(
     left,
     right,
@@ -55,16 +76,17 @@ def ad_census_pipeline(
 
     The cost volumes (both views in one launch) and both scanlines are CUDA
     kernels for CUDA tensors and their plain versions for CPU tensors.
+
+    ``return_stages=True`` returns ``(result, stages)``: ``cost_left``,
+    ``cost_right``, ``aggregated_left`` and ``aggregated_right`` (the
+    scanline's output where it runs: a ``[D, H, W]`` view of rows padded to
+    4 columns on the card), and for ``cross_two_pass`` the left arm maps
+    ``arms_left_{left,right,up,down}``, the JAX package's names.
     """
     if cfg.aggregation not in ("rect_mean", "cross_two_pass", "none"):
         raise ValueError(
             f"unknown aggregation {cfg.aggregation!r}; "
             "expected 'rect_mean', 'cross_two_pass' or 'none'"
-        )
-    if return_stages:
-        raise NotImplementedError(
-            "return_stages=True is not ported yet (ROADMAP.md Queue 1 item 8, "
-            "surfaces: return_stages + checkpoint)"
         )
     d = cfg.disp_range
     kw = dict(sigma_c=cfg.sigma_c, sigma_s=cfg.sigma_s,
@@ -102,20 +124,17 @@ def ad_census_pipeline(
             else:
                 agg_l = scanline_optimize_cuda(agg_l, left, cfg.scanline)
 
-    with stage_scope("wta"):
-        disp_l = wta.wta(agg_l, "min")
-        disp_r = wta.wta(agg_r, "min")
-
-    disp_final = occl = mism = None
-    if cfg.run_post:
-        with stage_scope("post"):
-            if canonical:
-                disp_final, occl, mism = ad_census_post_canonical(
-                    disp_l, disp_r, agg_l, arms_l, cfg,
-                    irv_d_chunk=irv_auto_d_chunk(*disp_l.shape, d))
-            else:
-                disp_final, occl, mism = ad_census_post(disp_l, disp_r, cfg)
-    return StereoResult(disp_l, disp_r, disp_final, occl, mism)
+    result = ad_census_finish(agg_l, agg_r, cfg, arms_l if canonical else None)
+    if return_stages:
+        stages = {"cost_left": vol_l, "cost_right": vol_r,
+                  "aggregated_left": agg_l, "aggregated_right": agg_r}
+        if canonical:
+            # the canonical post re-enters from saved stages only with the
+            # left arm maps it votes over (`registry.finish_from_volumes`)
+            for k in ("left", "right", "up", "down"):
+                stages[f"arms_left_{k}"] = getattr(arms_l, k)
+        return result, stages
+    return result
 
 
 def irv_auto_d_chunk(h: int, w: int, disp_range: int, budget_bytes: float = 256e6):

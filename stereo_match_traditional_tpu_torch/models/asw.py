@@ -39,6 +39,19 @@ def asw_post(disp_l: torch.Tensor, disp_r: torch.Tensor, cfg: ASWConfig) -> torc
     return post.median_filter(d, cfg.median_second, border="replicate")
 
 
+def asw_finish(vol_l, vol_r, cfg: ASWConfig) -> StereoResult:
+    """Dual WTA and :func:`asw_post`: the end of :func:`asw_pipeline`, where
+    `registry.finish_from_volumes` re-enters."""
+    with stage_scope("wta"):
+        disp_l = wta.wta(vol_l, "min")
+        disp_r = wta.wta(vol_r, "min")
+    disp_final = None
+    if cfg.run_post:
+        with stage_scope("post"):
+            disp_final = asw_post(disp_l, disp_r, cfg)
+    return StereoResult(disp_l, disp_r, disp_final)
+
+
 def asw_pipeline(
     left: torch.Tensor,
     right: torch.Tensor,
@@ -56,8 +69,8 @@ def asw_pipeline(
     tensors); False takes the plain ``ops.volume.asw_volume``.
 
     ``left_lab`` / ``right_lab`` take the reference's position; only
-    ``variant='lab'`` reads them, which is not ported, as
-    ``return_stages=True`` is not.
+    ``variant='lab'`` reads them, which is not ported.
+    ``return_stages=True`` returns ``(result, {"cost_left", "cost_right"})``.
     """
     if cfg.variant == "lab":
         raise NotImplementedError(
@@ -71,11 +84,6 @@ def asw_pipeline(
         )
     if cfg.approx != "none":
         raise ValueError(f"unknown ASW approx {cfg.approx!r}; expected 'none' or 'grid'")
-    if return_stages:
-        raise NotImplementedError(
-            "return_stages=True is not ported yet (ROADMAP.md Queue 1 item 8, "
-            "surfaces: return_stages + checkpoint)"
-        )
     kw = dict(
         disp_range=cfg.disp_range,
         win_size=cfg.win_size,
@@ -90,11 +98,7 @@ def asw_pipeline(
             vol_l = asw_volume_cuda(left, right, view="left", **kw)
         # Right view (`ASW/ASW.h:382-431`) by costR(q,d) = costL(q+d,d).
         vol_r = volume.right_volume_from_left(vol_l)
-    with stage_scope("wta"):
-        disp_l = wta.wta(vol_l, "min")
-        disp_r = wta.wta(vol_r, "min")
-    disp_final = None
-    if cfg.run_post:
-        with stage_scope("post"):
-            disp_final = asw_post(disp_l, disp_r, cfg)
-    return StereoResult(disp_l, disp_r, disp_final)
+    result = asw_finish(vol_l, vol_r, cfg)
+    if return_stages:
+        return result, {"cost_left": vol_l, "cost_right": vol_r}
+    return result

@@ -1,0 +1,86 @@
+"""Batched execution and a pipelined serving loop, the counterparts of
+``stereo_match_traditional_tpu.models.batch``.
+
+The reference processes exactly one hard-coded pair per run
+(`SAD/SADmain.cpp:27-28` et al.).  For serving, the port runs a batch pair
+by pair on the card and stacks every result field along axis 0, and
+`utils.loader.PairLoader` decodes the pairs ahead on worker threads while
+the card runs.
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Iterable, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from stereo_match_traditional_tpu_torch.models.base import StereoResult
+from stereo_match_traditional_tpu_torch.models.registry import get_pipeline
+
+_MESH = ("a device mesh (batch data parallelism over several cards) is not ported "
+         "yet (ROADMAP.md Queue 1 item 9, executors)")
+
+
+def batched_pipeline(name: str, cfg=None, method: str = "map",
+                     mesh=None, axis_name: str = "batch"):
+    """``(left [B, H, W], right [B, H, W]) -> StereoResult`` with every
+    result field stacked along axis 0.
+
+    The batch runs pair by pair on the device of its tensors, so each map
+    is the single-pair call's, bit for bit.  ``method`` takes the JAX
+    package's values, ``'map'`` and ``'vmap'``, and both run that loop:
+    there the choice was a TPU one (`lax.map` kept each example's gather
+    source in the v5e's fast memory, where `vmap` batched it past a cliff),
+    with nothing to choose between on the card.
+
+    ``mesh`` (the batch axis sharded over ``mesh[axis_name]``) is
+    multi-device and not ported: it raises ``NotImplementedError``."""
+    if method not in ("map", "vmap"):
+        raise ValueError(f"method must be 'map' or 'vmap': {method}")
+    if mesh is not None:
+        raise NotImplementedError(f"batched_pipeline(mesh=...): {_MESH}")
+    fn, cfg_cls = get_pipeline(name)
+    if cfg is None:
+        cfg = cfg_cls()
+
+    def run(ls: torch.Tensor, rs: torch.Tensor) -> StereoResult:
+        if ls.shape != rs.shape or ls.dim() != 3:
+            raise ValueError(
+                f"batches must be [B, H, W] of one shape, got {tuple(ls.shape)} and "
+                f"{tuple(rs.shape)}")
+        results = [fn(ls[k], rs[k], cfg) for k in range(ls.shape[0])]
+        return StereoResult(*(None if fields[0] is None else torch.stack(fields)
+                              for fields in zip(*results)))
+
+    return run
+
+
+def serve_pairs(
+    name: str,
+    pairs: Iterable[Tuple[np.ndarray, np.ndarray]],
+    cfg=None,
+    batch_size: int = 1,
+    mesh=None,
+    device="cuda",
+) -> Iterator[np.ndarray]:
+    """Stream disparity maps (``disp_final``, else ``disp_left``, as NumPy
+    arrays) for an iterable of ``(left, right)`` uint8 pairs: one map a
+    pair, in order, the last batch partial where the pairs run out.
+
+    Each batch is uploaded with a plain copy: a Teddy pair is 2 x 169 KB,
+    and a copy stream with pinned staging measured no faster on the card
+    (PERF.md).  Pass `utils.loader.PairLoader` as ``pairs`` to decode
+    the pairs ahead on worker threads.  ``device`` is the card unless the
+    caller asks for the CPU.  ``mesh`` raises as in :func:`batched_pipeline`.
+    """
+    if batch_size < 1:
+        raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    run = batched_pipeline(name, cfg, mesh=mesh)
+    it = iter(pairs)
+    while batch := list(itertools.islice(it, batch_size)):
+        ls, rs = (torch.from_numpy(np.stack(side)).to(device) for side in zip(*batch))
+        res = run(ls, rs)
+        disp = res.disp_final if res.disp_final is not None else res.disp_left
+        yield from disp.cpu().numpy()

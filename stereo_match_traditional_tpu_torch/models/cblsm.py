@@ -24,7 +24,20 @@ def cblsm_post(disp_l, disp_r, cfg: CBLSMConfig):
     return dmap, lr.occlusion, lr.mismatch
 
 
-def _check_config(cfg: CBLSMConfig, return_stages: bool) -> None:
+def cblsm_finish(vol_l, vol_r, cfg: CBLSMConfig) -> StereoResult:
+    """Plain WTA per aggregated volume and :func:`cblsm_post`: the end of
+    :func:`cblsm_pipeline`, where `registry.finish_from_volumes` re-enters."""
+    with stage_scope("wta"):
+        disp_l = wta.wta(vol_l, "min")
+        disp_r = wta.wta(vol_r, "min")
+    disp_final = occl = mism = None
+    if cfg.run_post:
+        with stage_scope("post"):
+            disp_final, occl, mism = cblsm_post(disp_l, disp_r, cfg)
+    return StereoResult(disp_l, disp_r, disp_final, occl, mism)
+
+
+def _check_config(cfg: CBLSMConfig) -> None:
     if cfg.cost in ("sad_mean", "sad_mean_v4", "local_mean"):
         raise NotImplementedError(
             f"CBLSMConfig(cost={cfg.cost!r}) is not ported yet "
@@ -45,11 +58,6 @@ def _check_config(cfg: CBLSMConfig, return_stages: bool) -> None:
             f"unknown aggregation {cfg.aggregation!r}; expected 'rect_mean', "
             "'rect_mean_v4', 'cross_two_pass' or 'none'"
         )
-    if return_stages:
-        raise NotImplementedError(
-            "return_stages=True is not ported yet (ROADMAP.md Queue 1 item 8, "
-            "surfaces: return_stages + checkpoint)"
-        )
 
 
 def cblsm_pipeline(
@@ -68,11 +76,14 @@ def cblsm_pipeline(
 
     The AD volumes are the AD part of the CUDA AD-Census kernel, both views
     in one launch, for CUDA tensors and its plain version for CPU tensors.
+    ``return_stages=True`` returns ``(result, stages)`` with ``cost_left``,
+    ``cost_right``, ``aggregated_left`` and ``aggregated_right``.
     """
-    _check_config(cfg, return_stages)
+    _check_config(cfg)
     d = cfg.disp_range
     with stage_scope("cost_volume"):
-        agg_l, agg_r = ad_volumes_cuda(left, right, d)
+        vol_l, vol_r = ad_volumes_cuda(left, right, d)
+    agg_l, agg_r = vol_l, vol_r
 
     if cfg.aggregation == "rect_mean":
         with stage_scope("arms"):
@@ -97,12 +108,8 @@ def cblsm_pipeline(
             agg_l = aggregate.cross_aggregate(agg_l, arms_l, cp.num_iters)
             agg_r = aggregate.cross_aggregate(agg_r, arms_r, cp.num_iters)
 
-    with stage_scope("wta"):
-        disp_l = wta.wta(agg_l, "min")
-        disp_r = wta.wta(agg_r, "min")
-
-    disp_final = occl = mism = None
-    if cfg.run_post:
-        with stage_scope("post"):
-            disp_final, occl, mism = cblsm_post(disp_l, disp_r, cfg)
-    return StereoResult(disp_l, disp_r, disp_final, occl, mism)
+    result = cblsm_finish(agg_l, agg_r, cfg)
+    if return_stages:
+        return result, {"cost_left": vol_l, "cost_right": vol_r,
+                        "aggregated_left": agg_l, "aggregated_right": agg_r}
+    return result

@@ -7,9 +7,21 @@ import torch
 
 from stereo_match_traditional_tpu_torch.config import NCCConfig
 from stereo_match_traditional_tpu_torch.models.base import StereoResult
-from stereo_match_traditional_tpu_torch.ops import wta
+from stereo_match_traditional_tpu_torch.ops import volume, wta
 from stereo_match_traditional_tpu_torch.ops.kernels import ncc_volume_cuda
 from stereo_match_traditional_tpu_torch.utils.profiling import stage_scope
+
+
+def ncc_finish(vol_l, cfg: NCCConfig, interior=None) -> StereoResult:
+    """The argmax WTA of the similarity volume, 0 outside ``interior`` (the
+    reference's loop range, built from the volume's shape when not given):
+    the end of :func:`ncc_pipeline`, where `registry.finish_from_volumes`
+    re-enters."""
+    if interior is None:
+        h, w = vol_l.shape[1:]
+        interior = volume.ncc_interior_mask(h, w, cfg.win_size, vol_l.device)
+    with stage_scope("wta"):
+        return StereoResult(torch.where(interior, wta.wta(vol_l, "max"), 0.0))
 
 
 def ncc_pipeline(
@@ -21,6 +33,7 @@ def ncc_pipeline(
 
     The volume is the CUDA kernel for CUDA tensors and its plain version for
     CPU tensors.  ``variant='shifted'`` (`NCC.h:117-272`) is not ported.
+    ``return_stages=True`` returns ``(result, {"cost_left": volume})``.
     """
     if cfg.variant == "shifted":
         raise NotImplementedError(
@@ -29,15 +42,11 @@ def ncc_pipeline(
         )
     if cfg.variant != "window":
         raise ValueError(f"unknown NCC variant {cfg.variant!r}; expected 'window' or 'shifted'")
-    if return_stages:
-        raise NotImplementedError(
-            "return_stages=True is not ported yet (ROADMAP.md Queue 1 item 8, "
-            "surfaces: return_stages + checkpoint)"
-        )
     with stage_scope("cost_volume"):
         vol, interior = ncc_volume_cuda(
             left, right, cfg.disp_range, cfg.win_size, cfg.invalid_mode, cfg.eps
         )
-    with stage_scope("wta"):
-        disp = torch.where(interior, wta.wta(vol, "max"), 0.0)
-    return StereoResult(disp)
+    result = ncc_finish(vol, cfg, interior)
+    if return_stages:
+        return result, {"cost_left": vol}
+    return result

@@ -27,6 +27,20 @@ def sad_post(disp_l, disp_r, cfg: SADConfig):
     return post.median_filter(d, 3, border="truncate"), lr.occlusion, lr.mismatch
 
 
+def sad_finish(vol_l, vol_r, cfg: SADConfig) -> StereoResult:
+    """The uniqueness WTA of ``vol_l``, the plain-argmin map of ``vol_r``
+    where it was computed (else None) and :func:`sad_post`: the end of
+    :func:`sad_pipeline`, where `registry.finish_from_volumes` re-enters."""
+    with stage_scope("wta"):
+        disp_l = wta.optimal_disparity(vol_l, cfg.uniqueness_eps, cfg.subpixel)
+        disp_r = None if vol_r is None else wta.wta(vol_r, "min")
+    disp_final = occl = mism = None
+    if cfg.run_post:
+        with stage_scope("post"):
+            disp_final, occl, mism = sad_post(disp_l, disp_r, cfg)
+    return StereoResult(disp_l, disp_r, disp_final, occl, mism)
+
+
 def sad_pipeline(
     left, right, cfg: SADConfig = SADConfig(), return_stages: bool = False
 ) -> StereoResult:
@@ -36,26 +50,20 @@ def sad_pipeline(
     (`Sad.h:141-182,22-38`) and :func:`sad_post`.
 
     The cost volumes are the CUDA kernel for CUDA tensors and its plain
-    version for CPU tensors.
+    version for CPU tensors.  ``return_stages=True`` returns ``(result,
+    stages)`` with ``cost_left``, and ``cost_right`` where it was computed.
     """
-    if return_stages:
-        raise NotImplementedError(
-            "return_stages=True is not ported yet (ROADMAP.md Queue 1 item 8, "
-            "surfaces: return_stages + checkpoint)"
-        )
     d, win = cfg.max_disparity, cfg.winsize
     with stage_scope("cost_volume"):
         vol_l = sad_volume_cuda(left, right, d, win, "left")
-    with stage_scope("wta"):
-        disp_l = wta.optimal_disparity(vol_l, cfg.uniqueness_eps, cfg.subpixel)
-
-    disp_r = disp_final = occl = mism = None
+    vol_r = None
     if cfg.compute_right or cfg.run_post:
         with stage_scope("cost_volume_right"):
             vol_r = sad_volume_cuda(left, right, d, win, "right")
-        with stage_scope("wta"):
-            disp_r = wta.wta(vol_r, "min")
-    if cfg.run_post:
-        with stage_scope("post"):
-            disp_final, occl, mism = sad_post(disp_l, disp_r, cfg)
-    return StereoResult(disp_l, disp_r, disp_final, occl, mism)
+    result = sad_finish(vol_l, vol_r, cfg)
+    if return_stages:
+        stages = {"cost_left": vol_l}
+        if vol_r is not None:
+            stages["cost_right"] = vol_r
+        return result, stages
+    return result

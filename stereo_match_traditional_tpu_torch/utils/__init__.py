@@ -1,2 +1,3 @@
 """Host-side helpers: NumPy <-> tensor and config carry-across, synthetic
-pairs, trace scopes, kernel timing."""
+pairs, image I/O, stage checkpoints, the PGM/PPM pair loader, trace scopes
+and stage timers."""

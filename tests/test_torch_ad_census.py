@@ -144,15 +144,6 @@ def test_registry_entry():
     assert fn is ad_census_pipeline and cfg_cls is ADCensusConfig
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(return_stages=True), "Queue 1 item 8"),
-], ids=["return_stages"])
-def test_unported_modes_raise(kwargs, match):
-    L, R, _ = make_pair(8, 8, 2, seed=0)
-    with pytest.raises(NotImplementedError, match=match):
-        ad_census_pipeline(*pair_to_torch(L, R, "cpu"), **kwargs)
-
-
 def test_unknown_aggregation_rejected():
     L, R, _ = make_pair(8, 8, 2, seed=0)
     with pytest.raises(ValueError, match="aggregation"):

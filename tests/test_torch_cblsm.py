@@ -152,8 +152,7 @@ def test_registry_entry():
     (CBLSMConfig(cost="sad_mean_v4"), {}, "Queue 1 item 7"),
     (CBLSMConfig(cost="local_mean"), {}, "Queue 1 item 7"),
     (CBLSMConfig(aggregation="rect_mean_v4"), {}, "Queue 1 item 7"),
-    (CBLSMConfig(), {"return_stages": True}, "Queue 1 item 8"),
-], ids=["sad_mean", "sad_mean_v4", "local_mean", "rect_mean_v4", "return_stages"])
+], ids=["sad_mean", "sad_mean_v4", "local_mean", "rect_mean_v4"])
 def test_unported_modes_raise(cfg, kwargs, match):
     L, R, _ = make_pair(8, 8, 2, seed=0)
     with pytest.raises(NotImplementedError, match=match):

@@ -34,7 +34,9 @@ def test_port_modules_are_found():
                      "ops.post", "utils.convert", "ops.aggregate", "ops.scanline",
                      "ops.kernels.ad_census_cuda", "ops.kernels.scanline_cuda",
                      "models.ad_census", "ops.kernels.window_cost_cuda", "models.sad",
-                     "models.ncc", "models.cblsm", "config", "utils.synthetic"):
+                     "models.ncc", "models.cblsm", "config", "utils.synthetic", "cli",
+                     "models.batch", "utils.checkpoint", "utils.io", "utils.loader",
+                     "utils.profiling"):
         assert f"{PKG}.{expected}" in mods
 
 

@@ -381,9 +381,7 @@ def test_cpu_tensors_launch_no_kernel():
 
 @pytest.mark.parametrize("name,cfg,kwargs,match", [
     ("ncc", NCCConfig(disp_range=4, variant="shifted"), {}, "Queue 1 item 7"),
-    ("sad", SADConfig(max_disparity=4), {"return_stages": True}, "Queue 1 item 8"),
-    ("ncc", NCCConfig(disp_range=4), {"return_stages": True}, "Queue 1 item 8"),
-], ids=["ncc_shifted", "sad_return_stages", "ncc_return_stages"])
+], ids=["ncc_shifted"])
 def test_unported_modes_raise(name, cfg, kwargs, match):
     L, R, _ = make_pair(8, 8, 2, seed=0)
     with pytest.raises(NotImplementedError, match=match):

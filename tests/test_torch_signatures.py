@@ -3,9 +3,10 @@ behaviour of the arguments that make them equal.
 
 A caller moving from the JAX package to the port passes the same
 arguments in the same positions, so every public function of the port's
-``models/*`` and ``ops/{post,volume,wta,aggregate,scanline}`` that has a JAX
-counterpart of the same name takes the same parameter names in the same
-order, but for the exceptions listed here."""
+``models/*``, ``ops/{post,volume,wta,aggregate,scanline}`` and
+``utils/{checkpoint,io}`` that has a JAX counterpart of the same name takes
+the same parameter names in the same order, but for the exceptions listed
+here."""
 
 import dataclasses
 import importlib
@@ -32,16 +33,18 @@ from stereo_match_traditional_tpu_torch.utils.convert import (
 )
 from stereo_match_traditional_tpu_torch.utils.synthetic import make_pair
 
-MODULES = ["models.ad_census", "models.asw", "models.base", "models.cblsm", "models.ncc",
-           "models.registry", "models.sad", "ops.post", "ops.volume", "ops.wta",
-           "ops.aggregate", "ops.scanline"]
+MODULES = ["models.ad_census", "models.asw", "models.base", "models.batch", "models.cblsm",
+           "models.ncc", "models.registry", "models.sad", "ops.post", "ops.volume", "ops.wta",
+           "ops.aggregate", "ops.scanline", "utils.checkpoint", "utils.io"]
 # Trailing keywords of the JAX package's tiled and streamed executors (row
 # bands and disparity blocks), which the port has not yet (ROADMAP.md Queue 1
 # item 9): the port may lack them at the end of a signature.
 EXECUTOR_ONLY = ("row_offset", "global_rows", "d_offset")
 # Parameters the port adds at the end: ncc_interior_mask builds its mask on
-# a torch device, where JAX's takes the executors' row offset.
-PORT_ONLY = {("ops.volume", "ncc_interior_mask"): ("device",)}
+# a torch device, where JAX's takes the executors' row offset; serve_pairs
+# takes its pairs from the host to the card unless asked for the CPU.
+PORT_ONLY = {("ops.volume", "ncc_interior_mask"): ("device",),
+             ("models.batch", "serve_pairs"): ("device",)}
 
 
 def _public_pairs(module):
@@ -104,17 +107,21 @@ def test_ad_census_pipeline_takes_colour_positionally(aggregation):
 
 def test_asw_pipeline_takes_lab_and_return_stages():
     """``left_lab`` / ``right_lab`` sit where JAX has them and change nothing
-    on the ported variant; ``return_stages=True`` raises naming item 8, as
-    the other four pipelines do."""
+    on the ported variant; ``return_stages`` is the sixth positional
+    argument, as in JAX: by keyword or by position it returns the same
+    result and the stages ``cost_left`` / ``cost_right``."""
     L, R, _ = make_pair(16, 20, 4, seed=2)
     lt, rt = pair_to_torch(L, R, "cpu")
     cfg = port_cfg(cfgs.ASWConfig(disp_range=4, win_size=1, run_post=False))
+    plain = tasw.asw_pipeline(lt, rt, cfg)
     with_lab = tasw.asw_pipeline(lt, rt, cfg, None, None)
-    assert torch.equal(with_lab.disp_left, tasw.asw_pipeline(lt, rt, cfg).disp_left)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
-        tasw.asw_pipeline(lt, rt, cfg, return_stages=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
-        tasw.asw_pipeline(lt, rt, cfg, None, None, True)
+    assert torch.equal(with_lab.disp_left, plain.disp_left)
+    for res, stages in (tasw.asw_pipeline(lt, rt, cfg, return_stages=True),
+                        tasw.asw_pipeline(lt, rt, cfg, None, None, True)):
+        assert list(stages) == ["cost_left", "cost_right"]
+        assert stages["cost_left"].shape == (4, 16, 20)
+        assert torch.equal(res.disp_left, plain.disp_left)
+        assert torch.equal(res.disp_right, plain.disp_right)
 
 
 _D = 10
