@@ -24,7 +24,11 @@ under ``torch.profiler``).  Then the serving surfaces: each pipeline's
 (``finish_from_volumes``), the command line as a subprocess, and
 ``serve_pairs`` over the prefetching ``PairLoader`` with its launch counts,
 its ms a pair over a served stream of 240 pairs and the card's idle
-share.  Each
+share.  Then the dormant variants: the SAD kernel's colour mode against its
+plain version, and every variant configuration (ncc ``shifted``, asw ``lab``
+and ``grid``, cblsm's ``sad_mean``, ``sad_mean_v4``, ``local_mean`` and
+``rect_mean_v4``, the speckle filter's block form, the bilateral filter) at
+the same size against the port's CPU plain path.  Each
 phase prints one JSON line; any failure raises and exits non-zero.  The
 last three lines are the card's ``nvidia-smi`` name and power limit, the
 kernel summary ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -166,6 +170,15 @@ SERVE_STREAM = 240
 SERVE_WINDOWS = 3
 SERVE_TRACED = 96
 # The trace categories of the card's own work: kernels, copies, fills
+# (h, w, D, radius) for the SAD kernel's colour mode (channel_min): one row,
+# W % 4 != 0, D > W's share of a strip, CBLSM's win_size 1 (radius 2) at
+# Teddy and at the serving size
+COLOUR_SAD_GEOMETRIES = [(1, 40, 7, 1), (9, 21, 12, 2), (40, 70, 100, 5), (375, 450, 60, 2),
+                         (720, 1280, 128, 2)]
+GRID_BAD2 = 0.0858          # asw approx='grid', bins=12, at Teddy (BASELINE.md:435)
+GRID_BAD2_TOL = 0.005
+WALK_SHAPE = (96, 128, 16)  # where the 625-offset plain loops (Lab, bilateral) meet the CPU
+VARIANT_REPS = 3
 DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACE_TRIES = 3
 
@@ -455,6 +468,7 @@ def main() -> None:
     win = window_phases()
     canon = canonical_phases()
     surfaces_phase(kind)
+    var = variants_phase()
 
     for banned in ("jax", "stereo_match_traditional_tpu"):   # the name or a dotted prefix
         loaded = [m for m in sys.modules if m == banned or m.startswith(banned + ".")]
@@ -497,6 +511,7 @@ def main() -> None:
             "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/window_cost.cu",
             "replaces": "stereo_match_traditional_tpu/ops/volume.py:224",
             **win["sad_volume_f32"],
+            "channel_min": var["channel_min"],
         },
         {
             "name": "ncc_volume_f32",
@@ -1513,6 +1528,241 @@ def canonical_phases() -> dict:
             "ms_covers": "one view (one C-entry call)",
             "back_to_back_ms": teddy["back_to_back_ms"],
             "at_720p": kernel[f"{SERVING[0]}x{SERVING[1]}/D={SERVING[2]}"]}
+
+
+def variants_phase() -> dict:
+    """The dormant variants (ROADMAP.md Queue 1 item 7): the SAD kernel's
+    colour mode against its plain version and timed, then every variant
+    configuration on the card at Teddy, its ms, its agreement with the port's
+    CPU plain path, its bad-2.0 and its kernel launches.  Returns the colour
+    mode's summary fields."""
+    import numpy as np
+    import torch
+
+    from stereo_match_traditional_tpu_torch import (
+        ADCensusConfig, ASWConfig, CBLSMConfig, NCCConfig, ScanlineConfig,
+    )
+    from stereo_match_traditional_tpu_torch.models import get_pipeline
+    from stereo_match_traditional_tpu_torch.ops import filters, post, volume
+    from stereo_match_traditional_tpu_torch.ops.kernels import ad_census_cuda, scanline_cuda
+    from stereo_match_traditional_tpu_torch.ops.kernels import window_cost_cuda as wc
+    from stereo_match_traditional_tpu_torch.utils.convert import pair_to_torch
+    from stereo_match_traditional_tpu_torch.utils.io import rgb_to_lab_u8
+    from stereo_match_traditional_tpu_torch.utils.synthetic import bad_pixel_rate, make_pair
+
+    import dataclasses
+
+    start = time.perf_counter()
+
+    def colour_pair(h, w, d, seed, device="cuda"):
+        if min(h, w) < 8:
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            return tuple(torch.randint(0, 256, (h, w, 3), device="cuda", generator=gen,
+                                       dtype=torch.uint8) for _ in range(2))
+        L, R, _ = make_pair(h, w, min(d, w - 1), seed=seed, color=True)
+        return torch.from_numpy(L).to(device), torch.from_numpy(R).to(device)
+
+    # -- 19. the SAD kernel's colour mode against its plain version ---------
+    exact_all = True
+    for h, w, d, r in COLOUR_SAD_GEOMETRIES:
+        lt, rt = colour_pair(h, w, d, 1)
+        exact = {}
+        for dtype in ("u8", "float32"):
+            a, b = (lt, rt) if dtype == "u8" else (lt.float(), rt.float())
+            for view in ("left", "right"):
+                for mean in (False, True):
+                    got = wc.sad_volume_cuda(a, b, d, r - 1, view, mean, True)
+                    want = volume.sad_volume(a, b, d, r - 1, view, mean, True)
+                    torch.cuda.synchronize()
+                    exact[f"{dtype} {view}{' mean' if mean else ''}"] = torch.equal(got, want)
+                    del got, want
+        exact_all &= all(exact.values())
+        emit({"phase": "variants", "part": "kernel_check", "kernel": "sad_volume_f32 (channel_min)",
+              "geometry": [h, w, d, r], "bit_exact": exact})
+        check(all(exact.values()), (h, w, d, r, exact))
+        torch.cuda.empty_cache()
+    # non-integer float32 pixels: a sliding sum rounds, within FLOAT_RTOL of
+    # the largest window sum its walk passed (window_cost_cuda's docstring)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lt, rt = (t.float() + torch.rand(t.shape, device="cuda", generator=gen)
+              for t in colour_pair(40, 70, 100, 3))
+    got = wc.sad_volume_cuda(lt, rt, 100, 4, "left", False, True)
+    want = volume.sad_volume(lt, rt, 100, 4, "left", False, True)
+    float_err = (got - want).abs().max().item()
+    emit({"phase": "variants", "part": "kernel_check", "kernel": "sad_volume_f32 (channel_min)",
+          "inputs": "non-integer float32", "geometry": [40, 70, 100, 5], "max_abs_err": float_err,
+          "atol": wc.FLOAT_RTOL * want.max().item()})
+    check(float_err <= wc.FLOAT_RTOL * want.max().item(), ("float colour", float_err))
+
+    # timing: the colour mode at CBLSM's window (radius 2), u8, left view
+    timing = {}
+    for h, w, d in (TEDDY, SERVING):
+        lt, rt = colour_pair(h, w, d, 0)
+        k_ms, p_ms = alternate(lambda: volume.sad_volume(lt, rt, d, 1, "left", True, True),
+                               lambda: wc.sad_volume_cuda(lt, rt, d, 1, "left", True, True),
+                               plain_reps=3, kernel_reps=10)
+        # two u8 colour images in and the volume out; a term is three
+        # differences and two minima, then a running box sum: bytes bound it
+        timing[f"{h}x{w}/D={d}"] = {
+            "ms": k_ms, "plain_ms": p_ms,
+            "back_to_back_ms": back_to_back_ms(
+                lambda: wc.sad_volume_cuda(lt, rt, d, 1, "left", True, True)),
+            **bound(2 * 3 * h * w + 4 * d * h * w, 10.0 * d * h * w)}
+        timing[f"{h}x{w}/D={d}"]["share_of_bound"] = (timing[f"{h}x{w}/D={d}"]["bound_ms"]
+                                                      / k_ms)
+        torch.cuda.empty_cache()
+    emit({"phase": "variants", "part": "timing_kernels",
+          "sad_volume_f32 (channel_min, radius 2, u8)": timing})
+
+    # -- 20. every variant configuration on the card at Teddy ----------------
+    h, w, d = TEDDY
+    L, R, gt = make_pair(h, w, d, seed=0)
+    Lc, Rc, gtc = make_pair(h, w, d, seed=0, color=True)
+    cuda_grey, cpu_grey = pair_to_torch(L, R, "cuda"), pair_to_torch(L, R, "cpu")
+    colour = {dev: (torch.from_numpy(Lc).to(dev), torch.from_numpy(Rc).to(dev))
+              for dev in ("cuda", "cpu")}
+
+    def counts():
+        return {**wc.LAUNCHES, "ad_census_volume_f32": ad_census_cuda.LAUNCHES,
+                "scanline_optimize_f32": scanline_cuda.LAUNCHES}
+
+    def zero_counts():
+        for k in wc.LAUNCHES:
+            wc.LAUNCHES[k] = 0
+        ad_census_cuda.LAUNCHES = scanline_cuda.LAUNCHES = 0
+
+    def timed(fn, reps=VARIANT_REPS):
+        fn()
+        torch.cuda.synchronize()
+        return statistics.median(cuda_ms(fn, reps))
+
+    def agreement(a, b, fields):
+        out = {}
+        for f in fields:
+            x, y = getattr(a, f), getattr(b, f)
+            if x is not None:
+                out[f] = float((x.cpu() == y).float().mean())
+        return out
+
+    def lab_inputs(hh, ww, dd, dev):
+        lc, rc, _ = make_pair(hh, ww, dd, seed=0, color=True)
+        return {"left_lab": torch.from_numpy(rgb_to_lab_u8(lc)).to(dev),
+                "right_lab": torch.from_numpy(rgb_to_lab_u8(rc)).to(dev)}
+
+    # (label, pipeline, config, pair kind, launches a call).  bad-2.0 is held
+    # to a reference only for the grid, the one variant whose accuracy the
+    # JAX package recorded (BASELINE.md:435); the others' is reported.
+    configs = [
+        ("ncc shifted", "ncc", NCCConfig(variant="shifted"), "grey", {}),
+        ("asw lab", "asw", ASWConfig(variant="lab"), "lab", {}),
+        ("asw lab faithful_lut", "asw", ASWConfig(variant="lab", lab_faithful_lut=True), "lab",
+         {}),
+        ("asw grid bins=12", "asw", ASWConfig(approx="grid", approx_bins=12), "grey", {}),
+        ("cblsm sad_mean", "cblsm", CBLSMConfig(cost="sad_mean", run_post=True), "grey",
+         {"sad_volume_f32": 2}),
+        ("cblsm sad_mean_v4", "cblsm", CBLSMConfig(cost="sad_mean_v4", run_post=True), "colour",
+         {"sad_volume_f32": 2}),
+        ("cblsm local_mean", "cblsm", CBLSMConfig(cost="local_mean", run_post=True), "grey", {}),
+        ("cblsm rect_mean_v4", "cblsm", CBLSMConfig(aggregation="rect_mean_v4", run_post=True),
+         "grey", {"ad_census_volume_f32": 1}),
+    ]
+    summary = {}
+    for label, name, cfg, kind, per_call in configs:
+        fn, _ = get_pipeline(name)
+        pair = colour["cuda"] if kind == "colour" else cuda_grey
+        kw = lab_inputs(h, w, d, "cuda") if kind == "lab" else {}
+        zero_counts()
+        res = fn(*pair, cfg, **kw)
+        torch.cuda.synchronize()
+        launches = counts()
+        check(launches == {k: per_call.get(k, 0) for k in launches}, (label, launches))
+        for f in ("disp_left", "disp_final"):
+            v = getattr(res, f)
+            if v is not None:
+                check(v.shape == (h, w), (label, f))
+                fin = torch.isfinite(v)
+                check(bool(fin.all()) or f == "disp_final", (label, f, "finite"))
+                check(float(v[fin].min()) >= 0, (label, f, "range"))
+        rec = {"phase": "variants", "part": "configuration", "config": label, "shape": [h, w],
+               "launches_a_call": launches}
+        if kind == "lab":
+            # the plain path walks 625 offsets: the card and the CPU meet at a
+            # smaller shape, and Teddy is timed on the card alone
+            hh, ww, dd = WALK_SHAPE
+            sl, sr, _ = make_pair(hh, ww, dd, seed=0)
+            small = dataclasses.replace(cfg, disp_range=dd)
+            card = fn(*pair_to_torch(sl, sr, "cuda"), small, **lab_inputs(hh, ww, dd, "cuda"))
+            cpu = fn(*pair_to_torch(sl, sr, "cpu"), small, **lab_inputs(hh, ww, dd, "cpu"))
+            rec["agree_with_cpu_plain_path"] = agreement(card, cpu, ("disp_left", "disp_final"))
+            rec["agree_at"] = [hh, ww, dd]
+            reps = 2
+        else:
+            cpu_pair = colour["cpu"] if kind == "colour" else cpu_grey
+            cpu = fn(*cpu_pair, cfg)
+            rec["agree_with_cpu_plain_path"] = agreement(res, cpu, ("disp_left", "disp_final"))
+            reps = VARIANT_REPS
+        rec["ms"] = timed(lambda: fn(*pair, cfg, **kw), reps)
+        if name != "ncc":   # the shifted NCC's output is a display-scaled depth
+            rec["bad2_left"] = bad_pixel_rate(res.disp_left.cpu().numpy(),
+                                              gtc if kind == "colour" else gt)
+        emit(rec)
+        agree = rec["agree_with_cpu_plain_path"]
+        check(agree["disp_left"] >= MIN_FINAL_AGREE, (label, agree))
+        check(agree.get("disp_final", 1.0) >= MIN_FINAL_AGREE, (label, agree))
+        if label == "asw grid bins=12":
+            check(abs(rec["bad2_left"] - GRID_BAD2) <= GRID_BAD2_TOL, (label, rec["bad2_left"]))
+        summary[label] = rec
+        torch.cuda.empty_cache()
+
+    # the speckle filter's block form on ad_census FULL's LR map
+    full = ADCensusConfig(disp_range=d, scanline=ScanlineConfig(), run_post=True)
+    res = get_pipeline("ad_census")[0](*cuda_grey, full)
+    lr = post.lr_check_consistency(res.disp_left, res.disp_right, full.lr_gate, post.INVALID)
+    blocks = {}
+    for block in (None, 32):
+        zero_counts()
+        out = post.remove_speckles(lr.disp, full.speckle_diff, full.speckle_area,
+                                   invalid_value=post.INVALID, block=block)
+        blocks[block] = (out, timed(lambda: post.remove_speckles(
+            lr.disp, full.speckle_diff, full.speckle_area, invalid_value=post.INVALID,
+            block=block)))
+    cpu_out = post.remove_speckles(lr.disp.cpu(), full.speckle_diff, full.speckle_area,
+                                   invalid_value=post.INVALID, block=32)
+    speckle = {"phase": "variants", "part": "configuration",
+               "config": "remove_speckles(block=32) on ad_census FULL's LR map",
+               "equal_to_block_none": torch.equal(blocks[32][0], blocks[None][0]),
+               "agree_with_cpu_plain_path": float((blocks[32][0].cpu() == cpu_out).float().mean()),
+               "ms": blocks[32][1], "ms_block_none": blocks[None][1], "launches_a_call": counts()}
+    emit(speckle)
+    check(speckle["equal_to_block_none"] and speckle["agree_with_cpu_plain_path"] == 1.0, speckle)
+
+    # the bilateral filter (its reference radius 12: 625 offsets) on the
+    # left images, grey and colour; the card against the CPU at WALK_SHAPE
+    hh, ww, dd = WALK_SHAPE
+    sg, _, _ = make_pair(hh, ww, dd, seed=0)
+    sc, _, _ = make_pair(hh, ww, dd, seed=0, color=True)
+    for label, full_img, small in (("grey", cuda_grey[0], sg), ("colour", colour["cuda"][0], sc)):
+        zero_counts()
+        got = filters.bilateral_filter(torch.from_numpy(small).cuda()).cpu()
+        want = filters.bilateral_filter(torch.from_numpy(small))
+        rec = {"phase": "variants", "part": "configuration", "config": f"bilateral_filter {label}",
+               "shape": list(full_img.shape),
+               "ms": timed(lambda: filters.bilateral_filter(full_img), 2),
+               "max_rel_err_vs_cpu": ((got - want).abs() / want.abs().clamp(min=1.0)).max().item(),
+               "agree_at": list(small.shape), "launches_a_call": counts()}
+        emit(rec)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
+        summary[f"bilateral_filter {label}"] = rec
+    emit({"phase": "variants", "part": "done", "seconds": time.perf_counter() - start})
+
+    teddy = timing[f"{h}x{w}/D={d}"]
+    return {"channel_min": {
+        "ms": teddy["ms"], "back_to_back_ms": teddy["back_to_back_ms"],
+        "plain_ms": teddy["plain_ms"], "bound_ms": teddy["bound_ms"],
+        "bound_by": teddy["bound_by"], "shape": f"{h}x{w}/D={d}, radius 2, u8",
+        "launches": summary["cblsm sad_mean_v4"]["launches_a_call"]["sad_volume_f32"],
+        "agreement": "bit-exact" if exact_all else "differs",
+        "float_max_abs_err": float_err}}
 
 
 if __name__ == "__main__":

@@ -164,6 +164,34 @@ def _final_map(res):
     return disp.cpu().numpy()
 
 
+def _lab_inputs(args, cfg, device) -> dict:
+    """``left_lab`` / ``right_lab`` for the ASW Lab variant, else nothing.
+    It weights from the colour pair in OpenCV's 8-bit Lab encoding
+    (`ASW/ASWeight.cpp:33-34` cvtColor(CV_BGR2Lab)): with ``--synthetic`` the
+    colour pair of the same seed, else the files, which must be colour."""
+    if args.pipeline != "asw" or getattr(cfg, "variant", "") != "lab":
+        return {}
+    import torch
+
+    from stereo_match_traditional_tpu_torch.utils import io as io_utils
+
+    if args.synthetic:
+        from stereo_match_traditional_tpu_torch.utils.synthetic import make_pair
+
+        h, w = (int(x) for x in args.synthetic.split("x"))
+        lc, rc, _ = make_pair(h, w, args.disp_range or 60, seed=args.seed, color=True)
+    else:
+        lc = io_utils.imread(args.left)
+        rc = io_utils.imread(args.right)
+        if lc.ndim != 3 or rc.ndim != 3:
+            raise SystemExit(
+                "variant=lab needs COLOR input images (the Lab weights "
+                "come from cvtColor(CV_BGR2Lab), ASWeight.cpp:33-34)"
+            )
+    return {"left_lab": torch.from_numpy(io_utils.rgb_to_lab_u8(lc)).to(device),
+            "right_lab": torch.from_numpy(io_utils.rgb_to_lab_u8(rc)).to(device)}
+
+
 def cmd_run(args) -> int:
     import numpy as np
 
@@ -179,13 +207,14 @@ def cmd_run(args) -> int:
     from stereo_match_traditional_tpu_torch.utils.convert import pair_to_torch
 
     lt, rt = pair_to_torch(left, right, device)
+    pkw = _lab_inputs(args, cfg, device)
     timer = StageTimer()
     stages = None
     with profile(args.trace), timer.stage("pipeline"):
         if args.save_stages:
-            res, stages = pipeline(lt, rt, cfg, return_stages=True)
+            res, stages = pipeline(lt, rt, cfg, return_stages=True, **pkw)
         else:
-            res = pipeline(lt, rt, cfg)
+            res = pipeline(lt, rt, cfg, **pkw)
         disp = _final_map(res)
 
     if args.save_stages:

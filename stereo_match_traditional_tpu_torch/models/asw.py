@@ -68,22 +68,17 @@ def asw_pipeline(
     (`ops.kernels.asw_volume_cuda`, which runs the plain version for CPU
     tensors); False takes the plain ``ops.volume.asw_volume``.
 
-    ``left_lab`` / ``right_lab`` take the reference's position; only
-    ``variant='lab'`` reads them, which is not ported.
+    The dormant variants run in plain PyTorch on every device:
+    ``variant='lab'``, the Yoon-Kweon Lab-weight volume
+    (``volume.asw_lab_volume``, `ASW/ASW.h:49-175`), weighted from the
+    ``left_lab`` / ``right_lab`` images (`ASWeight.cpp:33-34`
+    cvtColor(CV_BGR2Lab); see ``utils.io.rgb_to_lab_u8``); and
+    ``approx='grid'``, the bilateral-grid approximation
+    (``volume.asw_volume_approx_grid``).  Either takes its right view from
+    ``volume.right_volume_from_left`` (the Lab cost's truncation commutes
+    with the shift) and ends in :func:`asw_finish`.
     ``return_stages=True`` returns ``(result, {"cost_left", "cost_right"})``.
     """
-    if cfg.variant == "lab":
-        raise NotImplementedError(
-            "ASWConfig(variant='lab') is not ported yet "
-            "(ROADMAP.md Queue 1 item 7, dormant variants)"
-        )
-    if cfg.approx == "grid":
-        raise NotImplementedError(
-            "ASWConfig(approx='grid') is not ported yet "
-            "(ROADMAP.md Queue 1 item 7, dormant variants)"
-        )
-    if cfg.approx != "none":
-        raise ValueError(f"unknown ASW approx {cfg.approx!r}; expected 'none' or 'grid'")
     kw = dict(
         disp_range=cfg.disp_range,
         win_size=cfg.win_size,
@@ -91,8 +86,22 @@ def asw_pipeline(
         color_sigma=cfg.color_sigma,
         truncation=cfg.truncation,
     )
+    if cfg.variant == "lab":
+        if cfg.approx != "none":
+            raise ValueError("approx='grid' is implemented for the active "
+                             "bilateral variant, not variant='lab'")
+        if left_lab is None or right_lab is None:
+            raise ValueError("variant='lab' needs left_lab/right_lab images")
+    elif cfg.approx not in ("none", "grid"):
+        raise ValueError(f"unknown ASW approx {cfg.approx!r}; expected 'none' or 'grid'")
     with stage_scope("cost_volume"):
-        if cfg.use_pallas is False:
+        if cfg.variant == "lab":
+            vol_l = volume.asw_lab_volume(
+                left, right, left_lab, right_lab, faithful_lut=cfg.lab_faithful_lut, **kw
+            )
+        elif cfg.approx == "grid":
+            vol_l = volume.asw_volume_approx_grid(left, right, bins=cfg.approx_bins, **kw)
+        elif cfg.use_pallas is False:
             vol_l = volume.asw_volume(left, right, **kw)
         else:
             vol_l = asw_volume_cuda(left, right, view="left", **kw)

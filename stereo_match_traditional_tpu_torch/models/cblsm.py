@@ -9,6 +9,7 @@ from stereo_match_traditional_tpu_torch.config import CBLSMConfig
 from stereo_match_traditional_tpu_torch.models.base import StereoResult
 from stereo_match_traditional_tpu_torch.ops import aggregate, post, wta
 from stereo_match_traditional_tpu_torch.ops.kernels.ad_census_cuda import ad_volumes_cuda
+from stereo_match_traditional_tpu_torch.ops.kernels.window_cost_cuda import sad_volume_cuda
 from stereo_match_traditional_tpu_torch.utils.profiling import stage_scope
 
 
@@ -38,26 +39,36 @@ def cblsm_finish(vol_l, vol_r, cfg: CBLSMConfig) -> StereoResult:
 
 
 def _check_config(cfg: CBLSMConfig) -> None:
-    if cfg.cost in ("sad_mean", "sad_mean_v4", "local_mean"):
-        raise NotImplementedError(
-            f"CBLSMConfig(cost={cfg.cost!r}) is not ported yet "
-            "(ROADMAP.md Queue 1 item 7, dormant variants)"
-        )
-    if cfg.cost != "ad":
+    if cfg.cost not in ("ad", "sad_mean", "sad_mean_v4", "local_mean"):
         raise ValueError(
             f"unknown cost {cfg.cost!r}; expected 'ad', 'sad_mean', 'sad_mean_v4' or "
             "'local_mean'"
         )
-    if cfg.aggregation == "rect_mean_v4":
-        raise NotImplementedError(
-            "CBLSMConfig(aggregation='rect_mean_v4') is not ported yet "
-            "(ROADMAP.md Queue 1 item 7, dormant variants)"
-        )
-    if cfg.aggregation not in ("rect_mean", "cross_two_pass", "none"):
+    if cfg.aggregation not in ("rect_mean", "rect_mean_v4", "cross_two_pass", "none"):
         raise ValueError(
             f"unknown aggregation {cfg.aggregation!r}; expected 'rect_mean', "
             "'rect_mean_v4', 'cross_two_pass' or 'none'"
         )
+
+
+def _cost_volumes(left, right, cfg: CBLSMConfig, arms_l, arms_r):
+    """Both views' cost volumes of ``cfg.cost``."""
+    d = cfg.disp_range
+    if cfg.cost == "ad":
+        return ad_volumes_cuda(left, right, d)
+    if cfg.cost in ("sad_mean", "sad_mean_v4"):
+        # dormant ComputeDispLeft/Right (`CBLSM.h:409-489`), the window mean;
+        # sad_mean_v4 is ComputeDispV4 (`CBLSM.h:494-532`), the minimum-channel
+        # colour SAD of [H, W, 3] images
+        cm = cfg.cost == "sad_mean_v4"
+        return tuple(sad_volume_cuda(left, right, d, cfg.win_size, view, True, cm)
+                     for view in ("left", "right"))
+    # dormant on-the-fly aggregated cost (`CBLSM.h:969-1085`); the right view
+    # is the left-view problem on the mirrored pair
+    lf, rf = torch.flip(left, [1]), torch.flip(right, [1])
+    vol_r = aggregate.local_mean_cost(
+        rf, lf, aggregate.cross_arms(rf, cfg.arms), aggregate.cross_arms(lf, cfg.arms), d)
+    return aggregate.local_mean_cost(left, right, arms_l, arms_r, d), torch.flip(vol_r, [2])
 
 
 def cblsm_pipeline(
@@ -74,6 +85,15 @@ def cblsm_pipeline(
     aggregates each volume with the canonical arms of its gray image and
     ``cfg.cross_params`` instead.  ``run_post`` runs :func:`cblsm_post`.
 
+    The dormant variants: ``cost='sad_mean'`` and ``'sad_mean_v4'`` (the
+    window-mean SAD, the latter of ``[H, W, 3]`` images by its minimum
+    channel; the CUDA SAD kernel, one launch a view, for CUDA tensors),
+    ``'local_mean'`` (``aggregate.local_mean_cost``), and
+    ``aggregation='rect_mean_v4'`` (the disparity-conditioned support of
+    ``aggregate.cblsm_arm_volumes`` and ``rect_mean_aggregate_volume``,
+    `CBLSM.cpp:108-111`, `CBLSM.h:1128-1176`); all but the SAD kernel are
+    plain PyTorch on every device.
+
     The AD volumes are the AD part of the CUDA AD-Census kernel, both views
     in one launch, for CUDA tensors and its plain version for CPU tensors.
     ``return_stages=True`` returns ``(result, stages)`` with ``cost_left``,
@@ -81,14 +101,16 @@ def cblsm_pipeline(
     """
     _check_config(cfg)
     d = cfg.disp_range
-    with stage_scope("cost_volume"):
-        vol_l, vol_r = ad_volumes_cuda(left, right, d)
-    agg_l, agg_r = vol_l, vol_r
-
-    if cfg.aggregation == "rect_mean":
+    arms_l = arms_r = None
+    if cfg.cost == "local_mean" or cfg.aggregation in ("rect_mean", "rect_mean_v4"):
         with stage_scope("arms"):
             arms_l = aggregate.cross_arms(left, cfg.arms)
             arms_r = aggregate.cross_arms(right, cfg.arms)
+    with stage_scope("cost_volume"):
+        vol_l, vol_r = _cost_volumes(left, right, cfg, arms_l, arms_r)
+    agg_l, agg_r = vol_l, vol_r
+
+    if cfg.aggregation == "rect_mean":
         with stage_scope("aggregate"):
             agg_l = aggregate.rect_mean_aggregate(agg_l, arms_l)
             agg_r = aggregate.rect_mean_aggregate(agg_r, arms_r)
@@ -99,6 +121,11 @@ def cblsm_pipeline(
                 else:
                     agg_l = aggregate.rect_mean_aggregate(agg_l, arms_l)
                     agg_r = aggregate.rect_mean_aggregate(agg_r, arms_r)
+    elif cfg.aggregation == "rect_mean_v4":
+        with stage_scope("aggregate"):
+            support = aggregate.cblsm_arm_volumes(arms_l, arms_r, d, max_steps=cfg.arms.max_length)
+            agg_l = aggregate.rect_mean_aggregate_volume(agg_l, *support)
+            agg_r = aggregate.rect_mean_aggregate_volume(agg_r, *support)
     elif cfg.aggregation == "cross_two_pass":
         cp = cfg.cross_params
         with stage_scope("arms"):

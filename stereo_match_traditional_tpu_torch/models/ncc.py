@@ -32,14 +32,22 @@ def ncc_pipeline(
     (`Mat::zeros`, `NCC_main.cpp:20`).
 
     The volume is the CUDA kernel for CUDA tensors and its plain version for
-    CPU tensors.  ``variant='shifted'`` (`NCC.h:117-272`) is not ported.
-    ``return_stages=True`` returns ``(result, {"cost_left": volume})``.
+    CPU tensors.  ``return_stages=True`` returns ``(result, {"cost_left":
+    volume})``.
+
+    ``variant='shifted'`` runs the dormant whole-image shifted NCC
+    (`NCC.h:117-272`, disabled at `NCC_main.cpp:24`), plain PyTorch on every
+    device, whose output is the display-scaled depth ``best_offset *
+    alt_depth_scale``; with ``return_stages`` it gives ``(result, {})``.
     """
     if cfg.variant == "shifted":
-        raise NotImplementedError(
-            "NCCConfig(variant='shifted') (ncc_shifted_depth) is not ported yet "
-            "(ROADMAP.md Queue 1 item 7, dormant variants)"
-        )
+        with stage_scope("cost_volume"):
+            depth = volume.ncc_shifted_depth(
+                left, right, cfg.alt_max_offset, cfg.alt_kernel, "left",
+                cfg.alt_add_constant, cfg.alt_depth_scale,
+            )
+        result = StereoResult(depth)
+        return (result, {}) if return_stages else result
     if cfg.variant != "window":
         raise ValueError(f"unknown NCC variant {cfg.variant!r}; expected 'window' or 'shifted'")
     with stage_scope("cost_volume"):

@@ -299,3 +299,180 @@ def cross_aggregate(
             out = _hsum(_vsum(out, arms.up, arms.down), arms.left, arms.right) / sup_v_first
         hf = not hf
     return out
+
+
+# ---------------------------------------------------------------------------
+# dormant CBLSM variants: disparity-conditioned arm volumes (`CBLSM.h:65-236`),
+# the V4 rectangle mean and the arm-region mean costs
+# ---------------------------------------------------------------------------
+
+
+def rect_mean_aggregate_volume(
+    vol: torch.Tensor,
+    arm_left: torch.Tensor,
+    arm_right: torch.Tensor,
+    arm_up: torch.Tensor,
+    arm_down: torch.Tensor,
+    inclusive: bool = False,
+) -> torch.Tensor:
+    """Rectangle mean with disparity-conditioned arm volumes
+    (`costAggregationV4`, `CBLSM.h:1128-1176`, dormant at `CBLSM.cpp:111`).
+
+    The arms are ``[D, H, W]`` (from :func:`cblsm_arm_volumes`); V4's bounds
+    exclude the upper ends, ``[-up, down) x [-L, R)`` (`CBLSM.h:1162-1169`).
+    Indices clamp into the image and an empty region keeps the centre cost
+    (the reference reads out of bounds and divides by zero there).  Every
+    element picks its own corners: one flat gather a corner from the float64
+    SAT, rounded to ``vol``'s dtype once.
+    """
+    d, h, w = vol.shape
+    dev = vol.device
+    ii = torch.arange(h, device=dev)[None, :, None]
+    jj = torch.arange(w, device=dev)[None, None, :]
+    up, down, left, right = (a.to(torch.int64) for a in (arm_up, arm_down, arm_left, arm_right))
+    if inclusive:
+        i0, i1 = ii - up, ii + down
+        j0, j1 = jj - left, jj + right
+        count = (up + down + 1) * (left + right + 1)
+    else:
+        i0, i1 = ii - up, ii + down - 1
+        j0, j1 = jj - left, jj + right - 1
+        count = (up + down) * (left + right)
+    i0, i1 = i0.clamp(0, h - 1), i1.clamp(0, h - 1)
+    j0, j1 = j0.clamp(0, w - 1), j1.clamp(0, w - 1)
+    flat = _sat(vol).reshape(-1)            # [D, H+1, W+1]
+    base = torch.arange(d, device=dev)[:, None, None] * ((h + 1) * (w + 1))
+
+    def g(i, j):
+        return flat.gather(0, (base + i * (w + 1) + j).reshape(-1)).reshape(d, h, w)
+
+    total = (g(i1 + 1, j1 + 1) - g(i0, j1 + 1) - g(i1 + 1, j0) + g(i0, j0)).to(vol.dtype)
+    mean = total / count.clamp(min=1).to(vol.dtype)
+    return torch.where(count > 0, mean, vol)
+
+
+def _arm_region_mean(img: torch.Tensor, up, down, left, right, col_shift) -> torch.Tensor:
+    """Mean of ``img`` [H, W] over rows [i-up, i+down] x columns
+    [j-left-s, j+right-s] (inclusive, clamped); the bounds broadcast against
+    the output, the sums come from the float64 SAT and round once."""
+    h, w = img.shape
+    ii = torch.arange(h, device=img.device)[:, None]
+    jj = torch.arange(w, device=img.device)[None, :]
+    up, down, left, right, col_shift = (
+        torch.as_tensor(a, device=img.device).to(torch.int64)
+        for a in (up, down, left, right, col_shift))
+    i0 = (ii - up).clamp(0, h - 1)
+    i1 = (ii + down).clamp(0, h - 1)
+    j0 = (jj - left - col_shift).clamp(0, w - 1)
+    j1 = (jj + right - col_shift).clamp(0, w - 1)
+    i0, i1, j0, j1 = torch.broadcast_tensors(i0, i1, j0, j1)
+    flat = _sat(img).reshape(-1)            # [H+1, W+1]
+
+    def g(i, j):
+        return flat[i * (w + 1) + j]
+
+    total = (g(i1 + 1, j1 + 1) - g(i0, j1 + 1) - g(i1 + 1, j0) + g(i0, j0)).to(torch.float32)
+    count = (i1 - i0 + 1) * (j1 - j0 + 1)
+    return total / count.clamp(min=1).to(torch.float32)
+
+
+def local_mean_cost(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    arms_l: Arms,
+    arms_r: Arms,
+    disp_range: int,
+) -> torch.Tensor:
+    """On-the-fly aggregated cost (`ComputeLocalValue` / `costAggregation`,
+    `CBLSM.h:969-1085`, dormant): ``cost(p, d) = |mean of the left image
+    over p's left arm region - mean of the right image over p's right arm
+    region shifted left by d|``, with the intended semantics the JAX package
+    implements (inclusive spans, exact counts, clamped borders; the
+    reference's plumbing is scrambled, `CBLSM.h:1012,1076-1078`)."""
+    mean_l = _arm_region_mean(left, arms_l.up[None], arms_l.down[None], arms_l.left[None],
+                              arms_l.right[None], 0)                        # [1, H, W]
+    ds = torch.arange(disp_range, device=left.device)[:, None, None]
+    mean_r = _arm_region_mean(right, arms_r.up[None], arms_r.down[None], arms_r.left[None],
+                              arms_r.right[None], ds)                       # [D, H, W]
+    return torch.abs(mean_l - mean_r)
+
+
+def local_mean_cost_volume(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    arm_left: torch.Tensor,
+    arm_right: torch.Tensor,
+    arm_up: torch.Tensor,
+    arm_down: torch.Tensor,
+) -> torch.Tensor:
+    """`costAggregationNew` (`CBLSM.h:1087-1126`, dormant): as
+    :func:`local_mean_cost`, but both means take the same
+    disparity-conditioned support (the ``[D, H, W]`` arm volumes of
+    :func:`cblsm_arm_volumes`); the right mean's columns shift by d."""
+    ds = torch.arange(arm_left.shape[0], device=left.device)[:, None, None]
+    mean_l = _arm_region_mean(left, arm_up, arm_down, arm_left, arm_right, 0)
+    mean_r = _arm_region_mean(right, arm_up, arm_down, arm_left, arm_right, ds)
+    return torch.abs(mean_l - mean_r)
+
+
+def cblsm_arm_volumes(arms_l: Arms, arms_r: Arms, disp_range: int, max_steps: int = 34):
+    """The dormant CBLSM support proper (`chooseArmLengthLeft/Right/Up/Down`,
+    `CBLSM.h:65-236`, disabled at `CBLSM.cpp:108-111`): per (pixel, d)
+    extents that intersect the left image's arms with the right image's,
+    with the reference's exact bounds.  Returns int32 ``[D, H, W]`` volumes
+    (left, right, up, down).
+
+    The right image's arms are read at the same column (the reference
+    indexes them at (i, j), not (i, j - d), `CBLSM.h:74-76`).
+    * left (`CBLSM.h:65-102`): 0 if d > RL or d > RR, else min(LL, RL - d);
+    * right (`CBLSM.h:104-148`): 0 if d > RL, else min(LR, RR + d - 1);
+    * up and down: :func:`_cblsm_vertical_volume`.
+    """
+    d = torch.arange(disp_range, device=arms_l.left.device, dtype=torch.int32)[:, None, None]
+    ll, lr = arms_l.left[None], arms_l.right[None]
+    rl, rr = arms_r.left[None], arms_r.right[None]
+    vol_l = torch.where((d > rl) | (d > rr), 0, torch.clamp(torch.minimum(ll, rl - d), min=0))
+    vol_r = torch.where(d > rl, 0, torch.clamp(torch.minimum(lr, rr + d - 1), min=0))
+    vol_up = _cblsm_vertical_volume(arms_l, arms_r, disp_range, up=True, max_steps=max_steps)
+    vol_dn = _cblsm_vertical_volume(arms_l, arms_r, disp_range, up=False, max_steps=max_steps)
+    return vol_l.to(torch.int32), vol_r.to(torch.int32), vol_up, vol_dn
+
+
+def _cblsm_vertical_volume(
+    arms_l: Arms, arms_r: Arms, disp_range: int, up: bool, max_steps: int = 34
+) -> torch.Tensor:
+    """Vertical disparity-conditioned extents of :func:`cblsm_arm_volumes`.
+
+    Up (`chooseArmLengthUp`, `CBLSM.h:151-192`): the count of steps
+    s = 1..min(LUp, max_steps) whose right-image horizontal arms at row i - s
+    strictly contain column j - d (`CBLSM.h:175`), 0 where LUp > RUp
+    (`CBLSM.h:181-184`).  Down (`CBLSM.h:195-236`): steps s = 1..min(LDown,
+    RDown) whose arms at row i + s contain it inclusively (`CBLSM.h:220`).
+    Both are 0 where j < d (`CBLSM.h:170-173,215-219`).
+
+    The JAX package forms all ``max_steps`` steps at once (an
+    ``[S, D, H, W]`` boolean); here they are added one step at a time into
+    an int32 count, which is exact.
+    """
+    h, w = arms_l.left.shape
+    dev = arms_l.left.device
+    sign = -1 if up else +1
+    l_arm = arms_l.up if up else arms_l.down
+    r_arm = arms_r.up if up else arms_r.down
+    d = torch.arange(disp_range, device=dev, dtype=torch.int32)[:, None, None]
+    walk = torch.clamp(l_arm, max=max_steps) if up else torch.minimum(l_arm, r_arm)
+    count = torch.zeros((disp_range, h, w), dtype=torch.int32, device=dev)
+    ii = torch.arange(h, device=dev)
+    for s in range(1, max_steps + 1):
+        rows = (ii + sign * s).clamp(0, h - 1)
+        ptr_l = arms_r.left.index_select(0, rows)[None]
+        if up:
+            ptr_r = arms_r.right.index_select(0, rows)[None]
+            contains = (d < ptr_l) & ((ptr_r > 0) | (d > 0))
+        else:
+            contains = d <= ptr_l
+        count += (contains & (s <= walk)[None]).to(torch.int32)
+    if up:
+        count = torch.where(l_arm[None] > r_arm[None], 0, count)
+    jj = torch.arange(w, device=dev, dtype=torch.int32)[None, None, :]
+    return torch.where(jj - d >= 0, count, 0).to(torch.int32)

@@ -111,7 +111,7 @@ def library() -> ctypes.CDLL:
     lib.scanline_canonical_f32.argtypes = [vp, vp, vp, i32, vp, vp, i32, i32, i32, f32, f32,
                                            f32, i32, vp]
     lib.scanline_canonical_f32.restype = i32
-    lib.sad_volume_f32.argtypes = [vp, vp, i32, vp, i32, i32, i32, i32, i32, i32, vp]
+    lib.sad_volume_f32.argtypes = [vp, vp, i32, vp, i32, i32, i32, i32, i32, i32, i32, vp]
     lib.sad_volume_f32.restype = i32
     lib.ncc_window_sums_f32.argtypes = [vp, vp, i32, vp, i32, i32, i32, vp]
     lib.ncc_window_sums_f32.restype = i32

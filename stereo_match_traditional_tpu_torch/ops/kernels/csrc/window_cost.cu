@@ -16,7 +16,15 @@
 // shifted padded column never leaves [0, Wp-1].  One launch: the thread that
 // writes the entry d == limit of a pixel also writes it into the border
 // triangle d > limit, so the volume is never read back.  mean divides by
-// (2r+1)^2 (IEEE).
+// (2r+1)^2 (IEEE).  channels = 3 is the colour mode of
+// sad_volume(channel_min=True) (volume.py:224-274, CBLSM.h:45-63): the
+// images are [H, W, 3] and the term |A - B| becomes min_c |A_c - B_c|;
+// every other step is the grey mode's.  Both-u8 colour pixels are staged as
+// one packed word (R, G, B, 0) in the slot a grey float takes, and the term
+// is __vabsdiffu4 and two byte minima, so the shared memory and MAX_RADIUS
+// stay as they are.  float32 colour pixels are staged as three planes, which
+// triples the bands' shared memory: that mode takes radii up to
+// MAX_RADIUS_RGBF = 15 (226 KB at r = 15 of the 227 KB a block may take).
 //
 // ncc_window_sums_f32 replaces volume.ncc_sums: it centres both images at
 // 128 and writes the zero-padded (2r+1)^2 window sums of x and x^2 of each
@@ -90,11 +98,11 @@
 //    value).  0.038 ms against a bound of 0.012 at Teddy/D=60, 0.28 against
 //    0.14 at 720x1280/D=128; NCC 0.18 against 0.040 and 0.65 against 0.14.
 //
-// Exactness: for u8 inputs every term is an integer and every partial sum
-// is a sum over a subset of one window (a leaving term is subtracted before
-// the entering one is added), so it stays below 2^24 (SAD: 255 (2r+1)^2,
-// exact for any r the kernel takes; NCC: 128^2 (2r+1)^2 for win_size <=
-// 15) and sliding is exact: the sums equal the plain version's (float64,
+// Exactness: for u8 inputs (grey or colour) every term is an integer and
+// every partial sum is a sum over a subset of one window (a leaving term is
+// subtracted before the entering one is added), so it stays below 2^24
+// (SAD: 255 (2r+1)^2, exact for any r the kernel takes; NCC: 128^2 (2r+1)^2
+// for win_size <= 15) and sliding is exact: the sums equal the plain version's (float64,
 // rounded once) and JAX's, bit for bit.  Above win_size 15 the column sums
 // are still exact (128^2 (2r+1) < 2^24) and only the horizontal sums round.
 // For non-integer inputs a sliding sum carries its rounding along the walk:
@@ -119,6 +127,12 @@ constexpr int RP = DC + 1;    // pitch of the window sums' [x][d] tile: odd, no 
 constexpr int MAX_RR = 24;    // longest run of rows pick_tiling makes (at MAX_RADIUS)
 constexpr int SUMS_RR = 8;    // the sums kernel's run of rows
 constexpr int MAX_RADIUS = 32;
+constexpr int MAX_RADIUS_RGBF = 15;   // float32 colour: three planes of bands
+
+// How a pixel is staged and a term formed: a grey float (SAD or NCC), a
+// packed u8 colour word, or three float32 colour planes (SAD's colour mode).
+enum Mode { GREY = 0, RGB8 = 1, RGBF = 2 };
+__host__ __device__ constexpr int planes_of(int mode) { return mode == RGBF ? 3 : 1; }
 
 struct Tiling {
   int cw;   // columns of column sums a block holds (blockDim.x), 64, 96 or 128
@@ -166,9 +180,57 @@ __device__ __forceinline__ float read(const void* __restrict__ img, int u8, int 
   return pixel(img, u8, (size_t)min(max(y, 0), h - 1) * w + min(max(x, 0), w - 1));
 }
 
-template <bool NCC>
-__device__ __forceinline__ float term(float a, float b) {
-  return NCC ? __fmul_rn(a, b) : fabsf(__fsub_rn(a, b));
+// A staged pixel: one float (GREY; RGB8, whose bits are the packed word) or
+// three (RGBF, read from planes `pstride` floats apart).
+template <int MODE>
+struct Pix {
+  float c[planes_of(MODE)];
+};
+
+template <int MODE>
+__device__ __forceinline__ Pix<MODE> load_pix(const float* p, int pstride) {
+  Pix<MODE> v;
+#pragma unroll
+  for (int k = 0; k < planes_of(MODE); ++k) v.c[k] = p[k * pstride];
+  return v;
+}
+
+// Stage pixel (y, x) of img at dst (planes pstride floats apart): GREY reads
+// as read<NCC> does; the colour modes (SAD only) clamp into the [h, w, 3]
+// image.
+template <bool NCC, int MODE>
+__device__ __forceinline__ void stage(float* dst, int pstride, const void* __restrict__ img,
+                                      int u8, int h, int w, int y, int x) {
+  if (MODE == GREY) {
+    *dst = read<NCC>(img, u8, h, w, y, x);
+    return;
+  }
+  const size_t at = 3 * ((size_t)min(max(y, 0), h - 1) * w + min(max(x, 0), w - 1));
+  if (MODE == RGB8) {
+    const unsigned char* p = (const unsigned char*)img + at;
+    *dst = __uint_as_float((unsigned)p[0] | (unsigned)p[1] << 8 | (unsigned)p[2] << 16);
+  } else {
+    const float* p = (const float*)img + at;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) dst[k * pstride] = p[k];
+  }
+}
+
+// The term of a pixel pair: NCC's product, SAD's |a - b|, or the colour
+// modes' min_c |a_c - b_c| (RGB8: the byte-wise |a - b| of the packed words,
+// whose fourth byte is 0, then the least of its three low bytes).
+template <bool NCC, int MODE>
+__device__ __forceinline__ float term(const Pix<MODE>& a, const Pix<MODE>& b) {
+  if (NCC) return __fmul_rn(a.c[0], b.c[0]);
+  if (MODE == GREY) return fabsf(__fsub_rn(a.c[0], b.c[0]));
+  if (MODE == RGB8) {
+    const unsigned d = __vabsdiffu4(__float_as_uint(a.c[0]), __float_as_uint(b.c[0]));
+    return (float)(__vminu4(__vminu4(d, d >> 8), d >> 16) & 0xffu);
+  }
+  float t = fabsf(__fsub_rn(a.c[0], b.c[0]));
+#pragma unroll
+  for (int k = 1; k < planes_of(MODE); ++k) t = fminf(t, fabsf(__fsub_rn(a.c[k], b.c[k])));
+  return t;
 }
 
 // max(sum2 - (sum * sum) / n, 0): the variance term of one window
@@ -194,17 +256,18 @@ __device__ __forceinline__ void store_vec(float* o, const float (&v)[V]) {
     o[0] = v[0];
 }
 
-size_t volume_smem_bytes(const Tiling& t, int r) {
+size_t volume_smem_bytes(const Tiling& t, int r, int mode) {
   const size_t band = t.rr + 2 * r;
-  return sizeof(float) *
-         (band * (t.cw + t.cw + DC - 1) + 2 * DC * (t.cw + 1) + 2 * t.cw * RP + 2 * t.cw);
+  return sizeof(float) * (band * (t.cw + t.cw + DC - 1) * planes_of(mode) +
+                          2 * DC * (t.cw + 1) + 2 * t.cw * RP + 2 * t.cw);
 }
 
 // DIR = -1: the other image is read at column c - d (left view, NCC);
 // DIR = +1: at c + d (SAD's right view).  V: floats per store, 4 or 2 where
 // W is a multiple of it (every row of the volume then starts on such a
-// boundary), else 1.  sums: the planes of ncc_sums_kernel (NCC only).
-template <bool NCC, int DIR, int V>
+// boundary), else 1.  MODE: how pixels are staged and terms formed (GREY for
+// NCC).  sums: the planes of ncc_sums_kernel (NCC only).
+template <bool NCC, int DIR, int V, int MODE>
 __global__ void __launch_bounds__(MAX_CW * G, NCC ? 1 : 2)
 window_kernel(const void* __restrict__ base, const void* __restrict__ other, int u8,
               const float* __restrict__ sums, float* __restrict__ out, int h, int w,
@@ -230,10 +293,11 @@ window_kernel(const void* __restrict__ base, const void* __restrict__ other, int
     return;   // all border triangle: written by the blocks that hold d == limit
   }
 
-  const int band = rows + 2 * r;
-  float* a_s = smem;               // base image, [band][cw]: rows i0 - r.., columns j0 - r..
-  float* b_s = a_s + band * cw;    // other image, [band][bw]
-  float* col_s = b_s + band * bw;      // column sums, two buffers of [DC][cp]
+  const int band = rows + 2 * r, np = planes_of(MODE);
+  const int pa = band * cw, pb = band * bw;   // plane strides (RGBF)
+  float* a_s = smem;               // base image, [np][band][cw]: rows i0 - r.., columns j0 - r..
+  float* b_s = a_s + np * pa;      // other image, [np][band][bw]
+  float* col_s = b_s + np * pb;        // column sums, two buffers of [DC][cp]
   float* res_s = col_s + 2 * DC * cp;  // window sums, two buffers of [cw][RP]
   float* diag_s = res_s + 2 * cw * RP; // SAD: the values at d == limit, two buffers of [cw]
   // b_s column m holds the other image's column xb0 + m; thread (cl, d0 + dl)
@@ -241,9 +305,10 @@ window_kernel(const void* __restrict__ base, const void* __restrict__ other, int
   const int xb0 = j0 - r + (DIR < 0 ? -(d0 + DC - 1) : d0);
   for (int br = g; br < band; br += G) {
     const int y = i0 - r + br;
-    a_s[br * cw + cl] = read<NCC>(base, u8, h, w, y, j0 - r + cl);
-    b_s[br * bw + cl] = read<NCC>(other, u8, h, w, y, xb0 + cl);
-    if (cl < DC - 1) b_s[br * bw + cw + cl] = read<NCC>(other, u8, h, w, y, xb0 + cw + cl);
+    stage<NCC, MODE>(a_s + br * cw + cl, pa, base, u8, h, w, y, j0 - r + cl);
+    stage<NCC, MODE>(b_s + br * bw + cl, pb, other, u8, h, w, y, xb0 + cl);
+    if (cl < DC - 1)
+      stage<NCC, MODE>(b_s + br * bw + cw + cl, pb, other, u8, h, w, y, xb0 + cw + cl);
   }
   __syncthreads();
 
@@ -254,10 +319,11 @@ window_kernel(const void* __restrict__ base, const void* __restrict__ other, int
 #pragma unroll
   for (int k = 0; k < DS; ++k) col[k] = 0.0f;
   for (int br = 0; br <= 2 * r; ++br) {
-    const float a = ap[br * cw];
+    const Pix<MODE> a = load_pix<MODE>(ap + br * cw, pa);
     const float* b = bp + br * bw;
 #pragma unroll
-    for (int k = 0; k < DS; ++k) col[k] = __fadd_rn(col[k], term<NCC>(a, b[DIR * k]));
+    for (int k = 0; k < DS; ++k)
+      col[k] = __fadd_rn(col[k], term<NCC, MODE>(a, load_pix<MODE>(b + DIR * k, pb)));
   }
 
   const int tid = g * cw + cl, lane = tid & 31, run_step = (cw * G >> 5) * K;
@@ -342,13 +408,15 @@ window_kernel(const void* __restrict__ base, const void* __restrict__ other, int
     // stage 1, row step: slide down (row - 1 - r leaves, row + r enters)
     if (step < rows) {
       if (step > 0) {
-        const float ao = ap[(step - 1) * cw], ai = ap[(step + 2 * r) * cw];
+        const Pix<MODE> ao = load_pix<MODE>(ap + (step - 1) * cw, pa);
+        const Pix<MODE> ai = load_pix<MODE>(ap + (step + 2 * r) * cw, pa);
         const float* bo = bp + (step - 1) * bw;
         const float* bi = bp + (step + 2 * r) * bw;
 #pragma unroll
         for (int k = 0; k < DS; ++k)
-          col[k] = __fadd_rn(__fsub_rn(col[k], term<NCC>(ao, bo[DIR * k])),
-                             term<NCC>(ai, bi[DIR * k]));
+          col[k] = __fadd_rn(
+              __fsub_rn(col[k], term<NCC, MODE>(ao, load_pix<MODE>(bo + DIR * k, pb))),
+              term<NCC, MODE>(ai, load_pix<MODE>(bi + DIR * k, pb)));
       }
 #pragma unroll
       for (int k = 0; k < DS; ++k) col_w[(g * DS + k) * cp + cl] = col[k];
@@ -429,41 +497,50 @@ ncc_sums_kernel(const void* __restrict__ left, const void* __restrict__ right, i
   }
 }
 
-template <bool NCC, int DIR, int V>
+template <bool NCC, int DIR, int V, int MODE>
 cudaError_t launch_volume_v(const void* base, const void* other, int u8, const float* sums,
                             float* out, int h, int w, int d_range, int r, int mean, float eps,
                             float sentinel, cudaStream_t s) {
   const Tiling t = pick_tiling(h, w, r, 0);
-  const size_t smem = volume_smem_bytes(t, r);
+  const size_t smem = volume_smem_bytes(t, r, MODE);
   // The attribute belongs to the current device, so it is set on every launch
   // that needs it and never remembered.
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        window_kernel<NCC, DIR, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        window_kernel<NCC, DIR, V, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(ceil_div(w, t.sw), ceil_div(h, t.rr), ceil_div(d_range, DC));
-  window_kernel<NCC, DIR, V><<<grid, dim3(t.cw, G), smem, s>>>(
+  window_kernel<NCC, DIR, V, MODE><<<grid, dim3(t.cw, G), smem, s>>>(
       base, other, u8, sums, out, h, w, d_range, r, t.sw, t.rr, mean, eps, sentinel);
   return cudaGetLastError();
 }
 
 // The widest store the rows' alignment allows.  NCC stops at 2: with four
 // epilogues a lane it ran a third slower (720x1280/D=128, 0.98 against 0.69-0.73 ms).
-template <bool NCC, int DIR>
+template <bool NCC, int DIR, int MODE>
 cudaError_t launch_volume(const void* base, const void* other, int u8, const float* sums,
                           float* out, int h, int w, int d_range, int r, int mean, float eps,
                           float sentinel, cudaStream_t s) {
   if constexpr (!NCC) {
     if (w % 4 == 0)
-      return launch_volume_v<NCC, DIR, 4>(base, other, u8, sums, out, h, w, d_range, r, mean,
-                                          eps, sentinel, s);
+      return launch_volume_v<NCC, DIR, 4, MODE>(base, other, u8, sums, out, h, w, d_range, r,
+                                                mean, eps, sentinel, s);
   }
   if (w % 2 == 0)
-    return launch_volume_v<NCC, DIR, 2>(base, other, u8, sums, out, h, w, d_range, r, mean,
-                                        eps, sentinel, s);
-  return launch_volume_v<NCC, DIR, 1>(base, other, u8, sums, out, h, w, d_range, r, mean, eps,
-                                      sentinel, s);
+    return launch_volume_v<NCC, DIR, 2, MODE>(base, other, u8, sums, out, h, w, d_range, r,
+                                              mean, eps, sentinel, s);
+  return launch_volume_v<NCC, DIR, 1, MODE>(base, other, u8, sums, out, h, w, d_range, r, mean,
+                                            eps, sentinel, s);
+}
+
+// SAD, one view and mode
+template <int DIR, int MODE>
+cudaError_t launch_sad(const void* base, const void* other, int u8, float* out, int h, int w,
+                       int d_range, int r, int mean, cudaStream_t s) {
+  return launch_volume<false, DIR, MODE>(base, other, u8, nullptr, out, h, w, d_range, r, mean,
+                                         0.0f, 0.0f, s);
 }
 
 cudaError_t launch_sums(const void* left, const void* right, int u8, float* planes, int h,
@@ -488,20 +565,36 @@ bool bad_shape(int h, int w, int d_range, int radius) {
 
 }  // namespace
 
-// Launch on `stream`.  left, right: [h, w], both uint8 (u8 != 0) or both
-// float32; out: float32 [d_range, h, w]; all contiguous on the current
-// device.  radius = winsize + 1, 1 <= radius <= 32.  right_view, mean: 0 or
-// 1.  Returns cudaGetLastError() after the launch (0 = launched).
+// Launch on `stream`.  left, right: [h, w] (channels = 1) or [h, w, 3]
+// (channels = 3: the minimum-channel colour term), both uint8 (u8 != 0) or
+// both float32; out: float32 [d_range, h, w]; all contiguous on the current
+// device.  radius = winsize + 1, 1 <= radius <= 32 (15 for float32 colour).
+// right_view, mean: 0 or 1.  Returns cudaGetLastError() after the launch
+// (0 = launched).
 extern "C" int sad_volume_f32(const void* left, const void* right, int u8, void* out, int h,
                               int w, int d_range, int radius, int right_view, int mean,
-                              void* stream) {
-  if (bad_shape(h, w, d_range, radius)) return (int)cudaErrorInvalidValue;
+                              int channels, void* stream) {
+  if (bad_shape(h, w, d_range, radius) || (channels != 1 && channels != 3) ||
+      (channels == 3 && !u8 && radius > MAX_RADIUS_RGBF))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (right_view)
-    return (int)launch_volume<false, 1>(right, left, u8, nullptr, (float*)out, h, w, d_range,
-                                        radius, mean, 0.0f, 0.0f, s);
-  return (int)launch_volume<false, -1>(left, right, u8, nullptr, (float*)out, h, w, d_range,
-                                       radius, mean, 0.0f, 0.0f, s);
+  float* o = (float*)out;
+  const int mode = channels == 1 ? GREY : u8 ? RGB8 : RGBF;
+  // the right view swaps the images' roles: base = right, other = left
+  const void* base = right_view ? right : left;
+  const void* other = right_view ? left : right;
+  if (right_view) {
+    if (mode == GREY) return (int)launch_sad<1, GREY>(base, other, u8, o, h, w, d_range, radius,
+                                                      mean, s);
+    if (mode == RGB8) return (int)launch_sad<1, RGB8>(base, other, u8, o, h, w, d_range, radius,
+                                                      mean, s);
+    return (int)launch_sad<1, RGBF>(base, other, u8, o, h, w, d_range, radius, mean, s);
+  }
+  if (mode == GREY) return (int)launch_sad<-1, GREY>(base, other, u8, o, h, w, d_range, radius,
+                                                     mean, s);
+  if (mode == RGB8) return (int)launch_sad<-1, RGB8>(base, other, u8, o, h, w, d_range, radius,
+                                                     mean, s);
+  return (int)launch_sad<-1, RGBF>(base, other, u8, o, h, w, d_range, radius, mean, s);
 }
 
 // Launch on `stream`.  left, right: the [h, w] images (uncentred), both
@@ -530,6 +623,6 @@ extern "C" int ncc_volume_f32(const void* left, const void* right, int u8, void*
   cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err = launch_sums(left, right, u8, (float*)planes, h, w, radius, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_volume<true, -1>(left, right, u8, (const float*)planes, (float*)out, h,
-                                      w, d_range, radius, 0, eps, sentinel, s);
+  return (int)launch_volume<true, -1, GREY>(left, right, u8, (const float*)planes, (float*)out,
+                                            h, w, d_range, radius, 0, eps, sentinel, s);
 }

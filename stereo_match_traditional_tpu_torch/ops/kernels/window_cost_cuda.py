@@ -22,6 +22,15 @@ signed sum (the NCC cross sums) within ``FLOAT_RTOL`` of the sum of its
 terms' magnitudes.  Both images uint8 are read by the kernels as they are;
 anything else is handed over as float32.
 
+Colour: ``sad_volume_cuda(channel_min=True)`` takes ``[H, W, 3]`` pairs and
+forms each term as ``min_c |L_c - R_c|`` in the same kernel (its
+``channels = 3`` mode); both-u8 pairs are exact as the grey mode is, float32
+pairs take radii up to ``MAX_RADIUS_RGBF``.  A sliding sum's partial sums are
+sums over parts of the windows its walk passed, so a non-integer sum's
+roundings are bounded by ``FLOAT_RTOL`` of the largest of those window sums:
+for colour terms, which vary more between neighbouring windows than grey
+ones, hold it to ``FLOAT_RTOL`` of the volume's largest value.
+
 Border rule: a SAD output takes the window at the effective disparity ``min(d, j)`` (``min(d, W-1-j)`` for the right view) with reads
 clamped into the image, which is ``border_fill`` of the padded box sum; the
 NCC cross sum is zero outside the image and the volume holds the sentinel
@@ -52,23 +61,35 @@ LAUNCHES = {"sad_volume_f32": 0, "ncc_volume_f32": 0}
 # double-buffered tiles of column sums and window sums) of the 227 KB a block
 # may take.  The kernels take any H, W and D >= 1.
 MAX_RADIUS = 32
+# float32 colour pairs stage three planes of each band: 226 KB of shared
+# memory at radius 15, the most that fits
+MAX_RADIUS_RGBF = 15
 # What non-integer inputs are held to against the plain version (above): at
 # most 2 * 24 + 65 + 16 roundings of half an ulp (2^-24) each, were they all
 # of one sign.
 FLOAT_RTOL = 1e-5
 
 
-def _check(left, right, disp_range, radius):
-    if left.dim() != 2 or left.shape != right.shape or left.device != right.device:
+def _check(left, right, disp_range, radius, channel_min=False):
+    """Raise ``ValueError`` for what the kernels do not take: a pair that is
+    not ``[H, W]`` (``[H, W, 3]`` with ``channel_min``, and only then) on one
+    device, an empty problem, a radius out of range (``MAX_RADIUS``, and
+    ``MAX_RADIUS_RGBF`` for colour pairs that are not both uint8)."""
+    want = 3 if channel_min else 2
+    if (left.dim() != want or left.shape != right.shape or left.device != right.device
+            or (channel_min and left.shape[-1] != 3)):
+        layout = "[H, W, 3] (channel_min)" if channel_min else "[H, W]"
         raise ValueError(
-            f"left/right must be [H, W] on one device: {tuple(left.shape)} on "
+            f"left/right must be {layout} on one device: {tuple(left.shape)} on "
             f"{left.device} vs {tuple(right.shape)} on {right.device}"
         )
-    h, w = left.shape
+    h, w = left.shape[:2]
     if h < 1 or w < 1 or disp_range < 1:
         raise ValueError(f"empty problem: {h}x{w}, D={disp_range}")
-    if not 1 <= radius <= MAX_RADIUS:
-        raise ValueError(f"window radius must be in [1, {MAX_RADIUS}], got {radius}")
+    u8 = left.dtype == right.dtype == torch.uint8
+    limit = MAX_RADIUS_RGBF if channel_min and not u8 else MAX_RADIUS
+    if not 1 <= radius <= limit:
+        raise ValueError(f"window radius must be in [1, {limit}], got {radius}")
 
 
 def sad_volume_cuda(
@@ -82,28 +103,23 @@ def sad_volume_cuda(
 ) -> torch.Tensor:
     """Drop-in for ``ops.volume.sad_volume``: one launch of
     ``sad_volume_f32`` per call for CUDA inputs (one kernel writes the
-    window sums and the border triangle), the plain version for CPU inputs.  The kernel has no
-    ``channel_min`` mode, so CUDA inputs with it raise."""
+    window sums and the border triangle; ``channel_min`` its colour mode on
+    ``[H, W, 3]`` pairs), the plain version for CPU inputs."""
     if not on_cuda(left, right):
         return volume.sad_volume(left, right, disp_range, winsize, view, mean, channel_min)
     from stereo_match_traditional_tpu_torch.ops.kernels.build import library
 
-    if channel_min:
-        raise NotImplementedError(
-            "sad_volume_f32 has no channel_min mode "
-            "(ROADMAP.md Queue 1 item 7, dormant variants)"
-        )
     if view not in ("left", "right"):
         raise ValueError(f"view must be 'left' or 'right', got {view!r}")
-    _check(left, right, disp_range, winsize + 1)
+    _check(left, right, disp_range, winsize + 1, channel_min)
     lk, rk, u8 = kernel_inputs(left, right)
-    h, w = lk.shape
+    h, w = lk.shape[:2]
     out = torch.empty((disp_range, h, w), dtype=torch.float32, device=lk.device)
     lib = library()
     with current(lk.device):
         err = lib.sad_volume_f32(
             lk.data_ptr(), rk.data_ptr(), u8, out.data_ptr(), h, w, disp_range, winsize + 1,
-            int(view == "right"), int(mean), stream(lk.device),
+            int(view == "right"), int(mean), 3 if channel_min else 1, stream(lk.device),
         )
     raise_on_error(lib, "sad_volume_f32", err)
     LAUNCHES["sad_volume_f32"] += 1

@@ -126,6 +126,11 @@ def remove_speckles(
     disparities differ by <= ``diff_insame``; components smaller than
     ``min_speckle_area`` become ``invalid_value``.
 
+    ``block`` is the JAX package's two-level block labelling, an exact
+    schedule of the same labelling: its labels are the single-level flood's
+    at every block size, so this labelling serves every ``block``; 0 raises
+    ``ValueError`` as it does there.
+
     ``background`` is the value the SAD variant skips as a BFS seed
     (`Sad.h:265` skips ``disp == 0``): background pixels join components
     and count toward the area, but a component holding only background
@@ -144,11 +149,8 @@ def remove_speckles(
     """
     if connectivity not in (4, 8):
         raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
-    if block is not None:
-        raise NotImplementedError(
-            "remove_speckles(block=...) is not ported yet "
-            "(ROADMAP.md Queue 1 item 7, dormant variants)"
-        )
+    if block == 0:
+        raise ValueError("remove_speckles(block=0): a block has at least one row and column")
     h, w = disp.shape
     if max_iters is None:
         max_iters = 32 + 8 * max(1, (h * w - 1).bit_length())
@@ -264,6 +266,36 @@ def fill_image_new(disp: torch.Tensor) -> torch.Tensor:
     lv, _, lf = _nearest_valid(d, valid, 1, after=False)
     rv, _, rf = _nearest_valid(d, valid, 1, after=True)
     return torch.where(valid, d, torch.where(lf, lv, torch.where(rf, rv, 0.0)))
+
+
+def fill_image(disp: torch.Tensor) -> torch.Tensor:
+    """`FillImage` (`SAD/Sad.h:403-480`): zero-valued pixels take the nearest
+    non-zero value to the left, else 0."""
+    d = disp.to(torch.float32)
+    valid = d != 0
+    lv, _, lf = _nearest_valid(d, valid, 1, after=False)
+    return torch.where(valid, d, torch.where(lf, lv, 0.0))
+
+
+def fill_image_second_times(disp: torch.Tensor, threshold: float = 20.0) -> torch.Tensor:
+    """`FillImageSecondTimes` (`SAD/Sad.h:483-538`): pixels <= ``threshold``
+    search rightward starting at themselves (`Sad.h:510`), so a non-zero
+    pixel keeps its value and a zero pixel takes the nearest non-zero value
+    to its right, else ``threshold``.  The reference's accumulating stride
+    (`Sad.h:513`) is not reproduced, as in the JAX package."""
+    d = disp.to(torch.float32)
+    rv, _, rf = _nearest_valid(d, d != 0, 1, after=True)
+    return torch.where(d == 0, torch.where(rf, rv, threshold), d)
+
+
+def fill_image_last(disp: torch.Tensor) -> torch.Tensor:
+    """`FillImageLast` (`SAD/Sad.h:621-698`, `ASW/ASW.h:514-591`): zero-valued
+    pixels take the nearest non-zero value above, else below, else 0."""
+    d = disp.to(torch.float32)
+    valid = d != 0
+    uv, _, uf = _nearest_valid(d, valid, 0, after=False)
+    dv, _, df = _nearest_valid(d, valid, 0, after=True)
+    return torch.where(valid, d, torch.where(uf, uv, torch.where(df, dv, 0.0)))
 
 
 def directional_candidates(disp: torch.Tensor, valid: torch.Tensor):

@@ -144,22 +144,34 @@ def sad_volume(
     replicate-padded here (`SAD/SADmain.cpp:47-48`), the shifted stack of
     the padded image is differenced, box-summed and border-filled.
 
+    ``channel_min=True`` is the dormant colour variant `sadvalueMeanV4`
+    (`CBLSM/CBLSM.h:45-63` via `ComputeDispV4` `:494-532`): the inputs are
+    ``[H, W, C]``, rows and columns are edge-padded, and a pixel's term is
+    the minimum over channels of ``|L_c - R_c|`` (the reference's uchar
+    accumulator overflow is not reproduced, as in the JAX package).
+
     The plain version of ``ops.kernels.window_cost_cuda.sad_volume_cuda``.
     """
-    if channel_min:
-        raise NotImplementedError(
-            "sad_volume(channel_min=True) is not ported yet "
-            "(ROADMAP.md Queue 1 item 7, dormant variants)"
-        )
     if view not in ("left", "right"):
         raise ValueError(f"view must be 'left' or 'right', got {view!r}")
+    if channel_min and (left.dim() != 3 or left.shape != right.shape):
+        raise ValueError(
+            f"channel_min needs a pair of [H, W, C] images, got {tuple(left.shape)} "
+            f"and {tuple(right.shape)}"
+        )
     r = winsize + 1
-    lp = replicate_pad(left.to(torch.float32), r)
-    rp = replicate_pad(right.to(torch.float32), r)
-    if view == "left":
-        diff = torch.abs(lp[None] - shifted_stack(rp, disp_range, "left"))
-    else:
-        diff = torch.abs(shifted_stack(lp, disp_range, "right") - rp[None])
+    lf = left.to(torch.float32)
+    rf = right.to(torch.float32)
+    # one [Hp, Wp] plane a channel; the term is the minimum over the planes
+    planes_l = replicate_pad(lf.movedim(-1, 0) if channel_min else lf[None], r)
+    planes_r = replicate_pad(rf.movedim(-1, 0) if channel_min else rf[None], r)
+    diff = None
+    for lp, rp in zip(planes_l, planes_r):
+        if view == "left":
+            t = torch.abs(lp[None] - shifted_stack(rp, disp_range, "left"))
+        else:
+            t = torch.abs(shifted_stack(lp, disp_range, "right") - rp[None])
+        diff = t if diff is None else torch.minimum(diff, t)
     vol = box_sum_valid(diff, r, r)
     if mean:
         vol = true_div(vol, float((2 * r + 1) ** 2))
@@ -190,6 +202,13 @@ def ncc_sums(left: torch.Tensor, right: torch.Tensor, win_size: int):
     rf = right.to(torch.float32) - 128.0
     sums = box_sum_same(torch.stack([lf, lf * lf, rf, rf * rf]), win_size, win_size)
     return lf, rf, sums.unbind(0)
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root on every device (torch's CPU
+    float32 ``sqrt`` is an ulp off for ~0.6 % of inputs): taken in float64
+    and rounded once."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
 def ncc_volume(
@@ -229,8 +248,7 @@ def ncc_volume(
     num = sum_lr - true_div(sum_l[None] * sum_r_d, n)
     var_l = torch.clamp(sum_l2 - true_div(sum_l * sum_l, n), min=0.0)
     var_r = torch.clamp(sum_r2_d - true_div(sum_r_d * sum_r_d, n), min=0.0)
-    root = torch.sqrt(torch.clamp(var_l[None] * var_r, min=eps).to(torch.float64))
-    ncc = num / root.to(torch.float32)
+    ncc = num / _sqrt_rn(torch.clamp(var_l[None] * var_r, min=eps))
     ncc = torch.where((var_l[None] < 0.5) | (var_r < 0.5), -2.0, ncc)
     cols = torch.arange(wd, device=lf.device)[None, None, :]
     ds = torch.arange(disp_range, device=lf.device)[:, None, None]
@@ -242,6 +260,79 @@ def _ncc_sentinel(invalid_mode: str) -> float:
     if invalid_mode not in ("ignore", "sentinel"):
         raise ValueError(f"invalid_mode must be 'ignore' or 'sentinel', got {invalid_mode!r}")
     return 255.0 if invalid_mode == "sentinel" else -2.0
+
+
+def ncc_shifted_depth(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    max_offset: int = 79,
+    kernel_size: int = 5,
+    view: str = "left",
+    add_constant: bool = False,
+    depth_scale: int = 3,
+) -> torch.Tensor:
+    """Dormant whole-image shifted-NCC depth map (`ncc`, `NCC/NCC.h:117-272`,
+    disabled at `NCC_main.cpp:24`).
+
+    For each offset 1..max_offset the matching image is shifted along the
+    columns, its first (left view) or last ``offset`` columns keeping their
+    unshifted values (`NCC.h:150-158`); a border-truncated
+    ``(2k+1)^2`` NCC is formed and the first strictly greatest offset wins;
+    the output is ``(offset) * depth_scale`` (`NCC.h:262`), 0 where no NCC
+    exceeds the tracker's -2 start.  The reference's quirks are kept: the
+    divisor ``(rows_in - 1)(cols_in - 1)`` (`NCC.h:188`), the second division
+    by it (`NCC.h:221`) and NaN never winning (mapped to -inf);
+    ``add_constant`` adds 10 to the right image (`NCC.h:128-131`).
+
+    The JAX package's executor-only ``row_offset`` / ``global_rows`` are not
+    taken (ROADMAP.md Queue 1 item 9).  Divisions are IEEE and the roots
+    correctly rounded, as in unjitted JAX.
+    """
+    k = kernel_size
+    lf = left.to(torch.float32)
+    rf = right.to(torch.float32)
+    if add_constant:
+        rf = rf + 10.0
+    h, w = lf.shape
+    dev = lf.device
+    cols = torch.arange(w, device=dev)[None, :]
+    offs = torch.arange(1, max_offset + 1, device=dev)[:, None]   # [O, 1]
+    if view == "left":
+        idx = torch.where(cols >= offs, cols - offs, cols)
+        moving, fixed = rf[:, idx].movedim(1, 0), lf                 # [O, H, W]
+    else:
+        idx = torch.where(cols < w - offs, cols + offs, cols)
+        moving, fixed = lf[:, idx].movedim(1, 0), rf
+
+    # border-truncated window sums (zero padding == skipping out-of-range)
+    s_fix, s_fix2 = box_sum_same(torch.stack([fixed, fixed * fixed]), k, k).unbind(0)
+    s_mov = box_sum_same(moving, k, k)
+    s_mov2 = box_sum_same(moving * moving, k, k)
+    s_cross = box_sum_same(fixed[None] * moving, k, k)
+
+    ii = torch.arange(h, device=dev)[:, None]
+    jj = torch.arange(w, device=dev)[None, :]
+    rows_in = (ii + k).clamp(max=h - 1) - (ii - k).clamp(min=0) + 1
+    cols_in = (jj + k).clamp(max=w - 1) - (jj - k).clamp(min=0) + 1
+    cnt = (rows_in * cols_in).to(torch.float32)             # true element count
+    n = ((rows_in - 1) * (cols_in - 1)).to(torch.float32)   # the reference's divisor
+
+    mu_f = s_fix / n
+    mu_m = s_mov / n
+    num = s_cross - mu_f[None] * s_mov - mu_m * s_fix[None] + cnt[None] * mu_f[None] * mu_m
+    var_f = s_fix2 - 2.0 * mu_f * s_fix + cnt * mu_f * mu_f
+    var_m = s_mov2 - 2.0 * mu_m * s_mov + cnt[None] * mu_m * mu_m
+    res = (num / n[None]) / (
+        _sqrt_rn(torch.clamp(var_f / n, min=0.0))[None]
+        * _sqrt_rn(torch.clamp(var_m / n[None], min=0.0))
+    ) / n[None]
+    res = torch.where(torch.isnan(res), float("-inf"), res)   # NaN never wins `>`
+
+    # strict-greater tracker started at -2 (`NCC.h:139,254`): the first max wins
+    best = torch.argmax(res, dim=0)
+    best_val = torch.amax(res, dim=0)
+    depth = (best + 1) * depth_scale
+    return torch.where(best_val > -2.0, depth, 0).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -374,7 +465,7 @@ def ad_volumes(left: torch.Tensor, right: torch.Tensor, disp_range: int):
 # ---------------------------------------------------------------------------
 
 
-def _space_mask(radius: int, space_sigma: float, device) -> torch.Tensor:
+def _space_mask(radius: int, space_sigma: float, device=None) -> torch.Tensor:
     """Gaussian proximity mask over the support window (`ASW/ASW.h:16-35`;
     never normalized)."""
     ax = torch.arange(-radius, radius + 1, dtype=torch.float32, device=device)
@@ -457,3 +548,146 @@ def asw_volume_right(
         space_sigma, color_sigma, truncation, "left",
     )
     return torch.flip(vol, [2])
+
+
+def _gauss_band_matrix(n: int, radius: int, sigma: float, device=None) -> torch.Tensor:
+    """Banded Gaussian matrix ``G[q, p] = exp(-(q-p)^2 / 2 sigma^2)`` for
+    ``|q - p| <= radius``, 0 outside: a truncated 1-D Gaussian blur as a
+    matrix product.  Two of them factor the 2-D ASW space mask
+    (`getGausssianMask`, `ASW/ASW.h:16-35`, is separable)."""
+    i = torch.arange(n, device=device)
+    dqp = (i[:, None] - i[None, :]).to(torch.float32)
+    g = torch.exp(true_div(-(dqp * dqp), 2.0 * sigma * sigma))
+    return torch.where(torch.abs(dqp) <= radius, g, 0.0)
+
+
+def _linspace_f32(start: float, stop: float, num: int) -> list:
+    """``num`` float32 values from ``start`` to ``stop`` by ``jnp.linspace``'s
+    formula: ``start * (1 - t) + stop * t`` with ``t = i / (num - 1)`` for
+    i < num - 1, then ``stop``.  (``torch.linspace`` steps from both ends; JAX
+    compiles its formula and rounds some values an ulp apart from it.)"""
+    div = num - 1
+    f32 = dict(dtype=torch.float32)
+    t = torch.arange(div, **f32) / torch.tensor(float(div), **f32)
+    head = torch.tensor(start, **f32) * (1.0 - t) + torch.tensor(stop, **f32) * t
+    return head.tolist() + [float(torch.tensor(stop, **f32))]
+
+
+def asw_volume_approx_grid(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    disp_range: int,
+    win_size: int = 11,
+    space_sigma: float = 50.0,
+    color_sigma: float = 30.0,
+    truncation: float = 40.0,
+    bins: int = 12,
+) -> torch.Tensor:
+    """Approximate left-view ASW volume by an intensity-binned bilateral grid
+    (``ASWConfig(approx='grid')``, opt-in and not the reference's cost):
+
+        J_b(p) = blur(k_b * e_d)(p) / blur(k_b)(p),
+        cost(p, d) = sum_b hat_b(I_L(p)) J_b(p),
+
+    with ``k_b = exp(-(I_L - c_b)^2 / 2 sigma_c^2)`` over ``bins`` centres
+    ``linspace(0, 255, bins)``, ``e_d = min(|L - R(. - d)|, T)``, ``blur``
+    the truncated Gaussian space mask as two banded matrix products, and
+    hat weights interpolating the two nearest centres.  The right window
+    weight is dropped (a single-guidance grid).
+
+    The blurs are float64 matrix products rounded to float32 once, so no
+    TF32 setting of the caller's enters and the CPU and the card agree; the
+    JAX package multiplies in float32 at HIGHEST precision.  The JAX
+    package's executor-only ``row_offset`` / ``global_rows`` are not taken
+    (ROADMAP.md Queue 1 item 9).
+    """
+    if bins < 2:
+        raise ValueError(
+            f"asw approx='grid' needs bins >= 2 (got {bins}): the hat "
+            "interpolation between intensity centers is degenerate below "
+            "two bins — raise ASWConfig(approx_bins=...)"
+        )
+    lf = left.to(torch.float32)
+    rf = right.to(torch.float32)
+    h, w = lf.shape
+    radius = win_size + 1
+    e = torch.clamp(torch.abs(lf[None] - shifted_stack(rf, disp_range, "left")),
+                    max=truncation)                                    # [D, H, W]
+    gh = _gauss_band_matrix(h, radius, space_sigma, lf.device).to(torch.float64)
+    gw = _gauss_band_matrix(w, radius, space_sigma, lf.device).to(torch.float64)
+
+    def blur(x):
+        return torch.matmul(torch.matmul(gh, x.to(torch.float64)), gw).to(torch.float32)
+
+    step = 255.0 / (bins - 1)
+    inv2sc = 1.0 / (2.0 * color_sigma * color_sigma)
+    out = torch.zeros_like(e)
+    for c in _linspace_f32(0.0, 255.0, bins):
+        kb = torch.exp(-((lf - c) ** 2) * inv2sc)                     # [H, W]
+        jb = blur(kb[None] * e) / torch.clamp(blur(kb), min=1e-20)[None]
+        hat = torch.clamp(1.0 - true_div(torch.abs(lf - c), step), min=0.0)
+        out = out + hat[None] * jb
+    return border_fill(out, "left")
+
+
+def asw_lab_volume(
+    left_gray: torch.Tensor,
+    right_gray: torch.Tensor,
+    left_lab: torch.Tensor,
+    right_lab: torch.Tensor,
+    disp_range: int,
+    win_size: int = 11,
+    space_sigma: float = 50.0,
+    color_sigma: float = 30.0,
+    truncation: float = 40.0,
+    faithful_lut: bool = False,
+) -> torch.Tensor:
+    """Dormant Yoon-Kweon-style Lab-weight ASW variant (`ComputeWeigtColor`
+    `ASW/ASW.h:49-80`, `ComputeProximity` `:82-105`, `ComputeCost`
+    `:148-175`).
+
+    A window pixel's colour weight is the mean of three per-Lab-channel
+    Gaussians, its proximity weight the space mask; the cost is the weighted
+    mean absolute grey difference, truncated at the cost level
+    (`ASW.h:171-173`, unlike the active path, which truncates each pixel's
+    error).  ``faithful_lut=True`` reproduces the reference's cast of that
+    mean (in (0, 1]) to an int used as an index into the colour LUT
+    (`ASW.h:76-77`); ``.to(torch.int32)`` truncates as the cast does.
+
+    Plain PyTorch on every device: a loop over the (2R+1)^2 window offsets,
+    R = win_size + 1, each step the JAX package's ``lax.scan`` step on
+    ``[D, H, W]`` tensors.
+    """
+    radius = win_size + 1
+    side = 2 * radius + 1
+    lg = replicate_pad(left_gray.to(torch.float32), radius)
+    rg = replicate_pad(right_gray.to(torch.float32), radius)
+    ll = replicate_pad(left_lab.to(torch.float32).movedim(-1, 0), radius)    # [3, Hp, Wp]
+    rl = replicate_pad(right_lab.to(torch.float32).movedim(-1, 0), radius)
+    h, w = left_gray.shape
+    space = _space_mask(radius, space_sigma, lg.device).tolist()
+    inv2sc = 1.0 / (2.0 * color_sigma * color_sigma)
+
+    def channel_weight(lab_sh, lab_c):
+        g3 = torch.exp(-((lab_sh - lab_c) ** 2) * inv2sc)      # [3, H, W]
+        mean3 = true_div(g3[0] + g3[1] + g3[2], 3.0)
+        if faithful_lut:
+            idx = mean3.to(torch.int32).to(torch.float32)      # 0 or 1
+            return torch.exp(-(idx * idx) * inv2sc)
+        return mean3
+
+    err = torch.abs(lg[None] - shifted_stack(rg, disp_range, "left"))   # [D, Hp, Wp]
+    ll_c = ll[:, radius : radius + h, radius : radius + w]
+    rl_c = rl[:, radius : radius + h, radius : radius + w]
+    num = torch.zeros((disp_range, h, w), dtype=torch.float32, device=lg.device)
+    den = torch.zeros_like(num)
+    for dy in range(side):
+        for dx in range(side):
+            sp = space[dy][dx]
+            w_l = channel_weight(ll[:, dy : dy + h, dx : dx + w], ll_c) * sp
+            w_r = channel_weight(rl[:, dy : dy + h, dx : dx + w], rl_c) * sp
+            wlr = w_l[None] * shifted_stack(w_r, disp_range, "left")
+            num += wlr * err[:, dy : dy + h, dx : dx + w]
+            den += wlr
+    vol = torch.clamp(num / torch.clamp(den, min=1e-20), max=truncation)
+    return border_fill(vol, "left")

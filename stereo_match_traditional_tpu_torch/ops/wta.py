@@ -56,3 +56,16 @@ def optimal_disparity(
     refined = best.to(torch.float32) + (c1 - c2) / (2.0 * denom)
     out = refined if subpixel else best.to(torch.float32)
     return torch.where(reject, 0.0, out)
+
+
+def wta_with_cost(vol: torch.Tensor) -> tuple:
+    """Argmin over the disparity axis, as float32, and its cost; the first
+    minimum wins, as ``jnp.argmin``'s does."""
+    return torch.argmin(vol, dim=0).to(torch.float32), torch.amin(vol, dim=0)
+
+
+def wta_sum(vol_a: torch.Tensor, vol_b: torch.Tensor) -> torch.Tensor:
+    """The dormant `ComputeDisp` hybrid (`CBLSM/CBLSM.h:296-325`): argmin
+    over d of the elementwise sum of two volumes (the reference feeds the
+    disparity-conditioned arm-count volume and the cost volume)."""
+    return wta(vol_a.to(torch.float32) + vol_b.to(torch.float32), "min")

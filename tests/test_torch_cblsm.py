@@ -148,15 +148,20 @@ def test_registry_entry():
 
 
 @pytest.mark.parametrize("cfg,kwargs,match", [
-    (CBLSMConfig(cost="sad_mean"), {}, "Queue 1 item 7"),
-    (CBLSMConfig(cost="sad_mean_v4"), {}, "Queue 1 item 7"),
-    (CBLSMConfig(cost="local_mean"), {}, "Queue 1 item 7"),
-    (CBLSMConfig(aggregation="rect_mean_v4"), {}, "Queue 1 item 7"),
+    (cfgs.CBLSMConfig(disp_range=4, cost="sad_mean", win_size=1), {}, None),
+    (cfgs.CBLSMConfig(disp_range=4, cost="sad_mean_v4", win_size=1), {"color": True}, None),
+    (cfgs.CBLSMConfig(disp_range=4, cost="local_mean"), {}, None),
+    (cfgs.CBLSMConfig(disp_range=4, aggregation="rect_mean_v4"), {}, None),
 ], ids=["sad_mean", "sad_mean_v4", "local_mean", "rect_mean_v4"])
 def test_unported_modes_raise(cfg, kwargs, match):
-    L, R, _ = make_pair(8, 8, 2, seed=0)
-    with pytest.raises(NotImplementedError, match=match):
-        tcblsm.cblsm_pipeline(*pair_to_torch(L, R, "cpu"), cfg, **kwargs)
+    """The dormant costs and the V4 aggregation run in the port and agree
+    with JAX's: the WTA maps on >= 99.5 % of pixels, ``disp_right`` outside
+    the clamp triangle (sad_mean_v4 on ``[H, W, 3]`` images, as in JAX)."""
+    L, R, _ = make_pair(12, 20, 4, seed=0, **kwargs)
+    want = jcblsm.cblsm_pipeline(jnp.asarray(L), jnp.asarray(R), cfg)
+    got = tcblsm.cblsm_pipeline(torch.from_numpy(L), torch.from_numpy(R), port_cfg(cfg))
+    _agreement(want._asdict(), result_to_numpy(got)._asdict(), cfg.disp_range,
+               ("disp_left", "disp_right"))
 
 
 @pytest.mark.parametrize("cfg", [

@@ -136,10 +136,22 @@ def test_cli_bench_exits_naming_item_8a():
     assert e.value.code not in (0, None)
 
 
-def test_cli_asw_lab_reaches_item_7():
-    with pytest.raises(SystemExit, match="Queue 1 item 7"):
-        cli.main(["--cpu", "run", "asw", "--synthetic", "24x32", "--disp-range", "6",
-                  "--set", "variant=lab"])
+def test_cli_asw_lab_reaches_item_7(tmp_path, capsys):
+    """``run asw --set variant=lab`` exits 0 and its map is the in-process
+    pipeline's on the same Lab pair (the colour pair of the seed, converted
+    by ``rgb_to_lab_u8``), bit for bit."""
+    pfm = tmp_path / "lab.pfm"
+    rc = cli.main(["--cpu", "run", "asw", "--synthetic", "24x32", "--disp-range", "6",
+                   "--set", "variant=lab", "--out-pfm", str(pfm)])
+    assert rc == 0
+    assert _summary(capsys)["shape"] == [24, 32]
+    L, R, _ = make_pair(24, 32, 6, seed=0)
+    lc, rc_, _ = make_pair(24, 32, 6, seed=0, color=True)
+    fn, cfg_cls = get_pipeline("asw")
+    res = fn(*pair_to_torch(L, R, "cpu"), cfg_cls(disp_range=6, variant="lab"),
+             left_lab=torch.from_numpy(io.rgb_to_lab_u8(lc)),
+             right_lab=torch.from_numpy(io.rgb_to_lab_u8(rc_)))
+    np.testing.assert_array_equal(io.read_pfm(str(pfm)), res.disp_final.numpy())
 
 
 @pytest.mark.parametrize("cmd", ["run", "eval"])

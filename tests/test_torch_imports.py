@@ -36,7 +36,7 @@ def test_port_modules_are_found():
                      "models.ad_census", "ops.kernels.window_cost_cuda", "models.sad",
                      "models.ncc", "models.cblsm", "config", "utils.synthetic", "cli",
                      "models.batch", "utils.checkpoint", "utils.io", "utils.loader",
-                     "utils.profiling"):
+                     "utils.profiling", "ops.filters"):
         assert f"{PKG}.{expected}" in mods
 
 

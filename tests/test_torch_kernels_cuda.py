@@ -503,15 +503,83 @@ def test_window_kernels_reject_radius_without_launch():
     assert window_cost_cuda.LAUNCHES == before
 
 
+# (h, w, D, winsize, seed) for the colour mode: one row, W % 4 != 0 and
+# == 0, D > W, a 11x11 window, CBLSM's win_size 1 at Teddy
+COLOUR_GEOMETRIES = [(1, 40, 7, 0, 1), (9, 21, 12, 1, 2), (40, 70, 100, 4, 3),
+                     (12, 9, 20, 2, 4), (375, 450, 60, 1, 0)]
+
+
+def _colour_pair_on_card(h, w, d, seed):
+    if min(h, w) < 8:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return tuple(torch.randint(0, 256, (h, w, 3), device="cuda", generator=gen,
+                                   dtype=torch.uint8) for _ in range(2))
+    L, R, _ = make_pair(h, w, min(d, w - 1), seed=seed, color=True)
+    return torch.from_numpy(L).cuda(), torch.from_numpy(R).cuda()
+
+
 @pytest.mark.cuda
 def test_sad_kernel_channel_min_raises_without_launch():
-    """CUDA inputs with ``channel_min`` raise; nothing runs on the card."""
+    """The colour mode (``channel_min``): u8 ``[H, W, 3]`` pairs give the
+    plain version bit for bit (every term an integer), both views, mean on
+    and off, one launch a call; float32 pairs holding the same integers take
+    the three-plane path and give the same bits; non-integer float32 pairs
+    agree within ``FLOAT_RTOL`` of the largest window sum; a float32 radius
+    above ``MAX_RADIUS_RGBF``
+    raises before anything runs."""
     _need_card()
-    x = torch.zeros((6, 7, 3), dtype=torch.uint8, device="cuda")
+    for h, w, d, winsize, seed in COLOUR_GEOMETRIES:
+        lt, rt = _colour_pair_on_card(h, w, d, seed)
+        for view in ("left", "right"):
+            for mean in (False, True):
+                before = window_cost_cuda.LAUNCHES["sad_volume_f32"]
+                got = window_cost_cuda.sad_volume_cuda(lt, rt, d, winsize, view, mean, True)
+                torch.cuda.synchronize()
+                assert window_cost_cuda.LAUNCHES["sad_volume_f32"] == before + 1
+                want = volume.sad_volume(lt, rt, d, winsize, view, mean, True)
+                assert torch.equal(got, want), (h, w, d, winsize, view, mean)
+                assert torch.equal(window_cost_cuda.sad_volume_cuda(
+                    lt.float(), rt.float(), d, winsize, view, mean, True), got)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    lt, rt = (t.float() + torch.rand(t.shape, device="cuda", generator=gen)
+              for t in _colour_pair_on_card(40, 70, 20, 5))
+    for view in ("left", "right"):
+        # a sliding sum's partial sums are sums over parts of windows the walk
+        # passed, so its roundings are bounded by the largest window sum, not
+        # by the sum at hand (colour terms, the least of three differences,
+        # vary more from window to window than grey ones)
+        want = volume.sad_volume(lt, rt, 20, 3, view, False, True)
+        torch.testing.assert_close(
+            window_cost_cuda.sad_volume_cuda(lt, rt, 20, 3, view, False, True), want,
+            rtol=0.0, atol=window_cost_cuda.FLOAT_RTOL * want.max().item())
     before = dict(window_cost_cuda.LAUNCHES)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-        window_cost_cuda.sad_volume_cuda(x, x, 3, 1, "left", True, True)
+    with pytest.raises(ValueError, match="radius"):
+        window_cost_cuda.sad_volume_cuda(lt, rt, 4, window_cost_cuda.MAX_RADIUS_RGBF, "left",
+                                         False, True)
     assert window_cost_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("layout", ["colour_without_channel_min", "grey_with_channel_min",
+                                    "four_channels", "colour_mismatch", "float_colour_radius"])
+def test_window_launch_check_colour(layout):
+    """``[H, W, 3]`` pairs pass the kernels' check with ``channel_min`` and
+    only then, u8 ones up to ``MAX_RADIUS`` and float32 ones up to
+    ``MAX_RADIUS_RGBF``; a grey pair, another channel count, unequal shapes
+    or a float32 colour radius above its limit raise."""
+    grey = torch.zeros((8, 9), dtype=torch.uint8)
+    colour = torch.zeros((8, 9, 3), dtype=torch.uint8)
+    rgbf = colour.float()
+    window_cost_cuda._check(colour, colour, 4, window_cost_cuda.MAX_RADIUS, True)
+    window_cost_cuda._check(rgbf, rgbf, 4, window_cost_cuda.MAX_RADIUS_RGBF, True)
+    left, right, cm, radius = {
+        "colour_without_channel_min": (colour, colour, False, 2),
+        "grey_with_channel_min": (grey, grey, True, 2),
+        "four_channels": (torch.zeros((8, 9, 4), dtype=torch.uint8),) * 2 + (True, 2),
+        "colour_mismatch": (colour, colour[:, :8], True, 2),
+        "float_colour_radius": (rgbf, rgbf, True, window_cost_cuda.MAX_RADIUS_RGBF + 1),
+    }[layout]
+    with pytest.raises(ValueError):
+        window_cost_cuda._check(left, right, 4, radius, cm)
 
 
 def test_every_c_entry_has_its_signature_bound():

@@ -106,9 +106,17 @@ def test_remove_speckles_serpentine():
 
 
 def test_remove_speckles_unported_modes_raise():
-    x = _t(np.ones((4, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-        tpost.remove_speckles(x, block=2)
+    """``block`` (the JAX package's two-level labelling) runs and gives JAX's
+    block form bit for bit; block 0 and an unknown connectivity raise
+    ``ValueError``, as in JAX."""
+    d = _random_maps(11)[0]
+    x = _t(d)
+    for block in (2, 7):
+        want = np.asarray(jpost.remove_speckles(jnp.asarray(d), 1.0, 20, block=block))
+        np.testing.assert_array_equal(tpost.remove_speckles(x, 1.0, 20, block=block).numpy(),
+                                      want)
+    with pytest.raises(ValueError):
+        tpost.remove_speckles(x, block=0)
     with pytest.raises(ValueError):
         tpost.remove_speckles(x, connectivity=6)
 

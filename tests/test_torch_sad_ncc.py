@@ -107,9 +107,19 @@ def test_sad_volume_bit_exact(h, w, d, winsize, seed, view, mean):
 @pytest.mark.parametrize("fn", [tvol.sad_volume, window_cost_cuda.sad_volume_cuda],
                          ids=["plain", "wrapper"])
 def test_sad_volume_channel_min_not_ported(fn):
-    x = torch.zeros((6, 7, 3), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-        fn(x, x, 3, 1, "left", True, True)
+    """``channel_min`` (the minimum-channel colour SAD) on u8 ``[H, W, 3]``
+    pairs equals JAX's bit for bit, both views, mean on and off; the wrapper
+    takes the plain version for CPU tensors and launches nothing."""
+    L, R, _ = make_pair(9, 13, 5, seed=3, color=True)
+    lt, rt = torch.from_numpy(L), torch.from_numpy(R)
+    before = dict(window_cost_cuda.LAUNCHES)
+    for view in ("left", "right"):
+        for mean in (False, True):
+            want = np.asarray(jvol.sad_volume(L, R, 6, 1, view, mean, True))
+            got = fn(lt, rt, 6, 1, view, mean, True)
+            assert got.shape == (6, 9, 13)
+            np.testing.assert_array_equal(got.numpy(), want)
+    assert window_cost_cuda.LAUNCHES == before
 
 
 def test_sad_volume_cuda_takes_plain_version_on_cpu():
@@ -380,12 +390,18 @@ def test_cpu_tensors_launch_no_kernel():
 
 
 @pytest.mark.parametrize("name,cfg,kwargs,match", [
-    ("ncc", NCCConfig(disp_range=4, variant="shifted"), {}, "Queue 1 item 7"),
+    ("ncc", cfgs.NCCConfig(disp_range=4, variant="shifted", alt_max_offset=6,
+                           alt_kernel=2), {}, None),
 ], ids=["ncc_shifted"])
 def test_unported_modes_raise(name, cfg, kwargs, match):
-    L, R, _ = make_pair(8, 8, 2, seed=0)
-    with pytest.raises(NotImplementedError, match=match):
-        get_pipeline(name)[0](*pair_to_torch(L, R, "cpu"), cfg, **kwargs)
+    """The dormant shifted NCC runs in the port and equals JAX's depth map
+    bit for bit (its values are integers), with JAX's empty stages."""
+    L, R, _ = make_pair(12, 20, 4, seed=0)
+    want = jax_get_pipeline(name)[0](jnp.asarray(L), jnp.asarray(R), cfg, **kwargs)
+    got, stages = get_pipeline(name)[0](*pair_to_torch(L, R, "cpu"), port_cfg(cfg),
+                                        return_stages=True, **kwargs)
+    assert stages == {} and got.disp_right is None
+    np.testing.assert_array_equal(got.disp_left.numpy(), np.asarray(want.disp_left))
 
 
 @pytest.mark.parametrize("cfg", [

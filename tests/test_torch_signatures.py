@@ -3,7 +3,7 @@ behaviour of the arguments that make them equal.
 
 A caller moving from the JAX package to the port passes the same
 arguments in the same positions, so every public function of the port's
-``models/*``, ``ops/{post,volume,wta,aggregate,scanline}`` and
+``models/*``, ``ops/{post,volume,wta,aggregate,scanline,filters}`` and
 ``utils/{checkpoint,io}`` that has a JAX counterpart of the same name takes
 the same parameter names in the same order, but for the exceptions listed
 here."""
@@ -35,7 +35,7 @@ from stereo_match_traditional_tpu_torch.utils.synthetic import make_pair
 
 MODULES = ["models.ad_census", "models.asw", "models.base", "models.batch", "models.cblsm",
            "models.ncc", "models.registry", "models.sad", "ops.post", "ops.volume", "ops.wta",
-           "ops.aggregate", "ops.scanline", "utils.checkpoint", "utils.io"]
+           "ops.aggregate", "ops.scanline", "ops.filters", "utils.checkpoint", "utils.io"]
 # Trailing keywords of the JAX package's tiled and streamed executors (row
 # bands and disparity blocks), which the port has not yet (ROADMAP.md Queue 1
 # item 9): the port may lack them at the end of a signature.
