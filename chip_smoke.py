@@ -28,7 +28,15 @@ share.  Then the dormant variants: the SAD kernel's colour mode against its
 plain version, and every variant configuration (ncc ``shifted``, asw ``lab``
 and ``grid``, cblsm's ``sad_mean``, ``sad_mean_v4``, ``local_mean`` and
 ``rect_mean_v4``, the speckle filter's block form, the bilateral filter) at
-the same size against the port's CPU plain path.  Each
+the same size against the port's CPU plain path.  Then the streamed
+executor (``parallel.streamed``, phase 21): its banded scanline kernels
+against their plain versions and timed, the five reference configurations
+streamed at the same size against the direct path on the card, legacy and
+canonical FULL at 720p with each path's peak memory, the direct path's peak
+at 1080x1920, D=256, and 2160x3840, D=256 on the JAX package's
+representative pair (active, legacy FULL with penalty_scale='auto',
+canonical FULL in two stages), each held to the JAX package's bad-2.0 and
+timed, with its band, peak memory, launches and stages.  Each
 phase prints one JSON line; any failure raises and exits non-zero.  The
 last three lines are the card's ``nvidia-smi`` name and power limit, the
 kernel summary ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -37,7 +45,7 @@ bound: the least time the card could take for the same function at the
 same shape, the larger of its bytes (every input once, the output once)
 over the card's memory rate and its operations (by the cheapest exact
 algorithm known) over the card's float32 rate.  No single PyTorch call
-computes any of the six functions, so ``library_ms`` is null.
+computes any of the eight functions, so ``library_ms`` is null.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -181,6 +189,22 @@ WALK_SHAPE = (96, 128, 16)  # where the 625-offset plain loops (Lab, bilateral) 
 VARIANT_REPS = 3
 DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACE_TRIES = 3
+# The streamed executor (phase 21): the five reference configurations at
+# Teddy in bands of 128 rows, legacy and canonical FULL at 720p in bands of
+# 256, the whole-image path's peak at 1080p/D=256 (four times fewer pixels
+# than 4K), and 4K/D=256 on the JAX package's representative pair, whose
+# bad-2.0 the runs hold (BASELINE.md:904-909; hardware-independent)
+STREAM_TEDDY_TILE = 128
+STREAM_SERVING_TILE = 256
+DENSE_PROBE = (1080, 1920, 256)
+HUGE_PAIR_SCALE = 102
+HUGE_BAD2 = {"active": 0.1002, "FULL auto": 0.0681, "canonical FULL": 0.0820}
+HUGE_BAD2_TOL = 0.005
+HUGE_TIMED_CALLS = 2
+STREAM_AGREE = 0.995        # tests/test_streamed.py's envelope: <= 0.5 % of pixels differ
+# (t, D, W) bands for the banded kernels against their plain versions: a
+# Teddy band and a 4K-wide band at D=256; the second is also timed
+BANDED_CHECKS = [(128, 60, 450), (64, 256, 3840)]
 
 
 def check(ok: bool, what) -> None:
@@ -281,7 +305,7 @@ def traced_events(fn, reps: int) -> list:
     return events
 
 
-def profiled_stages(fn, reps: int) -> dict:
+def profiled_stages(fn, reps: int, warm_up: bool = True) -> dict:
     """Per-call ms of each ``stereo/<stage>`` range that the pipeline marks
     (``utils.profiling.stage_scope``) over ``reps`` calls of ``fn`` under
     ``torch.profiler``, after a warm-up call, read from its trace: of the
@@ -291,8 +315,9 @@ def profiled_stages(fn, reps: int) -> dict:
     range on the host (with the profiler's own overhead)."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
+    if warm_up:
+        fn()
+        torch.cuda.synchronize()
     events = traced_events(fn, reps)
     ranges, launches, work = [], [], {}
     for e in events:
@@ -469,6 +494,7 @@ def main() -> None:
     canon = canonical_phases()
     surfaces_phase(kind)
     var = variants_phase()
+    streamed = streamed_phase()
 
     for banned in ("jax", "stereo_match_traditional_tpu"):   # the name or a dotted prefix
         loaded = [m for m in sys.modules if m == banned or m.startswith(banned + ".")]
@@ -526,6 +552,20 @@ def main() -> None:
             "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/scanline_canonical.cu",
             "replaces": "stereo_match_traditional_tpu/ops/scanline.py:326",
             **canon,
+        },
+        {
+            "name": "scanline_banded_f32",
+            "route": "cuda",
+            "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/scanline_banded.cu",
+            "replaces": "stereo_match_traditional_tpu/ops/scanline.py:126",
+            **streamed["scanline_banded_f32"],
+        },
+        {
+            "name": "scanline_banded_canonical_f32",
+            "route": "cuda",
+            "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/scanline_banded.cu",
+            "replaces": "stereo_match_traditional_tpu/ops/scanline.py:266",
+            **streamed["scanline_banded_canonical_f32"],
         },
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1763,6 +1803,341 @@ def variants_phase() -> dict:
         "launches": summary["cblsm sad_mean_v4"]["launches_a_call"]["sad_volume_f32"],
         "agreement": "bit-exact" if exact_all else "differs",
         "float_max_abs_err": float_err}}
+
+
+def _reset_launches():
+    """Every kernel wrapper's launch count set to 0."""
+    from stereo_match_traditional_tpu_torch.ops.kernels import (
+        ad_census_cuda, asw_cuda, scanline_banded_cuda, scanline_canonical_cuda,
+        scanline_cuda, window_cost_cuda,
+    )
+
+    ad_census_cuda.LAUNCHES = asw_cuda.LAUNCHES = 0
+    scanline_cuda.LAUNCHES = scanline_canonical_cuda.LAUNCHES = 0
+    for counts in (window_cost_cuda.LAUNCHES, scanline_banded_cuda.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _launches() -> dict:
+    """Every kernel wrapper's launch count, by C entry."""
+    from stereo_match_traditional_tpu_torch.ops.kernels import (
+        ad_census_cuda, asw_cuda, scanline_banded_cuda, scanline_canonical_cuda,
+        scanline_cuda, window_cost_cuda,
+    )
+
+    return {"asw_volume_left_f32": asw_cuda.LAUNCHES,
+            "ad_census_volume_f32": ad_census_cuda.LAUNCHES,
+            "scanline_optimize_f32": scanline_cuda.LAUNCHES,
+            "scanline_canonical_f32": scanline_canonical_cuda.LAUNCHES,
+            **window_cost_cuda.LAUNCHES, **scanline_banded_cuda.LAUNCHES}
+
+
+def _agreement(got, want, d: int) -> dict:
+    """Share of equal pixels of each map, outside the clamp triangle (the
+    left D columns; the right D of the right view)."""
+    out = {}
+    for f in ("disp_left", "disp_right", "disp_final", "occlusion", "mismatch"):
+        g, w = getattr(got, f), getattr(want, f)
+        check((g is None) == (w is None), f)
+        if g is not None:
+            sl = (slice(None), slice(None, -d)) if f == "disp_right" else (slice(None),
+                                                                            slice(d, None))
+            out[f] = (g[sl] == w[sl]).double().mean().item()
+    return out
+
+
+def _peak_run(fn):
+    """``fn()``'s result and the device memory it peaked at above what was
+    allocated before it (bytes), and the caching allocator's peak reserve
+    (bytes, all of the process's)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, torch.cuda.max_memory_allocated() - base, torch.cuda.max_memory_reserved()
+
+
+def streamed_phase() -> dict:
+    """Phase 21, the streamed executor (``parallel.streamed``): the banded
+    scanline kernels against their plain versions and timed; the five
+    reference configurations streamed at Teddy against the direct path on
+    the card; legacy and canonical FULL at 720p with each path's peak
+    memory; the direct path's peak at 1080p/D=256, and from it whether the
+    whole-image path fits at 4K; and 4K/D=256 on the JAX package's
+    representative pair: active, legacy FULL with penalty_scale='auto' and
+    canonical FULL through ``streamed_canonical_staged``, each with its
+    bad-2.0, ms a pair, band, peak memory, launches and stages.  Returns the
+    two banded kernels' summary fields."""
+    import numpy as np
+    import torch
+
+    from stereo_match_traditional_tpu_torch import config as C
+    from stereo_match_traditional_tpu_torch.models import get_pipeline
+    from stereo_match_traditional_tpu_torch.ops import scanline
+    from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
+    from stereo_match_traditional_tpu_torch.parallel import (
+        auto_row_tile, receptive_field_rows, run_streamed, streamed_canonical_staged,
+    )
+    from stereo_match_traditional_tpu_torch.parallel.streamed import (
+        _LIVE_VOLUME_ROWS, _mode,
+    )
+    from stereo_match_traditional_tpu_torch.utils.convert import pair_to_torch
+    from stereo_match_traditional_tpu_torch.utils.synthetic import bad_pixel_rate, make_pair
+
+    start = time.perf_counter()
+    total_memory = torch.cuda.get_device_properties(0).total_memory
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    levels = torch.tensor([1.0, 0.25, 0.1], device="cuda")
+    families = {
+        "scanline_banded_f32": (
+            lambda c, p, cr, rs, **k: banded.directional_pass_banded_cuda(c, p, cr, rs, 0.5,
+                                                                          True, **k),
+            lambda c, p, cr, rs: scanline.directional_pass_banded(c, p, cr, rs, 0.5, True)),
+        "scanline_banded_canonical_f32": (
+            lambda c, p, cr, rs, **k: banded.canonical_pass_banded_cuda(c, p, cr, rs, 1.0, 3.0,
+                                                                        **k),
+            lambda c, p, cr, rs: scanline.canonical_pass_banded(c, p, cr, rs, 1.0, 3.0)),
+    }
+
+    def band_inputs(t, d, w, name, layout):
+        """(cost, penalties, carry) of one pass over a [D, t, W] band: steps
+        along its rows (vertical) or its columns (horizontal)."""
+        band = torch.rand((d, t, w), device="cuda", generator=gen) * 4
+        if name == "scanline_banded_f32":
+            pen = torch.rand((t, w), device="cuda", generator=gen) * 3 + 0.5
+            pen = pen if layout == "vertical" else pen.T
+        else:
+            pen = levels[torch.randint(0, 3, (d, t, w), device="cuda", generator=gen)]
+            pen = pen.permute(1, 0, 2) if layout == "vertical" else pen.permute(2, 0, 1)
+        cost = band.permute(1, 0, 2) if layout == "vertical" else band.permute(2, 0, 1)
+        prev = torch.rand((d, cost.shape[2]), device="cuda", generator=gen) * 5
+        return cost, pen, (prev, prev.amin(0))
+
+    # -- 21a. the banded kernels against their plain versions --------------
+    max_abs = dict.fromkeys(families, 0.0)
+    for t, d, w in BANDED_CHECKS:
+        for name, (kernel, plain) in families.items():
+            for layout in ("vertical", "horizontal"):
+                cost, pen, carry = band_inputs(t, d, w, name, layout)
+                n = cost.shape[0]
+                mask = torch.zeros(n, dtype=torch.bool, device="cuda")
+                mask[n // 2] = True
+                rec = {"phase": "streamed", "part": "kernel_check", "kernel": name,
+                       "band": [t, d, w], "layout": layout}
+                for reverse in (False, True):
+                    got, (gp, gm) = kernel(cost, pen, carry, n // 2, reverse=reverse)
+                    if reverse:
+                        want, (wp, wm) = plain(cost.flip(0), pen.flip(0), carry, mask.flip(0))
+                        want = want.flip(0)
+                    else:
+                        want, (wp, wm) = plain(cost, pen, carry, mask)
+                    torch.cuda.synchronize()
+                    rec[f"bit_exact_reverse_{reverse}"] = bool(
+                        torch.equal(got, want) and torch.equal(gp, wp) and torch.equal(gm, wm))
+                    rec[f"max_abs_err_reverse_{reverse}"] = (got - want).abs().max().item()
+                    max_abs[name] = max(max_abs[name], rec[f"max_abs_err_reverse_{reverse}"])
+                emit(rec)
+                check(rec["bit_exact_reverse_False"] and rec["bit_exact_reverse_True"], rec)
+
+    # -- 21b. the banded kernels timed, at the 4K-wide band ----------------
+    t, d, w = band = BANDED_CHECKS[-1]
+    timing = {}
+    for name, (kernel, plain) in families.items():
+        rec = {}
+        for layout in ("vertical", "horizontal"):
+            cost, pen, carry = band_inputs(t, d, w, name, layout)
+            k_ms, p_ms = alternate(lambda: plain(cost, pen, carry, None),
+                                   lambda: kernel(cost, pen, carry, None),
+                                   plain_reps=1, kernel_reps=5)
+            n, m = cost.shape[0], cost.shape[2]
+            # the band in, the band out and the penalties once; ~10
+            # operations a value (canonical: the scale a value in too)
+            pen_bytes = 4 * pen.numel()
+            rec[layout] = {"kernel_ms": k_ms, "plain_ms": p_ms, "steps": n, "lanes": m,
+                           **bound(8 * n * d * m + pen_bytes + 8 * (d * m + m),
+                                   10.0 * n * d * m)}
+            rec[layout]["share_of_bound"] = rec[layout]["bound_ms"] / k_ms
+        timing[name] = rec
+    emit({"phase": "streamed", "part": "timing_kernels", "band": band, "kernels": timing})
+
+    # -- 21c. the five reference configurations at Teddy -------------------
+    h, w, d = TEDDY
+    L, R, _ = make_pair(h, w, d, seed=0)
+    lt, rt = pair_to_torch(L, R, "cuda")
+    references = {
+        "asw": C.ASWConfig(),
+        "ad_census FULL": C.ADCensusConfig(disp_range=d, scanline=C.ScanlineConfig(),
+                                           run_post=True),
+        "sad": C.SADConfig(),
+        "ncc": C.NCCConfig(),
+        "cblsm": C.CBLSMConfig(),
+    }
+    for label, cfg in references.items():
+        name = label.split()[0]
+        fn = get_pipeline(name)[0]
+        _reset_launches()
+        got = run_streamed(name, lt, rt, cfg, row_tile=STREAM_TEDDY_TILE)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _launches().items() if v}
+        want = fn(lt, rt, cfg)
+        cd = getattr(cfg, "disp_range", getattr(cfg, "max_disparity", 0))
+        agree = _agreement(got, want, cd)
+        streamed_ms = statistics.median(cuda_ms(
+            lambda: run_streamed(name, lt, rt, cfg, row_tile=STREAM_TEDDY_TILE), 2))
+        direct_ms = statistics.median(cuda_ms(lambda: fn(lt, rt, cfg), 2))
+        rec = {"phase": "streamed", "part": "reference configuration", "config": label,
+               "shape": [h, w], "disp_range": cd, "row_tile": STREAM_TEDDY_TILE,
+               "launches": launches, "agree_with_direct_on_card": agree,
+               "streamed_ms": streamed_ms, "direct_ms": direct_ms}
+        emit(rec)
+        check(min(agree.values()) == 1.0 if name == "sad"
+              else min(agree.values()) >= STREAM_AGREE, rec)
+        want_kernel = {"asw": "asw_volume_left_f32", "ad_census": "ad_census_volume_f32",
+                       "sad": "sad_volume_f32", "ncc": "ncc_volume_f32",
+                       "cblsm": "ad_census_volume_f32"}[name]
+        check(launches.get(want_kernel, 0) >= -(-h // STREAM_TEDDY_TILE), rec)
+        if label == "ad_census FULL":
+            check(launches.get("scanline_banded_f32", 0) > 0
+                  and launches.get("scanline_optimize_f32", 0) == 0, rec)
+
+    # -- 21d. legacy and canonical FULL at 720p: streamed and direct -------
+    sh, sw, sd = SERVING
+    L, R, _ = make_pair(sh, sw, sd, seed=0)
+    lt, rt = pair_to_torch(L, R, "cuda")
+    fn = get_pipeline("ad_census")[0]
+    live = {}
+    for label, cfg in (("FULL", C.ADCensusConfig(disp_range=sd, scanline=C.ScanlineConfig(),
+                                                 run_post=True)),
+                       ("canonical FULL", C.ADCensusConfig(
+                           disp_range=sd, aggregation="cross_two_pass",
+                           scanline=C.ScanlineConfig(), run_post=True))):
+        halo = receptive_field_rows("ad_census", cfg)
+        got, s_peak, s_reserved = _peak_run(lambda: run_streamed("ad_census", lt, rt, cfg,
+                                                                 row_tile=STREAM_SERVING_TILE))
+        want, d_peak, d_reserved = _peak_run(lambda: fn(lt, rt, cfg))
+        rows = (STREAM_SERVING_TILE + 2 * halo) * sd * sw * 4
+        rec = {"phase": "streamed", "part": "720p", "config": label, "shape": [sh, sw],
+               "disp_range": sd, "row_tile": STREAM_SERVING_TILE, "halo": halo,
+               "agree_with_direct_on_card": _agreement(got, want, sd),
+               "streamed_peak_bytes": s_peak, "direct_peak_bytes": d_peak,
+               "streamed_peak_reserved_bytes": s_reserved,
+               "direct_peak_reserved_bytes": d_reserved,
+               "volume_rows_per_band_row": s_peak / rows,
+               "model_volume_rows_per_band_row": _LIVE_VOLUME_ROWS[_mode("ad_census", cfg)],
+               "streamed_ms": statistics.median(cuda_ms(lambda: run_streamed(
+                   "ad_census", lt, rt, cfg, row_tile=STREAM_SERVING_TILE), 1)),
+               "direct_ms": statistics.median(cuda_ms(lambda: fn(lt, rt, cfg), 1))}
+        emit(rec)
+        live[label] = rec["volume_rows_per_band_row"]
+        check(min(rec["agree_with_direct_on_card"].values()) >= STREAM_AGREE, rec)
+        check(rec["volume_rows_per_band_row"] <= rec["model_volume_rows_per_band_row"], rec)
+        del got, want
+
+    # -- 21e. the whole-image path's peak at 1080p/D=256 ---------------------
+    ph, pw, pd = DENSE_PROBE
+    L, R, _ = make_pair(ph, pw, pd, seed=0)
+    lt, rt = pair_to_torch(L, R, "cuda")
+    dense = {}
+    for label, cfg in (("FULL", C.ADCensusConfig(disp_range=pd, scanline=C.ScanlineConfig(),
+                                                 run_post=True)),
+                       ("canonical FULL", C.ADCensusConfig(
+                           disp_range=pd, aggregation="cross_two_pass",
+                           scanline=C.ScanlineConfig(), run_post=True))):
+        _, peak, reserved = _peak_run(lambda: fn(lt, rt, cfg))
+        # 2160 x 3840 has four times the pixels; every volume scales with them
+        dense[label] = {"peak_bytes": peak, "peak_reserved_bytes": reserved,
+                        "peak_bytes_x4": 4 * peak, "dense_4k_fits": 4 * peak < total_memory}
+    emit({"phase": "streamed", "part": "dense peak probe", "shape": [ph, pw], "disp_range": pd,
+          "card_memory_bytes": total_memory, "configs": dense})
+    del lt, rt
+    torch.cuda.empty_cache()
+
+    # -- 21f. 4K/D=256 streamed on the representative pair -----------------
+    hh, hw, hd = HUGE
+    L, R, gt = make_pair(hh, hw, hd, seed=0, feature_scale=HUGE_PAIR_SCALE)
+    lt, rt = pair_to_torch(L, R, "cuda")
+    runs = {
+        "active": (C.ADCensusConfig(disp_range=hd), "disp_left"),
+        "FULL auto": (C.ADCensusConfig(disp_range=hd, run_post=True,
+                                       scanline=C.ScanlineConfig(penalty_scale="auto")),
+                      "disp_final"),
+        "canonical FULL": (C.ADCensusConfig(disp_range=hd, aggregation="cross_two_pass",
+                                            scanline=C.ScanlineConfig(), run_post=True),
+                           "disp_final"),
+    }
+    summary = {}
+    for label, (cfg, scored) in runs.items():
+        tile = auto_row_tile("ad_census", cfg, hh, hw)
+        halo = receptive_field_rows("ad_census", cfg)
+        if label == "canonical FULL":
+            staged = streamed_canonical_staged(cfg)
+            call = lambda: staged(lt, rt)  # noqa: E731
+        else:
+            call = lambda: run_streamed("ad_census", lt, rt, cfg)  # noqa: E731
+        _reset_launches()
+        res, peak, reserved = _peak_run(call)
+        times = cuda_ms(call, HUGE_TIMED_CALLS)
+        launches = {k: v for k, v in _launches().items() if v}
+        calls = 1 + HUGE_TIMED_CALLS
+        ms = statistics.median(times)
+        out = getattr(res, scored)
+        check(out.shape == (hh, hw) and bool(torch.isfinite(res.disp_left).all()), label)
+        bad2 = bad_pixel_rate(out.cpu().numpy(), gt)
+        rec = {"phase": "streamed", "part": "4K", "config": label, "shape": [hh, hw],
+               "disp_range": hd, "row_tile": tile, "halo": halo, "bands": -(-hh // tile),
+               "ms_a_pair": ms, "ms_timed_calls": times,
+               "mpixdisp_per_s": hh * hw * hd / (ms / 1e3) / 1e6,
+               "peak_bytes": peak, "peak_reserved_bytes": reserved,
+               "card_memory_bytes": total_memory,
+               "volume_rows_per_band_row": peak / ((tile + 2 * halo) * hd * hw * 4),
+               "launches": launches, "calls": calls,
+               f"bad2_{scored}": bad2, "bad2_of_the_jax_package": HUGE_BAD2[label]}
+        emit(rec)
+        check(abs(bad2 - HUGE_BAD2[label]) <= HUGE_BAD2_TOL, rec)
+        check(reserved < total_memory, rec)
+        check(launches.get("ad_census_volume_f32", 0) >= calls * rec["bands"], rec)
+        if label != "active":
+            check(launches.get("scanline_optimize_f32", 0) == 0
+                  and launches.get("scanline_canonical_f32", 0) == 0, rec)
+        summary[label] = {"launches": launches, "calls": calls}
+        del res, out
+        torch.cuda.empty_cache()
+    check(summary["FULL auto"]["launches"].get("scanline_banded_f32", 0) > 0
+          and summary["canonical FULL"]["launches"].get("scanline_banded_canonical_f32", 0) > 0,
+          summary)
+
+    # -- 21g. stages at 4K: the executor's stereo/<stage> ranges -------------
+    for label in ("FULL auto", "canonical FULL"):
+        cfg = runs[label][0]
+        staged = streamed_canonical_staged(cfg) if label == "canonical FULL" else None
+        fn4k = ((lambda: staged(lt, rt)) if staged is not None
+                else (lambda: run_streamed("ad_census", lt, rt, cfg)))
+        emit({"phase": "streamed", "part": "4K stages", "config": label, "shape": [hh, hw],
+              "disp_range": hd, "stage_ms": profiled_stages(fn4k, 1, warm_up=False)})
+    del lt, rt
+    torch.cuda.empty_cache()
+    emit({"phase": "streamed", "part": "done", "seconds": time.perf_counter() - start})
+
+    out = {}
+    for name, label in (("scanline_banded_f32", "FULL auto"),
+                        ("scanline_banded_canonical_f32", "canonical FULL")):
+        rec = timing[name]["vertical"]
+        launches = summary[label]["launches"].get(name, 0)
+        out[name] = {"launches": launches,
+                     "launches_per_call": launches / summary[label]["calls"],
+                     "max_abs_err": max_abs[name], "ms": rec["kernel_ms"],
+                     "plain_ms": rec["plain_ms"],
+                     "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                     "library_ms": None,
+                     "ms_covers": "one vertical pass of a [D, t, W] = [{1}, {0}, {2}] "
+                                  "band".format(*band),
+                     "horizontal": timing[name]["horizontal"]}
+    return out
 
 
 if __name__ == "__main__":

@@ -17,8 +17,14 @@ volumes are the AD part of the AD-Census kernel; the canonical family
 (``return_stages``, ``utils.checkpoint``, ``models.registry.
 finish_from_volumes``), ``utils.io``, batching and serving
 (``models.batch`` over ``utils.loader.PairLoader``) and the command line
-``cli`` (``stereo-torch``).  Dormant variants, the bench and the executors
-are not ported (``ROADMAP.md`` Queue 1 items 7-9).
+``cli`` (``stereo-torch``); the dormant variants (ncc ``shifted``, asw
+``lab`` and ``grid``, cblsm's other costs and aggregations, the fills, the
+block speckle filter, ``ops.filters``); and the single-card streamed
+executor (``parallel.streamed``: every pipeline over sequential row bands,
+the scanline's band passes as hand-written CUDA kernels,
+``csrc/scanline_banded.cu``).  The bench and the multi-device executors
+(tiled, the sharded scanline, WTA and post, the distributed mesh) are not
+ported (``ROADMAP.md`` Queue 1 items 8a and 9).
 
 The port imports nothing of the JAX package.  ``config``, ``utils.io``
 and ``utils.synthetic`` are its own copies of the JAX package's modules of the

@@ -9,9 +9,11 @@ of the JAX package's ``stereo``):
     python -m stereo_match_traditional_tpu_torch.cli info
 
 ``run`` and ``eval`` run on the card; ``--cpu`` asks for the CPU (the plain
-PyTorch versions of the kernels).  Any config dataclass field can be
-overridden with ``--set field=value`` (repeatable); defaults are the
-reference driver constants (config.py).  A ``--save-stages`` directory is
+PyTorch versions of the kernels).  ``run --executor streamed [--row-tile N]``
+runs the pipeline over sequential row bands (``parallel.run_streamed``), for
+images whose whole-image volumes do not fit the card.  Any config dataclass
+field can be overridden with ``--set field=value`` (repeatable); defaults are
+the reference driver constants (config.py).  A ``--save-stages`` directory is
 re-entered with ``models.registry.finish_from_volumes``.
 """
 
@@ -27,7 +29,6 @@ import typing
 # Executors of the JAX package that the port does not have.
 _EXECUTORS = {
     "tiled": "is not ported yet (ROADMAP.md Queue 1 item 9, executors)",
-    "streamed": "is not ported yet (ROADMAP.md Queue 1 item 9, executors)",
     "gspmd": "has no torch counterpart (ROADMAP.md Queue 1 item 9: "
              "a sharded-input XLA program; it is not ported)",
 }
@@ -198,8 +199,10 @@ def cmd_run(args) -> int:
     from stereo_match_traditional_tpu_torch.utils import io as io_utils
     from stereo_match_traditional_tpu_torch.utils.profiling import StageTimer, profile
 
-    if args.executor != "direct":
+    if args.executor in _EXECUTORS:
         raise SystemExit(f"--executor {args.executor} {_EXECUTORS[args.executor]}")
+    if args.save_stages and args.executor != "direct":
+        raise SystemExit("--save-stages requires --executor direct")
     device = _device(args)
     pipeline, cfg = _build_cfg(args)
     left, right, gt = _load_pair(args)
@@ -211,7 +214,12 @@ def cmd_run(args) -> int:
     timer = StageTimer()
     stages = None
     with profile(args.trace), timer.stage("pipeline"):
-        if args.save_stages:
+        if args.executor == "streamed":
+            from stereo_match_traditional_tpu_torch.parallel import run_streamed
+
+            res = run_streamed(args.pipeline, lt, rt, cfg, row_tile=args.row_tile,
+                               aux=tuple(pkw.values()))
+        elif args.save_stages:
             res, stages = pipeline(lt, rt, cfg, return_stages=True, **pkw)
         else:
             res = pipeline(lt, rt, cfg, **pkw)
@@ -387,8 +395,14 @@ def main(argv=None) -> int:
     run.add_argument(
         "--executor", choices=("direct", "tiled", "streamed", "gspmd"),
         default="direct",
-        help="direct = one pipeline call, the only executor of the port; "
-        "tiled and streamed are not ported yet, gspmd has no torch counterpart",
+        help="direct = one pipeline call; streamed = sequential row bands "
+        "(memory-bounded, 4K-class images on one card); tiled is not ported yet, "
+        "gspmd has no torch counterpart",
+    )
+    run.add_argument(
+        "--row-tile", type=int, default=None,
+        help="rows a band for --executor streamed (default: sized to the device's "
+        "memory, parallel.streamed.auto_row_tile)",
     )
     run.set_defaults(func=cmd_run)
 

@@ -19,7 +19,7 @@ def ncc_finish(vol_l, cfg: NCCConfig, interior=None) -> StereoResult:
     re-enters."""
     if interior is None:
         h, w = vol_l.shape[1:]
-        interior = volume.ncc_interior_mask(h, w, cfg.win_size, vol_l.device)
+        interior = volume.ncc_interior_mask(h, w, cfg.win_size, device=vol_l.device)
     with stage_scope("wta"):
         return StereoResult(torch.where(interior, wta.wta(vol_l, "max"), 0.0))
 

@@ -50,7 +50,8 @@ def _directional_shifts(img: torch.Tensor, n: int, axis: int, sign: int) -> torc
     return out.movedim(axis, 0)
 
 
-def _arm_one_direction(img: torch.Tensor, cfg: CrossArmConfig, axis: int, sign: int) -> torch.Tensor:
+def _arm_one_direction(img: torch.Tensor, cfg: CrossArmConfig, axis: int, sign: int,
+                       offset: int = 0, global_size: int = None) -> torch.Tensor:
     """Arm length along one direction (`CrossArm.cpp:147-260`).
 
     Offset o is accepted iff in bounds and the max channel difference to
@@ -58,15 +59,20 @@ def _arm_one_direction(img: torch.Tensor, cfg: CrossArmConfig, axis: int, sign: 
     The arm is the number of leading accepted offsets, capped at
     max_length; a threshold failure at o=1 still gives arm 1 when the
     pixel is >= 2 pixels from the border (`CrossArm.cpp:186-196`).
+
+    ``offset`` / ``global_size`` place the image's ``axis`` inside a larger
+    one (a row band, ``cross_arms``): both rules read global positions.
     """
     n = cfg.max_length
     size = img.shape[axis]
-    pos = torch.arange(size, device=img.device)
+    if global_size is None:
+        global_size = size
+    pos = torch.arange(size, device=img.device) + offset       # global positions
     offs = torch.arange(1, n + 1, device=img.device)
     tgt = pos[None, :] + sign * offs[:, None]                  # [n, size]
     shape = [n, 1, 1]
     shape[axis + 1] = size
-    inb = ((tgt >= 0) & (tgt <= size - 1)).reshape(shape)
+    inb = ((tgt >= 0) & (tgt <= global_size - 1)).reshape(shape)
 
     diff = _max_channel_diff(_directional_shifts(img, n, axis, sign), img[None],
                              color=img.dim() == 3)
@@ -78,42 +84,51 @@ def _arm_one_direction(img: torch.Tensor, cfg: CrossArmConfig, axis: int, sign: 
     # min-1 rule: the first offset failed the threshold (not the border)
     # and the pixel is at least 2 from the border in this direction
     fail1 = inb[0] & (diff[0] > tao[0])
-    border_ok = pos >= 2 if sign < 0 else pos <= size - 3
+    border_ok = pos >= 2 if sign < 0 else pos <= global_size - 3
     shape2 = [1, 1]
     shape2[axis] = size
     min1 = (leading == 0) & fail1 & border_ok.reshape(shape2)
     return torch.where(min1, 1, leading).to(torch.int32)
 
 
-def cross_arms(img: torch.Tensor, cfg: CrossArmConfig) -> Arms:
+def cross_arms(
+    img: torch.Tensor, cfg: CrossArmConfig, row_offset: int = 0, global_rows: int = None
+) -> Arms:
     """All four arms of one image, gray ``[H, W]`` or colour ``[H, W, 3]``
     (`CrossArm.cpp:147-598`, with the ``col=_row`` right-arm bug at
-    `CrossArm.cpp:265` fixed as the JAX package does)."""
+    `CrossArm.cpp:265` fixed as the JAX package does).  ``row_offset`` /
+    ``global_rows`` place a row band in an image of ``global_rows`` rows
+    (the row executors, ``parallel``): the vertical arms stop at the
+    image's borders, not the band's."""
     return Arms(
         left=_arm_one_direction(img, cfg, 1, -1),
         right=_arm_one_direction(img, cfg, 1, +1),
-        up=_arm_one_direction(img, cfg, 0, -1),
-        down=_arm_one_direction(img, cfg, 0, +1),
+        up=_arm_one_direction(img, cfg, 0, -1, row_offset, global_rows),
+        down=_arm_one_direction(img, cfg, 0, +1, row_offset, global_rows),
     )
 
 
 def _canonical_arm_one_direction(
-    img: torch.Tensor, params: CrossAggregatorParams, axis: int, sign: int
+    img: torch.Tensor, params: CrossAggregatorParams, axis: int, sign: int,
+    offset: int = 0, global_size: int = None,
 ) -> torch.Tensor:
     """Arm length along one direction by the vendored CrossAggregator's
     rules (`cross_aggregator.cpp:135-269`): the pixel at offset o (1-based)
     extends the arm iff it is in bounds, its max channel difference to the
     centre is < t1, to the pixel at offset o - 1 is < t1 (for o > 1), and to
     the centre is < t2 beyond L2; the arm is the number of leading such
-    offsets, capped at min(L1, 255)."""
+    offsets, capped at min(L1, 255); ``offset`` / ``global_size`` as in
+    :func:`_arm_one_direction`."""
     n = min(params.cross_l1, 255)
     size = img.shape[axis]
-    pos = torch.arange(size, device=img.device)
+    if global_size is None:
+        global_size = size
+    pos = torch.arange(size, device=img.device) + offset       # global positions
     offs = torch.arange(1, n + 1, device=img.device)
     tgt = pos[None, :] + sign * offs[:, None]                  # [n, size]
     shape = [n, 1, 1]
     shape[axis + 1] = size
-    inb = ((tgt >= 0) & (tgt <= size - 1)).reshape(shape)
+    inb = ((tgt >= 0) & (tgt <= global_size - 1)).reshape(shape)
 
     color = img.dim() == 3
     shifts = _directional_shifts(img, n, axis, sign)
@@ -126,14 +141,18 @@ def _canonical_arm_one_direction(
     return ok.to(torch.int32).cumprod(dim=0).sum(dim=0, dtype=torch.int32)
 
 
-def canonical_cross_arms(img: torch.Tensor, params: CrossAggregatorParams) -> Arms:
+def canonical_cross_arms(
+    img: torch.Tensor, params: CrossAggregatorParams, row_offset: int = 0,
+    global_rows: int = None,
+) -> Arms:
     """All four arms of one image, gray ``[H, W]`` or colour ``[H, W, 3]``,
-    by the vendored Ethan-Li CrossAggregator (`cross_aggregator.cpp:76-86`)."""
+    by the vendored Ethan-Li CrossAggregator (`cross_aggregator.cpp:76-86`);
+    ``row_offset`` / ``global_rows`` as in :func:`cross_arms`."""
     return Arms(
         left=_canonical_arm_one_direction(img, params, 1, -1),
         right=_canonical_arm_one_direction(img, params, 1, +1),
-        up=_canonical_arm_one_direction(img, params, 0, -1),
-        down=_canonical_arm_one_direction(img, params, 0, +1),
+        up=_canonical_arm_one_direction(img, params, 0, -1, row_offset, global_rows),
+        down=_canonical_arm_one_direction(img, params, 0, +1, row_offset, global_rows),
     )
 
 

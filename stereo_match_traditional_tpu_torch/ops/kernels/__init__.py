@@ -5,6 +5,10 @@ from stereo_match_traditional_tpu_torch.ops.kernels.ad_census_cuda import (  # n
     ad_census_volumes_cuda,
 )
 from stereo_match_traditional_tpu_torch.ops.kernels.asw_cuda import asw_volume_cuda  # noqa: F401
+from stereo_match_traditional_tpu_torch.ops.kernels.scanline_banded_cuda import (  # noqa: F401
+    canonical_pass_banded_cuda,
+    directional_pass_banded_cuda,
+)
 from stereo_match_traditional_tpu_torch.ops.kernels.scanline_canonical_cuda import (  # noqa: F401
     scanline_optimize_canonical_cuda,
 )

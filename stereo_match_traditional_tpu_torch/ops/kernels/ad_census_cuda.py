@@ -11,6 +11,10 @@ both images once and writes the left view, the right view or both: each
 value is computed once and stored to both views.  Both images uint8 are
 read as they are (the exponentials then come from tables, bit for bit the
 direct formula); anything else is handed over as float32.
+
+``row_offset`` / ``global_rows`` place the images as a band of rows in a
+larger image for the census, as the plain ``ops.volume.census_transform``
+does (the row executors, ``parallel``): the C entry's row window.
 """
 
 from __future__ import annotations
@@ -38,10 +42,12 @@ _VIEWS = ("left", "right", "both")
 MAX_ROWS = 65535
 
 
-def _launch(left, right, disp_range, rows, cols, sigma_c, sigma_s, view, part):
+def _launch(left, right, disp_range, rows, cols, sigma_c, sigma_s, view, part,
+            row_offset=0, global_rows=None):
     """Raw launch on CUDA ``[H, W]`` images -> float32 ``[D, H, W]`` for
     ``view`` 'left' or 'right', ``(vol_l, vol_r)`` for 'both': two views of
-    one storage, which lives as long as either of them."""
+    one storage, which lives as long as either of them.  The images are rows
+    ``row_offset..`` of an image of ``global_rows`` rows (default: ``H``)."""
     global LAUNCHES
     from stereo_match_traditional_tpu_torch.ops.kernels.build import library
 
@@ -59,6 +65,10 @@ def _launch(left, right, disp_range, rows, cols, sigma_c, sigma_s, view, part):
         raise ValueError(f"empty problem: {h}x{w}, D={disp_range}")
     if h > MAX_ROWS:
         raise ValueError(f"{h} rows: the kernel takes at most {MAX_ROWS}")
+    if global_rows is None:
+        global_rows = h
+    if global_rows < 1:
+        raise ValueError(f"global_rows must be >= 1, got {global_rows}")
     if not left.is_cuda:
         raise ValueError(f"the kernel needs CUDA tensors, got {left.device}")
     lk, rk, u8 = kernel_inputs(left, right)
@@ -78,7 +88,8 @@ def _launch(left, right, disp_range, rows, cols, sigma_c, sigma_s, view, part):
         err = lib.ad_census_volume_f32(
             lk.data_ptr(), rk.data_ptr(), u8, sig.data_ptr() if sig is not None else None,
             ptr if view != "right" else None, ptr + 4 * n * (views - 1) if view != "left" else None,
-            h, w, disp_range, rows, cols, float(sigma_c), float(sigma_s), _PARTS[part],
+            h, w, int(row_offset), int(global_rows), disp_range, rows, cols, float(sigma_c),
+            float(sigma_s), _PARTS[part],
             stream(lk.device),
         )
     raise_on_error(lib, "ad_census_volume_f32", err)
@@ -102,15 +113,18 @@ def ad_census_volume_cuda(
     census_rows: int = 9,
     census_cols: int = 7,
     view: str = "left",
+    row_offset: int = 0,
+    global_rows: int = None,
 ) -> torch.Tensor:
     """Drop-in for ``ops.volume.ad_census_volume``: one launch per call for
     CUDA inputs, the plain version for CPU inputs."""
     if not on_cuda(left, right):
         return volume.ad_census_volume(
-            left, right, disp_range, sigma_c, sigma_s, census_rows, census_cols, view
+            left, right, disp_range, sigma_c, sigma_s, census_rows, census_cols, view,
+            row_offset, global_rows,
         )
     return _launch(left, right, disp_range, census_rows, census_cols, sigma_c, sigma_s,
-                   _single(view), "cost")
+                   _single(view), "cost", row_offset, global_rows)
 
 
 def ad_census_volumes_cuda(
@@ -121,15 +135,18 @@ def ad_census_volumes_cuda(
     sigma_s: float = 30.0,
     census_rows: int = 9,
     census_cols: int = 7,
+    row_offset: int = 0,
+    global_rows: int = None,
 ):
     """Both views ``(vol_l, vol_r)`` of ``ops.volume.ad_census_volumes``:
     one launch for CUDA inputs, the plain version for CPU inputs."""
     if not on_cuda(left, right):
         return volume.ad_census_volumes(
-            left, right, disp_range, sigma_c, sigma_s, census_rows, census_cols
+            left, right, disp_range, sigma_c, sigma_s, census_rows, census_cols,
+            row_offset, global_rows,
         )
     return _launch(left, right, disp_range, census_rows, census_cols, sigma_c, sigma_s,
-                   "both", "cost")
+                   "both", "cost", row_offset, global_rows)
 
 
 def ad_volume_cuda(left, right, disp_range: int, view: str = "left") -> torch.Tensor:
@@ -148,9 +165,12 @@ def ad_volumes_cuda(left, right, disp_range: int):
 
 
 def census_volume_cuda(
-    left, right, disp_range: int, rows: int = 9, cols: int = 7, view: str = "left"
+    left, right, disp_range: int, rows: int = 9, cols: int = 7, view: str = "left",
+    row_offset: int = 0, global_rows: int = None,
 ) -> torch.Tensor:
     """Drop-in for ``ops.volume.census_volume`` (the kernel's Hamming part)."""
     if not on_cuda(left, right):
-        return volume.census_volume(left, right, disp_range, rows, cols, view)
-    return _launch(left, right, disp_range, rows, cols, 1.0, 1.0, _single(view), "census")
+        return volume.census_volume(left, right, disp_range, rows, cols, view, row_offset,
+                                    global_rows)
+    return _launch(left, right, disp_range, rows, cols, 1.0, 1.0, _single(view), "census",
+                   row_offset, global_rows)

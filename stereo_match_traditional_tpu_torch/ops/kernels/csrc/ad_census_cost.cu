@@ -54,6 +54,14 @@
 // or 2 writes the raw AD or Hamming volume (as float) instead of the cost,
 // so both integer parts can be checked exactly against the plain
 // ad_volume / census_volume.
+//
+// Row window (the row executors, stereo_match_traditional_tpu_torch/parallel):
+// the images may be a band of rows of a larger image, whose first row is
+// global row row_offset of global_rows.  A census neighbour is in the image
+// by its global row; a neighbour row outside the band but inside the image
+// wraps around the band, as the plain version's (and the JAX package's
+// jnp.roll) does; only the band's halo rows, which the executors drop, read
+// one.  With (0, h) this is the whole-image census.
 #include <cuda_runtime.h>
 
 namespace {
@@ -88,14 +96,20 @@ __device__ __forceinline__ void write_tables(float* tabs, float sigma_c, float s
 }
 
 // Stage rows [y0, y0 + th) x columns [x0, x0 + tw) of img into tile
-// (row-major, tw wide), out-of-image entries as the sentinel.
+// (row-major, tw wide), out-of-image entries as the sentinel: a row is in
+// the image when its global id row_offset + yy lies in [0, global_rows), and
+// is then read from band row yy wrapped into [0, h).
 template <typename T>
 __device__ __forceinline__ void load_tile(T* tile, const T* __restrict__ img, int h, int w,
-                                          int y0, int x0, int th, int tw) {
+                                          int row_offset, int global_rows, int y0, int x0,
+                                          int th, int tw) {
   for (int i = threadIdx.y * CX + threadIdx.x; i < tw * th; i += CX * CY) {
     const int yy = y0 + i / tw;
     const int xx = x0 + i % tw;
-    tile[i] = yy >= 0 && yy < h && xx >= 0 && xx < w ? img[(size_t)yy * w + xx] : sentinel<T>();
+    const int g = row_offset + yy;
+    const int yw = (yy % h + h) % h;
+    tile[i] = g >= 0 && g < global_rows && xx >= 0 && xx < w ? img[(size_t)yw * w + xx]
+                                                              : sentinel<T>();
   }
 }
 
@@ -107,14 +121,14 @@ template <typename T>
 __global__ void __launch_bounds__(CX * CY)
 census_9x7_kernel(const T* __restrict__ img0, const T* __restrict__ img1,
                   long long* __restrict__ sig, float* __restrict__ tabs, int h, int w,
-                  float sigma_c, float sigma_s) {
+                  int row_offset, int global_rows, float sigma_c, float sigma_s) {
   constexpr int RR = 4, RC = 3, TW = CX + 2 * RC, TH = CY * CR + 2 * RR;
   __shared__ T tile[TH * TW];
   write_tables(tabs, sigma_c, sigma_s);
   const T* img = blockIdx.z == 0 ? img0 : img1;
   const int by = blockIdx.y * CY * CR;
   const int bx = blockIdx.x * CX;
-  load_tile(tile, img, h, w, by - RR, bx - RC, TH, TW);
+  load_tile(tile, img, h, w, row_offset, global_rows, by - RR, bx - RC, TH, TW);
   __syncthreads();
   const int r0 = threadIdx.y * CR;               // the thread's first row in the block
   const int tx = threadIdx.x;
@@ -158,14 +172,15 @@ census_9x7_kernel(const T* __restrict__ img0, const T* __restrict__ img1,
 template <typename T>
 __global__ void __launch_bounds__(CX * CY)
 census_kernel(const T* __restrict__ img0, const T* __restrict__ img1,
-              long long* __restrict__ sig, float* __restrict__ tabs, int h, int w, int rr,
-              int rc, float sigma_c, float sigma_s) {
+              long long* __restrict__ sig, float* __restrict__ tabs, int h, int w,
+              int row_offset, int global_rows, int rr, int rc, float sigma_c, float sigma_s) {
   extern __shared__ __align__(16) unsigned char census_smem[];
   T* tile = reinterpret_cast<T*>(census_smem);
   write_tables(tabs, sigma_c, sigma_s);
   const T* img = blockIdx.z == 0 ? img0 : img1;
   const int tw = CX + 2 * rc;
-  load_tile(tile, img, h, w, blockIdx.y * CY - rr, blockIdx.x * CX - rc, CY + 2 * rr, tw);
+  load_tile(tile, img, h, w, row_offset, global_rows, blockIdx.y * CY - rr,
+            blockIdx.x * CX - rc, CY + 2 * rr, tw);
   __syncthreads();
   const int x = blockIdx.x * CX + threadIdx.x;
   const int y = blockIdx.y * CY + threadIdx.y;
@@ -356,8 +371,8 @@ cost_kernel(const T* __restrict__ left, const T* __restrict__ right,
 
 template <typename T>
 cudaError_t launch(const void* left, const void* right, void* sig, void* out_l, void* out_r,
-                   int h, int w, int d_range, int rows, int cols, float sigma_c,
-                   float sigma_s, int part, cudaStream_t s) {
+                   int h, int w, int row_offset, int global_rows, int d_range, int rows,
+                   int cols, float sigma_c, float sigma_s, int part, cudaStream_t s) {
   const T* l = (const T*)left;
   const T* r = (const T*)right;
   long long* sg = (long long*)sig;
@@ -365,12 +380,14 @@ cudaError_t launch(const void* left, const void* right, void* sig, void* out_l, 
   if (part != 1) {
     if (rows == 9 && cols == 7) {
       census_9x7_kernel<T><<<dim3((w + CX - 1) / CX, (h + CY * CR - 1) / (CY * CR), 2),
-                             dim3(CX, CY), 0, s>>>(l, r, sg, tabs, h, w, sigma_c, sigma_s);
+                             dim3(CX, CY), 0, s>>>(l, r, sg, tabs, h, w, row_offset,
+                                                   global_rows, sigma_c, sigma_s);
     } else {
       const int rr = rows / 2, rc = cols / 2;
       const size_t smem = sizeof(T) * (size_t)(CX + 2 * rc) * (CY + 2 * rr);
       census_kernel<T><<<dim3((w + CX - 1) / CX, (h + CY - 1) / CY, 2), dim3(CX, CY), smem,
-                         s>>>(l, r, sg, tabs, h, w, rr, rc, sigma_c, sigma_s);
+                         s>>>(l, r, sg, tabs, h, w, row_offset, global_rows, rr, rc, sigma_c,
+                              sigma_s);
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -398,20 +415,24 @@ cudaError_t launch(const void* left, const void* right, void* sig, void* out_l, 
 // signatures [2, h, w], then the two tables as 320 floats; unused by the AD
 // part); out_left, out_right: float32 [d_range, h, w], 4-byte aligned, either
 // may be null (that view is not written, not both); all contiguous on the
-// current device.  rows * cols <= 63; h <= 65535; d_range >= 1.  part:
+// current device.  The images are rows [row_offset, row_offset + h) of an
+// image of global_rows rows, for the census (the whole image: 0, h).
+// rows * cols <= 63; h <= 65535; d_range >= 1.  part:
 // 0 cost, 1 AD, 2 Hamming; the AD part skips the census kernel.  Returns
 // cudaGetLastError() after the launches (0 = launched).
 extern "C" int ad_census_volume_f32(const void* left, const void* right, int u8, void* sig,
                                     void* out_left, void* out_right, int h, int w,
-                                    int d_range, int rows, int cols, float sigma_c,
-                                    float sigma_s, int part, void* stream) {
+                                    int row_offset, int global_rows, int d_range, int rows,
+                                    int cols, float sigma_c, float sigma_s, int part,
+                                    void* stream) {
   if ((out_left == nullptr && out_right == nullptr) || h < 1 || w < 1 || d_range < 1 ||
-      h > 65535 || part < 0 || part > 2) {
+      h > 65535 || part < 0 || part > 2 || global_rows < 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(u8 ? launch<unsigned char>(left, right, sig, out_left, out_right, h, w, d_range,
-                                          rows, cols, sigma_c, sigma_s, part, s)
-                  : launch<float>(left, right, sig, out_left, out_right, h, w, d_range, rows,
-                                  cols, sigma_c, sigma_s, part, s));
+  return (int)(u8 ? launch<unsigned char>(left, right, sig, out_left, out_right, h, w,
+                                          row_offset, global_rows, d_range, rows, cols,
+                                          sigma_c, sigma_s, part, s)
+                  : launch<float>(left, right, sig, out_left, out_right, h, w, row_offset,
+                                  global_rows, d_range, rows, cols, sigma_c, sigma_s, part, s));
 }

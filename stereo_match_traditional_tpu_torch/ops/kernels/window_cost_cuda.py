@@ -164,12 +164,16 @@ def ncc_volume_cuda(
     win_size: int,
     invalid_mode: str = "ignore",
     eps: float = 1e-12,
+    row_offset: int = 0,
+    global_rows: int = None,
 ):
     """Drop-in for ``ops.volume.ncc_volume`` -> ``(volume, interior)``: one
     launch of ``ncc_volume_f32`` for CUDA inputs (the sums kernel, then the
-    cross sums fused with the epilogue); the plain version for CPU inputs."""
+    cross sums fused with the epilogue); the plain version for CPU inputs.
+    ``row_offset`` / ``global_rows`` place a row band for the interior mask."""
     if not on_cuda(left, right):
-        return volume.ncc_volume(left, right, disp_range, win_size, invalid_mode, eps)
+        return volume.ncc_volume(left, right, disp_range, win_size, invalid_mode, eps,
+                                 row_offset, global_rows)
     from stereo_match_traditional_tpu_torch.ops.kernels.build import library
 
     sentinel = volume._ncc_sentinel(invalid_mode)
@@ -187,4 +191,4 @@ def ncc_volume_cuda(
         )
     raise_on_error(lib, "ncc_volume_f32", err)
     LAUNCHES["ncc_volume_f32"] += 1
-    return out, volume.ncc_interior_mask(h, w, win_size, lk.device)
+    return out, volume.ncc_interior_mask(h, w, win_size, row_offset, global_rows, lk.device)

@@ -10,9 +10,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from stereo_match_traditional_tpu_torch.ops.aggregate import _hsum, _vsum
-from stereo_match_traditional_tpu_torch.ops.volume import replicate_pad
-
-INVALID = float("inf")
+from stereo_match_traditional_tpu_torch.ops.volume import INVALID, replicate_pad
 
 
 class LRResult(NamedTuple):
@@ -107,6 +105,22 @@ def _speckle_edges(d, valid, diff_insame, connectivity):
         src.append(idx[p][m])
         dst.append(idx[q][m])
     return torch.cat(src), torch.cat(dst)
+
+
+def speckle_connectivity(d, valid, diff_insame):
+    """``(conn_l, conn_u, conn_d1, conn_d2)``: whether each pixel connects to
+    its left / up / up-right / up-left neighbour by the speckle rule: both
+    valid and ``|d(p) - d(q)| <= diff_insame`` (`Sad.h:294`); a neighbour
+    outside the image connects nothing."""
+    h, w = d.shape
+    dp = torch.nn.functional.pad(d[None], (1, 1, 1, 1), value=float("nan"))[0]
+    vp = torch.nn.functional.pad(valid[None], (1, 1, 1, 1), value=False)[0]
+    out = []
+    for dy, dx in [(0, -1), (-1, 0), (-1, 1), (-1, -1)]:
+        nd = dp[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+        nv = vp[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+        out.append(valid & nv & (torch.abs(d - nd) <= diff_insame))
+    return tuple(out)
 
 
 def remove_speckles(

@@ -19,6 +19,11 @@ order, so the two agree bit for bit.
 recurrence (penalties scaled per step, disparity and line by the colour
 differences along the path in both images), the plain version of
 `ops.kernels.scanline_canonical_cuda`.
+
+``directional_pass_banded`` and ``canonical_pass_banded`` continue one pass
+of either family over a band of path steps from a carry handed over by the
+neighbouring band (the streamed executor, ``parallel.streamed``): the plain
+versions of `ops.kernels.scanline_banded_cuda`.
 """
 
 from __future__ import annotations
@@ -43,6 +48,61 @@ def _step(prev, prev_min, c, p2_col, p1: float, l2_uses_dm1: bool):
     l4 = (prev_min + p2_col)[None]
     out = c + torch.minimum(torch.minimum(l1, l2), torch.minimum(l3, l4)) - prev_min[None]
     return out, out.amin(dim=0)
+
+
+def _reset_steps(reset) -> set:
+    """The steps at which a banded pass restarts its path: from a ``[T]``
+    bool tensor, one step index, or None for none."""
+    if reset is None:
+        return set()
+    if isinstance(reset, int):
+        return {reset}
+    return set(torch.nonzero(reset).flatten().tolist())
+
+
+def _banded(step, cost, pen, carry, reset):
+    """Drive ``step(prev, prev_min, cost[t], pen[t])`` over every step of
+    ``cost`` [T, D, M] from ``carry``; the carry is zero where ``reset``
+    restarts the path.  Returns (aggregated [T, D, M], outgoing carry)."""
+    prev, prev_min = carry
+    resets = _reset_steps(reset)
+    out = torch.empty_like(cost)
+    for t in range(cost.shape[0]):
+        if t in resets:
+            prev, prev_min = torch.zeros_like(prev), torch.zeros_like(prev_min)
+        prev, prev_min = step(prev, prev_min, cost[t], pen[t])
+        out[t] = prev
+    return out, (prev, prev_min)
+
+
+def directional_pass_banded(
+    cost: torch.Tensor,
+    p2: torch.Tensor,
+    carry,
+    reset,
+    p1: float,
+    l2_uses_dm1: bool = True,
+    unroll: int = 4,
+):
+    """Band continuation of one directional pass: ``cost`` [T, D, M] (T the
+    band's path steps, M the lines), ``p2`` [T, M] the penalty of each step,
+    already evaluated against the grey neighbour the step consumes, and
+    ``carry`` ``(prev [D, M], prev_min [M])`` from the neighbouring band.  A
+    zero carry is the exact path seed: ``min(l1..l4) == prev_min == 0``, so
+    the first step gives ``cost`` bit for bit, the value the whole pass
+    gives its path's first pixel.  ``reset`` ([T] bool, one step index, or
+    None) marks steps where the path restarts mid-band (the image's true
+    last row when its rows were padded to whole bands): the carry is zero
+    there.  Returns (aggregated [T, D, M], outgoing carry).  ``unroll`` takes
+    the JAX package's position; a loop has nothing to unroll.
+
+    The plain version of ``ops.kernels.scanline_banded_cuda.
+    directional_pass_banded_cuda``."""
+
+    def step(prev, prev_min, c, p2_col):
+        return _step(prev, prev_min, c, p2_col, p1, l2_uses_dm1)
+
+    return _banded(step, cost, p2, carry, reset)
 
 
 def _directional_pass(
@@ -132,6 +192,26 @@ def _make_canonical_step(p1_base: float, p2_base: float):
         return out, out.amin(dim=-2)
 
     return step
+
+
+def canonical_pass_banded(
+    cost: torch.Tensor,
+    scale: torch.Tensor,
+    carry,
+    reset,
+    p1_base: float,
+    p2_base: float,
+    unroll: int = 4,
+):
+    """Band continuation of one canonical directional pass, the tso-scheduled
+    analogue of :func:`directional_pass_banded`: ``scale`` [T, D, M] is the
+    penalty scale of :func:`canonical_scale`, already evaluated against the
+    neighbour each step consumes; ``carry``, ``reset`` and the result as
+    there (a zero carry is the exact path seed).
+
+    The plain version of ``ops.kernels.scanline_banded_cuda.
+    canonical_pass_banded_cuda``."""
+    return _banded(_make_canonical_step(p1_base, p2_base), cost, scale, carry, reset)
 
 
 def _canonical_pass(cost, g1, g2, p1_base: float, p2_base: float, tso: float) -> torch.Tensor:

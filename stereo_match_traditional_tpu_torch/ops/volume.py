@@ -14,6 +14,9 @@ from __future__ import annotations
 
 import torch
 
+# The invalid-disparity marker of the post chains (``ops.post.INVALID``)
+INVALID = float("inf")
+
 
 def _clamped_range(start: int, stop: int, size: int, device) -> torch.Tensor:
     return torch.arange(start, stop, device=device).clamp_(0, size - 1)
@@ -183,12 +186,19 @@ def sad_volume(
 # ---------------------------------------------------------------------------
 
 
-def ncc_interior_mask(h: int, w: int, win_size: int, device=None) -> torch.Tensor:
+def ncc_interior_mask(
+    h: int, w: int, win_size: int, row_offset: int = 0, global_rows: int = None, device=None
+) -> torch.Tensor:
     """Pixels the NCC reference computes (loop bounds `NCC/NCC.h:72-75`);
-    the rest keep 0 disparity from `Mat::zeros` (`NCC_main.cpp:20`)."""
-    rows = torch.arange(h, device=device)[:, None]
+    the rest keep 0 disparity from `Mat::zeros` (`NCC_main.cpp:20`).
+    ``row_offset`` / ``global_rows`` place an ``[h, w]`` row band in an image
+    of ``global_rows`` rows (the row executors, ``parallel``)."""
+    if global_rows is None:
+        global_rows = h
+    rows = torch.arange(h, device=device)[:, None] + row_offset
     cols = torch.arange(w, device=device)[None, :]
-    return (rows >= win_size) & (rows < h - win_size) & (cols >= win_size) & (cols < w - win_size)
+    return ((rows >= win_size) & (rows < global_rows - win_size)
+            & (cols >= win_size) & (cols < w - win_size))
 
 
 def ncc_sums(left: torch.Tensor, right: torch.Tensor, win_size: int):
@@ -218,6 +228,8 @@ def ncc_volume(
     win_size: int,
     invalid_mode: str = "ignore",
     eps: float = 1e-12,
+    row_offset: int = 0,
+    global_rows: int = None,
 ):
     """Normalized cross-correlation volume (`NCC/NCC.h:15-95`).
 
@@ -229,6 +241,8 @@ def ncc_volume(
     sums are zero-padded at the image border.  A window whose sum of squared
     deviations is below 0.5 (flat, for u8 inputs) gets the never-wins -2,
     as the reference's 0/0 NaN never wins its tracker (`NCC.h:46,59`).
+    ``row_offset`` / ``global_rows`` place a row band in the image for the
+    interior mask, as in :func:`ncc_interior_mask`.
 
     The correlation follows the JAX package's operation order, and every
     operation is correctly rounded, so the result is the same on every
@@ -253,7 +267,7 @@ def ncc_volume(
     cols = torch.arange(wd, device=lf.device)[None, None, :]
     ds = torch.arange(disp_range, device=lf.device)[:, None, None]
     vol = torch.where(cols - w - ds >= 0, ncc, sentinel)
-    return vol, ncc_interior_mask(h, wd, w, lf.device)
+    return vol, ncc_interior_mask(h, wd, w, row_offset, global_rows, lf.device)
 
 
 def _ncc_sentinel(invalid_mode: str) -> float:
@@ -270,6 +284,8 @@ def ncc_shifted_depth(
     view: str = "left",
     add_constant: bool = False,
     depth_scale: int = 3,
+    row_offset: int = 0,
+    global_rows: int = None,
 ) -> torch.Tensor:
     """Dormant whole-image shifted-NCC depth map (`ncc`, `NCC/NCC.h:117-272`,
     disabled at `NCC_main.cpp:24`).
@@ -284,9 +300,11 @@ def ncc_shifted_depth(
     by it (`NCC.h:221`) and NaN never winning (mapped to -inf);
     ``add_constant`` adds 10 to the right image (`NCC.h:128-131`).
 
-    The JAX package's executor-only ``row_offset`` / ``global_rows`` are not
-    taken (ROADMAP.md Queue 1 item 9).  Divisions are IEEE and the roots
-    correctly rounded, as in unjitted JAX.
+    ``row_offset`` / ``global_rows`` place an edge-padded row band in an
+    image of ``global_rows`` rows (the row executors, ``parallel``): rows
+    outside the image count as absent from the window sums and the counts
+    use global rows, so a band's own rows equal the whole image's.
+    Divisions are IEEE and the roots correctly rounded, as in unjitted JAX.
     """
     k = kernel_size
     lf = left.to(torch.float32)
@@ -295,6 +313,14 @@ def ncc_shifted_depth(
         rf = rf + 10.0
     h, w = lf.shape
     dev = lf.device
+    banded = global_rows is not None
+    if global_rows is None:
+        global_rows = h
+    grow = torch.arange(h, device=dev) + row_offset            # global row ids
+    if banded:
+        inrow = ((grow >= 0) & (grow < global_rows))[:, None]
+        lf = torch.where(inrow, lf, 0.0)
+        rf = torch.where(inrow, rf, 0.0)
     cols = torch.arange(w, device=dev)[None, :]
     offs = torch.arange(1, max_offset + 1, device=dev)[:, None]   # [O, 1]
     if view == "left":
@@ -310,9 +336,9 @@ def ncc_shifted_depth(
     s_mov2 = box_sum_same(moving * moving, k, k)
     s_cross = box_sum_same(fixed[None] * moving, k, k)
 
-    ii = torch.arange(h, device=dev)[:, None]
+    ii = grow[:, None]
     jj = torch.arange(w, device=dev)[None, :]
-    rows_in = (ii + k).clamp(max=h - 1) - (ii - k).clamp(min=0) + 1
+    rows_in = (ii + k).clamp(max=global_rows - 1) - (ii - k).clamp(min=0) + 1
     cols_in = (jj + k).clamp(max=w - 1) - (jj - k).clamp(min=0) + 1
     cnt = (rows_in * cols_in).to(torch.float32)             # true element count
     n = ((rows_in - 1) * (cols_in - 1)).to(torch.float32)   # the reference's divisor
@@ -353,7 +379,13 @@ def ad_volume(
     return torch.abs(shifted_stack(left, disp_range, "right") - right[None])
 
 
-def census_transform(img: torch.Tensor, rows: int = 9, cols: int = 7) -> torch.Tensor:
+def census_transform(
+    img: torch.Tensor,
+    rows: int = 9,
+    cols: int = 7,
+    row_offset: int = 0,
+    global_rows: int = None,
+) -> torch.Tensor:
     """Census signature per pixel as one int64 (`AD-Census.h:166-192`).
 
     For each offset of the rows x cols window in row-major order the code
@@ -362,6 +394,12 @@ def census_transform(img: torch.Tensor, rows: int = 9, cols: int = 7) -> torch.T
     The JAX package keeps the same bits in two int32 words;
     ``(hi << 32) | (lo & 0xFFFFFFFF)`` is this value.  At most 63 bits, so
     the signature is never negative and an arithmetic shift is safe on it.
+
+    ``row_offset`` / ``global_rows`` place an ``[h, w]`` row band in an image
+    of ``global_rows`` rows (the row executors, ``parallel``): a neighbour
+    is in the image by its global row.  A neighbour row beyond the band
+    wraps around it, as the JAX package's ``jnp.roll`` does (only the band's
+    halo rows, which the executors drop, read one).
     """
     if rows * cols > 63:
         raise ValueError(
@@ -370,11 +408,13 @@ def census_transform(img: torch.Tensor, rows: int = 9, cols: int = 7) -> torch.T
         )
     x = img.to(torch.float32)
     h, w = x.shape
+    if global_rows is None:
+        global_rows = h
     sig = torch.zeros((h, w), dtype=torch.int64, device=x.device)
     for r in range(-(rows // 2), rows // 2 + 1):
         ri = torch.arange(h, device=x.device) + r
-        r_in = (ri >= 0) & (ri < h)
-        xr = x.index_select(0, ri.clamp(0, h - 1))
+        r_in = (ri + row_offset >= 0) & (ri + row_offset < global_rows)
+        xr = x.index_select(0, ri % h)
         for c in range(-(cols // 2), cols // 2 + 1):
             ci = torch.arange(w, device=x.device) + c
             inb = r_in[:, None] & ((ci >= 0) & (ci < w))[None, :]
@@ -401,15 +441,18 @@ def census_volume(
     rows: int = 9,
     cols: int = 7,
     view: str = "left",
+    row_offset: int = 0,
+    global_rows: int = None,
 ) -> torch.Tensor:
     """Hamming-distance census volume (`AD-Census.h:142-269`), float32.
 
     Signatures are computed once and gathered at the clamped match column,
     as the JAX package does; inside the d > j triangle this differs from
     the C++ reference, which recomputes the right signature per (pixel, d).
+    ``row_offset`` / ``global_rows`` as in :func:`census_transform`.
     """
-    cl = census_transform(left, rows, cols)
-    cr = census_transform(right, rows, cols)
+    cl = census_transform(left, rows, cols, row_offset, global_rows)
+    cr = census_transform(right, rows, cols, row_offset, global_rows)
     if view == "left":
         x = cl[None] ^ shifted_stack(cr, disp_range, "left")
     else:
@@ -426,14 +469,18 @@ def ad_census_volume(
     census_rows: int = 9,
     census_cols: int = 7,
     view: str = "left",
+    row_offset: int = 0,
+    global_rows: int = None,
 ) -> torch.Tensor:
     """Fused AD-Census cost (`AD-Census.h:271-318`):
-    ``(1 - exp(-AD/sigmaC)) + (1 - exp(-census/sigmaS))``.
+    ``(1 - exp(-AD/sigmaC)) + (1 - exp(-census/sigmaS))``; ``row_offset`` /
+    ``global_rows`` as in :func:`census_transform`.
 
     The plain version of the CUDA kernel (`ops.kernels.ad_census_cuda`).
     """
     ad = ad_volume(left, right, disp_range, view)
-    cen = census_volume(left, right, disp_range, census_rows, census_cols, view)
+    cen = census_volume(left, right, disp_range, census_rows, census_cols, view,
+                        row_offset, global_rows)
     return (1.0 - torch.exp(-ad / sigma_c)) + (1.0 - torch.exp(-cen / sigma_s))
 
 
@@ -445,11 +492,14 @@ def ad_census_volumes(
     sigma_s: float = 30.0,
     census_rows: int = 9,
     census_cols: int = 7,
+    row_offset: int = 0,
+    global_rows: int = None,
 ):
     """Both views ``(vol_l, vol_r)`` of :func:`ad_census_volume`: the plain
     version of ``ops.kernels.ad_census_cuda.ad_census_volumes_cuda``."""
     return tuple(
-        ad_census_volume(left, right, disp_range, sigma_c, sigma_s, census_rows, census_cols, v)
+        ad_census_volume(left, right, disp_range, sigma_c, sigma_s, census_rows, census_cols, v,
+                         row_offset, global_rows)
         for v in ("left", "right")
     )
 
@@ -582,6 +632,8 @@ def asw_volume_approx_grid(
     color_sigma: float = 30.0,
     truncation: float = 40.0,
     bins: int = 12,
+    row_offset: int = 0,
+    global_rows: int = None,
 ) -> torch.Tensor:
     """Approximate left-view ASW volume by an intensity-binned bilateral grid
     (``ASWConfig(approx='grid')``, opt-in and not the reference's cost):
@@ -597,9 +649,12 @@ def asw_volume_approx_grid(
 
     The blurs are float64 matrix products rounded to float32 once, so no
     TF32 setting of the caller's enters and the CPU and the card agree; the
-    JAX package multiplies in float32 at HIGHEST precision.  The JAX
-    package's executor-only ``row_offset`` / ``global_rows`` are not taken
-    (ROADMAP.md Queue 1 item 9).
+    JAX package multiplies in float32 at HIGHEST precision.
+
+    ``row_offset`` / ``global_rows`` place an edge-padded row band in an
+    image of ``global_rows`` rows (the row executors, ``parallel``): rows
+    outside the image weigh nothing in the blurs, as the whole image's blur
+    has nothing there.
     """
     if bins < 2:
         raise ValueError(
@@ -615,6 +670,10 @@ def asw_volume_approx_grid(
                     max=truncation)                                    # [D, H, W]
     gh = _gauss_band_matrix(h, radius, space_sigma, lf.device).to(torch.float64)
     gw = _gauss_band_matrix(w, radius, space_sigma, lf.device).to(torch.float64)
+    row_ok = None
+    if global_rows is not None:
+        gr = torch.arange(h, device=lf.device) + row_offset
+        row_ok = ((gr >= 0) & (gr < global_rows)).to(torch.float32)[:, None]
 
     def blur(x):
         return torch.matmul(torch.matmul(gh, x.to(torch.float64)), gw).to(torch.float32)
@@ -624,6 +683,8 @@ def asw_volume_approx_grid(
     out = torch.zeros_like(e)
     for c in _linspace_f32(0.0, 255.0, bins):
         kb = torch.exp(-((lf - c) ** 2) * inv2sc)                     # [H, W]
+        if row_ok is not None:
+            kb = kb * row_ok
         jb = blur(kb[None] * e) / torch.clamp(blur(kb), min=1e-20)[None]
         hat = torch.clamp(1.0 - true_div(torch.abs(lf - c), step), min=0.0)
         out = out + hat[None] * jb

@@ -1,6 +1,6 @@
 """The port's command line (mirrors tests/test_cli_utils.py), run with
 ``--cpu``: ``run`` with its summary, stages and PFM, real files, ``--set``,
-the executors and ``bench`` it has not, the card it needs without
+the streamed executor, the executors and ``bench`` it has not, the card it needs without
 ``--cpu``, ``eval`` and ``info``; and ``StageTimer`` / ``profile``."""
 
 import json
@@ -121,13 +121,34 @@ def test_cli_nested_field_cannot_be_set():
 
 
 @pytest.mark.parametrize("executor,match", [
-    ("tiled", "Queue 1 item 9"), ("streamed", "Queue 1 item 9"),
-    ("gspmd", "no torch counterpart"),
+    ("tiled", "Queue 1 item 9"), ("gspmd", "no torch counterpart"),
 ])
 def test_cli_non_direct_executors_exit_naming_their_item(executor, match):
     with pytest.raises(SystemExit, match=match) as e:
         cli.main(["--cpu", "run", "sad", "--synthetic", "16x32", "--executor", executor])
     assert e.value.code not in (0, None)
+
+
+@pytest.mark.parametrize("pipeline", ["ad_census", "sad"])
+def test_cli_run_streamed(pipeline, tmp_path, capsys):
+    """``--executor streamed --row-tile 16`` runs the pipeline over row bands
+    (a partial last band at 53 rows) and writes the streamed executor's
+    map, which equals the direct run's here."""
+    base = ["--cpu", "run", pipeline, "--synthetic", "53x64", "--disp-range", "10"]
+    for executor, out in (("streamed", "s.pfm"), ("direct", "d.pfm")):
+        extra = ["--row-tile", "16"] if executor == "streamed" else []
+        assert cli.main(base + ["--executor", executor, *extra,
+                                "--out-pfm", str(tmp_path / out)]) == 0
+        summary = _summary(capsys)
+        assert summary["shape"] == [53, 64] and summary["device"] == "cpu"
+    np.testing.assert_array_equal(io.read_pfm(str(tmp_path / "s.pfm")),
+                                  io.read_pfm(str(tmp_path / "d.pfm")))
+
+
+def test_cli_streamed_refuses_save_stages(tmp_path):
+    with pytest.raises(SystemExit, match="requires --executor direct"):
+        cli.main(["--cpu", "run", "sad", "--synthetic", "16x32", "--executor", "streamed",
+                  "--save-stages", str(tmp_path)])
 
 
 def test_cli_bench_exits_naming_item_8a():

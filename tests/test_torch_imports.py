@@ -36,7 +36,8 @@ def test_port_modules_are_found():
                      "models.ad_census", "ops.kernels.window_cost_cuda", "models.sad",
                      "models.ncc", "models.cblsm", "config", "utils.synthetic", "cli",
                      "models.batch", "utils.checkpoint", "utils.io", "utils.loader",
-                     "utils.profiling", "ops.filters"):
+                     "utils.profiling", "ops.filters", "parallel", "parallel.streamed",
+                     "parallel.tiled", "parallel.halo", "ops.kernels.scanline_banded_cuda"):
         assert f"{PKG}.{expected}" in mods
 
 

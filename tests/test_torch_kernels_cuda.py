@@ -738,3 +738,185 @@ def test_canonical_pipelines_launch_kernels(pipeline, cfg, per_call):
         if getattr(res, f) is not None:
             agree = (getattr(res, f).cpu() == getattr(plain, f)).float().mean().item()
             assert agree >= 0.99, (f, agree)
+
+
+# -- the banded scanline passes (csrc/scanline_banded.cu) --------------------
+
+# (T, D, M): one step, disparity and lane; a D that is no multiple of a
+# thread's 2 values and lanes over two blocks; D = 256 (16 values a thread,
+# 16 warps) over 5 blocks; a Teddy band (60 disparities, 128 rows of 450
+# columns, both directions)
+BANDED_SHAPES = [(1, 1, 1), (7, 9, 33), (40, 256, 129), (128, 60, 450)]
+
+
+def _band_inputs(t, d, m, seed, carry):
+    """A [D, t, m] band of costs (``cost.permute(1, 0, 2)`` is the vertical
+    pass's [t, D, m] and ``cost.permute(2, 0, 1)`` the horizontal pass's
+    [m, D, t]), penalties of both families in both layouts, and a zero or
+    random carry for each layout's lanes."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cost = torch.rand((d, t, m), device="cuda", generator=g) * 4
+    p2 = torch.rand((t, m), device="cuda", generator=g) * 3 + 0.5
+    levels = torch.tensor([1.0, 0.25, 0.1], device="cuda")
+    scale = levels[torch.randint(0, 3, (d, t, m), device="cuda", generator=g)]
+
+    def carry_of(lanes):
+        if not carry:
+            return torch.zeros((d, lanes), device="cuda"), torch.zeros((lanes,), device="cuda")
+        prev = torch.rand((d, lanes), device="cuda", generator=g) * 5
+        return prev, prev.amin(0)
+
+    return cost, p2, scale, carry_of
+
+
+def _banded_pair(family):
+    """(kernel wrapper, plain version) of one family, with its penalties."""
+    from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
+
+    if family == "legacy":
+        def kernel(c, p, cr, rs, **k):
+            return banded.directional_pass_banded_cuda(c, p, cr, rs, 0.5, True, **k)
+
+        def plain(c, p, cr, rs):
+            return scanline.directional_pass_banded(c, p, cr, rs, 0.5, True)
+    else:
+        def kernel(c, p, cr, rs, **k):
+            return banded.canonical_pass_banded_cuda(c, p, cr, rs, 1.0, 3.0, **k)
+
+        def plain(c, p, cr, rs):
+            return scanline.canonical_pass_banded(c, p, cr, rs, 1.0, 3.0)
+    return banded, kernel, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reset", [False, True])
+@pytest.mark.parametrize("carry", [False, True])
+@pytest.mark.parametrize("layout", ["vertical", "horizontal"])
+@pytest.mark.parametrize("family", ["legacy", "canonical"])
+@pytest.mark.parametrize("t,d,m", BANDED_SHAPES)
+def test_banded_kernel_bit_exact_on_card(t, d, m, family, layout, carry, reset):
+    """Both families, the vertical layout (lanes along a band's columns) and
+    the strided horizontal one (lanes along its rows), zero and random
+    carries, with a reset mid-path and without, both directions: the band
+    and the outgoing carry bit for bit with the plain version run on the
+    same card tensors, one launch a call."""
+    _need_card()
+    banded, kernel, plain = _banded_pair(family)
+    cost, p2, scale, carry_of = _band_inputs(t, d, m, seed=t + d + m, carry=carry)
+    if layout == "vertical":
+        c = cost.permute(1, 0, 2)                                    # [t, D, m]
+        pen = p2 if family == "legacy" else scale.permute(1, 0, 2)
+    else:
+        c = cost.permute(2, 0, 1)                                    # [m, D, t]
+        pen = p2.T if family == "legacy" else scale.permute(2, 0, 1)
+    n, lanes = c.shape[0], c.shape[2]
+    cr = carry_of(lanes)
+    r = n // 2 if reset else None
+    for reverse in (False, True):
+        before = dict(banded.LAUNCHES)
+        out, (prev, pm) = kernel(c, pen, cr, r, reverse=reverse)
+        torch.cuda.synchronize()
+        assert sum(banded.LAUNCHES.values()) == sum(before.values()) + 1
+        mask = None
+        if r is not None:
+            mask = torch.zeros(n, dtype=torch.bool, device="cuda")
+            mask[r] = True
+        if reverse:
+            want, (wp, wm) = plain(c.flip(0), pen.flip(0), cr, None if mask is None
+                                   else mask.flip(0))
+            want = want.flip(0)
+        else:
+            want, (wp, wm) = plain(c, pen, cr, mask)
+        assert torch.equal(out, want), (reverse, (out != want).sum().item())
+        assert torch.equal(prev, wp) and torch.equal(pm, wm)
+        back = out.permute(1, 0, 2) if layout == "vertical" else out.permute(1, 2, 0)
+        assert back.is_contiguous()   # the band's [D, t, m] layout
+        none, (prev2, pm2) = kernel(c, pen, cr, r, reverse=reverse, store=False)
+        assert none is None and torch.equal(prev2, wp) and torch.equal(pm2, wm)
+
+
+@pytest.mark.cuda
+def test_banded_kernel_checks_inputs():
+    """D above 256, penalties or a carry of the wrong shape and a second
+    reset raise and launch nothing."""
+    _need_card()
+    banded, kernel, _ = _banded_pair("legacy")
+    before = dict(banded.LAUNCHES)
+    cost = torch.zeros((4, 257, 8), device="cuda")
+    zero = (torch.zeros((257, 8), device="cuda"), torch.zeros((8,), device="cuda"))
+    with pytest.raises(ValueError, match="D <= 256"):
+        kernel(cost, torch.zeros((4, 8), device="cuda"), zero, None)
+    cost = torch.zeros((4, 3, 8), device="cuda")
+    zero = (torch.zeros((3, 8), device="cuda"), torch.zeros((8,), device="cuda"))
+    with pytest.raises(ValueError, match="penalties"):
+        kernel(cost, torch.zeros((4, 7), device="cuda"), zero, None)
+    with pytest.raises(ValueError, match="penalties"):
+        kernel(cost, torch.zeros((4, 8), device="cuda"), (zero[0][:2], zero[1]), None)
+    with pytest.raises(ValueError, match="once"):
+        kernel(cost, torch.zeros((4, 8), device="cuda"), zero,
+               torch.tensor([True, False, True, False], device="cuda"))
+    assert banded.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_offset", [-140, 0, 37])
+@pytest.mark.parametrize("rows,cols", [(9, 7), (5, 5)])
+def test_ad_census_row_window_on_card(row_offset, rows, cols):
+    """The census kernel's row window: a band of 48 rows placed at global
+    row ``row_offset`` of an image of 120 rows gives the plain version's
+    Hamming volume bit for bit (both views, the 9 x 7 kernel and the general
+    one) and its cost within 1e-6; (0, h) is the whole-image census."""
+    _need_card()
+    L, R, _ = make_pair(48, 70, 20, seed=7)
+    lt, rt = pair_to_torch(L, R, "cuda")
+    rows_total = 48 if row_offset == 0 else 120
+    cen = ad_census_cuda._launch(lt, rt, 20, rows, cols, 1.0, 1.0, "both", "census",
+                                 row_offset, rows_total)
+    cost = ad_census_cuda.ad_census_volumes_cuda(lt, rt, 20, 10.0, 30.0, rows, cols,
+                                                 row_offset, rows_total)
+    torch.cuda.synchronize()
+    for v, view in enumerate(("left", "right")):
+        want = volume.census_volume(lt, rt, 20, rows, cols, view, row_offset, rows_total)
+        assert torch.equal(cen[v], want), view
+        want = volume.ad_census_volume(lt, rt, 20, 10.0, 30.0, rows, cols, view, row_offset,
+                                       rows_total)
+        torch.testing.assert_close(cost[v], want, rtol=0, atol=1e-6)
+    if row_offset == 0:
+        whole = ad_census_cuda._launch(lt, rt, 20, rows, cols, 1.0, 1.0, "both", "census")
+        assert torch.equal(whole[0], cen[0]) and torch.equal(whole[1], cen[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline,cfg", [
+    ("ad_census", ADCensusConfig(disp_range=8, scanline=ScanlineConfig(), run_post=True)),
+    ("ad_census", ADCensusConfig(disp_range=8, aggregation="cross_two_pass",
+                                 scanline=ScanlineConfig(), run_post=True)),
+    ("ad_census", ADCensusConfig(disp_range=8)),
+], ids=["FULL", "canonical_FULL", "active"])
+def test_streamed_launches_kernels_on_card(pipeline, cfg):
+    """The streamed executor on the card: the cost kernel once a band (twice
+    with the scanline's two sweeps), the banded kernels per pass, no
+    whole-image scanline kernel; its maps equal the direct path's on the
+    card outside the clamp triangle."""
+    from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
+    from stereo_match_traditional_tpu_torch.parallel import run_streamed
+
+    _need_card()
+    L, R, _ = make_pair(40, 64, 8, seed=1)
+    lt, rt = pair_to_torch(L, R, "cuda")
+    before = (ad_census_cuda.LAUNCHES, sum(banded.LAUNCHES.values()), scanline_cuda.LAUNCHES,
+              scanline_canonical_cuda.LAUNCHES)
+    got = run_streamed(pipeline, lt, rt, cfg, row_tile=16)
+    torch.cuda.synchronize()
+    bands = 3
+    views = 2 if cfg.aggregation == "cross_two_pass" else 1
+    sweeps = 2 if cfg.scanline is not None else 1
+    passes = (views * 1 + views * 4) * bands if cfg.scanline is not None else 0
+    assert (ad_census_cuda.LAUNCHES - before[0], sum(banded.LAUNCHES.values()) - before[1],
+            scanline_cuda.LAUNCHES - before[2],
+            scanline_canonical_cuda.LAUNCHES - before[3]) == (sweeps * bands, passes, 0, 0)
+    want = get_pipeline(pipeline)[0](lt, rt, cfg)
+    for f in ("disp_left", "disp_final"):
+        if getattr(want, f) is not None:
+            agree = (getattr(got, f)[:, 8:] == getattr(want, f)[:, 8:]).float().mean().item()
+            assert agree >= 0.995, (f, agree)

@@ -3,14 +3,18 @@ behaviour of the arguments that make them equal.
 
 A caller moving from the JAX package to the port passes the same
 arguments in the same positions, so every public function of the port's
-``models/*``, ``ops/{post,volume,wta,aggregate,scanline,filters}`` and
-``utils/{checkpoint,io}`` that has a JAX counterpart of the same name takes
-the same parameter names in the same order, but for the exceptions listed
-here."""
+``models/*``, ``ops/{post,volume,wta,aggregate,scanline,filters}``,
+``utils/{checkpoint,io}`` and ``parallel/{streamed,tiled,halo}`` that has a
+JAX counterpart of the same name takes the same parameter names in the same
+order, but for the exceptions listed here; and every public function, class
+and constant of those JAX modules exists in the port or is listed here with
+its reason."""
 
+import ast
 import dataclasses
 import importlib
 import inspect
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,11 +39,28 @@ from stereo_match_traditional_tpu_torch.utils.synthetic import make_pair
 
 MODULES = ["models.ad_census", "models.asw", "models.base", "models.batch", "models.cblsm",
            "models.ncc", "models.registry", "models.sad", "ops.post", "ops.volume", "ops.wta",
-           "ops.aggregate", "ops.scanline", "ops.filters", "utils.checkpoint", "utils.io"]
-# Trailing keywords of the JAX package's tiled and streamed executors (row
-# bands and disparity blocks), which the port has not yet (ROADMAP.md Queue 1
-# item 9): the port may lack them at the end of a signature.
-EXECUTOR_ONLY = ("row_offset", "global_rows", "d_offset")
+           "ops.aggregate", "ops.scanline", "ops.filters", "utils.checkpoint", "utils.io",
+           "parallel.streamed", "parallel.tiled", "parallel.halo"]
+# Trailing keywords that only the JAX package's tiled executor passes (row
+# tiles of the sharded post, disparity blocks of the (tile, disp) mesh),
+# which the port has not yet (ROADMAP.md Queue 1 item 9): the port may lack
+# them at the end of these signatures.
+EXECUTOR_ONLY = {("ops.post", "median_filter"): ("row_offset", "global_rows"),
+                 ("ops.volume", "ad_volume"): ("d_offset",),
+                 ("ops.volume", "census_volume"): ("d_offset",),
+                 ("ops.volume", "ad_census_volume"): ("d_offset",),
+                 ("ops.volume", "ncc_volume"): ("d_offset",)}
+# Public names of the walked JAX modules that the port has not, with the
+# reason: TPU-only, or executor-only for the tiled slice (ROADMAP.md Queue 1
+# item 9).  Every other public name of those modules exists in the port.
+TPU_ONLY = "TPU-only: an XLA:TPU compiler workaround"
+TILED_SLICE = "executor-only: the tiled slice (ROADMAP.md Queue 1 item 9)"
+ABSENT = {("ops.scanline", "rev_materialized"): TPU_ONLY,
+          ("parallel.tiled", "tiled_pipeline"): TILED_SLICE,
+          ("parallel.tiled", "run_tiled"): TILED_SLICE,
+          ("parallel.tiled", "ad_census_tile_disp"): TILED_SLICE,
+          ("parallel.tiled", "ncc_tile_disp"): TILED_SLICE,
+          ("parallel.halo", "add_row_halo"): TILED_SLICE}
 # Parameters the port adds at the end: ncc_interior_mask builds its mask on
 # a torch device, where JAX's takes the executors' row offset; serve_pairs
 # takes its pairs from the host to the card unless asked for the CPU.
@@ -66,9 +87,74 @@ def test_public_signatures_match_jax(module):
         port = list(inspect.signature(fn).parameters)
         ref = list(inspect.signature(other).parameters)
         kept = list(ref)
-        while kept and kept[-1] in EXECUTOR_ONLY and kept[-1] not in port:
+        waiting = EXECUTOR_ONLY.get((module, name), ())
+        while kept and kept[-1] in waiting and kept[-1] not in port:
             kept.pop()
         assert port == kept + list(PORT_ONLY.get((module, name), ())), (name, port, ref)
+
+
+def _public_names(ref) -> list:
+    """The public functions, classes and constants that the JAX module
+    ``ref`` defines at its top level (not the names it imports)."""
+    tree = ast.parse(inspect.getsource(ref))
+    names = []
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.append(node.name)
+        elif isinstance(node, ast.Assign):
+            names += [t.id for t in node.targets if isinstance(t, ast.Name)]
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.append(node.target.id)
+    return [n for n in names if not n.startswith("_")]
+
+
+def _missing(module, ref, port) -> list:
+    """Public names of ``ref`` that ``port`` lacks and ABSENT does not list."""
+    return [n for n in _public_names(ref)
+            if not hasattr(port, n) and (module, n) not in ABSENT]
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_public_names_exist_in_port(module):
+    """Every public function, class and constant of the JAX module exists in
+    the port, or is listed in ABSENT with its reason; a listed name is one
+    the port lacks and the JAX module has."""
+    port = importlib.import_module(f"stereo_match_traditional_tpu_torch.{module}")
+    ref = importlib.import_module(f"stereo_match_traditional_tpu.{module}")
+    assert _missing(module, ref, port) == []
+    for (mod, name), reason in ABSENT.items():
+        if mod == module:
+            assert reason in (TPU_ONLY, TILED_SLICE)
+            assert name in _public_names(ref) and not hasattr(port, name), name
+
+
+def test_names_check_flags_a_missing_name():
+    """The check sees a public JAX name the port lacks: a port module that
+    lacks ``speckle_connectivity`` is flagged, and one that has every name
+    is not."""
+    ref = importlib.import_module("stereo_match_traditional_tpu.ops.post")
+    port = importlib.import_module("stereo_match_traditional_tpu_torch.ops.post")
+    lacking = types.ModuleType("lacking")
+    vars(lacking).update({k: v for k, v in vars(port).items() if k != "speckle_connectivity"})
+    assert _missing("ops.post", ref, lacking) == ["speckle_connectivity"]
+    assert _missing("ops.post", ref, port) == []
+
+
+def test_invalid_and_speckle_connectivity_match_jax():
+    """``volume.INVALID`` is the post chains' marker, and
+    ``post.speckle_connectivity``'s four masks equal JAX's on a map with
+    invalid pixels, ties at the threshold and image borders."""
+    tvol = importlib.import_module("stereo_match_traditional_tpu_torch.ops.volume")
+    assert tvol.INVALID == tpost.INVALID == float(jvol.INVALID) == float("inf")
+    dl, _ = _maps(9)
+    dl[dl == 2] = np.inf
+    valid = np.isfinite(dl)
+    want = jpost.speckle_connectivity(jnp.asarray(dl), jnp.asarray(valid), 1.0)
+    got = tpost.speckle_connectivity(_t(dl), _t(valid), 1.0)
+    assert len(got) == 4
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert all(g.any() and not g.all() for g in got)
 
 
 def port_cfg(cfg):
