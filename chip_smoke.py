@@ -30,9 +30,14 @@ and ``grid``, cblsm's ``sad_mean``, ``sad_mean_v4``, ``local_mean`` and
 ``rect_mean_v4``, the speckle filter's block form, the bilateral filter) at
 the same size against the port's CPU plain path.  Then the streamed
 executor (``parallel.streamed``, phase 21): its banded scanline kernels
-against their plain versions and timed, the five reference configurations
-streamed at the same size against the direct path on the card, legacy and
-canonical FULL at 720p with each path's peak memory, the direct path's peak
+and the band entries that run both horizontal passes of a band in one
+launch against their plain versions and timed (the band entries also
+against the strided banded pair that ran them before, at a 4K-wide band and
+at the 4K calls' own band), the five reference configurations
+streamed at the same size against the direct path on the card (legacy and
+canonical FULL also equal to the strided horizontal passes' maps), legacy
+and canonical FULL at 720p with each path's peak memory (and the same
+equality), the direct path's peak
 at 1080x1920, D=256, and 2160x3840, D=256 on the JAX package's
 representative pair (active, legacy FULL with penalty_scale='auto',
 canonical FULL in two stages), each held to the JAX package's bad-2.0 and
@@ -45,7 +50,7 @@ bound: the least time the card could take for the same function at the
 same shape, the larger of its bytes (every input once, the output once)
 over the card's memory rate and its operations (by the cheapest exact
 algorithm known) over the card's float32 rate.  No single PyTorch call
-computes any of the eight functions, so ``library_ms`` is null.
+computes any of the ten functions, so ``library_ms`` is null.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -53,6 +58,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -205,6 +211,14 @@ STREAM_AGREE = 0.995        # tests/test_streamed.py's envelope: <= 0.5 % of pix
 # (t, D, W) bands for the banded kernels against their plain versions: a
 # Teddy band and a 4K-wide band at D=256; the second is also timed
 BANDED_CHECKS = [(128, 60, 450), (64, 256, 3840)]
+# (t, D, W, cropped) bands for the band entries (both horizontal passes in
+# one launch) against their plain versions: BANDED_CHECKS' two (the first
+# with W % 4 != 0), a halo-cropped view (not contiguous) with W % 4 != 0,
+# and one row; BAND_HALO rows are cropped from each side
+HORIZONTAL_CHECKS = [(*BANDED_CHECKS[0], False), (*BANDED_CHECKS[1], False), (48, 200, 301, True),
+                     (1, 128, 257, False)]
+BAND_HALO = 4
+BAND_ENTRIES = ("scanline_horizontal_band_f32", "scanline_canonical_horizontal_band_f32")
 
 
 def check(ok: bool, what) -> None:
@@ -566,6 +580,20 @@ def main() -> None:
             "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/scanline_banded.cu",
             "replaces": "stereo_match_traditional_tpu/ops/scanline.py:266",
             **streamed["scanline_banded_canonical_f32"],
+        },
+        {
+            "name": "scanline_horizontal_band_f32",
+            "route": "cuda",
+            "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/scanline.cu",
+            "replaces": "stereo_match_traditional_tpu/ops/scanline.py:164",
+            **streamed["scanline_horizontal_band_f32"],
+        },
+        {
+            "name": "scanline_canonical_horizontal_band_f32",
+            "route": "cuda",
+            "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/scanline_canonical.cu",
+            "replaces": "stereo_match_traditional_tpu/ops/scanline.py:298",
+            **streamed["scanline_canonical_horizontal_band_f32"],
         },
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1805,6 +1833,67 @@ def variants_phase() -> dict:
         "float_max_abs_err": float_err}}
 
 
+def strided_pair(fn, cost, pen_lr, pen_rl, a, b):
+    """lr and rl of a [D, t, W] band by two launches of the strided banded
+    kernel ``fn`` (``directional_pass_banded_cuda`` with ``a, b = p1,
+    l2_uses_dm1``, or ``canonical_pass_banded_cuda`` with ``p1, p2``) on
+    the band's [W, D, t] view from a zero carry: the streamed executor's
+    horizontal step before its band entries.  ``pen_lr`` / ``pen_rl``: the
+    penalties of each direction's steps, [W, t] or [W, D, t]."""
+    import torch
+
+    d, t, _ = cost.shape
+    ch = cost.permute(2, 0, 1)
+    z = (torch.zeros((d, t), device=cost.device), torch.zeros((t,), device=cost.device))
+    lr, _ = fn(ch, pen_lr, z, None, a, b)
+    rl, _ = fn(ch, pen_rl, z, None, a, b, reverse=True)
+    return lr.permute(1, 2, 0), rl.permute(1, 2, 0)
+
+
+@contextlib.contextmanager
+def strided_horizontal_passes():
+    """The streamed executor with its horizontal passes as it ran them
+    before the band entries: the strided banded kernels on each band's
+    [W, D, t] view (``strided_pair``)."""
+    from stereo_match_traditional_tpu_torch.ops import scanline
+    from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
+    from stereo_match_traditional_tpu_torch.parallel import streamed
+
+    def legacy(cost, grey, p1, p2_init):
+        return strided_pair(banded.directional_pass_banded_cuda, cost,
+                            *scanline.horizontal_p2(grey, p1, p2_init), p1, True)
+
+    def canonical(cost, base, match, p1, p2, tso, right_view):
+        s = scanline.horizontal_scales(cost.shape[0], base, match, tso, right_view)
+        return strided_pair(banded.canonical_pass_banded_cuda, cost, s[:-1], s[1:], p1, p2)
+
+    saved = (streamed.horizontal_passes_banded_cuda,
+             streamed.canonical_horizontal_passes_banded_cuda)
+    streamed.horizontal_passes_banded_cuda = legacy
+    streamed.canonical_horizontal_passes_banded_cuda = canonical
+    try:
+        yield
+    finally:
+        (streamed.horizontal_passes_banded_cuda,
+         streamed.canonical_horizontal_passes_banded_cuda) = saved
+
+
+def equal_to_strided(part, label, shape, call, got):
+    """Check that ``got``, the streamed maps of ``call()``, equal those of
+    the same call with the strided horizontal passes, bit for bit."""
+    import torch
+
+    with strided_horizontal_passes():
+        want = call()
+    torch.cuda.synchronize()
+    equal = {f: bool(torch.equal(getattr(got, f), getattr(want, f)))
+             for f in ("disp_left", "disp_right", "disp_final")}
+    rec = {"phase": "streamed", "part": part, "config": label, "shape": shape,
+           "equal_to_strided_horizontal_passes": equal}
+    emit(rec)
+    check(all(equal.values()), rec)
+
+
 def _reset_launches():
     """Every kernel wrapper's launch count set to 0."""
     from stereo_match_traditional_tpu_torch.ops.kernels import (
@@ -1879,12 +1968,14 @@ def streamed_phase() -> dict:
     from stereo_match_traditional_tpu_torch import config as C
     from stereo_match_traditional_tpu_torch.models import get_pipeline
     from stereo_match_traditional_tpu_torch.ops import scanline
+    from stereo_match_traditional_tpu_torch.ops.kernels import ad_census_cuda
     from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
     from stereo_match_traditional_tpu_torch.parallel import (
         auto_row_tile, receptive_field_rows, run_streamed, streamed_canonical_staged,
     )
+    from stereo_match_traditional_tpu_torch.parallel.halo import crop_row_halo
     from stereo_match_traditional_tpu_torch.parallel.streamed import (
-        _LIVE_VOLUME_ROWS, _mode,
+        _LIVE_VOLUME_ROWS, _band_rows, _mode,
     )
     from stereo_match_traditional_tpu_torch.utils.convert import pair_to_torch
     from stereo_match_traditional_tpu_torch.utils.synthetic import bad_pixel_rate, make_pair
@@ -1892,6 +1983,16 @@ def streamed_phase() -> dict:
     start = time.perf_counter()
     total_memory = torch.cuda.get_device_properties(0).total_memory
     gen = torch.Generator(device="cuda").manual_seed(21)
+    hh, hw, hd = HUGE
+    runs = {
+        "active": (C.ADCensusConfig(disp_range=hd), "disp_left"),
+        "FULL auto": (C.ADCensusConfig(disp_range=hd, run_post=True,
+                                       scanline=C.ScanlineConfig(penalty_scale="auto")),
+                      "disp_final"),
+        "canonical FULL": (C.ADCensusConfig(disp_range=hd, aggregation="cross_two_pass",
+                                            scanline=C.ScanlineConfig(), run_post=True),
+                           "disp_final"),
+    }
     levels = torch.tensor([1.0, 0.25, 0.1], device="cuda")
     families = {
         "scanline_banded_f32": (
@@ -1965,6 +2066,97 @@ def streamed_phase() -> dict:
         timing[name] = rec
     emit({"phase": "streamed", "part": "timing_kernels", "band": band, "kernels": timing})
 
+    # -- 21a'. the band entries against their plain versions -----------------
+    def entry_calls(agg, imgs):
+        """(entry, case, kernel call, plain call) of both band entries on a
+        band and its two [t, W] u8 image rows: both views and u8 and
+        float32 images for the canonical one."""
+        grey = imgs[0].float()
+        calls = [(BAND_ENTRIES[0], "grey float32",
+                  lambda: banded.horizontal_passes_banded_cuda(agg, grey, 0.5, 4.0),
+                  lambda: scanline.horizontal_passes_banded(agg, grey, 0.5, 4.0))]
+        for right_view in (False, True):
+            for u8 in (True, False):
+                b, m = imgs if u8 else [x.float() for x in imgs]
+                calls.append((
+                    BAND_ENTRIES[1],
+                    f"{'right' if right_view else 'left'} view, {'u8' if u8 else 'float32'}",
+                    lambda b=b, m=m, rv=right_view: banded.canonical_horizontal_passes_banded_cuda(
+                        agg, b, m, 1.0, 3.0, 15.0, rv),
+                    lambda b=b, m=m, rv=right_view: scanline.canonical_horizontal_passes_banded(
+                        agg, b, m, 1.0, 3.0, 15.0, rv)))
+        return calls
+
+    def band_of(t, d, w, halo):
+        """A [D, t, W] band of random costs, the halo-cropped view of a
+        [D, t + 2 halo, W] volume where halo > 0, and two u8 image rows."""
+        vol = torch.rand((d, t + 2 * halo, w), device="cuda", generator=gen) * 4
+        imgs = [torch.randint(0, 256, (t, w), device="cuda", generator=gen, dtype=torch.uint8)
+                for _ in range(2)]
+        return crop_row_halo(vol, halo, 1), imgs
+
+    entry_err = dict.fromkeys(BAND_ENTRIES, 0.0)
+    for t, d, w, cropped in HORIZONTAL_CHECKS:
+        agg, imgs = band_of(t, d, w, BAND_HALO if cropped else 0)
+        for name, case, kernel, plain in entry_calls(agg, imgs):
+            before = banded.LAUNCHES[name]
+            got = kernel()
+            torch.cuda.synchronize()
+            launched = banded.LAUNCHES[name] - before
+            want = plain()
+            rec = {"phase": "streamed", "part": "kernel_check", "kernel": name,
+                   "band": [d, t, w], "contiguous": agg.is_contiguous(), "case": case,
+                   "launches": launched,
+                   "bit_exact": all(bool(torch.equal(g, v)) for g, v in zip(got, want)),
+                   "max_abs_err": max((g - v).abs().max().item() for g, v in zip(got, want))}
+            emit(rec)
+            entry_err[name] = max(entry_err[name], rec["max_abs_err"])
+            check(rec["bit_exact"] and launched == 1 and got[0].shape == (d, t, w), rec)
+        del agg, imgs
+
+    # -- 21b'. the band entries timed against the strided pair -------------
+    # at the 4K-wide band and at the band the 4K calls run (auto_row_tile's t,
+    # the halo-cropped view the executor hands on); the plain versions only at
+    # the first.  Bound: the band in once, lr and rl out, the image rows in.
+    entry_timing = {}
+    for name, label in zip(BAND_ENTRIES, ("FULL auto", "canonical FULL")):
+        cfg = runs[label][0]
+        recs = []
+        for t, halo in ((band[0], 0), (auto_row_tile("ad_census", cfg, hh, hw),
+                                       receptive_field_rows("ad_census", cfg))):
+            agg, imgs = band_of(t, hd, hw, halo)
+            if name == BAND_ENTRIES[0]:
+                grey = imgs[0].float()
+                pens = scanline.horizontal_p2(grey, 0.5, 4.0)
+                new = lambda: banded.horizontal_passes_banded_cuda(agg, grey, 0.5, 4.0)  # noqa: E731
+                old = lambda: strided_pair(banded.directional_pass_banded_cuda, agg,  # noqa: E731
+                                           *pens, 0.5, True)
+                plain = lambda: scanline.horizontal_passes_banded(agg, grey, 0.5, 4.0)  # noqa: E731
+                in_bytes, ops = 4 * t * hw, 20.0
+            else:
+                pens = scanline.horizontal_scales(hd, imgs[0], imgs[1], 15.0, False)
+                new = lambda: banded.canonical_horizontal_passes_banded_cuda(  # noqa: E731
+                    agg, imgs[0], imgs[1], 1.0, 3.0, 15.0, False)
+                old = lambda: strided_pair(banded.canonical_pass_banded_cuda, agg,  # noqa: E731
+                                           pens[:-1], pens[1:], 1.0, 3.0)
+                plain = lambda: scanline.canonical_horizontal_passes_banded(  # noqa: E731
+                    agg, imgs[0], imgs[1], 1.0, 3.0, 15.0, False)
+                in_bytes, ops = 2 * t * hw, 30.0
+            new_ms, old_ms = alternate(old, new, plain_reps=2, kernel_reps=5)
+            values = hd * t * hw
+            rec = {"band": [hd, t, hw], "contiguous": agg.is_contiguous(), "ms": new_ms,
+                   "strided_pair_ms": old_ms, "speedup": old_ms / new_ms,
+                   "plain_ms": statistics.median(cuda_ms(plain, 1)) if halo == 0 else None,
+                   **bound(12 * values + in_bytes, ops * values),
+                   "bound_ms_band_read_twice": (16 * values + in_bytes) / HBM_BYTES_PER_S * 1e3}
+            rec["share_of_bound"] = rec["bound_ms"] / new_ms
+            recs.append(rec)
+            del agg, imgs, pens
+            torch.cuda.empty_cache()
+        entry_timing[name] = recs
+        emit({"phase": "streamed", "part": "timing_kernels", "kernel": name,
+              "against": "the strided banded pair (lr + rl) on the same inputs", "bands": recs})
+
     # -- 21c. the five reference configurations at Teddy -------------------
     h, w, d = TEDDY
     L, R, _ = make_pair(h, w, d, seed=0)
@@ -2003,7 +2195,15 @@ def streamed_phase() -> dict:
         check(launches.get(want_kernel, 0) >= -(-h // STREAM_TEDDY_TILE), rec)
         if label == "ad_census FULL":
             check(launches.get("scanline_banded_f32", 0) > 0
+                  and launches.get("scanline_horizontal_band_f32", 0) > 0
                   and launches.get("scanline_optimize_f32", 0) == 0, rec)
+    for label, cfg in (("ad_census FULL", references["ad_census FULL"]),
+                       ("ad_census canonical FULL", C.ADCensusConfig(
+                           disp_range=d, aggregation="cross_two_pass",
+                           scanline=C.ScanlineConfig(), run_post=True))):
+        call = lambda: run_streamed("ad_census", lt, rt, cfg,  # noqa: E731
+                                    row_tile=STREAM_TEDDY_TILE)
+        equal_to_strided("reference configuration", label, [h, w], call, call())
 
     # -- 21d. legacy and canonical FULL at 720p: streamed and direct -------
     sh, sw, sd = SERVING
@@ -2036,7 +2236,10 @@ def streamed_phase() -> dict:
         live[label] = rec["volume_rows_per_band_row"]
         check(min(rec["agree_with_direct_on_card"].values()) >= STREAM_AGREE, rec)
         check(rec["volume_rows_per_band_row"] <= rec["model_volume_rows_per_band_row"], rec)
-        del got, want
+        del want
+        equal_to_strided("720p", label, [sh, sw], lambda: run_streamed(
+            "ad_census", lt, rt, cfg, row_tile=STREAM_SERVING_TILE), got)
+        del got
 
     # -- 21e. the whole-image path's peak at 1080p/D=256 ---------------------
     ph, pw, pd = DENSE_PROBE
@@ -2058,18 +2261,8 @@ def streamed_phase() -> dict:
     torch.cuda.empty_cache()
 
     # -- 21f. 4K/D=256 streamed on the representative pair -----------------
-    hh, hw, hd = HUGE
     L, R, gt = make_pair(hh, hw, hd, seed=0, feature_scale=HUGE_PAIR_SCALE)
     lt, rt = pair_to_torch(L, R, "cuda")
-    runs = {
-        "active": (C.ADCensusConfig(disp_range=hd), "disp_left"),
-        "FULL auto": (C.ADCensusConfig(disp_range=hd, run_post=True,
-                                       scanline=C.ScanlineConfig(penalty_scale="auto")),
-                      "disp_final"),
-        "canonical FULL": (C.ADCensusConfig(disp_range=hd, aggregation="cross_two_pass",
-                                            scanline=C.ScanlineConfig(), run_post=True),
-                           "disp_final"),
-    }
     summary = {}
     for label, (cfg, scored) in runs.items():
         tile = auto_row_tile("ad_census", cfg, hh, hw)
@@ -2104,12 +2297,37 @@ def streamed_phase() -> dict:
         if label != "active":
             check(launches.get("scanline_optimize_f32", 0) == 0
                   and launches.get("scanline_canonical_f32", 0) == 0, rec)
-        summary[label] = {"launches": launches, "calls": calls}
+        summary[label] = {"launches": launches, "calls": calls, "bands": rec["bands"]}
         del res, out
         torch.cuda.empty_cache()
-    check(summary["FULL auto"]["launches"].get("scanline_banded_f32", 0) > 0
-          and summary["canonical FULL"]["launches"].get("scanline_banded_canonical_f32", 0) > 0,
-          summary)
+    # the banded kernel runs the vertical passes only (3 a band and view), the
+    # band entry both horizontal passes of a band and view in one launch
+    for label, name, entry, views in (("FULL auto", "scanline_banded_f32", BAND_ENTRIES[0], 1),
+                                      ("canonical FULL", "scanline_banded_canonical_f32",
+                                       BAND_ENTRIES[1], 2)):
+        run = summary[label]
+        per = run["calls"] * run["bands"] * views
+        check(run["launches"].get(name, 0) == 3 * per
+              and run["launches"].get(entry, 0) == per, (label, run))
+
+    # the cost kernel on the band the 4K FULL call runs (its first band)
+    cfg = runs["FULL auto"][0]
+    tile = auto_row_tile("ad_census", cfg, hh, hw)
+    halo = receptive_field_rows("ad_census", cfg)
+    le, re = (_band_rows(x, -halo, tile + halo, hh) for x in (lt, rt))
+    cost_call = lambda: ad_census_cuda.ad_census_volumes_cuda(  # noqa: E731
+        le, re, hd, cfg.sigma_c, cfg.sigma_s, cfg.census_rows, cfg.census_cols, -halo, hh)
+    cost_call()
+    rows = tile + 2 * halo
+    cost = {"phase": "streamed", "part": "4K band cost", "kernel": "ad_census_volume_f32",
+            "band_rows": rows, "disp_range": hd, "width": hw,
+            "ms": statistics.median(cuda_ms(cost_call, 3)),
+            # both u8 band images in, both views' volumes out
+            **bound(2 * rows * hw + 2 * 4 * hd * rows * hw, 0.0)}
+    cost["share_of_bound"] = cost["bound_ms"] / cost["ms"]
+    emit(cost)
+    del le, re
+    torch.cuda.empty_cache()
 
     # -- 21g. stages at 4K: the executor's stereo/<stage> ranges -------------
     for label in ("FULL auto", "canonical FULL"):
@@ -2124,6 +2342,20 @@ def streamed_phase() -> dict:
     emit({"phase": "streamed", "part": "done", "seconds": time.perf_counter() - start})
 
     out = {}
+    for name, label in zip(BAND_ENTRIES, ("FULL auto", "canonical FULL")):
+        at_band, at_4k = entry_timing[name]
+        launches = summary[label]["launches"].get(name, 0)
+        out[name] = {"launches": launches,
+                     "launches_per_call": launches / summary[label]["calls"],
+                     "max_abs_err": entry_err[name], "ms": at_band["ms"],
+                     "plain_ms": at_band["plain_ms"],
+                     "bound_ms": at_band["bound_ms"], "bound_by": at_band["bound_by"],
+                     "share_of_bound": at_band["share_of_bound"],
+                     "library_ms": None,
+                     "ms_covers": "both horizontal passes of a [D, t, W] = [{}, {}, {}] "
+                                  "band".format(*at_band["band"]),
+                     "strided_pair_ms": at_band["strided_pair_ms"],
+                     "at_4k_band": at_4k}
     for name, label in (("scanline_banded_f32", "FULL auto"),
                         ("scanline_banded_canonical_f32", "canonical FULL")):
         rec = timing[name]["vertical"]

@@ -125,6 +125,13 @@ def library() -> ctypes.CDLL:
                                                   i64, i64, i64, vp, vp, vp, vp, i32, i32, i32,
                                                   f32, f32, i32, vp]
     lib.scanline_banded_canonical_f32.restype = i32
+    lib.scanline_horizontal_band_f32.argtypes = [vp, i64, i64, vp, vp, vp, i32, i32, i32, f32,
+                                                 f32, vp]
+    lib.scanline_horizontal_band_f32.restype = i32
+    lib.scanline_canonical_horizontal_band_f32.argtypes = [vp, i64, i64, vp, vp, i32, vp, vp,
+                                                           vp, i32, i32, i32, f32, f32, f32,
+                                                           i32, vp]
+    lib.scanline_canonical_horizontal_band_f32.restype = i32
     lib.stereo_kernels_error_string.argtypes = [i32]
     lib.stereo_kernels_error_string.restype = ctypes.c_char_p
     return lib

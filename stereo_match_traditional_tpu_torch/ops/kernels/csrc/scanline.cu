@@ -81,6 +81,14 @@
 //
 // The tiles' machinery (copies, the ring of stages, the layouts, the
 // movers) lives in scanline_tiles.cuh, shared with scanline_canonical.cu.
+//
+// A second entry, scanline_horizontal_band_f32, runs the horizontal kernel
+// alone on a band of rows of the streamed executor
+// (stereo_match_traditional_tpu_torch/parallel/streamed.py), where the JAX
+// package runs _directional_pass on the transposed band
+// (stereo_match_traditional_tpu/parallel/streamed.py:594-597): a band's
+// horizontal passes are row-local, so each of its rows is a whole path.  The
+// band is read in place through its plane and row strides.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -157,12 +165,13 @@ __device__ __forceinline__ float adaptive_p2(float p1, float p2_init, float g, f
 
 template <int K>
 __global__ void __launch_bounds__(32 + HMOVERS)
-scanline_horizontal_kernel(const float* __restrict__ cost, const float* __restrict__ gray,
+scanline_horizontal_kernel(const float* __restrict__ cost, size_t cost_plane,
+                           size_t cost_row_stride, const float* __restrict__ gray,
                            float* __restrict__ lr, float* __restrict__ rl, int d_range, int h,
                            int w, int wp, float p1, float p2_init) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const HorizontalBlock<K> hb(cost, lr, rl, d_range, h, w, wp);
+  const HorizontalBlock<K> hb(cost, cost_plane, cost_row_stride, lr, rl, d_range, h, w, wp);
   constexpr int TILE = HorizontalBlock<K>::TILE;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -391,6 +400,22 @@ cudaError_t launch_vertical(const float* cost, const float* gray, float* lr, flo
   return cudaGetLastError();
 }
 
+// Both horizontal passes of the h rows of `cost` (planes `cost_plane` and
+// rows `cost_row_stride` floats apart) into lr and rl, [D, h, wp]: one block
+// a (row, direction).
+template <int K>
+cudaError_t launch_horizontal(const float* cost, size_t cost_plane, size_t cost_row_stride,
+                              const float* gray, float* lr, float* rl, int d_range, int h,
+                              int w, int wp, float p1, float p2, int device, cudaStream_t s) {
+  const size_t bytes = sizeof(float) * HS * 32 * K * HT;
+  static std::atomic<bool> sized[MAX_DEVICES];  // per K and device, false at first
+  const cudaError_t err = allow_shared_bytes(sized[device], scanline_horizontal_kernel<K>, bytes);
+  if (err != cudaSuccess) return err;
+  scanline_horizontal_kernel<K><<<dim3(h, 2), 32 + HMOVERS, bytes, s>>>(
+      cost, cost_plane, cost_row_stride, gray, lr, rl, d_range, h, w, wp, p1, p2);
+  return cudaGetLastError();
+}
+
 template <int K>
 cudaError_t launch(const float* cost, const float* gray, float* lr, float* rl, float* ud,
                    int d_range, int h, int w, int wp, float p1, float p2, int vert_dm1,
@@ -401,10 +426,6 @@ cudaError_t launch(const float* cost, const float* gray, float* lr, float* rl, f
                                                                     : 1;
   SideStream* side = nullptr;
   cudaError_t err = side_stream(&side);
-  if (err != cudaSuccess) return err;
-  const size_t horizontal = sizeof(float) * HS * 32 * K * HT;
-  static std::atomic<bool> sized[MAX_DEVICES];  // per K and device, false at first
-  err = allow_shared_bytes(sized[side->device], scanline_horizontal_kernel<K>, horizontal);
   if (err != cudaSuccess) return err;
   // top-down (side stream) beside the horizontal passes, then bottom-up
   if ((err = cudaEventRecord(side->fork, s)) != cudaSuccess) return err;
@@ -418,9 +439,9 @@ cudaError_t launch(const float* cost, const float* gray, float* lr, float* rl, f
                                                side->device, side->stream);
   if (err != cudaSuccess) return err;
   if ((err = cudaEventRecord(side->join, side->stream)) != cudaSuccess) return err;
-  scanline_horizontal_kernel<K><<<dim3(h, 2), 32 + HMOVERS, horizontal, s>>>(
-      cost, gray, lr, rl, d_range, h, w, wp, p1, p2);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_horizontal<K>(cost, (size_t)h * w, w, gray, lr, rl, d_range, h, w, wp, p1, p2,
+                             side->device, s);
+  if (err != cudaSuccess) return err;
   if ((err = cudaStreamWaitEvent(s, side->join, 0)) != cudaSuccess) return err;
   return narrow ? launch_vertical<K, true, 8>(cost, gray, lr, rl, ud, d_range, h, w, wp,
                                               cost_width, p1, p2, vert_dm1, vert_first,
@@ -464,4 +485,41 @@ extern "C" int scanline_optimize_f32(const void* cost, const void* gray, void* s
   if (d_range <= 128) SCANLINE_LAUNCH(4)
   SCANLINE_LAUNCH(8)
 #undef SCANLINE_LAUNCH
+}
+
+// Both horizontal passes of a band of the streamed executor, on `stream`, in
+// one launch (blocks (row, direction)): cost: float32 [d_range, t, w] with
+// d-planes `cost_plane` and rows `cost_row_stride` floats apart and its
+// columns contiguous (a band that is a row range of a taller volume is read
+// in place); gray: float32 [t, w], contiguous, the band's rows of the image
+// that drives P2; lr, rl: float32 [d_range, t, wp], wp = w rounded up to a
+// multiple of 4, 16-byte aligned (columns w .. wp - 1 hold no meaning).
+// 1 <= d_range <= 256.  Each row is a whole path, as in
+// scanline_optimize_f32.  Returns cudaGetLastError() after the launch,
+// cudaErrorInvalidValue for a size outside the range or a misaligned output.
+extern "C" int scanline_horizontal_band_f32(const void* cost, long long cost_plane,
+                                            long long cost_row_stride, const void* gray,
+                                            void* lr, void* rl, int d_range, int t, int w,
+                                            float p1, float p2_init, void* stream) {
+  const int wp = (w + 3) / 4 * 4;
+  if (d_range < 1 || d_range > 256 || t < 1 || w < 1 || cost_plane < 0 ||
+      cost_row_stride < 0 || ((uintptr_t)lr | (uintptr_t)rl) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int device = 0, sm_count = 0;
+  const cudaError_t err = current_device(&device, &sm_count);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const float* c = (const float*)cost;
+  const float* g = (const float*)gray;
+  float* l = (float*)lr;
+  float* r = (float*)rl;
+#define HORIZONTAL_LAUNCH(K)                                                                  \
+  return (int)launch_horizontal<K>(c, (size_t)cost_plane, (size_t)cost_row_stride, g, l, r, \
+                                   d_range, t, w, wp, p1, p2_init, device, s);
+  if (d_range <= 32) HORIZONTAL_LAUNCH(1)
+  if (d_range <= 64) HORIZONTAL_LAUNCH(2)
+  if (d_range <= 128) HORIZONTAL_LAUNCH(4)
+  HORIZONTAL_LAUNCH(8)
+#undef HORIZONTAL_LAUNCH
 }

@@ -43,7 +43,11 @@
 // reduction, so the pass is latency-bound at about a step's round trip times
 // the path length; the least time the card could take is the volume read and
 // written once (8 bytes a value, plus the penalties).  The horizontal pass's
-// lanes are rows, so its loads are not coalesced (32 sectors a warp load).
+// lanes are rows, so its loads are not coalesced (32 sectors a warp load):
+// the streamed executor runs its horizontal passes, whose rows are whole
+// paths, with the direct kernels' horizontal design instead
+// (scanline_horizontal_band_f32 in scanline.cu,
+// scanline_canonical_horizontal_band_f32 in scanline_canonical.cu).
 // Limits: 1 <= D <= 256 (16 disparities a thread, 16 warps); offsets are
 // 64-bit.
 #include <cuda_runtime.h>

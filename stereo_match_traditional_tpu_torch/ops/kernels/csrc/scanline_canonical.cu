@@ -76,6 +76,12 @@
 // version's float32 comparisons on the same values.  min is exact in any
 // order and rounding is monotone, so min_d (u_d - m) = (min_d u_d) - m.  The
 // result matches the plain version bit for bit.
+//
+// A second entry, scanline_canonical_horizontal_band_f32, runs the edge-bit
+// prologue (its two horizontal planes) and the horizontal kernel alone on a
+// band of rows of the streamed executor: a band's horizontal passes are
+// row-local, so each of its rows is a whole path.  The band is read in place
+// through its plane and row strides.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -98,15 +104,18 @@ constexpr int BASE_H = 0, BASE_V = 1, MATCH_H = 2, MATCH_V = 3;
 __device__ __forceinline__ float pixel(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float pixel(const unsigned char* p) { return (float)__ldg(p); }
 
-// The four bit planes of one call, one word a thread.
+// The bit planes of one call, one word a thread: all four (plane_step 1),
+// or only the horizontal ones, BASE_H and MATCH_H (plane_step 2).
 template <typename T>
 __global__ void edge_bits_kernel(const T* __restrict__ base, const T* __restrict__ match,
-                                 unsigned* __restrict__ bits, int h, int w, int rw, float tso) {
-  const size_t n = (size_t)4 * h * rw;
+                                 unsigned* __restrict__ bits, int h, int w, int rw, float tso,
+                                 int plane_step) {
+  const size_t plane_words = (size_t)h * rw;
+  const size_t n = (size_t)(4 / plane_step) * plane_words;
   const bool zero = 0.f >= tso;  // |g - g| of a clamped pair
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
-    const int plane = (int)(i / ((size_t)h * rw));
+    const int plane = (int)(i / plane_words) * plane_step;
     const int y = (int)(i / rw % h), word = (int)(i % rw);
     const T* row = (plane < MATCH_H ? base : match) + (size_t)y * w;
     const bool vertical = plane == BASE_V || plane == MATCH_V;
@@ -123,7 +132,7 @@ __global__ void edge_bits_kernel(const T* __restrict__ base, const T* __restrict
       }
       v |= (unsigned)bit << b;
     }
-    bits[i] = v;
+    bits[(size_t)plane * plane_words + i % plane_words] = v;
   }
 }
 
@@ -230,7 +239,8 @@ struct CanonicalHorizontal {
 
 template <int K, bool RIGHT>
 __global__ void __launch_bounds__(32 + HMOVERS)
-canonical_horizontal_kernel(const float* __restrict__ cost, const unsigned* __restrict__ bits,
+canonical_horizontal_kernel(const float* __restrict__ cost, size_t cost_plane,
+                            size_t cost_row_stride, const unsigned* __restrict__ bits,
                             float* __restrict__ lr, float* __restrict__ rl, int d_range, int h,
                             int w, int wp, int rw, float p1, float p2) {
   extern __shared__ float4 smem4[];
@@ -238,7 +248,7 @@ canonical_horizontal_kernel(const float* __restrict__ cost, const unsigned* __re
   using C = CanonicalHorizontal<K>;
   constexpr int TILE = C::TILE, MB = C::MB, BW = C::BW;
   unsigned* bit_rows = reinterpret_cast<unsigned*>(smem + HS * TILE);  // [HS][BW]
-  const HorizontalBlock<K> hb(cost, lr, rl, d_range, h, w, wp);
+  const HorizontalBlock<K> hb(cost, cost_plane, cost_row_stride, lr, rl, d_range, h, w, wp);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const bool rev = hb.rev;
@@ -436,21 +446,34 @@ cudaError_t launch_vertical(const float* cost, const unsigned* bits, float* lr, 
   return cudaGetLastError();
 }
 
-// The current device and its number of SMs (kept per device; the first
-// calls of two host threads may both read it).
-cudaError_t current_device(int* device, int* sm_count) {
-  static std::atomic<int> sms[MAX_DEVICES];  // 0 at first
-  cudaError_t err = cudaGetDevice(device);
+// The edge-bit planes that plane_step picks (see edge_bits_kernel).
+template <typename T>
+cudaError_t launch_edge_bits(const T* base, const T* match, unsigned* bits, int h, int w, int rw,
+                             float tso, int plane_step, int sm_count, cudaStream_t s) {
+  const size_t words = (size_t)(4 / plane_step) * h * rw;
+  const size_t blocks = (words + 255) / 256;
+  const size_t most = (size_t)sm_count * 8;
+  edge_bits_kernel<T><<<(unsigned)(blocks < most ? blocks : most), 256, 0, s>>>(
+      base, match, bits, h, w, rw, tso, plane_step);
+  return cudaGetLastError();
+}
+
+// Both horizontal passes of the h rows of `cost` (planes `cost_plane` and
+// rows `cost_row_stride` floats apart) into lr and rl, [D, h, wp], from the
+// horizontal bit planes: one block a (row, direction).
+template <int K, bool RIGHT>
+cudaError_t launch_horizontal(const float* cost, size_t cost_plane, size_t cost_row_stride,
+                              const unsigned* bits, float* lr, float* rl, int d_range, int h,
+                              int w, int wp, int rw, float p1, float p2, int device,
+                              cudaStream_t s) {
+  const size_t bytes = CanonicalHorizontal<K>::BYTES;
+  static std::atomic<bool> sized[MAX_DEVICES];  // per instance and device, false at first
+  const cudaError_t err =
+      allow_shared_bytes(sized[device], canonical_horizontal_kernel<K, RIGHT>, bytes);
   if (err != cudaSuccess) return err;
-  if (*device < 0 || *device >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  int n = sms[*device].load(std::memory_order_relaxed);
-  if (n == 0) {
-    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, *device);
-    if (err != cudaSuccess) return err;
-    sms[*device].store(n, std::memory_order_relaxed);
-  }
-  *sm_count = n;
-  return cudaSuccess;
+  canonical_horizontal_kernel<K, RIGHT><<<dim3(h, 2), 32 + HMOVERS, bytes, s>>>(
+      cost, cost_plane, cost_row_stride, bits, lr, rl, d_range, h, w, wp, rw, p1, p2);
+  return cudaGetLastError();
 }
 
 template <int K, bool RIGHT, typename T>
@@ -465,28 +488,20 @@ cudaError_t launch(const float* cost, const T* base, const T* match, unsigned* b
   int device = 0, sm_count = 0;
   cudaError_t err = current_device(&device, &sm_count);
   if (err != cudaSuccess) return err;
-  const size_t horizontal = CanonicalHorizontal<K>::BYTES;
-  static std::atomic<bool> sized[MAX_DEVICES];  // per instance and device, false at first
-  err = allow_shared_bytes(sized[device], canonical_horizontal_kernel<K, RIGHT>, horizontal);
-  if (err != cudaSuccess) return err;
   // the edge bits, top-down, the horizontal passes, then bottom-up, all on
   // one stream (top-down on a second stream beside the horizontal passes,
   // as scanline.cu runs it, took longer here)
-  const size_t words = (size_t)4 * h * rw;
-  const size_t blocks = (words + 255) / 256;
-  const size_t most = (size_t)sm_count * 8;
-  edge_bits_kernel<T><<<(unsigned)(blocks < most ? blocks : most), 256, 0, s>>>(
-      base, match, bits, h, w, rw, tso);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_edge_bits<T>(base, match, bits, h, w, rw, tso, 1, sm_count, s);
+  if (err != cudaSuccess) return err;
   const bool narrow = (w + 7) / 8 <= sm_count;  // blocks of 8 columns all fit the card
   err = narrow ? launch_vertical<K, false, 8, RIGHT>(cost, bits, lr, rl, ud, d_range, h, w, wp,
                                                      cost_width, rw, p1, p2, device, s)
                : launch_vertical<K, false, 16, RIGHT>(cost, bits, lr, rl, ud, d_range, h, w, wp,
                                                       cost_width, rw, p1, p2, device, s);
   if (err != cudaSuccess) return err;
-  canonical_horizontal_kernel<K, RIGHT><<<dim3(h, 2), 32 + HMOVERS, horizontal, s>>>(
-      cost, bits, lr, rl, d_range, h, w, wp, rw, p1, p2);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_horizontal<K, RIGHT>(cost, (size_t)h * w, w, bits, lr, rl, d_range, h, w, wp, rw,
+                                    p1, p2, device, s);
+  if (err != cudaSuccess) return err;
   return narrow ? launch_vertical<K, true, 8, RIGHT>(cost, bits, lr, rl, ud, d_range, h, w, wp,
                                                      cost_width, rw, p1, p2, device, s)
                 : launch_vertical<K, true, 16, RIGHT>(cost, bits, lr, rl, ud, d_range, h, w, wp,
@@ -549,4 +564,87 @@ extern "C" int scanline_canonical_f32(const float* cost, const void* left, const
                                                  p1, p2, tso, right_view, s)
                   : launch_images<float>(cost, left, right, scratch, out, D, H, W, wp, p1, p2,
                                          tso, right_view, s));
+}
+
+namespace {
+
+// The band entry's edge bits (the horizontal planes) and both horizontal
+// passes of one view.
+template <int K, bool RIGHT, typename T>
+cudaError_t launch_band(const float* cost, size_t cost_plane, size_t cost_row_stride,
+                        const T* base, const T* match, unsigned* bits, float* lr, float* rl,
+                        int d_range, int t, int w, int wp, float p1, float p2, float tso,
+                        cudaStream_t s) {
+  const int rw = row_words(w);
+  int device = 0, sm_count = 0;
+  cudaError_t err = current_device(&device, &sm_count);
+  if (err != cudaSuccess) return err;
+  err = launch_edge_bits<T>(base, match, bits, t, w, rw, tso, 2, sm_count, s);
+  if (err != cudaSuccess) return err;
+  return launch_horizontal<K, RIGHT>(cost, cost_plane, cost_row_stride, bits, lr, rl, d_range, t,
+                                     w, wp, rw, p1, p2, device, s);
+}
+
+template <bool RIGHT, typename T>
+cudaError_t launch_band_view(const float* cost, size_t cost_plane, size_t cost_row_stride,
+                             const void* base, const void* match, unsigned* bits, float* lr,
+                             float* rl, int d_range, int t, int w, int wp, float p1, float p2,
+                             float tso, cudaStream_t s) {
+  const T* b = static_cast<const T*>(base);
+  const T* m = static_cast<const T*>(match);
+#define BAND_LAUNCH(K)                                                                       \
+  return launch_band<K, RIGHT, T>(cost, cost_plane, cost_row_stride, b, m, bits, lr, rl,     \
+                                  d_range, t, w, wp, p1, p2, tso, s);
+  if (d_range <= 32) BAND_LAUNCH(1)
+  if (d_range <= 64) BAND_LAUNCH(2)
+  if (d_range <= 128) BAND_LAUNCH(4)
+  BAND_LAUNCH(8)
+#undef BAND_LAUNCH
+}
+
+}  // namespace
+
+// Both horizontal passes of one view over a band of the streamed executor
+// (stereo_match_traditional_tpu_torch/parallel/streamed.py), on
+// `stream_ptr`: the edge-bit prologue over the band's rows (the two
+// horizontal planes only), then one launch of blocks (row, direction); each
+// row of the band is a whole path, as in scanline_canonical_f32, where the
+// JAX package runs _canonical_pass on the transposed band
+// (stereo_match_traditional_tpu/parallel/streamed.py:435-445).
+// cost: float32 [D, T, W] with d-planes `cost_plane` and rows
+// `cost_row_stride` floats apart and its columns contiguous (a band that is
+// a row range of a taller volume is read in place); base, match: the
+// band's [T, W] rows of the view's own gray image and of the other one,
+// contiguous, uint8 when u8 is 1, else float32; bits: 4 T RW 32-bit words
+// of scratch, RW = (W + 640 + 31) / 32 (planes 1 and 3 are left unwritten);
+// lr, rl: float32 [D, T, wp], wp = W rounded up to a multiple of 4, 16-byte
+// aligned (columns W .. wp - 1 hold no meaning); 1 <= D <= 256.
+// right_view = 1 reads the match image at x + d, 0 at x - d.  Returns
+// cudaGetLastError() after the launches (0 = launched),
+// cudaErrorInvalidValue for a size outside the range or a misaligned output.
+extern "C" int scanline_canonical_horizontal_band_f32(
+    const float* cost, long long cost_plane, long long cost_row_stride, const void* base,
+    const void* match, int u8, void* bits, float* lr, float* rl, int D, int T, int W, float p1,
+    float p2, float tso, int right_view, void* stream_ptr) {
+  const int wp = (W + 3) / 4 * 4;
+  if (D < 1 || D > 256 || T < 1 || W < 1 || cost_plane < 0 || cost_row_stride < 0 ||
+      ((uintptr_t)lr | (uintptr_t)rl) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = (cudaStream_t)stream_ptr;
+  unsigned* b = static_cast<unsigned*>(bits);
+  const size_t cp = (size_t)cost_plane, cr = (size_t)cost_row_stride;
+  cudaError_t err;
+  if (u8) {
+    err = right_view ? launch_band_view<true, unsigned char>(cost, cp, cr, base, match, b, lr,
+                                                             rl, D, T, W, wp, p1, p2, tso, s)
+                     : launch_band_view<false, unsigned char>(cost, cp, cr, base, match, b, lr,
+                                                              rl, D, T, W, wp, p1, p2, tso, s);
+  } else {
+    err = right_view ? launch_band_view<true, float>(cost, cp, cr, base, match, b, lr, rl, D, T,
+                                                     W, wp, p1, p2, tso, s)
+                     : launch_band_view<false, float>(cost, cp, cr, base, match, b, lr, rl, D,
+                                                      T, W, wp, p1, p2, tso, s);
+  }
+  return (int)err;
 }

@@ -110,7 +110,10 @@ __device__ __forceinline__ int h_word(int d, int j) {
 // when walking right to left, and its step j the column HT - 1 - j of that
 // tile.  The steps before `head` of the first tile of a right-left path lie
 // beyond the image.  Mover warp mw carries rows d = mw, mw + 3, ..; its lane
-// the step.
+// the step.  The cost volume's d-planes lie `cost_plane` floats apart and its
+// rows `cost_row_stride` (h w and w for a whole volume; a band that is a view
+// of a taller volume has planes further apart), its columns next to each
+// other; the output is a whole [D, h, wp] volume.
 template <int K>
 struct HorizontalBlock {
   static constexpr int TILE = 32 * K * HT;
@@ -120,11 +123,12 @@ struct HorizontalBlock {
   int d_range, w, ntiles, head, mw, lane;
   bool rev;
 
-  __device__ __forceinline__ HorizontalBlock(const float* cost, float* lr, float* rl,
+  __device__ __forceinline__ HorizontalBlock(const float* cost, size_t cost_plane,
+                                             size_t cost_row_stride, float* lr, float* rl,
                                              int d_range_, int h, int w_, int wp)
-      : cost_row(cost + (size_t)blockIdx.x * w_),
+      : cost_row(cost + (size_t)blockIdx.x * cost_row_stride),
         out_row((blockIdx.y != 0 ? rl : lr) + (size_t)blockIdx.x * wp),
-        plane((size_t)h * w_),
+        plane(cost_plane),
         plane_out((size_t)h * wp),
         d_range(d_range_),
         w(w_),
@@ -381,6 +385,23 @@ struct VerticalMovers {
 // The most devices whose per-device state (launch attributes, side streams)
 // a source keeps.
 constexpr int MAX_DEVICES = 64;
+
+// The current device and its number of SMs (kept per device; the first
+// calls of two host threads may both read it).
+inline cudaError_t current_device(int* device, int* sm_count) {
+  static std::atomic<int> sms[MAX_DEVICES];  // 0 at first
+  cudaError_t err = cudaGetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (*device < 0 || *device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  int n = sms[*device].load(std::memory_order_relaxed);
+  if (n == 0) {
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, *device);
+    if (err != cudaSuccess) return err;
+    sms[*device].store(n, std::memory_order_relaxed);
+  }
+  *sm_count = n;
+  return cudaSuccess;
+}
 
 // Raises a kernel's limit of dynamic shared memory to `bytes` on the current
 // device once: `done` is the caller's flag of that kernel and device.  The

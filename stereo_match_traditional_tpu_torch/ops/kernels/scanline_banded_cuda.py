@@ -1,10 +1,16 @@
-"""CUDA banded scanline passes (``csrc/scanline_banded.cu``).
+"""CUDA banded scanline passes (``csrc/scanline_banded.cu``, and the band
+entries of ``csrc/scanline.cu`` and ``csrc/scanline_canonical.cu``).
 
 Counterparts of ``ops.scanline.directional_pass_banded`` and
 ``canonical_pass_banded``, their plain versions: one directional pass over a
-band of path steps, continued from a carry.  Dispatch is by the device of
-the inputs, never by a fallback: CPU tensors take the plain version; CUDA
-tensors launch the kernel or raise.
+band of path steps, continued from a carry.  And of
+``ops.scanline.horizontal_passes_banded`` and
+``canonical_horizontal_passes_banded``: both horizontal passes of a band of
+rows in one launch, by the whole-image kernels' horizontal design (a block a
+row and direction: a walker warp with the D values in registers, mover warps
+staging 128-byte runs of a row through shared memory).  Dispatch is by the
+device of the inputs, never by a fallback: CPU tensors take the plain
+version; CUDA tensors launch the kernel or raise.
 
 The kernel reads ``cost`` and the penalties and writes the result through
 their strides, so a caller hands it a permuted view of a ``[D, t, W]`` band
@@ -20,12 +26,16 @@ from __future__ import annotations
 import torch
 
 from stereo_match_traditional_tpu_torch.ops import scanline
-from stereo_match_traditional_tpu_torch.ops.kernels.launch import current, raise_on_error, stream
+from stereo_match_traditional_tpu_torch.ops.kernels.launch import (
+    current, kernel_inputs, raise_on_error, stream,
+)
+from stereo_match_traditional_tpu_torch.ops.kernels.scanline_canonical_cuda import edge_bit_words
 
 # Kernel launches so far, one per call of each C entry point; a run resets
-# them to show its path went through the kernel.  Only the launch below
-# increments them.
-LAUNCHES = {"scanline_banded_f32": 0, "scanline_banded_canonical_f32": 0}
+# them to show its path went through the kernel.  Only the launches below
+# increment them.
+LAUNCHES = {"scanline_banded_f32": 0, "scanline_banded_canonical_f32": 0,
+            "scanline_horizontal_band_f32": 0, "scanline_canonical_horizontal_band_f32": 0}
 
 MAX_DISP = 256   # 16 disparities a thread, 16 warps a block
 
@@ -161,3 +171,87 @@ def canonical_pass_banded_cuda(
         return _plain(fn, cost, scale, carry, reset, reverse, store)
     return _launch("scanline_banded_canonical_f32", cost, scale, carry, reset, p1_base,
                    p2_base, True, reverse, store)
+
+
+def _band_launch(name, cost, images, call):
+    """Check a band and its [t, W] image rows (CUDA tensors), allocate lr and
+    rl ([D, t, wp], rows padded to 4 columns) and launch ``name`` by
+    ``call(lib, cost, lr, rl)``; returns the [D, t, W] views of lr and rl."""
+    from stereo_match_traditional_tpu_torch.ops.kernels.build import library
+
+    if cost.dim() != 3 or any(tuple(g.shape) != tuple(cost.shape[1:]) for g in images):
+        raise ValueError(f"cost must be a [D, t, W] band and the image rows [t, W], got "
+                         f"{tuple(cost.shape)} and {[tuple(g.shape) for g in images]}")
+    if any(g.device != cost.device for g in images):
+        raise ValueError(f"cost and image rows must lie on one device, got {cost.device} and "
+                         f"{sorted({str(g.device) for g in images})}")
+    d, t, w = cost.shape
+    if not 1 <= d <= MAX_DISP or t < 1 or w < 1:
+        raise ValueError(f"band kernel takes 1 <= D <= {MAX_DISP} and a non-empty band, "
+                         f"got {(d, t, w)}")
+    if cost.dtype != torch.float32:
+        raise ValueError(f"cost must be float32, got {cost.dtype}")
+    if cost.stride(2) != 1:
+        cost = cost.contiguous()       # the kernel reads a row's columns side by side
+    wp = -(-w // 4) * 4
+    lr = torch.empty((d, t, wp), dtype=torch.float32, device=cost.device)
+    rl = torch.empty_like(lr)
+    lib = library()
+    with current(cost.device):
+        err = call(lib, cost, lr, rl)
+    raise_on_error(lib, name, err)
+    LAUNCHES[name] += 1
+    return lr[:, :, :w], rl[:, :, :w]
+
+
+def horizontal_passes_banded_cuda(cost: torch.Tensor, grey: torch.Tensor, p1: float,
+                                  p2_init: float):
+    """``ops.scanline.horizontal_passes_banded`` on a ``[D, t, W]`` band
+    (any strides; a halo-cropped view is read in place) and its ``[t, W]``
+    grey rows: one launch of ``scanline_horizontal_band_f32`` for CUDA
+    inputs, both directions, the plain version for CPU inputs.  Returns
+    ``(lr, rl)``, on the card ``[D, t, W]`` views of volumes whose rows are
+    padded to a multiple of 4 columns (contiguous when ``W % 4 == 0``)."""
+    if cost.is_cuda != grey.is_cuda:
+        raise ValueError(f"cost on {cost.device}, grey on {grey.device}")
+    if not cost.is_cuda:
+        return scanline.horizontal_passes_banded(cost, grey, p1, p2_init)
+
+    def call(lib, c, lr, rl):
+        g = grey.to(torch.float32).contiguous()
+        d, t, w = c.shape
+        return lib.scanline_horizontal_band_f32(
+            c.data_ptr(), c.stride(0), c.stride(1), g.data_ptr(), lr.data_ptr(), rl.data_ptr(),
+            d, t, w, float(p1), float(p2_init), stream(c.device))
+
+    return _band_launch("scanline_horizontal_band_f32", cost, (grey,), call)
+
+
+def canonical_horizontal_passes_banded_cuda(cost: torch.Tensor, base: torch.Tensor,
+                                            match: torch.Tensor, p1: float, p2: float,
+                                            tso: float, right_view: bool):
+    """``ops.scanline.canonical_horizontal_passes_banded`` on a ``[D, t, W]``
+    band (any strides) and its ``[t, W]`` rows of the view's own grey image
+    (``base``) and the other one (``match``; both read as they are when both
+    are uint8, else as float32): one call of
+    ``scanline_canonical_horizontal_band_f32`` for CUDA inputs (the edge bits
+    of the band's rows, then both directions in one launch), the plain
+    version for CPU inputs.  Returns ``(lr, rl)`` as
+    :func:`horizontal_passes_banded_cuda`."""
+    if len({cost.is_cuda, base.is_cuda, match.is_cuda}) != 1:
+        raise ValueError(f"cost on {cost.device}, base on {base.device}, match on "
+                         f"{match.device}")
+    if not cost.is_cuda:
+        return scanline.canonical_horizontal_passes_banded(cost, base, match, p1, p2, tso,
+                                                           right_view)
+
+    def call(lib, c, lr, rl):
+        b, m, u8 = kernel_inputs(base, match)
+        d, t, w = c.shape
+        bits = torch.empty(edge_bit_words(t, w), dtype=torch.int32, device=c.device)
+        return lib.scanline_canonical_horizontal_band_f32(
+            c.data_ptr(), c.stride(0), c.stride(1), b.data_ptr(), m.data_ptr(), u8,
+            bits.data_ptr(), lr.data_ptr(), rl.data_ptr(), d, t, w, float(p1), float(p2),
+            float(tso), int(bool(right_view)), stream(c.device))
+
+    return _band_launch("scanline_canonical_horizontal_band_f32", cost, (base, match), call)

@@ -22,7 +22,9 @@ differences along the path in both images), the plain version of
 
 ``directional_pass_banded`` and ``canonical_pass_banded`` continue one pass
 of either family over a band of path steps from a carry handed over by the
-neighbouring band (the streamed executor, ``parallel.streamed``): the plain
+neighbouring band (the streamed executor, ``parallel.streamed``), and
+``horizontal_passes_banded`` / ``canonical_horizontal_passes_banded`` run
+both horizontal passes of a band of rows, each row a whole path: the plain
 versions of `ops.kernels.scanline_banded_cuda`.
 """
 
@@ -103,6 +105,49 @@ def directional_pass_banded(
         return _step(prev, prev_min, c, p2_col, p1, l2_uses_dm1)
 
     return _banded(step, cost, p2, carry, reset)
+
+
+def _along_rows(banded_pass, cost, pen_lr, pen_rl, *args):
+    """``banded_pass`` along the columns of a [D, t, W] band, each row a
+    whole path from a zero carry (the exact path seed), left to right with
+    the penalties ``pen_lr`` and right to left with ``pen_rl`` (both [W, ...]
+    in column order).  Returns ``(lr, rl)``, [D, t, W] each."""
+    ch = cost.permute(2, 0, 1)                                              # [W, D, t]
+    zero = cost.new_zeros(ch.shape[1:]), cost.new_zeros(ch.shape[2:])
+    lr, _ = banded_pass(ch, pen_lr, zero, None, *args)
+    rl, _ = banded_pass(ch.flip(0), pen_rl.flip(0), zero, None, *args)
+    return lr.permute(1, 2, 0), rl.flip(0).permute(1, 2, 0)
+
+
+def horizontal_p2(grey: torch.Tensor, p1: float, p2_init: float):
+    """The adaptive P2 of each step of a band's left-right and right-left
+    passes, ``[W, t]`` each, from the neighbouring column of its ``[t, W]``
+    grey rows (the pixel itself at a path's first column, where it is
+    unused)."""
+    g = grey.to(torch.float32)
+    p2_t = torch.tensor(p2_init, dtype=torch.float32, device=g.device)
+
+    def p2_of(g_ref):
+        # a true division, as the whole-image pass takes it
+        return torch.clamp(torch.div(p2_t, torch.abs(g - g_ref) + 1.0), min=p1).T
+
+    return (p2_of(torch.cat([g[:, :1], g[:, :-1]], 1)),
+            p2_of(torch.cat([g[:, 1:], g[:, -1:]], 1)))
+
+
+def horizontal_passes_banded(cost: torch.Tensor, grey: torch.Tensor, p1: float,
+                             p2_init: float):
+    """Both horizontal passes of a band of rows: ``cost`` [D, t, W] (any
+    strides), ``grey`` [t, W] the band's rows of the image that drives P2.
+    A band's horizontal passes are row-local, so each row is a whole path:
+    two :func:`directional_pass_banded` along the columns from a zero carry,
+    P2 of :func:`horizontal_p2`, ``l2`` reading ``prev[d - 1]``.  Returns
+    ``(lr, rl)``, [D, t, W] each.
+
+    The plain version of ``ops.kernels.scanline_banded_cuda.
+    horizontal_passes_banded_cuda``."""
+    return _along_rows(directional_pass_banded, cost, *horizontal_p2(grey, p1, p2_init), p1,
+                       True)
 
 
 def _directional_pass(
@@ -212,6 +257,37 @@ def canonical_pass_banded(
     The plain version of ``ops.kernels.scanline_banded_cuda.
     canonical_pass_banded_cuda``."""
     return _banded(_make_canonical_step(p1_base, p2_base), cost, scale, carry, reset)
+
+
+def horizontal_scales(d: int, base: torch.Tensor, match: torch.Tensor, tso: float,
+                      right_view: bool) -> torch.Tensor:
+    """The canonical scales between neighbouring columns of a band,
+    ``[W + 1, D, t]`` (:func:`canonical_scale`; the first and last unused),
+    from its ``[t, W]`` rows of the view's own grey image (``base``) and of
+    the other one (``match``, read at column ``x - d``, or ``x + d`` for the
+    right view, clamped).  A scale is symmetric in its two neighbours, so
+    ``[:-1]`` serves the left-right pass and ``[1:]`` the right-left one."""
+    g = base.to(torch.float32).T                                            # [W, t]
+    g2 = shifted_stack(match.to(torch.float32), d,
+                       "right" if right_view else "left").permute(2, 0, 1)  # [W, D, t]
+    g = torch.cat([g[:1], g, g[-1:]])
+    g2 = torch.cat([g2[:1], g2, g2[-1:]])
+    return canonical_scale(g[1:], g[:-1], g2[1:], g2[:-1], tso)
+
+
+def canonical_horizontal_passes_banded(cost: torch.Tensor, base: torch.Tensor,
+                                       match: torch.Tensor, p1: float, p2: float, tso: float,
+                                       right_view: bool):
+    """Both canonical horizontal passes of one view over a band of rows:
+    ``cost`` [D, t, W] (any strides), ``base`` and ``match`` its [t, W]
+    rows of the two grey images as :func:`horizontal_scales` takes them.
+    Each row is a whole path: two :func:`canonical_pass_banded` along the
+    columns from a zero carry.  Returns ``(lr, rl)``, [D, t, W] each.
+
+    The plain version of ``ops.kernels.scanline_banded_cuda.
+    canonical_horizontal_passes_banded_cuda``."""
+    scale = horizontal_scales(cost.shape[0], base, match, tso, right_view)
+    return _along_rows(canonical_pass_banded, cost, scale[:-1], scale[1:], p1, p2)
 
 
 def _canonical_pass(cost, g1, g2, p1_base: float, p2_base: float, tso: float) -> torch.Tensor:

@@ -16,9 +16,9 @@ from one band to the next.  Two sweeps over the bands: the first, from the
 last band up, re-derives each band's aggregated left volume and runs the
 bottom-up pass to collect each band's incoming carry (only those ``[D, W]``
 rows are kept); the second, from the top, re-derives both views' volumes,
-runs both horizontal passes and both vertical continuations with the banded
-pass kernels (``ops.kernels.scanline_banded_cuda``), sums the four and takes
-the WTA.  The aggregation is computed twice a band: memory traded for
+runs both horizontal passes (one launch of a band entry, each row a whole
+path) and both vertical continuations with the banded pass kernels
+(``ops.kernels.scanline_banded_cuda``), sums the four and takes the WTA.  The aggregation is computed twice a band: memory traded for
 operations.  A zero carry is the exact path seed, and the bottom-up pass
 restarts at the image's true last row (rows beyond it pad the last band), so
 the vertical chains equal the whole-image passes bit for bit.
@@ -54,8 +54,10 @@ from stereo_match_traditional_tpu_torch.models.base import StereoResult
 from stereo_match_traditional_tpu_torch.models.registry import _tensor, get_pipeline
 from stereo_match_traditional_tpu_torch.ops import aggregate, post, wta
 from stereo_match_traditional_tpu_torch.ops.kernels.scanline_banded_cuda import (
+    canonical_horizontal_passes_banded_cuda,
     canonical_pass_banded_cuda,
     directional_pass_banded_cuda,
+    horizontal_passes_banded_cuda,
 )
 from stereo_match_traditional_tpu_torch.ops.scanline import canonical_scale
 from stereo_match_traditional_tpu_torch.ops.volume import shifted_stack
@@ -301,11 +303,13 @@ def _ad_census_canonical_streamed(cfg, row_tile):
     both volumes + the canonical post) over sequential row bands: the
     canonical twin of :func:`_ad_census_scanline_streamed`.
 
-    Each band's penalty scales come from ``ops.scanline.canonical_scale`` on
-    its grey rows with a one-row halo and the band's slice of the match
-    image's shifted stack.  A scale is symmetric in its two neighbours, so
-    one volume of scales between consecutive rows serves both vertical
-    passes, and one between consecutive columns both horizontal ones."""
+    Each band's vertical penalty scales come from
+    ``ops.scanline.canonical_scale`` on its grey rows with a one-row halo and
+    the band's slice of the match image's shifted stack.  A scale is
+    symmetric in its two neighbours, so one volume of scales between
+    consecutive rows serves both vertical passes.  The horizontal passes
+    take the band's grey rows and compute their own scales (the band
+    entry's edge bits)."""
     cp = cfg.cross_params
     p1, p2, tso = cp.so_p1, cp.so_p2, float(cp.so_tso)
     halo = receptive_field_rows("ad_census", cfg)
@@ -332,25 +336,16 @@ def _ad_census_canonical_streamed(cfg, row_tile):
                 return [crop_row_halo(a, halo, 1)
                         for a in _ad_census_band_volumes(le, re, cfg, b0 - halo, h)]
 
-        def scales(b0, v, horizontal):
+        def scales(b0, v):
             """View ``v``'s scales between consecutive rows b0 - 1 .. b0 + t,
-            [t + 1, D, W], and with ``horizontal`` between consecutive
-            columns, [W + 1, D, t] (the first and last are unused)."""
+            [t + 1, D, W]."""
             view = ("left", "right")[v]
             base, match = grey if v == 0 else grey[::-1]
             with stage_scope("scales"):
                 g = _band_rows(base, b0 - 1, b0 + t + 1, h)                   # [t + 2, W]
                 g2 = shifted_stack(_band_rows(match, b0 - 1, b0 + t + 1, h), d, view)
                 g2 = g2.permute(1, 0, 2)                                      # [t + 2, D, W]
-                vert = canonical_scale(g[1:], g[:-1], g2[1:], g2[:-1], tso)
-                if not horizontal:
-                    return vert, None
-                gh = g[1:t + 1].T                                             # [W, t]
-                g2h = g2[1:t + 1].permute(2, 1, 0)                            # [W, D, t]
-                del g2
-                gh = torch.cat([gh[:1], gh, gh[-1:]])
-                g2h = torch.cat([g2h[:1], g2h, g2h[-1:]])
-                return vert, canonical_scale(gh[1:], gh[:-1], g2h[1:], g2h[:-1], tso)
+                return canonical_scale(g[1:], g[:-1], g2[1:], g2[:-1], tso)
 
         zero = _zero_carry(d, w, left)
         # sweep 1, from the last band up: chain both views' bottom-up passes,
@@ -363,7 +358,7 @@ def _ad_census_canonical_streamed(cfg, row_tile):
             up_in[i] = tuple(carry)
             aggs = band_aggs(b0)
             for v in (0, 1):
-                vert, _ = scales(b0, v, False)
+                vert = scales(b0, v)
                 with stage_scope("banded_passes"):
                     _, carry[v] = canonical_pass_banded_cuda(
                         aggs[v].permute(1, 0, 2), vert[1:], carry[v], _reset_row(h, b0, t),
@@ -376,12 +371,11 @@ def _ad_census_canonical_streamed(cfg, row_tile):
         for i, b0 in enumerate(starts):
             _next_band(left.device)
             aggs = band_aggs(b0)
+            rows = [_band_rows(x, b0, b0 + t, h) for x in (left, right)]      # [t, W] each
             for v in (0, 1):
                 agg, aggs[v] = aggs[v], None
-                vert, horiz = scales(b0, v, True)
+                vert = scales(b0, v)
                 cv = agg.permute(1, 0, 2)                                     # [t, D, W]
-                ch = agg.permute(2, 0, 1)                                     # [W, D, t]
-                z = _zero_carry(d, t, agg)
                 with stage_scope("banded_passes"):
                     ud, carry[v] = canonical_pass_banded_cuda(cv, vert[:-1], carry[v], None,
                                                               p1, p2)
@@ -389,15 +383,14 @@ def _ad_census_canonical_streamed(cfg, row_tile):
                                                        _reset_row(h, b0, t), p1, p2,
                                                        reverse=True)
                     vert = cv = None
-                    lr, _ = canonical_pass_banded_cuda(ch, horiz[:-1], z, None, p1, p2)
-                    rl, _ = canonical_pass_banded_cuda(ch, horiz[1:], z, None, p1, p2,
-                                                       reverse=True)
-                    horiz = agg = ch = None
+                    lr, rl = canonical_horizontal_passes_banded_cuda(
+                        agg, rows[v], rows[1 - v], p1, p2, tso, v == 1)
+                    agg = None
                 with stage_scope("sum_wta"):
                     ud += du
                     du = None
-                    total = lr.permute(1, 2, 0)                               # [D, t, W]
-                    total += rl.permute(1, 2, 0)
+                    total = lr                                                # [D, t, W]
+                    total += rl
                     rl = None
                     total += ud.permute(1, 0, 2)
                     ud = None
@@ -481,18 +474,12 @@ def _ad_census_scanline_streamed(cfg, row_tile):
             with stage_scope("sum_wta"):
                 drs.append(wta.wta(agg_r, "min"))
             del agg_r
-            ch = agg_l.permute(2, 0, 1)                                       # [W, D, t]
             cv = agg_l.permute(1, 0, 2)                                       # [t, D, W]
-            z = _zero_carry(d, t, left)
             with stage_scope("banded_passes"):
-                prev_col = torch.cat([g[:, :1], g[:, :-1]], 1)
-                next_col = torch.cat([g[:, 1:], g[:, -1:]], 1)
-                lr, _ = directional_pass_banded_cuda(ch, p2_of(g, prev_col).T, z, None, p1, True)
-                rl, _ = directional_pass_banded_cuda(ch, p2_of(g, next_col).T, z, None, p1,
-                                                     True, reverse=True)
+                lr, rl = horizontal_passes_banded_cuda(agg_l, g, p1, p2_init)
             with stage_scope("sum_wta"):
-                total = lr.permute(1, 2, 0)                                   # [D, t, W]
-                total += rl.permute(1, 2, 0)
+                total = lr                                                    # [D, t, W]
+                total += rl
                 del rl
             with stage_scope("banded_passes"):
                 p2_dn = p2_of(g, grey[0][None] if vert_first else gp)
@@ -504,7 +491,7 @@ def _ad_census_scanline_streamed(cfg, row_tile):
                 up, _ = directional_pass_banded_cuda(cv, up_p2(g, gn), up_in[i],
                                                      _reset_row(h, b0, t), p1, vert_dm1,
                                                      reverse=True)
-            del agg_l, cv, ch
+            del agg_l, cv
             with stage_scope("sum_wta"):
                 total += up.permute(1, 0, 2)
                 del up

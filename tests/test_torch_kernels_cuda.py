@@ -858,6 +858,92 @@ def test_banded_kernel_checks_inputs():
     assert banded.LAUNCHES == before
 
 
+# -- the band entries: both horizontal passes of a band in one launch --------
+
+# (t, D, W, halo): chip_smoke.py phase 21's bands (a Teddy band with
+# W % 4 != 0, a 4K-wide band at D=256, a halo-cropped view with W % 4 != 0,
+# one row) and one column of a cropped band
+HORIZONTAL_BANDS = [(128, 60, 450, 0), (64, 256, 3840, 0), (48, 200, 301, 4),
+                    (1, 128, 257, 0), (9, 33, 1, 2)]
+
+
+def _entry_case(case, t, d, w, halo, seed):
+    """(C entry, kernel call, plain call) of one band entry on a random
+    [D, t, W] band (the cropped view of t + 2 halo rows) and two u8 image
+    rows: ``legacy``, or ``<view> <u8|float32>`` for the canonical entry."""
+    from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    agg = (torch.rand((d, t + 2 * halo, w), device="cuda", generator=g) * 4).narrow(1, halo, t)
+    imgs = [torch.randint(0, 256, (t, w), device="cuda", generator=g, dtype=torch.uint8)
+            for _ in range(2)]
+    if case == "legacy":
+        grey = imgs[0].float()
+        return ("scanline_horizontal_band_f32",
+                lambda: banded.horizontal_passes_banded_cuda(agg, grey, 0.5, 4.0),
+                lambda: scanline.horizontal_passes_banded(agg, grey, 0.5, 4.0))
+    view, kind = case.split()
+    b, m = imgs if kind == "u8" else [x.float() for x in imgs]
+    rv = view == "right"
+    return ("scanline_canonical_horizontal_band_f32",
+            lambda: banded.canonical_horizontal_passes_banded_cuda(agg, b, m, 1.0, 3.0, 15.0, rv),
+            lambda: scanline.canonical_horizontal_passes_banded(agg, b, m, 1.0, 3.0, 15.0, rv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["legacy", "left u8", "right u8", "left float32",
+                                  "right float32"])
+@pytest.mark.parametrize("t,d,w,halo", HORIZONTAL_BANDS)
+def test_horizontal_band_entry_bit_exact_on_card(t, d, w, halo, case):
+    """Each band entry, one launch a call: lr and rl bit for bit with its
+    plain version run on the same card tensors, as [D, t, W] views of rows
+    padded to 4 columns (contiguous when W % 4 == 0)."""
+    _need_card()
+    from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
+
+    name, kernel, plain = _entry_case(case, t, d, w, halo, seed=t + d + w)
+    before = dict(banded.LAUNCHES)
+    got = kernel()
+    torch.cuda.synchronize()
+    assert banded.LAUNCHES[name] == before[name] + 1
+    assert sum(banded.LAUNCHES.values()) == sum(before.values()) + 1
+    want = plain()
+    for g, v in zip(got, want):
+        assert g.shape == (d, t, w) and g.is_contiguous() == (w % 4 == 0)
+        assert torch.equal(g, v), (g != v).sum().item()
+
+
+@pytest.mark.cuda
+def test_horizontal_band_entries_check_inputs():
+    """D above 256, image rows that do not match the band, tensors on two
+    devices and a float64 band raise ValueError and launch nothing."""
+    from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
+
+    _need_card()
+    legacy = banded.horizontal_passes_banded_cuda
+    canonical = banded.canonical_horizontal_passes_banded_cuda
+    before = dict(banded.LAUNCHES)
+    grey = torch.zeros((4, 8), device="cuda")
+    img = grey.to(torch.uint8)
+    big = torch.zeros((257, 4, 8), device="cuda")
+    with pytest.raises(ValueError, match="D <= 256"):
+        legacy(big, grey, 0.5, 4.0)
+    with pytest.raises(ValueError, match="D <= 256"):
+        canonical(big, img, img, 1.0, 3.0, 15.0, False)
+    cost = torch.zeros((3, 4, 8), device="cuda")
+    with pytest.raises(ValueError, match="image rows"):
+        legacy(cost, grey[:3], 0.5, 4.0)
+    with pytest.raises(ValueError, match="image rows"):
+        canonical(cost, img, img[:, :7], 1.0, 3.0, 15.0, False)
+    with pytest.raises(ValueError, match="cost on"):
+        legacy(cost, grey.cpu(), 0.5, 4.0)
+    with pytest.raises(ValueError, match="cost on"):
+        canonical(cost, img, img.cpu(), 1.0, 3.0, 15.0, True)
+    with pytest.raises(ValueError, match="float32"):
+        legacy(cost.double(), grey, 0.5, 4.0)
+    assert banded.LAUNCHES == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("row_offset", [-140, 0, 37])
 @pytest.mark.parametrize("rows,cols", [(9, 7), (5, 5)])
@@ -895,26 +981,32 @@ def test_ad_census_row_window_on_card(row_offset, rows, cols):
 ], ids=["FULL", "canonical_FULL", "active"])
 def test_streamed_launches_kernels_on_card(pipeline, cfg):
     """The streamed executor on the card: the cost kernel once a band (twice
-    with the scanline's two sweeps), the banded kernels per pass, no
-    whole-image scanline kernel; its maps equal the direct path's on the
-    card outside the clamp triangle."""
+    with the scanline's two sweeps), the banded kernels per vertical pass
+    (three a band and view), the band entry once a band and view for both
+    horizontal passes, no whole-image scanline kernel; its maps equal the
+    direct path's on the card outside the clamp triangle."""
     from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
     from stereo_match_traditional_tpu_torch.parallel import run_streamed
 
     _need_card()
     L, R, _ = make_pair(40, 64, 8, seed=1)
     lt, rt = pair_to_torch(L, R, "cuda")
-    before = (ad_census_cuda.LAUNCHES, sum(banded.LAUNCHES.values()), scanline_cuda.LAUNCHES,
+    before = (ad_census_cuda.LAUNCHES, dict(banded.LAUNCHES), scanline_cuda.LAUNCHES,
               scanline_canonical_cuda.LAUNCHES)
     got = run_streamed(pipeline, lt, rt, cfg, row_tile=16)
     torch.cuda.synchronize()
     bands = 3
-    views = 2 if cfg.aggregation == "cross_two_pass" else 1
+    canonical = cfg.aggregation == "cross_two_pass"
+    views = 2 if canonical else 1
     sweeps = 2 if cfg.scanline is not None else 1
-    passes = (views * 1 + views * 4) * bands if cfg.scanline is not None else 0
-    assert (ad_census_cuda.LAUNCHES - before[0], sum(banded.LAUNCHES.values()) - before[1],
-            scanline_cuda.LAUNCHES - before[2],
-            scanline_canonical_cuda.LAUNCHES - before[3]) == (sweeps * bands, passes, 0, 0)
+    per = views * bands if cfg.scanline is not None else 0   # band and view
+    vertical, entry = (("scanline_banded_canonical_f32", "scanline_canonical_horizontal_band_f32")
+                       if canonical else ("scanline_banded_f32", "scanline_horizontal_band_f32"))
+    want_banded = dict.fromkeys(banded.LAUNCHES, 0)
+    want_banded.update({vertical: 3 * per, entry: per})
+    assert {k: v - before[1][k] for k, v in banded.LAUNCHES.items()} == want_banded
+    assert (ad_census_cuda.LAUNCHES - before[0], scanline_cuda.LAUNCHES - before[2],
+            scanline_canonical_cuda.LAUNCHES - before[3]) == (sweeps * bands, 0, 0)
     want = get_pipeline(pipeline)[0](lt, rt, cfg)
     for f in ("disp_left", "disp_final"):
         if getattr(want, f) is not None:
