@@ -41,7 +41,14 @@ equality), the direct path's peak
 at 1080x1920, D=256, and 2160x3840, D=256 on the JAX package's
 representative pair (active, legacy FULL with penalty_scale='auto',
 canonical FULL in two stages), each held to the JAX package's bad-2.0 and
-timed, with its band, peak memory, launches and stages.  Each
+timed, with its band, peak memory, launches and stages.  Then the tiled
+executor (``parallel.tiled``, phase 22): the cost kernels' disparity slices
+(``d_offset``) against their plain versions and joined against the whole
+volume, and timed; the five reference configurations at Teddy, the
+``(tile, disp)`` runners and legacy and canonical FULL at 720x1280, D=128
+over a world of one in this process (NCCL) and over two processes sharing
+the card (gloo, ``chip_smoke.py --tiled-rank``), each against the direct
+path, with ms a pair, launches and peak memory.  Each
 phase prints one JSON line; any failure raises and exits non-zero.  The
 last three lines are the card's ``nvidia-smi`` name and power limit, the
 kernel summary ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -50,7 +57,7 @@ bound: the least time the card could take for the same function at the
 same shape, the larger of its bytes (every input once, the output once)
 over the card's memory rate and its operations (by the cheapest exact
 algorithm known) over the card's float32 rate.  No single PyTorch call
-computes any of the ten functions, so ``library_ms`` is null.
+computes any of the twelve entries' functions, so ``library_ms`` is null.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -207,6 +214,14 @@ HUGE_PAIR_SCALE = 102
 HUGE_BAD2 = {"active": 0.1002, "FULL auto": 0.0681, "canonical FULL": 0.0820}
 HUGE_BAD2_TOL = 0.005
 HUGE_TIMED_CALLS = 2
+# The tiled executor (phase 22): the d-slices of the two kernels with
+# d_offset at Teddy (D=60 in three slices, ncc's committed D=200 in four),
+# two ranks on the one card for the two-rank run, timed calls a Teddy run
+TILED_OFFSETS = (0, 15, 45)
+TILED_NCC_OFFSETS = (0, 50, 100, 150)
+TILED_RANKS = 2
+TILED_REPS = 3
+TILED_TIMEOUT = 420.0
 STREAM_AGREE = 0.995        # tests/test_streamed.py's envelope: <= 0.5 % of pixels differ
 # (t, D, W) bands for the banded kernels against their plain versions: a
 # Teddy band and a 4K-wide band at D=256; the second is also timed
@@ -509,6 +524,7 @@ def main() -> None:
     surfaces_phase(kind)
     var = variants_phase()
     streamed = streamed_phase()
+    tiled = tiled_phase(kind)
 
     for banned in ("jax", "stereo_match_traditional_tpu"):   # the name or a dotted prefix
         loaded = [m for m in sys.modules if m == banned or m.startswith(banned + ".")]
@@ -594,6 +610,20 @@ def main() -> None:
             "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/scanline_canonical.cu",
             "replaces": "stereo_match_traditional_tpu/ops/scanline.py:298",
             **streamed["scanline_canonical_horizontal_band_f32"],
+        },
+        {
+            "name": "ad_census_volume_f32 (d_offset)",
+            "route": "cuda",
+            "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/ad_census_cost.cu",
+            "replaces": "stereo_match_traditional_tpu/ops/volume.py:554",
+            **tiled["ad_census_volume_f32"],
+        },
+        {
+            "name": "ncc_volume_f32 (d_offset)",
+            "route": "cuda",
+            "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/window_cost.cu",
+            "replaces": "stereo_match_traditional_tpu/ops/volume.py:296",
+            **tiled["ncc_volume_f32"],
         },
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -883,6 +913,12 @@ def huge_check() -> float:
         vol = ad_census_cuda._launch(lt, rt, d, 9, 7, 10.0, 30.0, "left", part)
         row = vol[:, y].clone()
         del vol
+        if part == "cost":
+            # the left view alone: two u8 images in, one float32 volume out
+            rec["ms"] = statistics.median(cuda_ms(lambda: ad_census_cuda._launch(
+                lt, rt, d, 9, 7, 10.0, 30.0, "left", "cost"), 3))
+            rec.update(bound(2 * h * w + 4 * d * h * w, 0.0))
+            rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         on_band = ad_census_cuda._launch(bl, br, d, 9, 7, 10.0, 30.0, "left", part)[:, 4]
         want = fn(bl, br, d)[:, 4]
         torch.cuda.synchronize()
@@ -2372,5 +2408,281 @@ def streamed_phase() -> dict:
     return out
 
 
+def _tiled_runs() -> list:
+    """``(label, pipeline, (h, w, d), cfg, runner)`` of the tiled phase's
+    runs: the five reference configurations at Teddy over row tiles, the
+    ``(tile, disp)`` runners at Teddy (ncc at its committed D=200), and
+    legacy and canonical ad_census FULL at 720p.  ``runner`` is ``tiled``
+    (``run_tiled`` over every rank) or ``tile_disp`` (a (1, world) mesh:
+    one row tile, the disparities over the ranks)."""
+    from stereo_match_traditional_tpu_torch import config as C
+
+    h, w, d = TEDDY
+    sh, sw, sd = SERVING
+    scan = C.ScanlineConfig()
+    return [
+        ("asw", "asw", TEDDY, C.ASWConfig(), "tiled"),
+        ("ad_census FULL", "ad_census", TEDDY,
+         C.ADCensusConfig(disp_range=d, scanline=scan, run_post=True), "tiled"),
+        ("sad", "sad", TEDDY, C.SADConfig(), "tiled"),
+        ("ncc", "ncc", (h, w, 200), C.NCCConfig(), "tiled"),
+        ("cblsm", "cblsm", TEDDY, C.CBLSMConfig(), "tiled"),
+        ("ad_census_tile_disp", "ad_census", TEDDY, C.ADCensusConfig(disp_range=d), "tile_disp"),
+        ("ncc_tile_disp", "ncc", (h, w, 200), C.NCCConfig(), "tile_disp"),
+        ("ad_census FULL 720p", "ad_census", SERVING,
+         C.ADCensusConfig(disp_range=sd, scanline=scan, run_post=True), "tiled"),
+        ("ad_census canonical FULL 720p", "ad_census", SERVING,
+         C.ADCensusConfig(disp_range=sd, aggregation="cross_two_pass", scanline=scan,
+                          run_post=True), "tiled"),
+    ]
+
+
+def _tiled_run_all(world: int, rank: int, stages: bool = False) -> list:
+    """Every run of :func:`_tiled_runs` on this rank: ms a call (CUDA events,
+    the median of TILED_REPS calls after the first, which is held to the
+    direct path on rank 0), launches by C entry, peak memory; with
+    ``stages``, the 720p runs' ``stereo/<stage>`` ranges from a trace of one
+    call.  Every rank makes the same calls in the same order."""
+    import torch
+
+    from stereo_match_traditional_tpu_torch.models import get_pipeline
+    from stereo_match_traditional_tpu_torch.parallel import make_mesh, run_tiled
+    from stereo_match_traditional_tpu_torch.parallel.tiled import (
+        ad_census_tile_disp, ncc_tile_disp,
+    )
+    from stereo_match_traditional_tpu_torch.utils.convert import pair_to_torch
+    from stereo_match_traditional_tpu_torch.utils.synthetic import make_pair
+
+    tiles = make_mesh(axis_names=("tile",))
+    grid = make_mesh(axis_names=("tile", "disp"), shape=(1, world))
+    pairs, out = {}, []
+    for label, name, (h, w, d), cfg, runner in _tiled_runs():
+        if (h, w) not in pairs:
+            L, R, _ = make_pair(h, w, min(d, 128), seed=0)
+            pairs[h, w] = pair_to_torch(L, R, "cuda")
+        lt, rt = pairs[h, w]
+        if runner == "tiled":
+            call = lambda: run_tiled(name, lt, rt, cfg, tiles)  # noqa: E731
+        else:
+            fn = (ad_census_tile_disp if name == "ad_census" else ncc_tile_disp)(cfg, grid)
+            call = lambda: fn(lt, rt)  # noqa: E731
+        _reset_launches()
+        got, peak, reserved = _peak_run(call)
+        launches = {k: v for k, v in _launches().items() if v}
+        reps = TILED_REPS if h == TEDDY[0] else 1
+        times = cuda_ms(call, reps)
+        rec = {"config": label, "runner": runner, "shape": [h, w], "disp_range": d,
+               "ranks": world, "rank": rank, "ms_a_pair": statistics.median(times),
+               "ms_timed_calls": times, "launches": launches, "peak_bytes": peak,
+               "peak_reserved_bytes": reserved}
+        if stages and h == SERVING[0]:
+            rec["stage_ms"] = profiled_stages(call, 1, warm_up=False)
+        if rank == 0:
+            want = get_pipeline(name)[0](lt, rt, cfg)
+            rec["agree_with_direct_on_card"] = _agreement(got, want, d)
+            rec["direct_ms"] = statistics.median(cuda_ms(lambda: get_pipeline(name)[0](
+                lt, rt, cfg), reps))
+            del want
+        out.append(rec)
+        del got
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tiled_checks(rec: dict) -> None:
+    """A tiled run's maps within the envelope of the direct path (sad, ncc
+    and asw bit for bit), through its kernels, the scanline by the band
+    entries and the banded kernel only."""
+    agree = rec["agree_with_direct_on_card"]
+    exact = rec["config"].split()[0] in ("sad", "ncc", "asw", "ncc_tile_disp")
+    check(min(agree.values()) == 1.0 if exact else min(agree.values()) >= STREAM_AGREE, rec)
+    launches = rec["launches"]
+    name = rec["config"].split()[0]
+    want = {"asw": "asw_volume_left_f32", "ad_census": "ad_census_volume_f32",
+            "sad": "sad_volume_f32", "ncc": "ncc_volume_f32", "cblsm": "ad_census_volume_f32",
+            "ad_census_tile_disp": "ad_census_volume_f32",
+            "ncc_tile_disp": "ncc_volume_f32"}[name]
+    check(launches.get(want, 0) >= 1, rec)
+    if "FULL" in rec["config"]:
+        canonical = "canonical" in rec["config"]
+        entry = ("scanline_canonical_horizontal_band_f32" if canonical
+                 else "scanline_horizontal_band_f32")
+        banded = "scanline_banded_canonical_f32" if canonical else "scanline_banded_f32"
+        check(launches.get(entry, 0) >= 1 and launches.get(banded, 0) >= 2
+              and launches.get("scanline_optimize_f32", 0) == 0
+              and launches.get("scanline_canonical_f32", 0) == 0, rec)
+
+
+def tiled_rank(rank: int, port: str, out_path: str) -> None:
+    """One rank of the tiled phase's two-rank run (``chip_smoke.py
+    --tiled-rank RANK PORT OUT``, started by :func:`tiled_phase`): both ranks
+    on the one card over gloo, whose exchanges go through host memory while
+    every operation runs on the card; the records to ``OUT``."""
+    import torch
+    import torch.distributed as dist
+
+    from stereo_match_traditional_tpu_torch.parallel import distributed
+
+    distributed.initialize(f"localhost:{port}", TILED_RANKS, rank, backend="gloo")
+    torch.cuda.set_device(0)
+    recs = _tiled_run_all(TILED_RANKS, rank)
+    with open(out_path, "w") as f:
+        json.dump(recs, f)
+    dist.destroy_process_group()
+
+
+def tiled_phase(kind: str) -> dict:
+    """Phase 22, the tiled executor (``parallel.tiled``).  (a) The two
+    kernels with ``d_offset`` (``ad_census_volume_f32``, ``ncc_volume_f32``):
+    each slice of disparities against its plain version, the slices joined
+    equal to the whole-volume kernel bit for bit, and timed.  (b) A world of
+    one in this process over NCCL: :func:`_tiled_runs` against the direct
+    path.  (c) Two ranks on the one card in two processes over gloo (NCCL
+    refuses two ranks on one device): the same runs; a two-rank time on one
+    card is not a multi-card number.  NCCL across several cards is not
+    measured here.  Returns the two ``d_offset`` entries' summary fields."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from stereo_match_traditional_tpu_torch.ops import volume
+    from stereo_match_traditional_tpu_torch.ops.kernels import ad_census_cuda as ac
+    from stereo_match_traditional_tpu_torch.ops.kernels import window_cost_cuda as wc
+    from stereo_match_traditional_tpu_torch.parallel import distributed
+    from stereo_match_traditional_tpu_torch.utils.convert import pair_to_torch
+    from stereo_match_traditional_tpu_torch.utils.synthetic import make_pair
+
+    start = time.perf_counter()
+    h, w, d = TEDDY
+    L, R, _ = make_pair(h, w, d, seed=0)
+    lt, rt = pair_to_torch(L, R, "cuda")
+    lc, rc = pair_to_torch(L, R, "cpu")
+    summary = {}
+
+    # -- 22a. the d-slices against their plain versions and the whole volume --
+    def slices(offsets, total, kernel, plain, views):
+        bounds = list(offsets) + [total]
+        whole = kernel(lt, rt, total, 0)
+        got, err = [], 0.0
+        for o, e in zip(bounds, bounds[1:]):
+            vols = kernel(lt, rt, e - o, o)
+            want = plain(lc, rc, e - o, o)
+            for v in range(views):
+                err = max(err, (vols[v].cpu() - want[v]).abs().max().item())
+            got.append(vols)
+        joined = all(torch.equal(torch.cat([g[v] for g in got]), whole[v]) for v in range(views))
+        return joined, err
+
+    cost_kernel = lambda a, b, n, o: ac.ad_census_volumes_cuda(a, b, n, d_offset=o)  # noqa: E731
+    cost_plain = lambda a, b, n, o: volume.ad_census_volumes(a, b, n, d_offset=o)  # noqa: E731
+    ncc_kernel = lambda a, b, n, o: wc.ncc_volume_cuda(a, b, n, 10, d_offset=o)[:1]  # noqa: E731
+    ncc_plain = lambda a, b, n, o: volume.ncc_volume(a, b, n, 10, d_offset=o)[:1]  # noqa: E731
+    err = {"ad_census_volume_f32": 0.0, "ncc_volume_f32": 0.0}
+    for kernel_name, kernel, plain, views, total, offsets in (
+            ("ad_census_volume_f32", cost_kernel, cost_plain, 2, d, TILED_OFFSETS),
+            ("ncc_volume_f32", ncc_kernel, ncc_plain, 1, d, TILED_OFFSETS),
+            ("ncc_volume_f32", ncc_kernel, ncc_plain, 1, 200, TILED_NCC_OFFSETS)):
+        joined, e = slices(offsets, total, kernel, plain, views)
+        rec = {"phase": "tiled", "part": "kernel_check", "kernel": kernel_name,
+               "shape": [h, w], "disp_range": total, "d_offsets": list(offsets),
+               "slices_join_to_whole_volume": joined, "max_abs_err": e}
+        emit(rec)
+        check(joined, rec)
+        check(e <= (AD_CENSUS_ATOL if views == 2 else 0.0), rec)
+        err[kernel_name] = max(err[kernel_name], e)
+    # the AD and Hamming parts of a slice: exact
+    for part, fn, pl in (("ad", ac.ad_volume_cuda, volume.ad_volume),
+                         ("census", ac.census_volume_cuda, volume.census_volume)):
+        for view in ("left", "right"):
+            check(torch.equal(fn(lt, rt, 30, view=view, d_offset=15).cpu(),
+                              pl(lc, rc, 30, view=view, d_offset=15)), (part, view))
+    # timed: a slice from an offset against its plain version on the card
+    for kernel_name, n, o, call, plain_call, out_bytes, flop in (
+            ("ad_census_volume_f32", 30, 15,
+             lambda: ac.ad_census_volumes_cuda(lt, rt, 30, d_offset=15),
+             lambda: volume.ad_census_volumes(lt, rt, 30, d_offset=15), 8, 12.0),
+            ("ncc_volume_f32", 100, 100,
+             lambda: wc.ncc_volume_cuda(lt, rt, 100, 10, d_offset=100),
+             lambda: volume.ncc_volume(lt, rt, 100, 10, d_offset=100), 4, 10.0)):
+        ms, plain_ms = alternate(plain_call, call, 2, 10)
+        summary[kernel_name] = {
+            "max_abs_err": err[kernel_name], "ms": ms, "plain_ms": plain_ms,
+            "ms_covers": f"disparities {o}..{o + n - 1} of a {h}x{w} pair"
+                         + (" (both views)" if out_bytes == 8 else ""),
+            "back_to_back_ms": back_to_back_ms(call),
+            **bound(2 * h * w + out_bytes * n * h * w, flop * n * h * w),
+            "library_ms": None}
+        summary[kernel_name]["share_of_bound"] = (summary[kernel_name]["bound_ms"]
+                                                  / summary[kernel_name]["ms"])
+        emit({"phase": "tiled", "part": "timing_kernels", "kernel": kernel_name,
+              **summary[kernel_name]})
+    del lt, rt
+    torch.cuda.empty_cache()
+
+    # -- 22b. a world of one over NCCL, in this process ------------------------
+    status = distributed.initialize()
+    check(status == "single-process" and dist.get_backend() == "nccl", status)
+    for rec in _tiled_run_all(1, 0, stages=True):
+        rec.update(phase="tiled", part="world of one (NCCL)", card=kind)
+        emit(rec)
+        _tiled_checks(rec)
+    dist.destroy_process_group()
+
+    # -- 22c. two ranks on the one card over gloo, in two processes -------------
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(TILED_RANKS)]
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(TILED_RANKS)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tiled-rank",
+                                   str(r), port, outs[r]], stdout=logs[r],
+                                  stderr=subprocess.STDOUT)
+                 for r in range(TILED_RANKS)]
+        deadline = time.monotonic() + TILED_TIMEOUT
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        texts = []
+        for log in logs:
+            log.seek(0)
+            texts.append(log.read()[-4000:])
+            log.close()
+        check(all(p.returncode == 0 for p in procs),
+              ("two-rank run", [p.returncode for p in procs], texts))
+        ranks = []
+        for path in outs:
+            with open(path) as f:
+                ranks.append(json.load(f))
+    tile_disp_launches = {"ad_census_volume_f32": 0, "ncc_volume_f32": 0}
+    for recs in zip(*ranks):
+        rec = dict(recs[0], phase="tiled", part="two ranks on one card (gloo)", card=kind,
+                   note="two processes sharing one card: not a multi-card number",
+                   ms_a_pair_by_rank=[r["ms_a_pair"] for r in recs],
+                   launches_by_rank=[r["launches"] for r in recs],
+                   peak_bytes_by_rank=[r["peak_bytes"] for r in recs])
+        emit(rec)
+        _tiled_checks(rec)
+        if rec["runner"] == "tile_disp":
+            for r in recs:
+                for k in tile_disp_launches:
+                    tile_disp_launches[k] += r["launches"].get(k, 0)
+    for k, n in tile_disp_launches.items():
+        check(n >= TILED_RANKS, (k, n))
+        summary[k]["launches"] = n
+    emit({"phase": "tiled", "part": "done", "seconds": time.perf_counter() - start})
+    return summary
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--tiled-rank"]:
+        tiled_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

@@ -11,7 +11,15 @@ of the JAX package's ``stereo``):
 ``run`` and ``eval`` run on the card; ``--cpu`` asks for the CPU (the plain
 PyTorch versions of the kernels).  ``run --executor streamed [--row-tile N]``
 runs the pipeline over sequential row bands (``parallel.run_streamed``), for
-images whose whole-image volumes do not fit the card.  Any config dataclass
+images whose whole-image volumes do not fit the card.  ``run --executor
+tiled`` runs it over row tiles, one process a device
+(``parallel.run_tiled``): under torchrun,
+
+    torchrun --nproc-per-node 4 -m stereo_match_traditional_tpu_torch.cli \
+        run ad_census --synthetic 720x1280 --disp-range 128 --executor tiled
+
+every rank runs its tile and rank 0 writes the outputs; started alone it is
+a world of one (NCCL on the card, gloo under ``--cpu``).  Any config dataclass
 field can be overridden with ``--set field=value`` (repeatable); defaults are
 the reference driver constants (config.py).  A ``--save-stages`` directory is
 re-entered with ``models.registry.finish_from_volumes``.
@@ -28,7 +36,6 @@ import typing
 
 # Executors of the JAX package that the port does not have.
 _EXECUTORS = {
-    "tiled": "is not ported yet (ROADMAP.md Queue 1 item 9, executors)",
     "gspmd": "has no torch counterpart (ROADMAP.md Queue 1 item 9: "
              "a sharded-input XLA program; it is not ported)",
 }
@@ -206,6 +213,15 @@ def cmd_run(args) -> int:
     device = _device(args)
     pipeline, cfg = _build_cfg(args)
     left, right, gt = _load_pair(args)
+    rank = 0
+    if args.executor == "tiled":
+        import torch.distributed as dist
+
+        from stereo_match_traditional_tpu_torch.parallel import distributed
+
+        # before the pair goes to the card: NCCL picks each rank's card
+        distributed.initialize(backend="gloo" if device == "cpu" else None)
+        rank = dist.get_rank()
 
     from stereo_match_traditional_tpu_torch.utils.convert import pair_to_torch
 
@@ -219,11 +235,17 @@ def cmd_run(args) -> int:
 
             res = run_streamed(args.pipeline, lt, rt, cfg, row_tile=args.row_tile,
                                aux=tuple(pkw.values()))
+        elif args.executor == "tiled":
+            from stereo_match_traditional_tpu_torch.parallel import run_tiled
+
+            res = run_tiled(args.pipeline, lt, rt, cfg, aux=tuple(pkw.values()))
         elif args.save_stages:
             res, stages = pipeline(lt, rt, cfg, return_stages=True, **pkw)
         else:
             res = pipeline(lt, rt, cfg, **pkw)
         disp = _final_map(res)
+    if rank != 0:      # every rank holds the whole result; rank 0 writes it
+        return 0
 
     if args.save_stages:
         from stereo_match_traditional_tpu_torch.utils.checkpoint import save_array, save_result
@@ -257,6 +279,10 @@ def cmd_run(args) -> int:
         "disp_min": float(disp[finite].min()) if finite.any() else None,
         "disp_max": float(disp[finite].max()) if finite.any() else None,
     }
+    if args.executor == "tiled":
+        import torch.distributed as dist
+
+        summary["world"] = dist.get_world_size()
     if gt is not None:
         metric_map, note = _metric_map(args.pipeline, res, disp)
         if note:
@@ -395,9 +421,10 @@ def main(argv=None) -> int:
     run.add_argument(
         "--executor", choices=("direct", "tiled", "streamed", "gspmd"),
         default="direct",
-        help="direct = one pipeline call; streamed = sequential row bands "
-        "(memory-bounded, 4K-class images on one card); tiled is not ported yet, "
-        "gspmd has no torch counterpart",
+        help="direct = one pipeline call; tiled = row tiles over every process of "
+        "the launch (torchrun; alone, a world of one); streamed = sequential row "
+        "bands (memory-bounded, 4K-class images on one card); gspmd has no torch "
+        "counterpart",
     )
     run.add_argument(
         "--row-tile", type=int, default=None,

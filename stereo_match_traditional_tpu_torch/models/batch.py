@@ -5,7 +5,10 @@ The reference processes exactly one hard-coded pair per run
 (`SAD/SADmain.cpp:27-28` et al.).  For serving, the port runs a batch pair
 by pair on the card and stacks every result field along axis 0, and
 `utils.loader.PairLoader` decodes the pairs ahead on worker threads while
-the card runs.
+the card runs.  With a mesh, the batch is split over the ranks of its
+``batch`` axis (one process a device, ``parallel.mesh``), each rank runs its
+share and the results are gathered: batch data parallelism, no collective
+but the gather.
 """
 
 from __future__ import annotations
@@ -18,9 +21,6 @@ import torch
 
 from stereo_match_traditional_tpu_torch.models.base import StereoResult
 from stereo_match_traditional_tpu_torch.models.registry import get_pipeline
-
-_MESH = ("a device mesh (batch data parallelism over several cards) is not ported "
-         "yet (ROADMAP.md Queue 1 item 9, executors)")
 
 
 def batched_pipeline(name: str, cfg=None, method: str = "map",
@@ -35,12 +35,12 @@ def batched_pipeline(name: str, cfg=None, method: str = "map",
     source in the v5e's fast memory, where `vmap` batched it past a cliff),
     with nothing to choose between on the card.
 
-    ``mesh`` (the batch axis sharded over ``mesh[axis_name]``) is
-    multi-device and not ported: it raises ``NotImplementedError``."""
+    ``mesh``: a ``DeviceMesh`` whose ``axis_name`` axis shards the batch
+    (every rank calls ``run`` with the whole batch, runs its contiguous
+    share and returns the gathered result); the batch must be a multiple of
+    the axis' ranks.  The maps are the unsharded run's, bit for bit."""
     if method not in ("map", "vmap"):
         raise ValueError(f"method must be 'map' or 'vmap': {method}")
-    if mesh is not None:
-        raise NotImplementedError(f"batched_pipeline(mesh=...): {_MESH}")
     fn, cfg_cls = get_pipeline(name)
     if cfg is None:
         cfg = cfg_cls()
@@ -54,7 +54,26 @@ def batched_pipeline(name: str, cfg=None, method: str = "map",
         return StereoResult(*(None if fields[0] is None else torch.stack(fields)
                               for fields in zip(*results)))
 
-    return run
+    if mesh is None:
+        return run
+    from stereo_match_traditional_tpu_torch.parallel import comm
+    from stereo_match_traditional_tpu_torch.parallel.mesh import MeshAxis
+
+    def sharded(ls: torch.Tensor, rs: torch.Tensor) -> StereoResult:
+        axis = MeshAxis(mesh, axis_name)
+        n = axis.size
+        if ls.shape[0] % n:
+            raise ValueError(
+                f"batch {ls.shape[0]} must divide the {axis_name} axis ({n});"
+                " serve_pairs pads partial batches"
+            )
+        b = ls.shape[0] // n
+        share = slice(axis.index * b, (axis.index + 1) * b)
+        res = run(ls[share], rs[share])
+        return StereoResult(*(None if f is None else comm.all_gather(f, axis).flatten(0, 1)
+                              for f in res))
+
+    return sharded
 
 
 def serve_pairs(
@@ -73,14 +92,21 @@ def serve_pairs(
     and a copy stream with pinned staging measured no faster on the card
     (PERF.md).  Pass `utils.loader.PairLoader` as ``pairs`` to decode
     the pairs ahead on worker threads.  ``device`` is the card unless the
-    caller asks for the CPU.  ``mesh`` raises as in :func:`batched_pipeline`.
+    caller asks for the CPU.  With ``mesh`` each batch is split over its
+    ``batch`` axis (:func:`batched_pipeline`; every rank iterates the same
+    pairs and yields every map), ``batch_size`` a multiple of the axis'
+    ranks, and a partial last batch is padded with its last pair, whose
+    maps are dropped.
     """
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     run = batched_pipeline(name, cfg, mesh=mesh)
     it = iter(pairs)
     while batch := list(itertools.islice(it, batch_size)):
+        n = len(batch)
+        if mesh is not None:
+            batch += batch[-1:] * (batch_size - n)
         ls, rs = (torch.from_numpy(np.stack(side)).to(device) for side in zip(*batch))
         res = run(ls, rs)
         disp = res.disp_final if res.disp_final is not None else res.disp_left
-        yield from disp.cpu().numpy()
+        yield from disp[:n].cpu().numpy()

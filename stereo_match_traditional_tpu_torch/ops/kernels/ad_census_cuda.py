@@ -15,6 +15,10 @@ direct formula); anything else is handed over as float32.
 ``row_offset`` / ``global_rows`` place the images as a band of rows in a
 larger image for the census, as the plain ``ops.volume.census_transform``
 does (the row executors, ``parallel``): the C entry's row window.
+``d_offset`` builds the slice of global disparities ``d_offset ..
+d_offset + disp_range - 1`` of either view, as the plain versions do (the
+``(tile, disp)`` runners): the C entry's disparity slice, both views still
+from one launch.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ MAX_ROWS = 65535
 
 
 def _launch(left, right, disp_range, rows, cols, sigma_c, sigma_s, view, part,
-            row_offset=0, global_rows=None):
+            row_offset=0, global_rows=None, d_offset=0):
     """Raw launch on CUDA ``[H, W]`` images -> float32 ``[D, H, W]`` for
     ``view`` 'left' or 'right', ``(vol_l, vol_r)`` for 'both': two views of
     one storage, which lives as long as either of them.  The images are rows
@@ -69,6 +73,8 @@ def _launch(left, right, disp_range, rows, cols, sigma_c, sigma_s, view, part,
         global_rows = h
     if global_rows < 1:
         raise ValueError(f"global_rows must be >= 1, got {global_rows}")
+    if d_offset < 0:
+        raise ValueError(f"d_offset must be >= 0, got {d_offset}")
     if not left.is_cuda:
         raise ValueError(f"the kernel needs CUDA tensors, got {left.device}")
     lk, rk, u8 = kernel_inputs(left, right)
@@ -88,7 +94,8 @@ def _launch(left, right, disp_range, rows, cols, sigma_c, sigma_s, view, part,
         err = lib.ad_census_volume_f32(
             lk.data_ptr(), rk.data_ptr(), u8, sig.data_ptr() if sig is not None else None,
             ptr if view != "right" else None, ptr + 4 * n * (views - 1) if view != "left" else None,
-            h, w, int(row_offset), int(global_rows), disp_range, rows, cols, float(sigma_c),
+            h, w, int(row_offset), int(global_rows), disp_range, int(d_offset), rows, cols,
+            float(sigma_c),
             float(sigma_s), _PARTS[part],
             stream(lk.device),
         )
@@ -115,16 +122,17 @@ def ad_census_volume_cuda(
     view: str = "left",
     row_offset: int = 0,
     global_rows: int = None,
+    d_offset: int = 0,
 ) -> torch.Tensor:
     """Drop-in for ``ops.volume.ad_census_volume``: one launch per call for
     CUDA inputs, the plain version for CPU inputs."""
     if not on_cuda(left, right):
         return volume.ad_census_volume(
             left, right, disp_range, sigma_c, sigma_s, census_rows, census_cols, view,
-            row_offset, global_rows,
+            row_offset, global_rows, d_offset,
         )
     return _launch(left, right, disp_range, census_rows, census_cols, sigma_c, sigma_s,
-                   _single(view), "cost", row_offset, global_rows)
+                   _single(view), "cost", row_offset, global_rows, d_offset)
 
 
 def ad_census_volumes_cuda(
@@ -137,23 +145,26 @@ def ad_census_volumes_cuda(
     census_cols: int = 7,
     row_offset: int = 0,
     global_rows: int = None,
+    d_offset: int = 0,
 ):
     """Both views ``(vol_l, vol_r)`` of ``ops.volume.ad_census_volumes``:
     one launch for CUDA inputs, the plain version for CPU inputs."""
     if not on_cuda(left, right):
         return volume.ad_census_volumes(
             left, right, disp_range, sigma_c, sigma_s, census_rows, census_cols,
-            row_offset, global_rows,
+            row_offset, global_rows, d_offset,
         )
     return _launch(left, right, disp_range, census_rows, census_cols, sigma_c, sigma_s,
-                   "both", "cost", row_offset, global_rows)
+                   "both", "cost", row_offset, global_rows, d_offset)
 
 
-def ad_volume_cuda(left, right, disp_range: int, view: str = "left") -> torch.Tensor:
+def ad_volume_cuda(left, right, disp_range: int, view: str = "left",
+                   d_offset: int = 0) -> torch.Tensor:
     """Drop-in for ``ops.volume.ad_volume`` (the kernel's AD part)."""
     if not on_cuda(left, right):
-        return volume.ad_volume(left, right, disp_range, view)
-    return _launch(left, right, disp_range, 1, 1, 1.0, 1.0, _single(view), "ad")
+        return volume.ad_volume(left, right, disp_range, view, d_offset)
+    return _launch(left, right, disp_range, 1, 1, 1.0, 1.0, _single(view), "ad",
+                   d_offset=d_offset)
 
 
 def ad_volumes_cuda(left, right, disp_range: int):
@@ -166,11 +177,11 @@ def ad_volumes_cuda(left, right, disp_range: int):
 
 def census_volume_cuda(
     left, right, disp_range: int, rows: int = 9, cols: int = 7, view: str = "left",
-    row_offset: int = 0, global_rows: int = None,
+    row_offset: int = 0, global_rows: int = None, d_offset: int = 0,
 ) -> torch.Tensor:
     """Drop-in for ``ops.volume.census_volume`` (the kernel's Hamming part)."""
     if not on_cuda(left, right):
         return volume.census_volume(left, right, disp_range, rows, cols, view, row_offset,
-                                    global_rows)
+                                    global_rows, d_offset)
     return _launch(left, right, disp_range, rows, cols, 1.0, 1.0, _single(view), "census",
-                   row_offset, global_rows)
+                   row_offset, global_rows, d_offset)

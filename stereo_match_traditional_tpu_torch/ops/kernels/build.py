@@ -103,7 +103,7 @@ def library() -> ctypes.CDLL:
     lib.asw_volume_left_f32.argtypes = [vp, vp, vp, i32, i32, i32, i32, f32, f32, f32, vp]
     lib.asw_volume_left_f32.restype = i32
     lib.ad_census_volume_f32.argtypes = [vp, vp, i32, vp, vp, vp, i32, i32, i32, i32, i32,
-                                         i32, i32, f32, f32, i32, vp]
+                                         i32, i32, i32, f32, f32, i32, vp]
     lib.ad_census_volume_f32.restype = i32
     lib.scanline_optimize_f32.argtypes = [vp, vp, vp, vp, i32, i32, i32, f32, f32,
                                           i32, i32, vp]
@@ -115,7 +115,8 @@ def library() -> ctypes.CDLL:
     lib.sad_volume_f32.restype = i32
     lib.ncc_window_sums_f32.argtypes = [vp, vp, i32, vp, i32, i32, i32, vp]
     lib.ncc_window_sums_f32.restype = i32
-    lib.ncc_volume_f32.argtypes = [vp, vp, i32, vp, vp, i32, i32, i32, i32, f32, f32, vp]
+    lib.ncc_volume_f32.argtypes = [vp, vp, i32, vp, vp, i32, i32, i32, i32, i32, f32, f32,
+                                   vp]
     lib.ncc_volume_f32.restype = i32
     i64 = ctypes.c_longlong
     lib.scanline_banded_f32.argtypes = [vp, i64, i64, i64, vp, i64, i64, vp, i64, i64, i64,

@@ -62,6 +62,13 @@
 // wraps around the band, as the plain version's (and the JAX package's
 // jnp.roll) does; only the band's halo rows, which the executors drop, read
 // one.  With (0, h) this is the whole-image census.
+//
+// Disparity slice (the (tile, disp) runners of parallel/tiled.py): with
+// d_offset the volumes hold the global disparities d_offset .. d_offset +
+// d_range - 1, entry d reading the match column of disparity d_offset + d by
+// the same clamped gather; the right view's identity and clamp triangle are
+// taken at that global disparity, so both views stay in one launch and the
+// slices joined along d are the whole volume bit for bit.
 #include <cuda_runtime.h>
 
 namespace {
@@ -260,15 +267,16 @@ __device__ __forceinline__ void store_quads(float* __restrict__ out, long long e
 // disparity d the lane computes the 4 values from its left pixels (held in
 // registers) and 4 staged right pixels (a window sliding one column a
 // disparity), stores them to the left view at columns xq.., to the right view
-// at columns xq - d.. (where xq + i >= d), and the right clamp triangle's
-// values at W-1-xq-i (where xq + i < d).  out_l or out_r may be null: that
-// view is not written.
+// at columns xq - g.. (where xq + i >= g), and the right clamp triangle's
+// values at W-1-xq-i (where xq + i < g), g = d_off + d being the global
+// disparity of the slice's entry d.  out_l or out_r may be null: that view is
+// not written.
 template <typename T, int PART>
 __global__ void __launch_bounds__(NT)
 cost_kernel(const T* __restrict__ left, const T* __restrict__ right,
             const long long* __restrict__ sig, const float* __restrict__ tabs,
             float* __restrict__ out_l, float* __restrict__ out_r, int h, int w, int d_range,
-            float sigma_c, float sigma_s) {
+            int d_off, float sigma_c, float sigma_s) {
   __shared__ float tab_ad[256];
   __shared__ float tab_ham[64];
   __shared__ T l_s[TX];                      // L(y, x0 + k), clamped into the image
@@ -288,7 +296,7 @@ cost_kernel(const T* __restrict__ left, const T* __restrict__ right,
   const size_t row = (size_t)y * w;
   const long long* sig_l = sig;
   const long long* sig_r = sig + (size_t)h * w;
-  const int cbase = x0 - d0 - (DC - 1);
+  const int cbase = x0 - (d_off + d0) - (DC - 1);
 
   // Stage the block's row of right and left pixels and signatures: the
   // columns [cbase, cbase + TX + DC - 1) of R and [x0, x0 + TX) of L,
@@ -299,7 +307,7 @@ cost_kernel(const T* __restrict__ left, const T* __restrict__ right,
   }
   // the inputs of the right clamp triangle's values at columns W-1-xq-i,
   // the same for every d > xq + i
-  const bool want_tri = out_r != nullptr && xq < min(ds + DPW, d_range) && xq < w;
+  const bool want_tri = out_r != nullptr && xq < d_off + min(ds + DPW, d_range) && xq < w;
   T tl = want_tri ? left[row + w - 1] : T(0);
   T tr[4];
   long long tcl = 0, tcr[4] = {0, 0, 0, 0};
@@ -341,6 +349,7 @@ cost_kernel(const T* __restrict__ left, const T* __restrict__ right,
   for (int m = 0; m < DPW; ++m) {
     const int d = ds + m;
     if (d >= d_range) break;   // the same for the whole warp
+    const int g = d_off + d;   // the global disparity the values are of
     if (m > 0) {               // slide the right window one column down
 #pragma unroll
       for (int i = 3; i > 0; --i) {
@@ -360,10 +369,10 @@ cost_kernel(const T* __restrict__ left, const T* __restrict__ right,
       store_quads(out_l, e, (int)((base_l + (unsigned)(e + xw)) & 3u), v, lane, xq, 0, w);
     }
     if (out_r != nullptr) {
-      store_quads(out_r, e - d, (int)((base_r + (unsigned)(e - d + xw)) & 3u), v, lane, xq, d, w);
+      store_quads(out_r, e - g, (int)((base_r + (unsigned)(e - g + xw)) & 3u), v, lane, xq, g, w);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        if (xq + i < d && xq + i < w) __stcs(out_r + (e + w - 1 - xq - i), tri[i]);
+        if (xq + i < g && xq + i < w) __stcs(out_r + (e + w - 1 - xq - i), tri[i]);
       }
     }
   }
@@ -371,8 +380,8 @@ cost_kernel(const T* __restrict__ left, const T* __restrict__ right,
 
 template <typename T>
 cudaError_t launch(const void* left, const void* right, void* sig, void* out_l, void* out_r,
-                   int h, int w, int row_offset, int global_rows, int d_range, int rows,
-                   int cols, float sigma_c, float sigma_s, int part, cudaStream_t s) {
+                   int h, int w, int row_offset, int global_rows, int d_range, int d_off,
+                   int rows, int cols, float sigma_c, float sigma_s, int part, cudaStream_t s) {
   const T* l = (const T*)left;
   const T* r = (const T*)right;
   long long* sg = (long long*)sig;
@@ -396,14 +405,14 @@ cudaError_t launch(const void* left, const void* right, void* sig, void* out_l, 
   float* ol = (float*)out_l;
   float* orr = (float*)out_r;
   if (part == 0) {
-    cost_kernel<T, 0><<<grid, NT, 0, s>>>(l, r, sg, tabs, ol, orr, h, w, d_range, sigma_c,
-                                          sigma_s);
+    cost_kernel<T, 0><<<grid, NT, 0, s>>>(l, r, sg, tabs, ol, orr, h, w, d_range, d_off,
+                                          sigma_c, sigma_s);
   } else if (part == 1) {
-    cost_kernel<T, 1><<<grid, NT, 0, s>>>(l, r, sg, tabs, ol, orr, h, w, d_range, sigma_c,
-                                          sigma_s);
+    cost_kernel<T, 1><<<grid, NT, 0, s>>>(l, r, sg, tabs, ol, orr, h, w, d_range, d_off,
+                                          sigma_c, sigma_s);
   } else {
-    cost_kernel<T, 2><<<grid, NT, 0, s>>>(l, r, sg, tabs, ol, orr, h, w, d_range, sigma_c,
-                                          sigma_s);
+    cost_kernel<T, 2><<<grid, NT, 0, s>>>(l, r, sg, tabs, ol, orr, h, w, d_range, d_off,
+                                          sigma_c, sigma_s);
   }
   return cudaGetLastError();
 }
@@ -416,23 +425,26 @@ cudaError_t launch(const void* left, const void* right, void* sig, void* out_l, 
 // part); out_left, out_right: float32 [d_range, h, w], 4-byte aligned, either
 // may be null (that view is not written, not both); all contiguous on the
 // current device.  The images are rows [row_offset, row_offset + h) of an
-// image of global_rows rows, for the census (the whole image: 0, h).
-// rows * cols <= 63; h <= 65535; d_range >= 1.  part:
+// image of global_rows rows, for the census (the whole image: 0, h).  The
+// volumes hold the disparities [d_offset, d_offset + d_range), entry d of
+// either view being global disparity d_offset + d (the whole range: 0).
+// rows * cols <= 63; h <= 65535; d_range >= 1; d_offset >= 0.  part:
 // 0 cost, 1 AD, 2 Hamming; the AD part skips the census kernel.  Returns
 // cudaGetLastError() after the launches (0 = launched).
 extern "C" int ad_census_volume_f32(const void* left, const void* right, int u8, void* sig,
                                     void* out_left, void* out_right, int h, int w,
-                                    int row_offset, int global_rows, int d_range, int rows,
-                                    int cols, float sigma_c, float sigma_s, int part,
-                                    void* stream) {
+                                    int row_offset, int global_rows, int d_range,
+                                    int d_offset, int rows, int cols, float sigma_c,
+                                    float sigma_s, int part, void* stream) {
   if ((out_left == nullptr && out_right == nullptr) || h < 1 || w < 1 || d_range < 1 ||
-      h > 65535 || part < 0 || part > 2 || global_rows < 1) {
+      d_offset < 0 || h > 65535 || part < 0 || part > 2 || global_rows < 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(u8 ? launch<unsigned char>(left, right, sig, out_left, out_right, h, w,
-                                          row_offset, global_rows, d_range, rows, cols,
-                                          sigma_c, sigma_s, part, s)
+                                          row_offset, global_rows, d_range, d_offset, rows,
+                                          cols, sigma_c, sigma_s, part, s)
                   : launch<float>(left, right, sig, out_left, out_right, h, w, row_offset,
-                                  global_rows, d_range, rows, cols, sigma_c, sigma_s, part, s));
+                                  global_rows, d_range, d_offset, rows, cols, sigma_c, sigma_s,
+                                  part, s));
 }

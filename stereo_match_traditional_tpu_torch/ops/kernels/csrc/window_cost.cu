@@ -41,7 +41,11 @@
 //   ncc = num / sqrt(max(var_l * var_r[j-d], eps)); -2 where a var < 0.5
 // and the sentinel where j - r - d < 0 (NCC.h:81), written without a
 // window sum (about a quarter of the volume at W=450, D=200, r=10; a block
-// whose columns are all invalid for its disparities computes nothing).
+// whose columns are all invalid for its disparities computes nothing).  With
+// d_offset the volume is the slice of global disparities d_offset ..
+// d_offset + d_range - 1 (the (tile, disp) runners): every d above, in the
+// reads of the other image and in the validity test, is the global one
+// (entry d of the output is global disparity d_offset + d).
 //
 // What bounds it, and the design.  The function is bound by the bytes of
 // the volume it writes (40 MB a view at Teddy 375x450/D=60, 135 MB at
@@ -271,7 +275,7 @@ template <bool NCC, int DIR, int V, int MODE>
 __global__ void __launch_bounds__(MAX_CW * G, NCC ? 1 : 2)
 window_kernel(const void* __restrict__ base, const void* __restrict__ other, int u8,
               const float* __restrict__ sums, float* __restrict__ out, int h, int w,
-              int d_range, int r, int sw, int rr, int mean, float eps,
+              int d_range, int d_off, int r, int sw, int rr, int mean, float eps,
               float sentinel) {
   extern __shared__ float smem[];
   const int cw = blockDim.x, bw = cw + DC - 1, cp = cw + 1;
@@ -282,7 +286,7 @@ window_kernel(const void* __restrict__ base, const void* __restrict__ other, int
   const int j = j0 + cl;
 
   if (NCC) {
-    if (d0 > j0 + ncol - 1 - r) {   // no column of the strip is valid from d0 on
+    if (d_off + d0 > j0 + ncol - 1 - r) {   // no column of the strip is valid from d0 on
       if (cl < ncol)
         for (int row = 0; row < rows; ++row)
           for (int d = d0 + g; d < d1; d += G)
@@ -301,8 +305,8 @@ window_kernel(const void* __restrict__ base, const void* __restrict__ other, int
   float* res_s = col_s + 2 * DC * cp;  // window sums, two buffers of [cw][RP]
   float* diag_s = res_s + 2 * cw * RP; // SAD: the values at d == limit, two buffers of [cw]
   // b_s column m holds the other image's column xb0 + m; thread (cl, d0 + dl)
-  // reads column j0 - r + cl + DIR * (d0 + dl)
-  const int xb0 = j0 - r + (DIR < 0 ? -(d0 + DC - 1) : d0);
+  // reads column j0 - r + cl + DIR * (d_off + d0 + dl)
+  const int xb0 = j0 - r + (DIR < 0 ? -(d_off + d0 + DC - 1) : d_off + d0);
   for (int br = g; br < band; br += G) {
     const int y = i0 - r + br;
     stage<NCC, MODE>(a_s + br * cw + cl, pa, base, u8, h, w, y, j0 - r + cl);
@@ -370,8 +374,9 @@ window_kernel(const void* __restrict__ base, const void* __restrict__ other, int
         if (NCC) {
 #pragma unroll
           for (int t = 0; t < V; ++t) {
-            if (jx + t - r - d >= 0) {
-              const float2 r2 = rv[t - d];
+            const int gd = d_off + d;   // the global disparity of entry d
+            if (jx + t - r - gd >= 0) {
+              const float2 r2 = rv[t - gd];
               v[t] = ncc_value(v[t], lv[t].x, lv[t].y, r2.x, r2.y, n, eps);
             } else {
               v[t] = sentinel;
@@ -499,8 +504,8 @@ ncc_sums_kernel(const void* __restrict__ left, const void* __restrict__ right, i
 
 template <bool NCC, int DIR, int V, int MODE>
 cudaError_t launch_volume_v(const void* base, const void* other, int u8, const float* sums,
-                            float* out, int h, int w, int d_range, int r, int mean, float eps,
-                            float sentinel, cudaStream_t s) {
+                            float* out, int h, int w, int d_range, int d_off, int r, int mean,
+                            float eps, float sentinel, cudaStream_t s) {
   const Tiling t = pick_tiling(h, w, r, 0);
   const size_t smem = volume_smem_bytes(t, r, MODE);
   // The attribute belongs to the current device, so it is set on every launch
@@ -513,7 +518,7 @@ cudaError_t launch_volume_v(const void* base, const void* other, int u8, const f
   }
   const dim3 grid(ceil_div(w, t.sw), ceil_div(h, t.rr), ceil_div(d_range, DC));
   window_kernel<NCC, DIR, V, MODE><<<grid, dim3(t.cw, G), smem, s>>>(
-      base, other, u8, sums, out, h, w, d_range, r, t.sw, t.rr, mean, eps, sentinel);
+      base, other, u8, sums, out, h, w, d_range, d_off, r, t.sw, t.rr, mean, eps, sentinel);
   return cudaGetLastError();
 }
 
@@ -521,26 +526,26 @@ cudaError_t launch_volume_v(const void* base, const void* other, int u8, const f
 // epilogues a lane it ran a third slower (720x1280/D=128, 0.98 against 0.69-0.73 ms).
 template <bool NCC, int DIR, int MODE>
 cudaError_t launch_volume(const void* base, const void* other, int u8, const float* sums,
-                          float* out, int h, int w, int d_range, int r, int mean, float eps,
-                          float sentinel, cudaStream_t s) {
+                          float* out, int h, int w, int d_range, int d_off, int r, int mean,
+                          float eps, float sentinel, cudaStream_t s) {
   if constexpr (!NCC) {
     if (w % 4 == 0)
-      return launch_volume_v<NCC, DIR, 4, MODE>(base, other, u8, sums, out, h, w, d_range, r,
-                                                mean, eps, sentinel, s);
+      return launch_volume_v<NCC, DIR, 4, MODE>(base, other, u8, sums, out, h, w, d_range,
+                                                d_off, r, mean, eps, sentinel, s);
   }
   if (w % 2 == 0)
-    return launch_volume_v<NCC, DIR, 2, MODE>(base, other, u8, sums, out, h, w, d_range, r,
-                                              mean, eps, sentinel, s);
-  return launch_volume_v<NCC, DIR, 1, MODE>(base, other, u8, sums, out, h, w, d_range, r, mean,
-                                            eps, sentinel, s);
+    return launch_volume_v<NCC, DIR, 2, MODE>(base, other, u8, sums, out, h, w, d_range, d_off,
+                                              r, mean, eps, sentinel, s);
+  return launch_volume_v<NCC, DIR, 1, MODE>(base, other, u8, sums, out, h, w, d_range, d_off, r,
+                                            mean, eps, sentinel, s);
 }
 
 // SAD, one view and mode
 template <int DIR, int MODE>
 cudaError_t launch_sad(const void* base, const void* other, int u8, float* out, int h, int w,
                        int d_range, int r, int mean, cudaStream_t s) {
-  return launch_volume<false, DIR, MODE>(base, other, u8, nullptr, out, h, w, d_range, r, mean,
-                                         0.0f, 0.0f, s);
+  return launch_volume<false, DIR, MODE>(base, other, u8, nullptr, out, h, w, d_range, 0, r,
+                                         mean, 0.0f, 0.0f, s);
 }
 
 cudaError_t launch_sums(const void* left, const void* right, int u8, float* planes, int h,
@@ -613,16 +618,18 @@ extern "C" int ncc_window_sums_f32(const void* left, const void* right, int u8, 
 // Launch on `stream`: the sums kernel into `planes` (scratch, float32
 // [8, h, w], as ncc_window_sums_f32 writes it), then the volume kernel.
 // left, right: the [h, w] images (uncentred), both uint8 (u8 != 0) or both
-// float32; out: float32 [d_range, h, w]; all contiguous on the current
-// device.  radius = win_size, 1 <= radius <= 32.  Returns
+// float32; out: float32 [d_range, h, w], entry d of global disparity
+// d_offset + d (the whole range: 0); all contiguous on the current device.
+// radius = win_size, 1 <= radius <= 32; d_offset >= 0.  Returns
 // cudaGetLastError() after the launches (0 = launched).
 extern "C" int ncc_volume_f32(const void* left, const void* right, int u8, void* planes,
-                              void* out, int h, int w, int d_range, int radius, float eps,
-                              float sentinel, void* stream) {
-  if (bad_shape(h, w, d_range, radius)) return (int)cudaErrorInvalidValue;
+                              void* out, int h, int w, int d_range, int d_offset, int radius,
+                              float eps, float sentinel, void* stream) {
+  if (bad_shape(h, w, d_range, radius) || d_offset < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err = launch_sums(left, right, u8, (float*)planes, h, w, radius, s);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_volume<true, -1, GREY>(left, right, u8, (const float*)planes, (float*)out,
-                                            h, w, d_range, radius, 0, eps, sentinel, s);
+                                            h, w, d_range, d_offset, radius, 0, eps, sentinel,
+                                            s);
 }

@@ -166,18 +166,23 @@ def ncc_volume_cuda(
     eps: float = 1e-12,
     row_offset: int = 0,
     global_rows: int = None,
+    d_offset: int = 0,
 ):
     """Drop-in for ``ops.volume.ncc_volume`` -> ``(volume, interior)``: one
     launch of ``ncc_volume_f32`` for CUDA inputs (the sums kernel, then the
     cross sums fused with the epilogue); the plain version for CPU inputs.
-    ``row_offset`` / ``global_rows`` place a row band for the interior mask."""
+    ``row_offset`` / ``global_rows`` place a row band for the interior mask;
+    ``d_offset`` builds the slice of global disparities ``d_offset ..
+    d_offset + disp_range - 1``."""
     if not on_cuda(left, right):
         return volume.ncc_volume(left, right, disp_range, win_size, invalid_mode, eps,
-                                 row_offset, global_rows)
+                                 row_offset, global_rows, d_offset)
     from stereo_match_traditional_tpu_torch.ops.kernels.build import library
 
     sentinel = volume._ncc_sentinel(invalid_mode)
     _check(left, right, disp_range, win_size)
+    if d_offset < 0:
+        raise ValueError(f"d_offset must be >= 0, got {d_offset}")
     lk, rk, u8 = kernel_inputs(left, right)
     planes = _ncc_planes(lk)
     h, w = lk.shape
@@ -186,7 +191,7 @@ def ncc_volume_cuda(
     with current(lk.device):
         err = lib.ncc_volume_f32(
             lk.data_ptr(), rk.data_ptr(), u8, planes.data_ptr(), out.data_ptr(), h, w,
-            disp_range, win_size, float(eps), sentinel,
+            disp_range, int(d_offset), win_size, float(eps), sentinel,
             stream(lk.device),
         )
     raise_on_error(lib, "ncc_volume_f32", err)

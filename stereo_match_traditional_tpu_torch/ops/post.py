@@ -193,7 +193,13 @@ def remove_speckles(
     return torch.where(kill, invalid_value, d)
 
 
-def median_filter(x: torch.Tensor, size: int, border: str = "truncate") -> torch.Tensor:
+def median_filter(
+    x: torch.Tensor,
+    size: int,
+    border: str = "truncate",
+    row_offset: int = 0,
+    global_rows: Optional[int] = None,
+) -> torch.Tensor:
     """Window median over the ``(2*(size//2)+1)^2`` window.
 
     ``border='truncate'``, the reference's own median
@@ -201,11 +207,28 @@ def median_filter(x: torch.Tensor, size: int, border: str = "truncate") -> torch
     median is ``sorted[count // 2]``.  ``border='replicate'``, OpenCV
     ``medianBlur`` (`ASWeight.cpp:74,78`): the middle of the window values
     with replicated edges.
+
+    ``row_offset`` / ``global_rows`` place ``x`` as a halo-extended row tile
+    in an image of ``global_rows`` rows (the sharded post,
+    ``parallel.post_shard``): a window row is in the image by its global
+    row, so the tile's rows get the whole image's truncate-border medians
+    where their windows lie in the tile.  Rows of the tile outside the image
+    take no part.  The replicate border has no such form: a tile's edge is
+    not the image's (the sharded ASW post re-points rows beyond the image
+    itself), so it raises ``NotImplementedError`` there.
     """
     radius = size // 2
     side = 2 * radius + 1
     h, w = x.shape
     xf = x.to(torch.float32)
+    placed = row_offset != 0 or global_rows is not None
+    if global_rows is None:
+        global_rows = h
+    if border == "replicate" and placed:
+        raise NotImplementedError(
+            "median_filter(border='replicate') has no row-offset form; run it on "
+            "halo-extended tiles and re-point rows beyond the image at the processed "
+            "global edge (parallel.post_shard.asw_post_sharded)")
     if border == "replicate":
         xp = replicate_pad(xf, radius)
         stack = torch.stack(
@@ -217,13 +240,16 @@ def median_filter(x: torch.Tensor, size: int, border: str = "truncate") -> torch
         raise ValueError(f"unknown border {border!r}; expected 'truncate' or 'replicate'")
     # out-of-image entries are +inf and sort last; the in-image count
     # (inf entries of x included) picks the rank
+    ri = torch.arange(h, device=x.device)[:, None] + row_offset
+    if placed:
+        xf = torch.where((ri >= 0) & (ri < global_rows), xf, float("inf"))
     xp = torch.nn.functional.pad(xf, (radius,) * 4, value=float("inf"))
     stack = torch.stack(
         [xp[dy : dy + h, dx : dx + w] for dy in range(side) for dx in range(side)]
     )
-    ri = torch.arange(h, device=x.device)[:, None]
     ci = torch.arange(w, device=x.device)[None, :]
-    rows_in = (ri + radius).clamp(max=h - 1) - (ri - radius).clamp(min=0) + 1
+    rows_in = ((ri + radius).clamp(max=global_rows - 1) - (ri - radius).clamp(min=0)
+               + 1).clamp(min=0)
     cols_in = (ci + radius).clamp(max=w - 1) - (ci - radius).clamp(min=0) + 1
     pick = ((rows_in * cols_in) // 2).clamp(0, side * side - 1)
     return stack.sort(dim=0).values.gather(0, pick[None]).squeeze(0)

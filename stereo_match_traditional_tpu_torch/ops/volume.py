@@ -230,8 +230,14 @@ def ncc_volume(
     eps: float = 1e-12,
     row_offset: int = 0,
     global_rows: int = None,
+    d_offset: int = 0,
 ):
     """Normalized cross-correlation volume (`NCC/NCC.h:15-95`).
+
+    ``d_offset`` builds the slice of disparities ``d_offset .. d_offset +
+    disp_range - 1`` (the ``(tile, disp)`` runners, ``parallel``): entry d
+    is global disparity ``d_offset + d``, in the shifted reads and in the
+    validity test.
 
     Returns ``(volume [D, H, W], interior [H, W] bool)``.  The volume holds
     the correlation in [-1, 1]; where the right window would cross the left
@@ -256,16 +262,16 @@ def ncc_volume(
     n = float((2 * w + 1) ** 2)
     h, wd = left.shape
     lf, rf, (sum_l, sum_l2, sum_r, sum_r2) = ncc_sums(left, right, w)
-    sum_lr = box_sum_same(lf[None] * shifted_stack(rf, disp_range, "left"), w, w)
-    sum_r_d = shifted_stack(sum_r, disp_range, "left")
-    sum_r2_d = shifted_stack(sum_r2, disp_range, "left")
+    sum_lr = box_sum_same(lf[None] * shifted_stack(rf, disp_range, "left", d_offset), w, w)
+    sum_r_d = shifted_stack(sum_r, disp_range, "left", d_offset)
+    sum_r2_d = shifted_stack(sum_r2, disp_range, "left", d_offset)
     num = sum_lr - true_div(sum_l[None] * sum_r_d, n)
     var_l = torch.clamp(sum_l2 - true_div(sum_l * sum_l, n), min=0.0)
     var_r = torch.clamp(sum_r2_d - true_div(sum_r_d * sum_r_d, n), min=0.0)
     ncc = num / _sqrt_rn(torch.clamp(var_l[None] * var_r, min=eps))
     ncc = torch.where((var_l[None] < 0.5) | (var_r < 0.5), -2.0, ncc)
     cols = torch.arange(wd, device=lf.device)[None, None, :]
-    ds = torch.arange(disp_range, device=lf.device)[:, None, None]
+    ds = torch.arange(disp_range, device=lf.device)[:, None, None] + d_offset
     vol = torch.where(cols - w - ds >= 0, ncc, sentinel)
     return vol, ncc_interior_mask(h, wd, w, row_offset, global_rows, lf.device)
 
@@ -367,16 +373,22 @@ def ncc_shifted_depth(
 
 
 def ad_volume(
-    left: torch.Tensor, right: torch.Tensor, disp_range: int, view: str = "left"
+    left: torch.Tensor,
+    right: torch.Tensor,
+    disp_range: int,
+    view: str = "left",
+    d_offset: int = 0,
 ) -> torch.Tensor:
     """Pixelwise absolute-difference volume (`AD-Census.h:75-129`).  The
     reference's previous-d copy at the border equals the clamped-column
-    gather for a pixelwise cost, so no fill pass is needed."""
+    gather for a pixelwise cost, so no fill pass is needed, which also makes
+    any slice of disparities ``d_offset .. d_offset + disp_range - 1``
+    computable on its own (the ``(tile, disp)`` runners, ``parallel``)."""
     left = left.to(torch.float32)
     right = right.to(torch.float32)
     if view == "left":
-        return torch.abs(left[None] - shifted_stack(right, disp_range, "left"))
-    return torch.abs(shifted_stack(left, disp_range, "right") - right[None])
+        return torch.abs(left[None] - shifted_stack(right, disp_range, "left", d_offset))
+    return torch.abs(shifted_stack(left, disp_range, "right", d_offset) - right[None])
 
 
 def census_transform(
@@ -443,20 +455,22 @@ def census_volume(
     view: str = "left",
     row_offset: int = 0,
     global_rows: int = None,
+    d_offset: int = 0,
 ) -> torch.Tensor:
     """Hamming-distance census volume (`AD-Census.h:142-269`), float32.
 
     Signatures are computed once and gathered at the clamped match column,
     as the JAX package does; inside the d > j triangle this differs from
     the C++ reference, which recomputes the right signature per (pixel, d).
-    ``row_offset`` / ``global_rows`` as in :func:`census_transform`.
+    ``row_offset`` / ``global_rows`` as in :func:`census_transform`;
+    ``d_offset`` as in :func:`ad_volume`.
     """
     cl = census_transform(left, rows, cols, row_offset, global_rows)
     cr = census_transform(right, rows, cols, row_offset, global_rows)
     if view == "left":
-        x = cl[None] ^ shifted_stack(cr, disp_range, "left")
+        x = cl[None] ^ shifted_stack(cr, disp_range, "left", d_offset)
     else:
-        x = shifted_stack(cl, disp_range, "right") ^ cr[None]
+        x = shifted_stack(cl, disp_range, "right", d_offset) ^ cr[None]
     return popcount64(x).to(torch.float32)
 
 
@@ -471,16 +485,18 @@ def ad_census_volume(
     view: str = "left",
     row_offset: int = 0,
     global_rows: int = None,
+    d_offset: int = 0,
 ) -> torch.Tensor:
     """Fused AD-Census cost (`AD-Census.h:271-318`):
     ``(1 - exp(-AD/sigmaC)) + (1 - exp(-census/sigmaS))``; ``row_offset`` /
-    ``global_rows`` as in :func:`census_transform`.
+    ``global_rows`` as in :func:`census_transform`, ``d_offset`` as in
+    :func:`ad_volume`.
 
     The plain version of the CUDA kernel (`ops.kernels.ad_census_cuda`).
     """
-    ad = ad_volume(left, right, disp_range, view)
+    ad = ad_volume(left, right, disp_range, view, d_offset)
     cen = census_volume(left, right, disp_range, census_rows, census_cols, view,
-                        row_offset, global_rows)
+                        row_offset, global_rows, d_offset)
     return (1.0 - torch.exp(-ad / sigma_c)) + (1.0 - torch.exp(-cen / sigma_s))
 
 
@@ -494,12 +510,13 @@ def ad_census_volumes(
     census_cols: int = 7,
     row_offset: int = 0,
     global_rows: int = None,
+    d_offset: int = 0,
 ):
     """Both views ``(vol_l, vol_r)`` of :func:`ad_census_volume`: the plain
     version of ``ops.kernels.ad_census_cuda.ad_census_volumes_cuda``."""
     return tuple(
         ad_census_volume(left, right, disp_range, sigma_c, sigma_s, census_rows, census_cols, v,
-                         row_offset, global_rows)
+                         row_offset, global_rows, d_offset)
         for v in ("left", "right")
     )
 

@@ -34,7 +34,8 @@ Equality with the direct path: exact for SAD; elsewhere up to argmin ties
 that the band's own prefix sums break differently (JAX's envelope).
 
 Stage ranges (``utils.profiling.stage_scope``): ``stereo/band_cores`` (a
-band's cost, aggregation and WTA, no scanline), ``stereo/band_volumes`` (a
+band's cost, aggregation and WTA, no scanline; for ad_census it holds the
+core's own ``stereo/band_volumes`` and ``stereo/wta``), ``stereo/band_volumes`` (a
 band's aggregated volumes), ``stereo/scales`` (the canonical penalty
 scales), ``stereo/banded_passes``, ``stereo/sum_wta`` and ``stereo/post``.
 """
@@ -46,13 +47,9 @@ import os
 
 import torch
 
-from stereo_match_traditional_tpu_torch.models.ad_census import (
-    ad_census_post_canonical,
-    irv_auto_d_chunk,
-)
 from stereo_match_traditional_tpu_torch.models.base import StereoResult
 from stereo_match_traditional_tpu_torch.models.registry import _tensor, get_pipeline
-from stereo_match_traditional_tpu_torch.ops import aggregate, post, wta
+from stereo_match_traditional_tpu_torch.ops import post, wta
 from stereo_match_traditional_tpu_torch.ops.kernels.scanline_banded_cuda import (
     canonical_horizontal_passes_banded_cuda,
     canonical_pass_banded_cuda,
@@ -66,6 +63,8 @@ from stereo_match_traditional_tpu_torch.parallel.tiled import (
     _POST,
     _TILE_CORES,
     _ad_census_band_volumes,
+    _band_rows,
+    _canonical_post_rows,
     _check_tiled_support,
     receptive_field_rows,
 )
@@ -140,13 +139,6 @@ def _next_band(device) -> None:
         idle = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
         if idle > 0.1 * _memory_bytes(device):
             torch.cuda.empty_cache()
-
-
-def _band_rows(x: torch.Tensor, start: int, stop: int, h: int) -> torch.Tensor:
-    """Rows ``start .. stop - 1`` of ``x`` by global row, clamped into the
-    image (edge replication beyond it)."""
-    idx = torch.arange(start, stop, device=x.device).clamp_(0, h - 1)
-    return x.index_select(0, idx)
 
 
 def _tile_of(row_tile, name, cfg, left) -> int:
@@ -231,32 +223,15 @@ def streamed_canonical_staged(cfg, row_tile=None):
 
 
 def _canonical_post_streamed(disp_l, disp_r, left, right, cfg, row_tile):
-    """The canonical post on the gathered maps: LR check at
-    ``lrcheck_thres`` -> iterative region voting over arms computed once from
-    the whole left image -> optional discontinuity adjustment, a band sweep
-    (:func:`_discontinuity_adjustment_streamed`) -> median.  The voting
-    histogram is chunked over disparities within a quarter of the device's
-    memory (exact)."""
-    cp = cfg.cross_params
-    arms_l = aggregate.canonical_cross_arms(left, cp)
-    h, w = disp_l.shape
-    dc = irv_auto_d_chunk(h, w, cfg.disp_range,
-                          budget_bytes=0.25 * _memory_bytes(disp_l.device))
-    if not cp.do_discontinuity_adjustment:
-        return ad_census_post_canonical(disp_l, disp_r, None, arms_l, cfg, irv_d_chunk=dc)
-    d = disp_l
-    occl = mism = None
-    if cp.do_lr_check:
-        lr = post.lr_check_consistency(disp_l, disp_r, cp.lrcheck_thres, post.INVALID)
-        d, occl, mism = lr.disp, lr.occlusion, lr.mismatch
-    if cp.do_filling:
-        d = post.iterative_region_voting(
-            d, arms_l, cfg.disp_range, cp.irv_ts, cp.irv_th,
-            invalid_value=post.INVALID, d_chunk=dc,
-        )
-    d = _discontinuity_adjustment_streamed(d, left, right, cfg, row_tile)
-    d = post.median_filter(d, cfg.median_size, border="truncate")
-    return d, occl, mism
+    """The canonical post on the gathered maps (``tiled._canonical_post_rows``),
+    its optional discontinuity adjustment a band sweep
+    (:func:`_discontinuity_adjustment_streamed`).  The voting histogram is
+    chunked over disparities within a quarter of the device's memory
+    (exact)."""
+    return _canonical_post_rows(
+        disp_l, disp_r, left, cfg,
+        lambda d: _discontinuity_adjustment_streamed(d, left, right, cfg, row_tile),
+        budget_bytes=0.25 * _memory_bytes(disp_l.device))
 
 
 def _discontinuity_adjustment_streamed(dmap, left, right, cfg, row_tile):

@@ -121,7 +121,7 @@ def test_cli_nested_field_cannot_be_set():
 
 
 @pytest.mark.parametrize("executor,match", [
-    ("tiled", "Queue 1 item 9"), ("gspmd", "no torch counterpart"),
+    ("gspmd", "no torch counterpart"),
 ])
 def test_cli_non_direct_executors_exit_naming_their_item(executor, match):
     with pytest.raises(SystemExit, match=match) as e:
@@ -143,6 +143,29 @@ def test_cli_run_streamed(pipeline, tmp_path, capsys):
         assert summary["shape"] == [53, 64] and summary["device"] == "cpu"
     np.testing.assert_array_equal(io.read_pfm(str(tmp_path / "s.pfm")),
                                   io.read_pfm(str(tmp_path / "d.pfm")))
+
+
+@pytest.mark.parametrize("pipeline", ["ad_census", "sad"])
+def test_cli_run_tiled(pipeline, tmp_path, capsys):
+    """``--executor tiled`` in a process started alone runs the pipeline on
+    a world of one (``parallel.run_tiled``; a gloo group under ``--cpu``) and
+    writes the direct run's map; tests/test_torch_tiled.py runs it under
+    torchrun."""
+    base = ["--cpu", "run", pipeline, "--synthetic", "37x48", "--disp-range", "8",
+            "--set", "run_post=true"]
+    for executor, out in (("tiled", "t.pfm"), ("direct", "d.pfm")):
+        assert cli.main(base + ["--executor", executor, "--out-pfm", str(tmp_path / out)]) == 0
+        summary = _summary(capsys)
+        assert summary["shape"] == [37, 48] and summary["device"] == "cpu"
+        assert summary.get("world") == (1 if executor == "tiled" else None)
+    np.testing.assert_array_equal(io.read_pfm(str(tmp_path / "t.pfm")),
+                                  io.read_pfm(str(tmp_path / "d.pfm")))
+
+
+def test_cli_tiled_refuses_save_stages(tmp_path):
+    with pytest.raises(SystemExit, match="requires --executor direct"):
+        cli.main(["--cpu", "run", "sad", "--synthetic", "16x32", "--executor", "tiled",
+                  "--save-stages", str(tmp_path)])
 
 
 def test_cli_streamed_refuses_save_stages(tmp_path):

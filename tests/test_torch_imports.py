@@ -1,5 +1,6 @@
 """The port imports neither jax nor the JAX package: every module imports
-with both blocked, and no source file of the port names either in an
+with both blocked, and no source file of the port, ``chip_smoke.py`` or the
+multi-rank test worker (``tests/torch_mesh_worker.py``) names either in an
 import."""
 
 import ast
@@ -37,7 +38,9 @@ def test_port_modules_are_found():
                      "models.ncc", "models.cblsm", "config", "utils.synthetic", "cli",
                      "models.batch", "utils.checkpoint", "utils.io", "utils.loader",
                      "utils.profiling", "ops.filters", "parallel", "parallel.streamed",
-                     "parallel.tiled", "parallel.halo", "ops.kernels.scanline_banded_cuda"):
+                     "parallel.tiled", "parallel.halo", "ops.kernels.scanline_banded_cuda",
+                     "parallel.comm", "parallel.mesh", "parallel.distributed",
+                     "parallel.scan_carry", "parallel.wta_shard", "parallel.post_shard"):
         assert f"{PKG}.{expected}" in mods
 
 
@@ -66,6 +69,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "tests", "torch_mesh_worker.py")
 
 
 @pytest.mark.parametrize("path", sorted(_sources()), ids=lambda p: os.path.relpath(p, REPO))

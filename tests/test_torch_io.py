@@ -4,6 +4,7 @@ port's PGM/PPM codec and ``PairLoader`` (``utils.loader``) against the
 native codec and loader of the JAX package's ``utils.native``."""
 
 import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -14,6 +15,29 @@ from stereo_match_traditional_tpu_torch.utils import io as tio
 from stereo_match_traditional_tpu_torch.utils import loader
 
 RNG_SEEDS = [0, 1, 2]
+NATIVE_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "native", "stereo_host", "stereo_host.cpp")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _native_library(tmp_path_factory):
+    """The native binding loads a library built for this module alone.
+
+    ``utils.native`` builds ``native/stereo_host/libstereo_host.so`` in place
+    at first use with an unlocked ``make``; parallel test workers that reach
+    that build together can ``dlopen`` a half-written file, and the binding
+    then caches its failure and returns None for the rest of the process.
+    Here the library is built with the Makefile's flags into this worker's
+    own temporary directory, the binding is pointed at it and its cached
+    state reset, and all three are restored after the module."""
+    so = tmp_path_factory.mktemp("stereo_host") / "libstereo_host.so"
+    subprocess.run(["g++", "-O3", "-fPIC", "-shared", "-pthread", "-std=c++17", "-Wall",
+                    "-o", str(so), NATIVE_SRC], check=True, capture_output=True, timeout=300)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "_SO", str(so))
+        mp.setattr(native, "_lib", None)
+        mp.setattr(native, "_tried", False)
+        yield
 
 
 def _rgb(seed, h=17, w=23):

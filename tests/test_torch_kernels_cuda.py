@@ -1012,3 +1012,49 @@ def test_streamed_launches_kernels_on_card(pipeline, cfg):
         if getattr(want, f) is not None:
             agree = (getattr(got, f)[:, 8:] == getattr(want, f)[:, 8:]).float().mean().item()
             assert agree >= 0.995, (f, agree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,d,offsets", [(7, 33, 40, (0, 13, 29)), (9, 300, 70, (0, 31, 64)),
+                                           (3, 5, 12, (0, 4, 9)), (40, 67, 90, (0, 33, 64))])
+def test_d_offset_slices_on_card(h, w, d, offsets):
+    """The disparity slices of ``ad_census_volume_f32`` (both views, the cost
+    and the AD and Hamming parts) and ``ncc_volume_f32`` (``d_offset``, the
+    ``(tile, disp)`` runners' slices; D > W in the first and third shapes)
+    joined along d equal the whole-volume kernel bit for bit, and each slice
+    equals its plain version (the integer parts and NCC bit for bit, the
+    cost within expf's last ulp)."""
+    _need_card()
+    L, R, _ = make_pair(h, w, min(d, w - 1), seed=2)
+    lc, rc = pair_to_torch(L, R, "cpu")
+    lt, rt = lc.cuda(), rc.cuda()
+    bounds = list(offsets) + [d]
+    spans = list(zip(bounds, bounds[1:]))
+    for part in ("cost", "ad", "census"):
+        whole = ad_census_cuda._launch(lt, rt, d, 9, 7, 10.0, 30.0, "both", part)
+        parts = [ad_census_cuda._launch(lt, rt, e - o, 9, 7, 10.0, 30.0, "both", part,
+                                        d_offset=o) for o, e in spans]
+        for v, view in enumerate(("left", "right")):
+            assert torch.equal(torch.cat([p[v] for p in parts]), whole[v]), (part, view)
+            for (o, e), p in zip(spans, parts):
+                if part == "cost":
+                    want = volume.ad_census_volume(lc, rc, e - o, view=view, d_offset=o)
+                    torch.testing.assert_close(p[v].cpu(), want, rtol=1e-6, atol=1e-6)
+                else:
+                    fn = volume.ad_volume if part == "ad" else volume.census_volume
+                    assert torch.equal(p[v].cpu(), fn(lc, rc, e - o, view=view, d_offset=o))
+    whole = window_cost_cuda.ncc_volume_cuda(lt, rt, d, 3)[0]
+    parts = [window_cost_cuda.ncc_volume_cuda(lt, rt, e - o, 3, d_offset=o)[0] for o, e in spans]
+    assert torch.equal(torch.cat(parts), whole)
+    for (o, e), p in zip(spans, parts):
+        assert torch.equal(p.cpu(), volume.ncc_volume(lc, rc, e - o, 3, d_offset=o)[0])
+
+
+@pytest.mark.cuda
+def test_d_offset_rejects_negative_offsets():
+    _need_card()
+    lt = torch.zeros((4, 5), dtype=torch.uint8, device="cuda")
+    with pytest.raises(ValueError, match="d_offset"):
+        ad_census_cuda.ad_census_volumes_cuda(lt, lt, 3, d_offset=-1)
+    with pytest.raises(ValueError, match="d_offset"):
+        window_cost_cuda.ncc_volume_cuda(lt, lt, 3, 1, d_offset=-1)

@@ -4,11 +4,13 @@ behaviour of the arguments that make them equal.
 A caller moving from the JAX package to the port passes the same
 arguments in the same positions, so every public function of the port's
 ``models/*``, ``ops/{post,volume,wta,aggregate,scanline,filters}``,
-``utils/{checkpoint,io}`` and ``parallel/{streamed,tiled,halo}`` that has a
-JAX counterpart of the same name takes the same parameter names in the same
-order, but for the exceptions listed here; and every public function, class
-and constant of those JAX modules exists in the port or is listed here with
-its reason."""
+``utils/{checkpoint,io}`` and ``parallel/{streamed,tiled,halo,mesh,
+distributed,scan_carry,wta_shard,post_shard}`` that has a JAX counterpart of
+the same name takes the same parameter names in the same order, but for the
+exceptions listed here; every public function, class and constant of those
+JAX modules exists in the port or is listed here with its reason; and the
+port's ``parallel`` package exports the JAX package's names but the one
+listed."""
 
 import ast
 import dataclasses
@@ -40,32 +42,28 @@ from stereo_match_traditional_tpu_torch.utils.synthetic import make_pair
 MODULES = ["models.ad_census", "models.asw", "models.base", "models.batch", "models.cblsm",
            "models.ncc", "models.registry", "models.sad", "ops.post", "ops.volume", "ops.wta",
            "ops.aggregate", "ops.scanline", "ops.filters", "utils.checkpoint", "utils.io",
-           "parallel.streamed", "parallel.tiled", "parallel.halo"]
-# Trailing keywords that only the JAX package's tiled executor passes (row
-# tiles of the sharded post, disparity blocks of the (tile, disp) mesh),
-# which the port has not yet (ROADMAP.md Queue 1 item 9): the port may lack
-# them at the end of these signatures.
-EXECUTOR_ONLY = {("ops.post", "median_filter"): ("row_offset", "global_rows"),
-                 ("ops.volume", "ad_volume"): ("d_offset",),
-                 ("ops.volume", "census_volume"): ("d_offset",),
-                 ("ops.volume", "ad_census_volume"): ("d_offset",),
-                 ("ops.volume", "ncc_volume"): ("d_offset",)}
+           "parallel.streamed", "parallel.tiled", "parallel.halo", "parallel.mesh",
+           "parallel.distributed", "parallel.scan_carry", "parallel.wta_shard",
+           "parallel.post_shard"]
+# Trailing keywords of JAX signatures that the port may lack: none since the
+# multi-device executors came (the sharded post's median_filter row window,
+# the (tile, disp) runners' d_offset).
+EXECUTOR_ONLY = {}
 # Public names of the walked JAX modules that the port has not, with the
-# reason: TPU-only, or executor-only for the tiled slice (ROADMAP.md Queue 1
-# item 9).  Every other public name of those modules exists in the port.
+# reason.  Every other public name of those modules exists in the port.
 TPU_ONLY = "TPU-only: an XLA:TPU compiler workaround"
-TILED_SLICE = "executor-only: the tiled slice (ROADMAP.md Queue 1 item 9)"
+NO_TORCH = ("no torch counterpart: a sharded-input XLA program (ROADMAP.md Queue 1 item 9, "
+            "gspmd)")
 ABSENT = {("ops.scanline", "rev_materialized"): TPU_ONLY,
-          ("parallel.tiled", "tiled_pipeline"): TILED_SLICE,
-          ("parallel.tiled", "run_tiled"): TILED_SLICE,
-          ("parallel.tiled", "ad_census_tile_disp"): TILED_SLICE,
-          ("parallel.tiled", "ncc_tile_disp"): TILED_SLICE,
-          ("parallel.halo", "add_row_halo"): TILED_SLICE}
+          ("parallel", "gspmd_pipeline"): NO_TORCH}
 # Parameters the port adds at the end: ncc_interior_mask builds its mask on
 # a torch device, where JAX's takes the executors' row offset; serve_pairs
-# takes its pairs from the host to the card unless asked for the CPU.
+# takes its pairs from the host to the card unless asked for the CPU;
+# initialize takes the process group's backend (NCCL on the card, gloo on
+# the CPU or for processes that share a card).
 PORT_ONLY = {("ops.volume", "ncc_interior_mask"): ("device",),
-             ("models.batch", "serve_pairs"): ("device",)}
+             ("models.batch", "serve_pairs"): ("device",),
+             ("parallel.distributed", "initialize"): ("backend",)}
 
 
 def _public_pairs(module):
@@ -124,8 +122,23 @@ def test_public_names_exist_in_port(module):
     assert _missing(module, ref, port) == []
     for (mod, name), reason in ABSENT.items():
         if mod == module:
-            assert reason in (TPU_ONLY, TILED_SLICE)
+            assert reason in (TPU_ONLY, NO_TORCH)
             assert name in _public_names(ref) and not hasattr(port, name), name
+
+
+def test_parallel_package_exports_jax_names():
+    """The port's ``parallel`` package exports every name the JAX package's
+    does (its ``__init__`` imports them) but ``gspmd_pipeline``, listed in
+    ABSENT with its reason."""
+    port = importlib.import_module("stereo_match_traditional_tpu_torch.parallel")
+    ref = importlib.import_module("stereo_match_traditional_tpu.parallel")
+    tree = ast.parse(inspect.getsource(ref))
+    names = [a.asname or a.name for node in tree.body if isinstance(node, ast.ImportFrom)
+             for a in node.names]
+    assert "run_tiled" in names and "gspmd_pipeline" in names
+    missing = [n for n in names if not hasattr(port, n)]
+    assert missing == [n for (mod, n) in ABSENT if mod == "parallel"] == ["gspmd_pipeline"]
+    assert ABSENT[("parallel", "gspmd_pipeline")] == NO_TORCH
 
 
 def test_names_check_flags_a_missing_name():
