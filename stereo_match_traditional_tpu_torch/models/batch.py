@@ -38,7 +38,9 @@ def batched_pipeline(name: str, cfg=None, method: str = "map",
     ``mesh``: a ``DeviceMesh`` whose ``axis_name`` axis shards the batch
     (every rank calls ``run`` with the whole batch, runs its contiguous
     share and returns the gathered result); the batch must be a multiple of
-    the axis' ranks.  The maps are the unsharded run's, bit for bit."""
+    the axis' ranks.  The maps are the unsharded run's, bit for bit.  A
+    rank outside the mesh (one over the first ranks of a larger world) gets
+    None, before any collective."""
     if method not in ("map", "vmap"):
         raise ValueError(f"method must be 'map' or 'vmap': {method}")
     fn, cfg_cls = get_pipeline(name)
@@ -57,9 +59,11 @@ def batched_pipeline(name: str, cfg=None, method: str = "map",
     if mesh is None:
         return run
     from stereo_match_traditional_tpu_torch.parallel import comm
-    from stereo_match_traditional_tpu_torch.parallel.mesh import MeshAxis
+    from stereo_match_traditional_tpu_torch.parallel.mesh import MeshAxis, in_mesh
 
     def sharded(ls: torch.Tensor, rs: torch.Tensor) -> StereoResult:
+        if not in_mesh(mesh):
+            return None
         axis = MeshAxis(mesh, axis_name)
         n = axis.size
         if ls.shape[0] % n:
@@ -96,10 +100,15 @@ def serve_pairs(
     ``batch`` axis (:func:`batched_pipeline`; every rank iterates the same
     pairs and yields every map), ``batch_size`` a multiple of the axis'
     ranks, and a partial last batch is padded with its last pair, whose
-    maps are dropped.
+    maps are dropped; a rank outside the mesh yields nothing.
     """
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    if mesh is not None:
+        from stereo_match_traditional_tpu_torch.parallel.mesh import in_mesh
+
+        if not in_mesh(mesh):
+            return
     run = batched_pipeline(name, cfg, mesh=mesh)
     it = iter(pairs)
     while batch := list(itertools.islice(it, batch_size)):

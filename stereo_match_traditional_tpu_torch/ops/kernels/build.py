@@ -126,6 +126,14 @@ def library() -> ctypes.CDLL:
                                                   i64, i64, i64, vp, vp, vp, vp, i32, i32, i32,
                                                   f32, f32, i32, vp]
     lib.scanline_banded_canonical_f32.restype = i32
+    lib.scanline_banded_wide_f32.argtypes = [vp, i64, i64, i64, vp, i64, i64, vp, i64, i64,
+                                             i64, vp, vp, vp, vp, i32, i32, i32, f32, i32, i32,
+                                             vp]
+    lib.scanline_banded_wide_f32.restype = i32
+    lib.scanline_banded_wide_canonical_f32.argtypes = [vp, i64, i64, i64, vp, i64, i64, i64,
+                                                       vp, i64, i64, i64, vp, vp, vp, vp, i32,
+                                                       i32, i32, f32, f32, i32, vp]
+    lib.scanline_banded_wide_canonical_f32.restype = i32
     lib.scanline_horizontal_band_f32.argtypes = [vp, i64, i64, vp, vp, vp, i32, i32, i32, f32,
                                                  f32, vp]
     lib.scanline_horizontal_band_f32.restype = i32

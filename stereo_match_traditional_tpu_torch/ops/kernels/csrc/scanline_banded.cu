@@ -1,15 +1,18 @@
 // Banded scanline passes for Hopper (sm_90a): one directional pass of the
 // 4-path scanline over a band of path steps, continued from a carry that the
 // neighbouring band handed over (the streamed executor,
-// stereo_match_traditional_tpu_torch/parallel/streamed.py).
+// stereo_match_traditional_tpu_torch/parallel/streamed.py, and the vertical
+// passes of the tiled one, parallel/scan_carry.py).
 //
 // Replaces no Pallas kernel: the JAX package runs these passes with lax.scan
 // (stereo_match_traditional_tpu/ops/scanline.py:126 directional_pass_banded,
 // :266 canonical_pass_banded).  The plain versions are the port's
-// ops/scanline.py functions of the same names.  One template, two C entries:
-// scanline_banded_f32 (the legacy family, a penalty p2 a (step, lane)) and
-// scanline_banded_canonical_f32 (the canonical family, a penalty scale a
-// (step, disparity, lane)).
+// ops/scanline.py functions of the same names.  Two kernels, each with two C
+// entries: scanline_banded_f32 / scanline_banded_canonical_f32 (the walker /
+// mover kernel below) and scanline_banded_wide_f32 /
+// scanline_banded_wide_canonical_f32 (the wide kernel, any D and any
+// strides); the legacy family takes a penalty p2 a (step, lane), the
+// canonical family a penalty scale a (step, disparity, lane).
 //
 //   out(t, d) = c(t, d) + min(prev(d), prev(d-1) + P1, prev(d+1) + P1,
 //                             prev_min + P2) - prev_min
@@ -19,236 +22,640 @@
 // P1 = p1_base * s(t, d, m), P2 = p2_base * s(t, d, m).  The operations are
 // the plain version's, in its order, each rounded once (__fadd_rn, __fsub_rn,
 // __fmul_rn: nvcc contracts no FMA through them), and a minimum is exact in
-// any order, so the kernel equals the plain version bit for bit.
+// any order; rounding is monotone, so min_d (u_d - m) = (min_d u_d) - m.  Both
+// kernels equal the plain version bit for bit.
 //
 // Layout.  cost, the penalties and out are read and written through three
-// strides each (step, disparity, lane; in floats), so one kernel runs the
+// strides each (step, disparity, lane; in floats), so one entry runs the
 // vertical pass of a [D, t, W] band (steps along rows, lanes along columns)
-// and the horizontal one (steps along columns, lanes along rows) without a
-// transposed copy.  A negative step stride, from a base at the path's first
-// step, runs a path backwards.  The carry (prev [D, M], prev_min [M]) is read
-// at the start and written at the end; reset is the one path step before
-// which the carry is zero (-1: none).
+// without a transposed copy.  A negative step stride, from a base at the
+// path's first step, runs a path backwards.  The carry (prev [D, M],
+// prev_min [M]) is read at the start and written at the end; reset is the one
+// path step before which the carry is zero (-1: none); out may be null (only
+// the carry is wanted).
 //
-// Design (simple first): a block takes 32 consecutive lanes, one a thread of
-// each warp, so that the loads and stores of the vertical pass are coalesced
-// along the lanes; the block's warps cover the disparities, VPT neighbouring
-// ones a thread, held in registers.  Each step reads prev(d +- 1) across a
-// thread's chunk edges and the previous step's minimum from shared memory
-// (double-buffered by step), and reduces the new minimum over the warps in
-// shared memory: two barriers a step.  The next step's inputs are loaded
-// before the current step's arithmetic.
+// The walker / mover kernel (D <= 256, lanes contiguous: the vertical passes
+// of both executors) is the direct kernels' vertical design (scanline.cu's
+// header; the ring of stages, the layouts and the mover shares of
+// scanline_tiles.cuh).  A block takes XC = 8 or 16 neighbouring lanes; each
+// walker warp holds the D values of NW = 2 lanes in registers (lane l has
+// d = l K .. l K + K - 1, K = ceil(D / 32) rounded to a power of two), steps
+// from registers with two shuffles and one redux.sync on the
+// order-preserving integer image of the minimum, and meets the block at one
+// barrier a tile of VT steps (8, 4, then 2 or 1 as K grows), not on every
+// step.
+// Eight mover warps stage the tiles ([VT steps][32 K slots][XC lanes];
+// canonical: the scales' tile beside it; legacy: the tile's [VT][XC]
+// penalties) with cp.async several tiles ahead and write the walked tiles
+// out.  Copies are 16 bytes wide where the tensor's base, step and
+// disparity strides and M allow, else 8 or 4, chosen a tensor per launch
+// inside the same kernel; every offset is 64-bit.  One block a SM: XC = 8
+// where the blocks of 8 lanes all fit the card at once, else 16.
 //
-// What bounds it: a step is a chain of two barriers and a shared-memory
-// reduction, so the pass is latency-bound at about a step's round trip times
-// the path length; the least time the card could take is the volume read and
-// written once (8 bytes a value, plus the penalties).  The horizontal pass's
-// lanes are rows, so its loads are not coalesced (32 sectors a warp load):
-// the streamed executor runs its horizontal passes, whose rows are whole
-// paths, with the direct kernels' horizontal design instead
-// (scanline_horizontal_band_f32 in scanline.cu,
-// scanline_canonical_horizontal_band_f32 in scanline_canonical.cu).
-// Limits: 1 <= D <= 256 (16 disparities a thread, 16 warps); offsets are
-// 64-bit.
+// What bounds it: bytes.  The pass reads the band (and, canonical, its
+// scales) once and writes it once; ~10 operations a value.  A block's step
+// takes ~0.34 us on an NVIDIA H100 80GB HBM3 at 700 W (its walkers' step
+// chain and its movers' copies), so a band of few lanes (a rank's column
+// slab) takes about its path length times that; a wide one is moved at the
+// rate its blocks' copies reach.
+//
+// The wide kernel (any D, any strides: D > 256, the strided horizontal
+// layout, and the whole-image passes of the direct entries above 256
+// disparities) keeps prev of WL = 8 lanes in shared memory ([D][8], updated
+// in place) and gives each of WG = 32 thread groups a run of ceil(D / 32)
+// disparities; a step is two barriers: the neighbours' edge values are read,
+// then the runs are updated upward in place and their minima reduced.
+// Shared memory, 32 D + 1 KB, is its only limit: D <= 7232 (227 KB).
 #include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include <atomic>
+#include <cstdint>
+
+#include "scanline_tiles.cuh"
 
 namespace {
 
-constexpr int LANES = 32;       // lanes a block, one a thread of each warp
-constexpr int MAX_GROUPS = 16;  // warps a block: disparity groups of VPT values
+// ---------------------------------------------------------------------------
+// The walker / mover kernel.
+// ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+template <int K, bool CANON, int XC>
+struct Banded {
+  static constexpr int NW = 2;                      // lanes a walker warp walks
+  static constexpr int THREADS = 32 * (XC / NW) + VMOVERS;
+  static constexpr int VT = K >= 8 ? (CANON ? 2 : 1) : (K >= 4 ? 4 : 8);  // steps of a tile
+  static constexpr int G = K >= 4 ? 1 : 4 / K;      // steps a walker takes at once
+  static constexpr int ROW = 32 * K * XC;           // words of one step of a tile
+  static constexpr int TILE = ROW * VT;
+  static constexpr int PEN = CANON ? TILE : VT * XC;  // words of a stage's penalties
+  static constexpr size_t STAGE = sizeof(float) * (TILE + PEN);
+  static constexpr size_t BUDGET = 200 * 1024;      // one block a SM
+  static constexpr int NS = BUDGET / STAGE >= 6 ? 6 : (BUDGET / STAGE >= 3 ? BUDGET / STAGE : 3);
+  static constexpr size_t BYTES = NS * STAGE;
+  static_assert(BYTES <= 227 * 1024, "a stage ring fits the SM's shared memory");
+  static_assert(VT % G == 0, "a tile is whole groups of steps");
+};
 
-template <int VPT, bool CANON>
-__global__ void __launch_bounds__(LANES * MAX_GROUPS)
-banded_kernel(const float* __restrict__ cost, long long cs_t, long long cs_d, long long cs_m,
-              const float* __restrict__ pen, long long ps_t, long long ps_d, long long ps_m,
-              float* __restrict__ out, long long os_t, long long os_d, long long os_m,
-              const float* __restrict__ cin, const float* __restrict__ cin_min,
-              float* __restrict__ cout, float* __restrict__ cout_min, int n_steps,
-              int d_range, int m_lanes, float p1, float p2, int reset, int dm1) {
-  __shared__ float e_lo[2][MAX_GROUPS][LANES];   // prev at a group's first disparity
-  __shared__ float e_hi[2][MAX_GROUPS][LANES];   // ... and at its last
-  __shared__ float part[MAX_GROUPS][LANES];      // a group's minimum of the step
-  __shared__ float pmin[2][LANES];               // the step's minimum over d
-
-  const int lane = threadIdx.x;
-  const int g = threadIdx.y;
-  const int ng = blockDim.y;
-  const int m = blockIdx.x * LANES + lane;
-  const bool live = m < m_lanes;
-  const int d0 = g * VPT;
-  const float INF = inf_f();
-
-  float prev[VPT];
-#pragma unroll
-  for (int v = 0; v < VPT; ++v) {
-    const int d = d0 + v;
-    prev[v] = live && d < d_range ? cin[(long long)d * m_lanes + m] : INF;
-  }
-  e_lo[0][g][lane] = prev[0];
-  e_hi[0][g][lane] = prev[VPT - 1];
-  if (g == 0) pmin[0][lane] = live ? cin_min[m] : 0.0f;
-
-  // step k's inputs: c[v] = cost(k, d0 + v, m); s[v] the penalty (legacy: s[0])
-  float c[VPT], s[VPT];
-  auto load = [&](int k, float (&cv)[VPT], float (&sv)[VPT]) {
-    const long long ct = (long long)k * cs_t + (long long)m * cs_m;
-    const long long pt = (long long)k * ps_t + (long long)m * ps_m;
-#pragma unroll
-    for (int v = 0; v < VPT; ++v) {
-      const int d = d0 + v;
-      const bool ok = live && d < d_range;
-      cv[v] = ok ? cost[ct + (long long)d * cs_d] : 0.0f;
-      if (CANON) sv[v] = ok ? pen[pt + (long long)d * ps_d] : 0.0f;
-      else sv[v] = v == 0 && live ? pen[pt] : 0.0f;
-    }
+// The widest copy (in floats) that a tensor allows at every piece: its base
+// 4 w bytes aligned, its step and disparity strides and the lanes multiples
+// of w.
+inline int copy_width(const void* base, long long st, long long sd, int m_lanes) {
+  const auto ok = [&](int w) {
+    return (uintptr_t)base % (4 * w) == 0 && st % w == 0 && sd % w == 0 && m_lanes % w == 0;
   };
-  load(0, c, s);
-  __syncthreads();
-
-  int buf = 0;
-  for (int k = 0; k < n_steps; ++k) {
-    float cn[VPT] = {}, sn[VPT] = {};
-    if (k + 1 < n_steps) load(k + 1, cn, sn);
-    float left = g > 0 ? e_hi[buf][g - 1][lane] : INF;        // prev(d0 - 1)
-    float right = g + 1 < ng ? e_lo[buf][g + 1][lane] : INF;  // prev(d0 + VPT)
-    float pm = pmin[buf][lane];
-    if (k == reset) {   // the path restarts: a zero carry
-#pragma unroll
-      for (int v = 0; v < VPT; ++v) prev[v] = d0 + v < d_range ? 0.0f : INF;
-      left = g > 0 ? 0.0f : INF;
-      right = g + 1 < ng ? 0.0f : INF;
-      pm = 0.0f;
-    }
-    float o[VPT];
-    float lmin = INF;
-#pragma unroll
-    for (int v = 0; v < VPT; ++v) {
-      if (d0 + v < d_range) {
-        const float lo = v > 0 ? prev[v - 1] : left;
-        const float hi = v + 1 < VPT ? prev[v + 1] : right;
-        const float p1c = CANON ? __fmul_rn(p1, s[v]) : p1;
-        const float p2c = CANON ? __fmul_rn(p2, s[v]) : s[0];
-        const float l1 = prev[v];
-        const float l2 = __fadd_rn(dm1 ? lo : prev[v], p1c);
-        const float l3 = __fadd_rn(hi, p1c);
-        const float l4 = __fadd_rn(pm, p2c);
-        o[v] = __fsub_rn(__fadd_rn(c[v], fminf(fminf(l1, l2), fminf(l3, l4))), pm);
-        lmin = fminf(lmin, o[v]);
-      } else {
-        o[v] = INF;
-      }
-    }
-    if (live && out != nullptr) {
-      const long long ot = (long long)k * os_t + (long long)m * os_m;
-#pragma unroll
-      for (int v = 0; v < VPT; ++v) {
-        if (d0 + v < d_range) out[ot + (long long)(d0 + v) * os_d] = o[v];
-      }
-    }
-#pragma unroll
-    for (int v = 0; v < VPT; ++v) prev[v] = o[v];
-    buf ^= 1;
-    e_lo[buf][g][lane] = prev[0];
-    e_hi[buf][g][lane] = prev[VPT - 1];
-    part[g][lane] = lmin;
-    __syncthreads();
-    if (g == 0) {
-      float mn = part[0][lane];
-      for (int j = 1; j < ng; ++j) mn = fminf(mn, part[j][lane]);
-      pmin[buf][lane] = mn;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int v = 0; v < VPT; ++v) {
-      c[v] = cn[v];
-      s[v] = sn[v];
-    }
-  }
-  if (!live) return;
-#pragma unroll
-  for (int v = 0; v < VPT; ++v) {
-    const int d = d0 + v;
-    if (d < d_range) cout[(long long)d * m_lanes + m] = prev[v];
-  }
-  if (g == 0) cout_min[m] = pmin[buf][lane];
+  return ok(4) ? 4 : ok(2) ? 2 : 1;
 }
 
-template <int VPT, bool CANON>
-cudaError_t launch_vpt(const float* cost, const long long* cs, const float* pen,
-                       const long long* ps, float* out, const long long* os, const float* cin,
-                       const float* cin_min, float* cout, float* cout_min, int n_steps,
-                       int d_range, int m_lanes, float p1, float p2, int reset, int dm1,
-                       cudaStream_t stream) {
-  const dim3 block(LANES, (d_range + VPT - 1) / VPT);
-  const dim3 grid((m_lanes + LANES - 1) / LANES);
-  banded_kernel<VPT, CANON><<<grid, block, 0, stream>>>(
-      cost, cs[0], cs[1], cs[2], pen, ps[0], ps[1], ps[2], out, os[0], os[1], os[2], cin,
-      cin_min, cout, cout_min, n_steps, d_range, m_lanes, p1, p2, reset, dm1);
+// A 16-byte copy, past L1, to a shared-memory address.
+__device__ __forceinline__ void cp_async16_at(unsigned dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+// Four lanes of an output row, of which the first n lie in the band, as
+// stores of WIDTH floats.
+template <int WIDTH>
+__device__ __forceinline__ void store_piece(float* dst, float4 v, int n) {
+  if (WIDTH == 4) {
+    *reinterpret_cast<float4*>(dst) = v;
+  } else if (WIDTH == 2) {  // M is even, so n is 2 or 4
+    *reinterpret_cast<float2*>(dst) = make_float2(v.x, v.y);
+    if (n >= 4) *reinterpret_cast<float2*>(dst + 2) = make_float2(v.z, v.w);
+  } else {
+    const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i < n) dst[i] = e[i];
+    }
+  }
+}
+
+// A block's movers (the 256 threads after its walker warps).  Mover `mt`
+// carries, of tile step r = (mt / PP) % VT and lanes 4 (mt % PP) .. + 3 of
+// the block, the slots slot0 + STRIDE i (Share in scanline_tiles.cuh), whose
+// disparities are d0 + off(i).  Legacy: movers 0 .. VT XC - 1 also copy one
+// penalty each of a tile.
+template <int K, bool CANON, int XC>
+struct BandedMovers {
+  using B = Banded<K, CANON, XC>;
+  using Y = Layout<XC>;
+  using S = Share<K, B::VT, XC>;
+  static constexpr int VT = B::VT, NS = B::NS, TILE = B::TILE;
+  // Slot s holds d = (s % 32) K + s / 32, and slot0 < STRIDE: the slots
+  // slot0 + STRIDE i hold d0 + off(i), d0 = (slot0 % 32) K + slot0 / 32.
+  static constexpr int Q = S::STRIDE < 32 ? 32 / S::STRIDE : 1;    // pieces a lap of 32 slots
+  static constexpr int LAP = S::STRIDE > 32 ? S::STRIDE / 32 : 1;  // laps a piece
+  static __device__ __forceinline__ constexpr int off(int i) {
+    return (i % Q) * S::STRIDE * K + (i / Q) * LAP;
+  }
+
+  const float* cost;
+  long long cs_t, cs_d;
+  const float* pen;
+  long long ps_t, ps_d, ps_m;
+  float* out;
+  long long os_t, os_d;
+  float* smem;  // NS cost stages, then NS penalty stages
+  unsigned smem_at;  // its shared-memory address, for 16-byte copies
+  int n_steps, d_range, m_lanes, x0, ntiles, mt, mx, mr, word0, d0, n;
+  bool in_lanes;
+
+  __device__ __forceinline__ BandedMovers(const float* cost_, long long cs_t_, long long cs_d_,
+                                          const float* pen_, long long ps_t_, long long ps_d_,
+                                          long long ps_m_, float* out_, long long os_t_,
+                                          long long os_d_, float* smem_, int n_steps_,
+                                          int d_range_, int m_lanes_)
+      : cost(cost_), cs_t(cs_t_), cs_d(cs_d_), pen(pen_), ps_t(ps_t_), ps_d(ps_d_),
+        ps_m(ps_m_), out(out_), os_t(os_t_), os_d(os_d_), smem(smem_), n_steps(n_steps_),
+        d_range(d_range_), m_lanes(m_lanes_), x0(blockIdx.x * XC),
+        ntiles((n_steps_ + VT - 1) / VT) {
+    mt = (int)threadIdx.x - 32 * (XC / B::NW);
+    mx = (mt % S::PP) * 4;
+    mr = (mt / S::PP) % VT;
+    const int slot0 = mt / (S::PP * VT);
+    word0 = mr * B::ROW + Y::word(slot0 ^ Y::row_swizzle(mr), mx);
+    d0 = (slot0 % 32) * K + slot0 / 32;
+    n = m_lanes - x0 - mx;
+    in_lanes = n > 0;
+    smem_at = (unsigned)__cvta_generic_to_shared(smem);
+  }
+
+  // Words from smem to a tile's stage of costs, and of penalties
+  __device__ __forceinline__ int cost_stage(int tile) const { return (tile % NS) * TILE; }
+  __device__ __forceinline__ int pen_stage(int tile) const { return NS * TILE + (tile % NS) * B::PEN; }
+
+  // The mover's pieces of path step t of `vol` into the stage `stage` words
+  // from smem; the 16-byte copies take their shared address from smem_at
+  // (no address conversion a copy).
+  template <int WIDTH>
+  __device__ __forceinline__ void fetch_as(const float* vol, long long st, long long sd,
+                                           int stage, int t) const {
+    const float* src = vol + (long long)t * st + (long long)d0 * sd + x0 + mx;
+    const int d_left = d_range - d0;
+#pragma unroll
+    for (int i = 0; i < S::NP; ++i) {
+      if (off(i) < d_left) {
+        const int word = stage + word0 + S::STRIDE * XC * i;
+        if (WIDTH == 4) {
+          cp_async16_at(smem_at + 4u * word, src + (long long)off(i) * sd);
+        } else {
+          copy_cost_piece<WIDTH>(smem + word, src + (long long)off(i) * sd, n);
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void fetch_volume(const float* vol, long long st, long long sd,
+                                               int width, int stage, int t) const {
+    if (width == 4) fetch_as<4>(vol, st, sd, stage, t);
+    else if (width == 2) fetch_as<2>(vol, st, sd, stage, t);
+    else fetch_as<1>(vol, st, sd, stage, t);
+  }
+
+  // Commits one cp.async group: tile `in`'s costs and penalties (nothing
+  // past the last tile).
+  __device__ __forceinline__ void fetch(int in, int cost_width, int pen_width) const {
+    if (in < ntiles) {
+      const int t = in * VT + mr;
+      if (in_lanes && t < n_steps) {
+        fetch_volume(cost, cs_t, cs_d, cost_width, cost_stage(in), t);
+        if (CANON) fetch_volume(pen, ps_t, ps_d, pen_width, pen_stage(in), t);
+      }
+      if (!CANON && mt < VT * XC) {
+        const int r = mt / XC, x = mt % XC, tr = in * VT + r;
+        if (tr < n_steps && x0 + x < m_lanes) {
+          cp_async4(smem + pen_stage(in) + r * XC + x,
+                    pen + (long long)tr * ps_t + (long long)(x0 + x) * ps_m);
+        }
+      }
+    }
+    cp_async_commit();
+  }
+
+  template <int WIDTH>
+  __device__ __forceinline__ void write_as(int done) const {
+    const float* stage = smem + cost_stage(done) + word0;
+    float* dst = out + (long long)(done * VT + mr) * os_t + (long long)d0 * os_d + x0 + mx;
+    const int d_left = d_range - d0;
+#pragma unroll
+    for (int i = 0; i < S::NP; ++i) {
+      if (off(i) < d_left) {
+        store_piece<WIDTH>(dst + (long long)off(i) * os_d,
+                           *reinterpret_cast<const float4*>(stage + S::STRIDE * XC * i), n);
+      }
+    }
+  }
+
+  // Stores the walked tile `done` (nothing without an output).
+  __device__ __forceinline__ void write_out(int done, int out_width) const {
+    if (out == nullptr || !in_lanes || done * VT + mr >= n_steps) return;
+    if (out_width == 4) write_as<4>(done);
+    else if (out_width == 2) write_as<2>(done);
+    else write_as<1>(done);
+  }
+};
+
+// G steps of a walker warp over its NW lanes (their chains interleave),
+// from path step step0.  c[n][j] holds the costs of step j of lane n on entry
+// and the step's values on return; s the canonical scales, p2 the legacy
+// penalties; prev and m carry the paths' state.  Steps from n_steps on are
+// not walked; at step `reset` the carry is zero.
+template <int K, int NW, int G, bool CANON>
+__device__ __forceinline__ void walk_steps(float (&c)[NW][G][K], const float (&s)[NW][G][K],
+                                           const float (&p2)[G][NW], float (&prev)[NW][K],
+                                           float (&m)[NW], float p1, float p2_base, bool dm1,
+                                           int step0, int n_steps, int reset, int d_range,
+                                           int lane) {
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    if (step0 + j >= n_steps) break;
+    if (step0 + j == reset) {
+#pragma unroll
+      for (int n = 0; n < NW; ++n) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) prev[n][k] = lane * K + k < d_range ? 0.f : CUDART_INF_F;
+        m[n] = 0.f;
+      }
+    }
+    float u[NW][K], u_min[NW];
+#pragma unroll
+    for (int n = 0; n < NW; ++n) {
+      if (CANON) {
+        float below = __shfl_up_sync(FULL, prev[n][K - 1], 1);  // prev(d - 1) for k = 0
+        float above = __shfl_down_sync(FULL, prev[n][0], 1);    // prev(d + 1) for k = K - 1
+        if (lane == 0) below = CUDART_INF_F;
+        if (lane == 31) above = CUDART_INF_F;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float p1s = __fmul_rn(p1, s[n][j][k]), p2s = __fmul_rn(p2_base, s[n][j][k]);
+          const float l2 = __fadd_rn(k > 0 ? prev[n][k > 0 ? k - 1 : 0] : below, p1s);
+          const float l3 = __fadd_rn(k + 1 < K ? prev[n][k + 1 < K ? k + 1 : k] : above, p1s);
+          const float rest = fminf(fminf(prev[n][k], l2), l3);  // ready before m is
+          u[n][k] = __fadd_rn(c[n][j][k], fminf(rest, __fadd_rn(m[n], p2s)));
+        }
+      } else {
+        float q[K];  // prev(d) + P1
+#pragma unroll
+        for (int k = 0; k < K; ++k) q[k] = __fadd_rn(prev[n][k], p1);
+        float below = __shfl_up_sync(FULL, q[K - 1], 1);
+        float above = __shfl_down_sync(FULL, q[0], 1);
+        if (lane == 0) below = CUDART_INF_F;
+        if (lane == 31) above = CUDART_INF_F;
+        const float l4 = __fadd_rn(m[n], p2[j][n]);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float l2 = dm1 ? (k > 0 ? q[k > 0 ? k - 1 : 0] : below) : q[k];
+          const float l3 = k + 1 < K ? q[k + 1 < K ? k + 1 : k] : above;
+          const float rest = fminf(fminf(prev[n][k], l2), l3);
+          u[n][k] = __fadd_rn(c[n][j][k], fminf(rest, l4));
+        }
+      }
+      u_min[n] = tree_min<K>(u[n]);
+    }
+#pragma unroll
+    for (int n = 0; n < NW; ++n) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        prev[n][k] = __fsub_rn(u[n][k], m[n]);
+        c[n][j][k] = prev[n][k];
+      }
+      m[n] = __fsub_rn(warp_min(u_min[n]), m[n]);
+    }
+  }
+}
+
+// NW floats of shared memory (8- or 16-byte aligned) and back
+template <int NW>
+__device__ __forceinline__ void load_lanes(const float* p, float (&v)[NW]) {
+  if constexpr (NW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  }
+}
+template <int NW>
+__device__ __forceinline__ void store_lanes(float* p, const float (&v)[NW]) {
+  if constexpr (NW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  }
+}
+
+template <int K, bool CANON, int XC>
+__global__ void __launch_bounds__(Banded<K, CANON, XC>::THREADS, 1)
+banded_walker_kernel(const float* __restrict__ cost, long long cs_t, long long cs_d,
+                     const float* __restrict__ pen, long long ps_t, long long ps_d, long long ps_m,
+                     float* out, long long os_t, long long os_d,
+                     const float* __restrict__ cin, const float* __restrict__ cin_min,
+                     float* cout, float* cout_min, int n_steps, int d_range, int m_lanes,
+                     float p1, float p2, int reset, int dm1, int cost_width, int pen_width,
+                     int out_width) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  using B = Banded<K, CANON, XC>;
+  using Y = Layout<XC>;
+  constexpr int VT = B::VT, G = B::G, NS = B::NS, ROW = B::ROW, TILE = B::TILE, NW = B::NW;
+  const BandedMovers<K, CANON, XC> mv(cost, cs_t, cs_d, pen, ps_t, ps_d, ps_m, out, os_t, os_d,
+                                      smem, n_steps, d_range, m_lanes);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int x0 = mv.x0;
+
+  // slots d >= D stay so: +inf costs, unit scales
+  for (int i = tid; i < NS * TILE; i += B::THREADS) smem[i] = CUDART_INF_F;
+  if (CANON) {
+    for (int i = tid; i < NS * TILE; i += B::THREADS) smem[NS * TILE + i] = 1.f;
+  }
+
+  // Walker warp `wq` owns lanes x0 + NW wq .., from the incoming carry.
+  const int wq = tid / 32;
+  const bool walker = tid < 32 * (XC / NW);
+  const bool walks = walker && x0 + NW * wq < m_lanes;
+  float prev[NW][K];
+  float m[NW];
+#pragma unroll
+  for (int n = 0; n < NW; ++n) {
+    const int x = x0 + NW * wq + n;
+    const bool ok = walks && x < m_lanes;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int d = lane * K + k;
+      prev[n][k] = ok && d < d_range ? cin[(size_t)d * m_lanes + x] : CUDART_INF_F;
+    }
+    m[n] = ok ? cin_min[x] : 0.f;
+  }
+  int at[K];  // the word of the lane's value k at its first lane in step 0 of a tile
+#pragma unroll
+  for (int k = 0; k < K; ++k) at[k] = Y::word(k * 32 + lane, NW * (wq % (XC / NW)));
+  __syncthreads();
+
+  auto fetch = [&](int in) { mv.fetch(in, cost_width, pen_width); };
+  auto write_out = [&](int done) { mv.write_out(done, out_width); };
+  const bool dm1b = dm1 != 0;
+  auto walk = [&](int ti) {
+    if (!walks) return;
+    float* stage = smem + mv.cost_stage(ti);
+    const float* pstage = smem + mv.pen_stage(ti);
+    auto word_at = [&](int r, int k) {  // the lane's value k in tile step r
+      return r * ROW + (at[k] ^ (Y::row_swizzle(r) * XC));
+    };
+    // a group's costs (canonical: and scales; legacy: penalties) in registers
+    struct Group {
+      float c[NW][G][K], s[NW][G][K], p2[G][NW];
+    };
+    auto load = [&](Group& grp, int g) {
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          float v[NW];
+          load_lanes<NW>(stage + word_at(g * G + j, k), v);
+#pragma unroll
+          for (int n = 0; n < NW; ++n) grp.c[n][j][k] = v[n];
+          if (CANON) {
+            load_lanes<NW>(pstage + word_at(g * G + j, k), v);
+#pragma unroll
+            for (int n = 0; n < NW; ++n) grp.s[n][j][k] = v[n];
+          }
+        }
+        if (!CANON) load_lanes<NW>(pstage + (g * G + j) * XC + NW * wq, grp.p2[j]);
+      }
+    };
+    // the next group is loaded before this one is walked and stored back
+    Group cur, nxt;
+    load(cur, 0);
+#pragma unroll
+    for (int g = 0; g < VT / G; ++g) {
+      const int step0 = ti * VT + g * G;
+      if (step0 >= n_steps) break;
+      if (g + 1 < VT / G) load(nxt, g + 1);
+      walk_steps<K, NW, G, CANON>(cur.c, cur.s, cur.p2, prev, m, p1, p2, dm1b, step0, n_steps,
+                                  reset, d_range, lane);
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          float v[NW];
+#pragma unroll
+          for (int n = 0; n < NW; ++n) v[n] = cur.c[n][j][k];
+          store_lanes<NW>(stage + word_at(g * G + j, k), v);
+        }
+      }
+      cur = nxt;
+    }
+  };
+  run_tiles<NS, false>(walker, mv.ntiles, fetch, [](int) {}, write_out, walk);
+
+  if (!walks) return;
+#pragma unroll
+  for (int n = 0; n < NW; ++n) {
+    const int x = x0 + NW * wq + n;
+    if (x >= m_lanes) continue;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int d = lane * K + k;
+      if (d < d_range) cout[(size_t)d * m_lanes + x] = prev[n][k];
+    }
+    if (lane == 0) cout_min[x] = m[n];
+  }
+}
+
+struct Pass {
+  const float* cost;
+  long long cs_t, cs_d, cs_m;
+  const float* pen;
+  long long ps_t, ps_d, ps_m;
+  float* out;
+  long long os_t, os_d, os_m;
+  const float *cin, *cin_min;
+  float *cout, *cout_min;
+  int n_steps, d_range, m_lanes;
+  float p1, p2;
+  int reset, dm1;
+};
+
+template <int K, bool CANON, int XC>
+cudaError_t launch_walker(const Pass& a, int device, cudaStream_t s) {
+  using B = Banded<K, CANON, XC>;
+  static std::atomic<bool> sized[MAX_DEVICES];  // per instance and device, false at first
+  const cudaError_t err =
+      allow_shared_bytes(sized[device], banded_walker_kernel<K, CANON, XC>, B::BYTES);
+  if (err != cudaSuccess) return err;
+  const int cw = copy_width(a.cost, a.cs_t, a.cs_d, a.m_lanes);
+  const int pw = CANON ? copy_width(a.pen, a.ps_t, a.ps_d, a.m_lanes) : 1;
+  const int ow = a.out != nullptr ? copy_width(a.out, a.os_t, a.os_d, a.m_lanes) : 1;
+  banded_walker_kernel<K, CANON, XC><<<(a.m_lanes + XC - 1) / XC, B::THREADS, B::BYTES, s>>>(
+      a.cost, a.cs_t, a.cs_d, a.pen, a.ps_t, a.ps_d, a.ps_m, a.out, a.os_t, a.os_d, a.cin,
+      a.cin_min, a.cout, a.cout_min, a.n_steps, a.d_range, a.m_lanes, a.p1, a.p2, a.reset,
+      a.dm1, cw, pw, ow);
   return cudaGetLastError();
 }
 
+template <int K, bool CANON>
+cudaError_t launch_walker_k(const Pass& a, int device, int sm_count, cudaStream_t s) {
+  // blocks of 8 lanes where they all fit the card at once
+  if ((a.m_lanes + 7) / 8 <= sm_count) return launch_walker<K, CANON, 8>(a, device, s);
+  return launch_walker<K, CANON, 16>(a, device, s);
+}
+
 template <bool CANON>
-int launch(const void* cost, long long cs_t, long long cs_d, long long cs_m, const void* pen,
-           long long ps_t, long long ps_d, long long ps_m, void* out, long long os_t,
-           long long os_d, long long os_m, const void* carry, const void* carry_min,
-           void* carry_out, void* carry_min_out, int n_steps, int d_range, int m_lanes,
-           float p1, float p2, int reset, int dm1, void* stream) {
-  if (n_steps < 1 || d_range < 1 || d_range > LANES / 2 * MAX_GROUPS || m_lanes < 1) {
+int run_walker(const Pass& a, void* stream) {
+  if (a.n_steps < 1 || a.d_range < 1 || a.d_range > 256 || a.m_lanes < 1 ||
+      (a.cs_m != 1 && a.m_lanes > 1) || (a.out != nullptr && a.os_m != 1 && a.m_lanes > 1) ||
+      (CANON && a.ps_m != 1 && a.m_lanes > 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long cs[3] = {cs_t, cs_d, cs_m};
-  const long long ps[3] = {ps_t, ps_d, ps_m};
-  const long long os[3] = {os_t, os_d, os_m};
-  const float* c = (const float*)cost;
-  const float* p = (const float*)pen;
-  float* o = (float*)out;
-  const float* ci = (const float*)carry;
-  const float* cm = (const float*)carry_min;
-  float* co = (float*)carry_out;
-  float* com = (float*)carry_min_out;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (d_range <= MAX_GROUPS) {
-    err = launch_vpt<1, CANON>(c, cs, p, ps, o, os, ci, cm, co, com, n_steps, d_range,
-                               m_lanes, p1, p2, reset, dm1, st);
-  } else if (d_range <= 2 * MAX_GROUPS) {
-    err = launch_vpt<2, CANON>(c, cs, p, ps, o, os, ci, cm, co, com, n_steps, d_range,
-                               m_lanes, p1, p2, reset, dm1, st);
-  } else if (d_range <= 4 * MAX_GROUPS) {
-    err = launch_vpt<4, CANON>(c, cs, p, ps, o, os, ci, cm, co, com, n_steps, d_range,
-                               m_lanes, p1, p2, reset, dm1, st);
-  } else if (d_range <= 8 * MAX_GROUPS) {
-    err = launch_vpt<8, CANON>(c, cs, p, ps, o, os, ci, cm, co, com, n_steps, d_range,
-                               m_lanes, p1, p2, reset, dm1, st);
-  } else {
-    err = launch_vpt<16, CANON>(c, cs, p, ps, o, os, ci, cm, co, com, n_steps, d_range,
-                                m_lanes, p1, p2, reset, dm1, st);
+  int device = 0, sm_count = 0;
+  const cudaError_t err = current_device(&device, &sm_count);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (a.d_range <= 32) return (int)launch_walker_k<1, CANON>(a, device, sm_count, s);
+  if (a.d_range <= 64) return (int)launch_walker_k<2, CANON>(a, device, sm_count, s);
+  if (a.d_range <= 128) return (int)launch_walker_k<4, CANON>(a, device, sm_count, s);
+  return (int)launch_walker_k<8, CANON>(a, device, sm_count, s);
+}
+
+// ---------------------------------------------------------------------------
+// The wide kernel: any D, any strides.
+// ---------------------------------------------------------------------------
+
+constexpr int WL = 8;    // lanes a block (32-byte runs of a row when lanes are contiguous)
+constexpr int WG = 32;   // disparity groups a block
+constexpr int WIDE_MAX_DISP = 7232;  // 32 D + 1 KB of shared memory <= 227 KB
+
+template <bool CANON>
+__global__ void __launch_bounds__(WL * WG)
+banded_wide_kernel(const float* __restrict__ cost, long long cs_t, long long cs_d, long long cs_m,
+                   const float* __restrict__ pen, long long ps_t, long long ps_d, long long ps_m,
+                   float* __restrict__ out, long long os_t, long long os_d, long long os_m,
+                   const float* __restrict__ cin, const float* __restrict__ cin_min,
+                   float* cout, float* cout_min, int n_steps, int d_range, int m_lanes,
+                   float p1, float p2, int reset, int dm1) {
+  extern __shared__ float wide_smem[];
+  float* P = wide_smem;                   // [D][WL]: prev of the block's lanes
+  float* part = wide_smem + d_range * WL;  // [WG][WL]: a group's minimum of the step
+  const float INF = CUDART_INF_F;
+  const int x = threadIdx.x, g = threadIdx.y;
+  const int m = blockIdx.x * WL + x;
+  const bool live = m < m_lanes;
+  const int run = (d_range + WG - 1) / WG;
+  const int d0 = g * run, d1 = min(d0 + run, d_range);   // the group's disparities
+  for (int d = d0; d < d1; ++d) P[d * WL + x] = live ? cin[(size_t)d * m_lanes + m] : 0.f;
+  float pm = live ? cin_min[m] : 0.f;
+  __syncthreads();
+  for (int k = 0; k < n_steps; ++k) {
+    const bool zero = k == reset;  // the path restarts: a zero carry
+    float left = d0 > 0 && d0 < d_range ? (zero ? 0.f : P[(d0 - 1) * WL + x]) : INF;
+    const float right = d1 < d_range ? (zero ? 0.f : P[d1 * WL + x]) : INF;
+    if (zero) pm = 0.f;
+    __syncthreads();  // every edge is read before any group writes
+    const long long ct = (long long)k * cs_t + (long long)m * cs_m;
+    const long long pt = (long long)k * ps_t + (long long)m * ps_m;
+    const long long ot = (long long)k * os_t + (long long)m * os_m;
+    const float p2c_legacy = !CANON && live ? pen[pt] : 0.f;
+    float lmin = INF;
+#pragma unroll 4
+    for (int d = d0; d < d1; ++d) {
+      const float cur = zero ? 0.f : P[d * WL + x];
+      const float hi = d + 1 < d1 ? (zero ? 0.f : P[(d + 1) * WL + x]) : right;
+      const float c = live ? cost[ct + (long long)d * cs_d] : 0.f;
+      float l2, l3, l4;
+      if (CANON) {
+        const float sc = live ? pen[pt + (long long)d * ps_d] : 0.f;
+        const float p1c = __fmul_rn(p1, sc), p2c = __fmul_rn(p2, sc);
+        l2 = __fadd_rn(left, p1c);
+        l3 = __fadd_rn(hi, p1c);
+        l4 = __fadd_rn(pm, p2c);
+      } else {
+        l2 = __fadd_rn(dm1 ? left : cur, p1);
+        l3 = __fadd_rn(hi, p1);
+        l4 = __fadd_rn(pm, p2c_legacy);
+      }
+      const float o = __fsub_rn(__fadd_rn(c, fminf(fminf(cur, l2), fminf(l3, l4))), pm);
+      P[d * WL + x] = o;
+      left = cur;
+      lmin = fminf(lmin, o);
+      if (out != nullptr && live) out[ot + (long long)d * os_d] = o;
+    }
+    part[g * WL + x] = lmin;
+    __syncthreads();  // every run is updated and its minimum in place
+    float mn = part[x];
+#pragma unroll 8
+    for (int j = 1; j < WG; ++j) mn = fminf(mn, part[j * WL + x]);
+    pm = mn;
   }
-  return (int)err;
+  if (!live) return;
+  for (int d = d0; d < d1; ++d) cout[(size_t)d * m_lanes + m] = P[d * WL + x];
+  if (g == 0) cout_min[m] = pm;
+}
+
+template <bool CANON>
+int run_wide(const Pass& a, void* stream) {
+  if (a.n_steps < 1 || a.d_range < 1 || a.d_range > WIDE_MAX_DISP || a.m_lanes < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int device = 0, sm_count = 0;
+  cudaError_t err = current_device(&device, &sm_count);
+  if (err != cudaSuccess) return (int)err;
+  static std::atomic<bool> sized[MAX_DEVICES];  // per family and device, false at first
+  err = allow_shared_bytes(sized[device], banded_wide_kernel<CANON>,
+                           sizeof(float) * (WIDE_MAX_DISP * WL + WG * WL));
+  if (err != cudaSuccess) return (int)err;
+  const size_t bytes = sizeof(float) * ((size_t)a.d_range * WL + WG * WL);
+  banded_wide_kernel<CANON><<<(a.m_lanes + WL - 1) / WL, dim3(WL, WG), bytes,
+                              (cudaStream_t)stream>>>(
+      a.cost, a.cs_t, a.cs_d, a.cs_m, a.pen, a.ps_t, a.ps_d, a.ps_m, a.out, a.os_t, a.os_d,
+      a.os_m, a.cin, a.cin_min, a.cout, a.cout_min, a.n_steps, a.d_range, a.m_lanes, a.p1, a.p2,
+      a.reset, a.dm1);
+  return (int)cudaGetLastError();
+}
+
+Pass legacy_pass(const void* cost, long long cs_t, long long cs_d, long long cs_m, const void* p2,
+                 long long p2_t, long long p2_m, void* out, long long os_t, long long os_d,
+                 long long os_m, const void* carry, const void* carry_min, void* carry_out,
+                 void* carry_min_out, int n_steps, int d_range, int m_lanes, float p1, int reset,
+                 int dm1) {
+  return Pass{(const float*)cost, cs_t, cs_d, cs_m, (const float*)p2, p2_t, 0, p2_m, (float*)out,
+              os_t, os_d, os_m, (const float*)carry, (const float*)carry_min, (float*)carry_out,
+              (float*)carry_min_out, n_steps, d_range, m_lanes, p1, 0.0f, reset, dm1};
+}
+
+Pass canonical_pass(const void* cost, long long cs_t, long long cs_d, long long cs_m,
+                    const void* scale, long long sc_t, long long sc_d, long long sc_m, void* out,
+                    long long os_t, long long os_d, long long os_m, const void* carry,
+                    const void* carry_min, void* carry_out, void* carry_min_out, int n_steps,
+                    int d_range, int m_lanes, float p1_base, float p2_base, int reset) {
+  return Pass{(const float*)cost, cs_t, cs_d, cs_m, (const float*)scale, sc_t, sc_d, sc_m,
+              (float*)out, os_t, os_d, os_m, (const float*)carry, (const float*)carry_min,
+              (float*)carry_out, (float*)carry_min_out, n_steps, d_range, m_lanes, p1_base,
+              p2_base, reset, 1};
 }
 
 }  // namespace
 
 // Launch on `stream`.  cost and out: [n_steps, d_range, m_lanes] float32 at the
 // given strides (in floats; a step stride may be negative, from a base at the
-// path's first step); out may be null (only the carry is wanted).  p2: the
-// penalty a (step, lane), at strides (p2_t, p2_m).  carry / carry_min: the
-// incoming prev [d_range, m_lanes] and prev_min [m_lanes], contiguous;
-// carry_out / carry_min_out receive the outgoing ones (they may be the same
-// memory).  reset: the path step before which the carry is zero, or -1.
-// dm1 = 0 is the reference's vertical quirk (l2 = prev(d) + p1).
-// 1 <= d_range <= 256.  Returns cudaGetLastError() after the launch.
+// path's first step; the lane strides 1); out may be null (only the carry is
+// wanted).  p2: the penalty a (step, lane), at strides (p2_t, p2_m).  carry /
+// carry_min: the incoming prev [d_range, m_lanes] and prev_min [m_lanes],
+// contiguous; carry_out / carry_min_out receive the outgoing ones (they may
+// be the same memory).  reset: the path step before which the carry is zero,
+// or -1.  dm1 = 0 is the reference's vertical quirk (l2 = prev(d) + p1).
+// 1 <= d_range <= 256.  Returns cudaGetLastError() after the launch,
+// cudaErrorInvalidValue for a size or a lane stride outside the range.
 extern "C" int scanline_banded_f32(const void* cost, long long cs_t, long long cs_d,
                                    long long cs_m, const void* p2, long long p2_t, long long p2_m,
                                    void* out, long long os_t, long long os_d, long long os_m,
                                    const void* carry, const void* carry_min, void* carry_out,
                                    void* carry_min_out, int n_steps, int d_range, int m_lanes,
                                    float p1, int reset, int dm1, void* stream) {
-  return launch<false>(cost, cs_t, cs_d, cs_m, p2, p2_t, 0, p2_m, out, os_t, os_d, os_m, carry,
-                       carry_min, carry_out, carry_min_out, n_steps, d_range, m_lanes, p1, 0.0f,
-                       reset, dm1, stream);
+  return run_walker<false>(
+      legacy_pass(cost, cs_t, cs_d, cs_m, p2, p2_t, p2_m, out, os_t, os_d, os_m, carry, carry_min,
+                  carry_out, carry_min_out, n_steps, d_range, m_lanes, p1, reset, dm1),
+      stream);
 }
 
 // The canonical family: scale, the penalty scale a (step, disparity, lane),
@@ -260,7 +667,38 @@ extern "C" int scanline_banded_canonical_f32(
     long long os_m, const void* carry, const void* carry_min, void* carry_out,
     void* carry_min_out, int n_steps, int d_range, int m_lanes, float p1_base, float p2_base,
     int reset, void* stream) {
-  return launch<true>(cost, cs_t, cs_d, cs_m, scale, sc_t, sc_d, sc_m, out, os_t, os_d, os_m,
-                      carry, carry_min, carry_out, carry_min_out, n_steps, d_range, m_lanes,
-                      p1_base, p2_base, reset, 1, stream);
+  return run_walker<true>(
+      canonical_pass(cost, cs_t, cs_d, cs_m, scale, sc_t, sc_d, sc_m, out, os_t, os_d, os_m,
+                     carry, carry_min, carry_out, carry_min_out, n_steps, d_range, m_lanes,
+                     p1_base, p2_base, reset),
+      stream);
+}
+
+// scanline_banded_f32 by the wide kernel: any strides, 1 <= d_range <= 7232.
+extern "C" int scanline_banded_wide_f32(const void* cost, long long cs_t, long long cs_d,
+                                        long long cs_m, const void* p2, long long p2_t,
+                                        long long p2_m, void* out, long long os_t, long long os_d,
+                                        long long os_m, const void* carry, const void* carry_min,
+                                        void* carry_out, void* carry_min_out, int n_steps,
+                                        int d_range, int m_lanes, float p1, int reset, int dm1,
+                                        void* stream) {
+  return run_wide<false>(
+      legacy_pass(cost, cs_t, cs_d, cs_m, p2, p2_t, p2_m, out, os_t, os_d, os_m, carry, carry_min,
+                  carry_out, carry_min_out, n_steps, d_range, m_lanes, p1, reset, dm1),
+      stream);
+}
+
+// scanline_banded_canonical_f32 by the wide kernel: any strides,
+// 1 <= d_range <= 7232.
+extern "C" int scanline_banded_wide_canonical_f32(
+    const void* cost, long long cs_t, long long cs_d, long long cs_m, const void* scale,
+    long long sc_t, long long sc_d, long long sc_m, void* out, long long os_t, long long os_d,
+    long long os_m, const void* carry, const void* carry_min, void* carry_out,
+    void* carry_min_out, int n_steps, int d_range, int m_lanes, float p1_base, float p2_base,
+    int reset, void* stream) {
+  return run_wide<true>(
+      canonical_pass(cost, cs_t, cs_d, cs_m, scale, sc_t, sc_d, sc_m, out, os_t, os_d, os_m,
+                     carry, carry_min, carry_out, carry_min_out, n_steps, d_range, m_lanes,
+                     p1_base, p2_base, reset),
+      stream);
 }

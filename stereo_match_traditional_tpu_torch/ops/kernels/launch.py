@@ -1,6 +1,6 @@
 """What every kernel wrapper does around a launch: dispatch by device, the
 images as the kernels read them, the current device and its stream, the
-error check."""
+error check, and the canonical kernels' edge-bit scratch."""
 
 from __future__ import annotations
 
@@ -48,3 +48,10 @@ def raise_on_error(lib, name: str, err: int) -> None:
     if err != 0:
         msg = lib.stereo_kernels_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+
+
+def edge_bit_words(h: int, w: int) -> int:
+    """32-bit words of the canonical kernels' four edge-bit planes
+    (``[4, H, RW]``, ``RW = (W + 640 + 31) // 32``;
+    ``csrc/scanline_canonical.cu``'s header describes them)."""
+    return 4 * h * ((w + 640 + 31) // 32)

@@ -2,7 +2,11 @@
 
 Counterpart of ``ops.scanline.scanline_optimize_canonical``, its plain
 version.  Dispatch is by the device of the inputs, never by a fallback: CPU
-tensors take the plain version; CUDA tensors launch the kernel or raise.
+tensors take the plain version; CUDA tensors launch a kernel or raise.  On
+the card the dispatch is by D alone: ``scanline_canonical_f32`` for D <=
+256, four launches of the wide banded kernel above
+(``scanline_banded_cuda.scanline_canonical_composed``, counted in
+``scanline_banded_cuda.LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -11,24 +15,20 @@ import torch
 
 from stereo_match_traditional_tpu_torch.ops import scanline
 from stereo_match_traditional_tpu_torch.ops.kernels.launch import (
-    current, kernel_inputs, raise_on_error, stream,
+    current, edge_bit_words, kernel_inputs, raise_on_error, stream,
+)
+from stereo_match_traditional_tpu_torch.ops.kernels.scanline_banded_cuda import (
+    scanline_canonical_composed,
 )
 
 # Kernel launches so far (one per call of the C entry point, which writes
 # the edge bits and runs the four passes of one view, the last storing their
 # mean); a run resets it to show its path went through the kernel.  Only the
-# launch below increments it.
+# launch below increments it (not the wide route above 256 disparities).
 LAUNCHES = 0
 
-MAX_DISP = 256           # 8 values a lane in a walker warp; shared memory of a stage
-MAX_VALUES = 2**32 - 1   # the kernel keeps offsets into the volumes in 32 bits
-
-
-def edge_bit_words(h: int, w: int) -> int:
-    """32-bit words of the kernel's four edge-bit planes (``[4, H, RW]``,
-    ``RW = (W + 640 + 31) // 32``; ``csrc/scanline_canonical.cu``'s header
-    describes them), which follow rl and ud in its scratch."""
-    return 4 * h * ((w + 640 + 31) // 32)
+MAX_DISP = 256           # scanline_canonical_f32: 8 values a walker lane; shared memory of a stage
+MAX_VALUES = 2**32 - 1   # ... which keeps offsets into the volumes in 32 bits
 
 
 def scanline_optimize_canonical_cuda(
@@ -40,14 +40,18 @@ def scanline_optimize_canonical_cuda(
     tso: float = 15.0,
     view: str = "left",
 ) -> torch.Tensor:
-    """Drop-in for ``ops.scanline.scanline_optimize_canonical``: one call of
-    the C entry per view for CUDA inputs, the plain version for CPU inputs.
+    """Drop-in for ``ops.scanline.scanline_optimize_canonical``: for CUDA
+    inputs one call of ``scanline_canonical_f32`` per view (D <= 256), or
+    above 256 disparities the wide route (four launches of
+    ``scanline_banded_wide_canonical_f32``, a contiguous result); the plain
+    version for CPU inputs.
 
     ``cost`` is the view's d-major ``[D, H, W]`` volume, ``left`` / ``right``
     the gray images (read as they are when both are uint8, else as float32).
-    The kernel writes d-major volumes whose rows are padded to a multiple of
-    4 columns (16-byte rows); the result is the float32 ``[D, H, W]`` view of
-    such a volume, contiguous when ``W`` is a multiple of 4."""
+    ``scanline_canonical_f32`` writes d-major volumes whose rows are padded
+    to a multiple of 4 columns (16-byte rows); the result is the float32
+    ``[D, H, W]`` view of such a volume, contiguous when ``W`` is a multiple
+    of 4."""
     global LAUNCHES
     devices = {t.device for t in (cost, left, right)}
     if len(devices) != 1:
@@ -64,9 +68,14 @@ def scanline_optimize_canonical_cuda(
                          f"{tuple(left.shape)} and {tuple(right.shape)}")
     d, h, w = cost.shape
     wp = -(-w // 4) * 4
-    if not 1 <= d <= MAX_DISP or h < 1 or w < 1 or d * h * wp > MAX_VALUES:
-        raise ValueError(f"canonical scanline kernel takes 1 <= D <= {MAX_DISP} and a "
-                         f"non-empty volume below 2^32 values, got D={d}, {h}x{w}")
+    if d < 1 or h < 1 or w < 1:
+        raise ValueError(f"canonical scanline kernel takes a non-empty volume, got D={d}, "
+                         f"{h}x{w}")
+    if d > MAX_DISP:
+        return scanline_canonical_composed(cost, left, right, p1, p2, tso, view)
+    if d * h * wp > MAX_VALUES:
+        raise ValueError(f"scanline_canonical_f32 takes a volume below 2^32 values, got "
+                         f"D={d}, {h}x{w}")
     c = cost.to(torch.float32).contiguous()
     lf, rf, u8 = kernel_inputs(left, right)
     # rl and ud, [2, D, H, wp], then the edge bits

@@ -2,7 +2,10 @@
 
 Counterpart of ``ops.scanline.scanline_optimize``, its plain version.
 Dispatch is by the device of the inputs, never by a fallback: CPU tensors
-take the plain version; CUDA tensors launch the kernel or raise.
+take the plain version; CUDA tensors launch a kernel or raise.  On the card
+the dispatch is by D alone: ``scanline_optimize_f32`` for D <= 256, four
+launches of the wide banded kernel above (``scanline_banded_cuda.
+scanline_optimize_composed``, counted in ``scanline_banded_cuda.LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -12,26 +15,32 @@ import torch
 from stereo_match_traditional_tpu_torch.config import ScanlineConfig
 from stereo_match_traditional_tpu_torch.ops import scanline
 from stereo_match_traditional_tpu_torch.ops.kernels.launch import stream
+from stereo_match_traditional_tpu_torch.ops.kernels.scanline_banded_cuda import (
+    scanline_optimize_composed,
+)
 
 # Kernel launches so far (one per call of the C entry point, which runs the
 # horizontal and the two vertical kernels); a run resets it to show its path
-# went through the kernel.  Only the launch below increments it.
+# went through the kernel.  Only the launch below increments it (not the
+# wide route above 256 disparities).
 LAUNCHES = 0
 
-MAX_DISP = 256           # 8 values a lane in a walker warp; shared memory of a stage
-MAX_VALUES = 2**32 - 1   # the kernel keeps offsets into the volumes in 32 bits
+MAX_DISP = 256           # scanline_optimize_f32: 8 values a walker lane; shared memory of a stage
+MAX_VALUES = 2**32 - 1   # ... which keeps offsets into the volumes in 32 bits
 
 
 def scanline_optimize_cuda(
     cost: torch.Tensor, gray: torch.Tensor, cfg: ScanlineConfig = ScanlineConfig()
 ) -> torch.Tensor:
-    """Drop-in for ``ops.scanline.scanline_optimize``: one launch per call
-    for CUDA inputs, the plain version for CPU inputs.
+    """Drop-in for ``ops.scanline.scanline_optimize``: for CUDA inputs one
+    launch of ``scanline_optimize_f32`` per call (D <= 256), or above 256
+    disparities the wide route (four launches of ``scanline_banded_wide_f32``,
+    a contiguous result); the plain version for CPU inputs.
 
-    The kernel reads ``cost`` d-major as it is and writes d-major volumes
-    whose rows are padded to a multiple of 4 columns (16-byte rows); the
-    result is the ``[D, H, W]`` view of such a volume, contiguous when ``W``
-    is a multiple of 4."""
+    ``scanline_optimize_f32`` reads ``cost`` d-major as it is and writes
+    d-major volumes whose rows are padded to a multiple of 4 columns
+    (16-byte rows); the result is the ``[D, H, W]`` view of such a volume,
+    contiguous when ``W`` is a multiple of 4."""
     global LAUNCHES
     if cost.is_cuda != gray.is_cuda:
         raise ValueError(f"cost on {cost.device}, gray on {gray.device}")
@@ -46,12 +55,17 @@ def scanline_optimize_cuda(
         )
     d, h, w = cost.shape
     wp = -(-w // 4) * 4
-    if not 1 <= d <= MAX_DISP or h < 1 or w < 1 or d * h * wp > MAX_VALUES:
-        raise ValueError(f"scanline kernel takes 1 <= D <= {MAX_DISP} and a non-empty "
-                         f"volume below 2^32 values, got D={d}, {h}x{w}")
+    if d < 1 or h < 1 or w < 1:
+        raise ValueError(f"scanline kernel takes a non-empty volume, got D={d}, {h}x{w}")
+    p1, p2 = cfg.effective_penalties(d)
+    if d > MAX_DISP:
+        return scanline_optimize_composed(cost, gray, p1, p2, not cfg.faithful_vertical_l2,
+                                           cfg.faithful_vertical_p2)
+    if d * h * wp > MAX_VALUES:
+        raise ValueError(f"scanline_optimize_f32 takes a volume below 2^32 values, got "
+                         f"D={d}, {h}x{w}")
     c = cost.to(torch.float32).contiguous()          # d-major, as the pipeline holds it
     g = gray.to(torch.float32).contiguous()
-    p1, p2 = cfg.effective_penalties(d)
     scratch = torch.empty((2, d, h, wp), dtype=torch.float32, device=c.device)  # rl and ud
     out = torch.empty((d, h, wp), dtype=torch.float32, device=c.device)
     lib = library()

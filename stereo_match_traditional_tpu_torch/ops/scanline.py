@@ -135,6 +135,24 @@ def horizontal_p2(grey: torch.Tensor, p1: float, p2_init: float):
             p2_of(torch.cat([g[:, 1:], g[:, -1:]], 1)))
 
 
+def vertical_p2(grey: torch.Tensor, p1: float, p2_init: float, first_ref: bool = False):
+    """The adaptive P2 of each step of the top-down and bottom-up passes over
+    ``grey`` [H, W] rows, ``[H, W]`` each, from the row above (top-down) or
+    below (bottom-up); ``first_ref``, the reference's vertical quirk
+    (``faithful_vertical_p2``), takes the path's first row instead.  A
+    path's first row takes its own pixel (its P2 is unused)."""
+    g = grey.to(torch.float32)
+    p2_t = torch.tensor(p2_init, dtype=torch.float32, device=g.device)
+
+    def p2_of(g_ref):
+        # a true division, as the whole-image pass takes it
+        return torch.clamp(torch.div(p2_t, torch.abs(g - g_ref) + 1.0), min=p1)
+
+    if first_ref:
+        return p2_of(g[:1]), p2_of(g[-1:])
+    return p2_of(torch.cat([g[:1], g[:-1]])), p2_of(torch.cat([g[1:], g[-1:]]))
+
+
 def horizontal_passes_banded(cost: torch.Tensor, grey: torch.Tensor, p1: float,
                              p2_init: float):
     """Both horizontal passes of a band of rows: ``cost`` [D, t, W] (any
@@ -270,6 +288,21 @@ def horizontal_scales(d: int, base: torch.Tensor, match: torch.Tensor, tso: floa
     g = base.to(torch.float32).T                                            # [W, t]
     g2 = shifted_stack(match.to(torch.float32), d,
                        "right" if right_view else "left").permute(2, 0, 1)  # [W, D, t]
+    g = torch.cat([g[:1], g, g[-1:]])
+    g2 = torch.cat([g2[:1], g2, g2[-1:]])
+    return canonical_scale(g[1:], g[:-1], g2[1:], g2[:-1], tso)
+
+
+def vertical_scales(d: int, base: torch.Tensor, match: torch.Tensor, tso: float,
+                    right_view: bool) -> torch.Tensor:
+    """The canonical scales between neighbouring rows of ``[H, W]`` grey
+    images, ``[H + 1, D, W]`` (:func:`canonical_scale`; the first and last
+    unused), ``base`` the view's own and ``match`` the other one as
+    :func:`horizontal_scales` takes them: ``[:-1]`` serves the top-down
+    pass and ``[1:]`` the bottom-up one."""
+    g = base.to(torch.float32)
+    g2 = shifted_stack(match.to(torch.float32), d,
+                       "right" if right_view else "left").permute(1, 0, 2)  # [H, D, W]
     g = torch.cat([g[:1], g, g[-1:]])
     g2 = torch.cat([g2[:1], g2, g2[-1:]])
     return canonical_scale(g[1:], g[:-1], g2[1:], g2[:-1], tso)

@@ -68,10 +68,13 @@ def make_mesh(
     ``shape`` reshapes the ranks for multi-axis meshes, e.g.
     ``make_mesh(8, ("tile", "disp"), (4, 2))``; with a shape and no
     ``n_devices`` it takes exactly ``prod(shape)`` ranks.  ``devices``: the
-    ranks in mesh order (default: all, in rank order).  A mesh spans every
-    rank of the world: a ``DeviceMesh`` is built by all ranks together, and
-    a rank outside it would hang the others' collectives, so fewer ranks
-    than the world raise ``ValueError`` as too many do."""
+    ranks in mesh order (default: all, in rank order).  Every rank of the
+    world calls it (the mesh's process groups are created by all ranks
+    together); a rank outside the first ``n_devices`` gets a mesh whose
+    ``get_coordinate()`` is None (:func:`in_mesh`), on which the tiled
+    entry points return None before any collective.  More devices than
+    ranks, or a shape that does not use ``n_devices``, raise
+    ``ValueError``."""
     from stereo_match_traditional_tpu_torch.parallel import distributed
 
     distributed.initialize()
@@ -81,10 +84,6 @@ def make_mesh(
         n_devices = int(torch.tensor(shape).prod()) if shape is not None else len(ranks)
     if n_devices > len(ranks):
         raise ValueError(f"need {n_devices} devices, have {len(ranks)}")
-    if n_devices != world:
-        raise ValueError(
-            f"a mesh of {n_devices} devices in a world of {world}: a DeviceMesh spans every "
-            "rank of the process group (start as many processes as the mesh has devices)")
     ranks = ranks[:n_devices]
     if shape is None:
         shape = (n_devices,)
@@ -94,3 +93,9 @@ def make_mesh(
         raise ValueError(f"axis names {tuple(axis_names)} for a mesh of shape {tuple(shape)}")
     return DeviceMesh(distributed.device_type(), torch.tensor(ranks).reshape(tuple(shape)),
                       mesh_dim_names=tuple(axis_names))
+
+
+def in_mesh(mesh: DeviceMesh) -> bool:
+    """Whether this rank is one of ``mesh``'s (a mesh over the first ranks
+    of a larger world leaves the others out)."""
+    return mesh.get_coordinate() is not None

@@ -57,7 +57,7 @@ from stereo_match_traditional_tpu_torch.ops.kernels.window_cost_cuda import (
 )
 from stereo_match_traditional_tpu_torch.parallel import comm
 from stereo_match_traditional_tpu_torch.parallel.halo import add_row_halo, crop_row_halo
-from stereo_match_traditional_tpu_torch.parallel.mesh import MeshAxis, axis_size
+from stereo_match_traditional_tpu_torch.parallel.mesh import MeshAxis, axis_size, in_mesh
 from stereo_match_traditional_tpu_torch.parallel.scan_carry import (
     scanline_canonical_sharded,
     scanline_optimize_sharded,
@@ -395,7 +395,9 @@ def tiled_pipeline(name: str, cfg, mesh, axis_name: str = "tile", shard_post: bo
     """``(left, right, *aux) -> StereoResult`` running ``name``
     tile-data-parallel over the ``axis_name`` axis of ``mesh`` (a
     ``DeviceMesh``, ``parallel.mesh.make_mesh``): every rank of the axis
-    calls it with the whole pair and returns the whole result.
+    calls it with the whole pair and returns the whole result; a rank
+    outside the mesh (one over the first ranks of a larger world) gets None,
+    before any collective.
 
     Rows are padded (edge replication) to a multiple of the ranks; rank
     ``i`` computes rows ``i * t ..`` with exact halos (the first extended
@@ -430,6 +432,8 @@ def tiled_pipeline(name: str, cfg, mesh, axis_name: str = "tile", shard_post: bo
         )
 
     def run(left, right, *aux):
+        if not in_mesh(mesh):
+            return None
         axis = MeshAxis(mesh, axis_name)
         n, idx = axis.size, axis.index
         h = left.shape[0]
@@ -484,7 +488,8 @@ def run_tiled(
 
     ``mesh=None`` builds a one-axis mesh over the whole world
     (``parallel.mesh.make_mesh``; a process started alone is a world of
-    one).  The runner is cached per (name, cfg, mesh, axis, shard_post).
+    one); a rank outside ``mesh`` gets None.  The runner is cached per
+    (name, cfg, mesh, axis, shard_post).
     Tensors keep their device (pass CPU tensors to run on the CPU);
     anything else goes to the card."""
     from stereo_match_traditional_tpu_torch.models.registry import _tensor, get_pipeline
@@ -495,6 +500,8 @@ def run_tiled(
         from stereo_match_traditional_tpu_torch.parallel.mesh import make_mesh
 
         mesh = make_mesh(axis_names=(axis_name,))
+    if not in_mesh(mesh):
+        return None
     key = (name, cfg, mesh, axis_name, shard_post)
     fn = _TILED_CACHE.get(key)
     if fn is None:
@@ -520,7 +527,7 @@ def _tile_disp_scaffold(mesh, tile_axis, disp_axis, halo, disp_range, body):
     must mask so that the two-stage WTA never picks them, and the disp axis;
     it returns a dict of ``[T, W]`` maps, the same on every rank of the
     disp axis.  Returns ``(run_maps, d_local)``: ``run_maps(left, right)``
-    gives the dict of whole maps."""
+    gives the dict of whole maps, or None on a rank outside the mesh."""
     axis_size(mesh, tile_axis)
     n_d = axis_size(mesh, disp_axis)
     if n_d > disp_range:
@@ -528,6 +535,8 @@ def _tile_disp_scaffold(mesh, tile_axis, disp_axis, halo, disp_range, body):
     d_local = -(-disp_range // n_d)
 
     def run_maps(left, right):
+        if not in_mesh(mesh):
+            return None
         ta, da = MeshAxis(mesh, tile_axis), MeshAxis(mesh, disp_axis)
         h = left.shape[0]
         t = -(-h // ta.size)
@@ -583,6 +592,8 @@ def ad_census_tile_disp(cfg, mesh, tile_axis: str = "tile", disp_axis: str = "di
 
     def run(left, right):
         maps = run_maps(left, right)
+        if maps is None:
+            return None
         disp_l, disp_r = maps["disp_left"], maps["disp_right"]
         disp_final = occl = mism = None
         if cfg.run_post:
@@ -621,6 +632,7 @@ def ncc_tile_disp(cfg, mesh, tile_axis: str = "tile", disp_axis: str = "disp"):
     run_maps, _ = _tile_disp_scaffold(mesh, tile_axis, disp_axis, halo, cfg.disp_range, body)
 
     def run(left, right):
-        return StereoResult(run_maps(left, right)["disp_left"])
+        maps = run_maps(left, right)
+        return None if maps is None else StereoResult(maps["disp_left"])
 
     return run

@@ -25,8 +25,9 @@ CP1, CP2, TSO = 1.0, 3.0, 15.0  # canonical: p1, p2, tso
 HALO = 3
 
 # (t, D, W): a band of several rows, W = 1, W % 4 == 0, W % 4 != 0 with
-# D > W (the match columns clamp), one row
-BANDS = [(6, 5, 13), (4, 3, 1), (5, 7, 12), (3, 9, 6), (1, 4, 10)]
+# D > W (the match columns clamp), one row, and D = 300 (above the band
+# entries' 256: on the card the wide route)
+BANDS = [(6, 5, 13), (4, 3, 1), (5, 7, 12), (3, 9, 6), (1, 4, 10), (3, 300, 7)]
 
 
 def _band(seed, t, d, w, cropped):

@@ -260,17 +260,38 @@ def test_ad_census_launch_checks_inputs(bad):
         ad_census_cuda._launch(left, right, 4, rows, 7, 10.0, 30.0, view, "cost")
 
 
+# Disparity ranges above scanline_optimize_f32's 256: the wide route
+WIDE_DS = (257, 300, 512)
+
+
 @pytest.mark.cuda
 def test_scanline_kernel_checks_inputs():
+    """A gray image on another device or of another shape raises and
+    launches nothing; D above 256 (the wide route: four launches of the
+    wide banded kernel, none of scanline_optimize_f32) is bit for bit the
+    plain version, both vertical quirks."""
+    from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
+
     _need_card()
     x = torch.zeros((8, 9), dtype=torch.uint8)
+    before = scanline_cuda.LAUNCHES
     with pytest.raises(ValueError):
         scanline_cuda.scanline_optimize_cuda(torch.zeros((4, 8, 9)).cuda(), x)
     with pytest.raises(ValueError):
-        scanline_cuda.scanline_optimize_cuda(
-            torch.zeros((scanline_cuda.MAX_DISP + 1, 8, 9)).cuda(), x.cuda())
-    with pytest.raises(ValueError):
         scanline_cuda.scanline_optimize_cuda(torch.zeros((4, 8, 9)).cuda(), x[:4].cuda())
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for d in WIDE_DS:
+        cost = torch.rand((d, 8, 9), device="cuda", generator=g) * 20
+        gray = torch.randint(0, 256, (8, 9), device="cuda", generator=g, dtype=torch.uint8)
+        for cfg in (ScanlineConfig(), ScanlineConfig(faithful_vertical_l2=True,
+                                                     faithful_vertical_p2=True)):
+            wide = banded.LAUNCHES["scanline_banded_wide_f32"]
+            got = scanline_cuda.scanline_optimize_cuda(cost, gray, cfg)
+            torch.cuda.synchronize()
+            assert banded.LAUNCHES["scanline_banded_wide_f32"] == wide + 4
+            want = scanline.scanline_optimize(cost, gray, cfg)
+            assert got.shape == (d, 8, 9) and torch.equal(got, want), d
+    assert scanline_cuda.LAUNCHES == before
 
 
 # (h, w, D, winsize, seed) for the SAD kernel: odd shapes, D > W, a 61x61
@@ -692,14 +713,27 @@ def test_canonical_scanline_kernel_float_images_on_card(h, w, d, view):
 
 @pytest.mark.cuda
 def test_canonical_scanline_kernel_checks_inputs():
-    """D above 256, images on another device, an unknown view and a volume
-    of 2^32 values raise and launch nothing."""
+    """Images on another device, an unknown view and a volume of 2^32 values
+    raise and launch nothing; D above 256 (the wide route: four launches of
+    the wide banded kernel) is bit for bit the plain version, both views."""
+    from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
+
     _need_card()
     fn = scanline_canonical_cuda.scanline_optimize_canonical_cuda
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for d in WIDE_DS:
+        cost = torch.rand((d, 8, 9), device="cuda", generator=g) * 20
+        lu, ru = (torch.randint(0, 256, (8, 9), device="cuda", generator=g, dtype=torch.uint8)
+                  for _ in range(2))
+        for view in ("left", "right"):
+            wide = banded.LAUNCHES["scanline_banded_wide_canonical_f32"]
+            got = fn(cost, lu, ru, 1.0, 3.0, 15.0, view)
+            torch.cuda.synchronize()
+            assert banded.LAUNCHES["scanline_banded_wide_canonical_f32"] == wide + 4
+            want = scanline.scanline_optimize_canonical(cost, lu, ru, 1.0, 3.0, 15.0, view)
+            assert got.shape == (d, 8, 9) and torch.equal(got, want), (d, view)
     img = torch.zeros((8, 9), dtype=torch.uint8, device="cuda")
     before = scanline_canonical_cuda.LAUNCHES
-    with pytest.raises(ValueError, match="D <= 256"):
-        fn(torch.zeros((scanline_canonical_cuda.MAX_DISP + 1, 8, 9), device="cuda"), img, img)
     with pytest.raises(ValueError, match="one device"):
         fn(torch.zeros((4, 8, 9), device="cuda"), img.cpu(), img)
     with pytest.raises(ValueError, match="view"):
@@ -837,14 +871,32 @@ def test_banded_kernel_bit_exact_on_card(t, d, m, family, layout, carry, reset):
 
 @pytest.mark.cuda
 def test_banded_kernel_checks_inputs():
-    """D above 256, penalties or a carry of the wrong shape and a second
-    reset raise and launch nothing."""
+    """D above 256 runs the wide kernel, bit for bit the plain version, both
+    families, one launch a call; D above the wide kernel's shared memory,
+    penalties or a carry of the wrong shape and a second reset raise and
+    launch nothing."""
     _need_card()
+    for family in ("legacy", "canonical"):
+        banded, kernel, plain = _banded_pair(family)
+        for d in WIDE_DS:
+            cost, p2, scale, carry_of = _band_inputs(9, d, 33, seed=d, carry=True)
+            c = cost.permute(1, 0, 2)
+            pen = p2 if family == "legacy" else scale.permute(1, 0, 2)
+            cr = carry_of(33)
+            before = dict(banded.LAUNCHES)
+            got, (gp, gm) = kernel(c, pen, cr, 4)
+            torch.cuda.synchronize()
+            entry = banded.WIDE[family == "canonical"]
+            assert banded.LAUNCHES[entry] == before[entry] + 1
+            assert sum(banded.LAUNCHES.values()) == sum(before.values()) + 1
+            want, (wp, wm) = plain(c, pen, cr, 4)
+            assert torch.equal(got, want) and torch.equal(gp, wp) and torch.equal(gm, wm), d
     banded, kernel, _ = _banded_pair("legacy")
     before = dict(banded.LAUNCHES)
-    cost = torch.zeros((4, 257, 8), device="cuda")
-    zero = (torch.zeros((257, 8), device="cuda"), torch.zeros((8,), device="cuda"))
-    with pytest.raises(ValueError, match="D <= 256"):
+    big = banded.WIDE_MAX_DISP + 1
+    cost = torch.zeros((4, big, 8), device="cuda")
+    zero = (torch.zeros((big, 8), device="cuda"), torch.zeros((8,), device="cuda"))
+    with pytest.raises(ValueError, match=f"D={big}"):
         kernel(cost, torch.zeros((4, 8), device="cuda"), zero, None)
     cost = torch.zeros((4, 3, 8), device="cuda")
     zero = (torch.zeros((3, 8), device="cuda"), torch.zeros((8,), device="cuda"))
@@ -856,6 +908,158 @@ def test_banded_kernel_checks_inputs():
         kernel(cost, torch.zeros((4, 8), device="cuda"), zero,
                torch.tensor([True, False, True, False], device="cuda"))
     assert banded.LAUNCHES == before
+
+
+# (D, T, M, layout) of the walker / mover kernel at the executors' shapes:
+# the tiled executor's whole-column passes at 720p over a world of one and
+# a rank's slab of four, and at Teddy ([T, D, M] contiguous), and the
+# streamed executor's 4K-wide band (a halo-cropped [D, t, W] band's
+# permute(1, 0, 2))
+EXECUTOR_PASSES = [(128, 720, 1280, "columns"), (128, 720, 320, "columns"),
+                   (60, 375, 450, "columns"), (256, 64, 3840, "band")]
+# ... and its edges: one step, one lane, M % 4 != 0 (8-byte and 4-byte
+# copies), a view whose base and strides are not 16-byte multiples, a D that
+# is no multiple of a lane's values, every K, both block widths (16 lanes
+# where blocks of 8 would not all fit the card: M > 2112 for K <= 4)
+WALKER_EDGES = [(60, 1, 450, "columns"), (37, 12, 1, "columns"), (100, 30, 98, "columns"),
+                (200, 17, 131, "band"), (9, 40, 77, "unaligned"), (256, 9, 1030, "unaligned"),
+                (1, 5, 3, "columns"), (33, 70, 2100, "band"), (100, 9, 2200, "columns"),
+                (20, 9, 2300, "band")]
+
+
+def _walker_case(d, n, m, layout, family, seed):
+    """(cost, penalties, carry) of one pass in ``layout``: ``columns`` a
+    contiguous [T, D, M], ``band`` the permute(1, 0, 2) of a [D, T, M] band
+    cropped from 2 more rows, ``unaligned`` a [T, D, M] view one float off
+    every 16-byte boundary (strides of odd multiples of a float)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def volume():
+        if layout == "columns":
+            return torch.rand((n, d, m), device="cuda", generator=g) * 4
+        if layout == "band":
+            band = torch.rand((d, n + 2, m), device="cuda", generator=g) * 4
+            return band.narrow(1, 1, n).permute(1, 0, 2)
+        return (torch.rand((n, d, m + 3), device="cuda", generator=g) * 4)[:, :, 1:m + 1]
+
+    cost = volume()
+    if family == "legacy":
+        pen = torch.rand((n, m), device="cuda", generator=g) * 3 + 0.5
+    else:
+        levels = torch.tensor([1.0, 0.25, 0.1], device="cuda")
+        pen = levels[torch.randint(0, 3, (n, d, m), device="cuda", generator=g)]
+        if layout != "columns":
+            pen = volume().copy_(pen)
+    prev = torch.rand((d, m), device="cuda", generator=g) * 5
+    return cost, pen, (prev, prev.amin(0))
+
+
+def _hold_walker(d, n, m, layout, family):
+    """The pass forwards and backwards, with the output and carry-only, with
+    a reset mid-path and without: one launch of the walker / mover kernel a
+    call, bit for bit the plain version and the wide kernel (the strided
+    banded design generalised), output in the band's memory order."""
+    banded, kernel, plain = _banded_pair(family)
+    canonical = family == "canonical"
+    cost, pen, carry = _walker_case(d, n, m, layout, family, seed=d + n + m)
+    for reset in (None, n // 2):
+        mask = None
+        if reset is not None:
+            mask = torch.zeros(n, dtype=torch.bool, device="cuda")
+            mask[reset] = True
+        for reverse in (False, True):
+            before = banded.LAUNCHES[banded.WALKER[canonical]]
+            out, (cp, cm) = kernel(cost, pen, carry, reset, reverse=reverse)
+            torch.cuda.synchronize()
+            assert banded.LAUNCHES[banded.WALKER[canonical]] == before + 1
+            if reverse:
+                want, (wp, wm) = plain(cost.flip(0), pen.flip(0), carry,
+                                       None if mask is None else mask.flip(0))
+                want = want.flip(0)
+            else:
+                want, (wp, wm) = plain(cost, pen, carry, mask)
+            assert torch.equal(out, want), (reset, reverse, (out != want).sum().item())
+            assert torch.equal(cp, wp) and torch.equal(cm, wm), (reset, reverse)
+            wide, (xp, xm) = banded._launch(canonical, cost, pen, carry, reset, *(
+                (1.0, 3.0, True) if canonical else (0.5, 0.0, True)), reverse, True,
+                banded.WIDE[canonical])
+            assert torch.equal(out, wide) and torch.equal(cp, xp) and torch.equal(cm, xm)
+            none, (np_, nm) = kernel(cost, pen, carry, reset, reverse=reverse, store=False)
+            assert none is None and torch.equal(np_, wp) and torch.equal(nm, wm)
+    assert out.stride(2) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["legacy", "canonical"])
+@pytest.mark.parametrize("d,n,m,layout", EXECUTOR_PASSES)
+def test_banded_walker_at_executor_shapes_on_card(d, n, m, layout, family):
+    """The redesigned vertical kernels at the executors' shapes."""
+    _need_card()
+    _hold_walker(d, n, m, layout, family)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["legacy", "canonical"])
+@pytest.mark.parametrize("d,n,m,layout", WALKER_EDGES)
+def test_banded_walker_edges_on_card(d, n, m, layout, family):
+    """The redesigned vertical kernels at their edges."""
+    _need_card()
+    _hold_walker(d, n, m, layout, family)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["legacy", "canonical"])
+def test_banded_wide_kernel_4096_on_card(family):
+    """The wide kernel at D = 4096 (128 KB of shared memory), both layouts,
+    against the plain version."""
+    _need_card()
+    banded, kernel, plain = _banded_pair(family)
+    cost, p2, scale, carry_of = _band_inputs(5, 4096, 11, seed=4096, carry=True)
+    for layout in ("vertical", "horizontal"):
+        if layout == "vertical":
+            c = cost.permute(1, 0, 2)
+            pen = p2 if family == "legacy" else scale.permute(1, 0, 2)
+        else:
+            c = cost.permute(2, 0, 1)
+            pen = p2.T if family == "legacy" else scale.permute(2, 0, 1)
+        cr = carry_of(c.shape[2])
+        got, (gp, gm) = kernel(c, pen, cr, 1, reverse=True)
+        want, (wp, wm) = plain(c.flip(0), pen.flip(0), cr, c.shape[0] - 2)
+        assert torch.equal(got, want.flip(0)) and torch.equal(gp, wp) and torch.equal(gm, wm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline,cfg", [
+    ("ad_census", ADCensusConfig(disp_range=300, scanline=ScanlineConfig(), run_post=True)),
+    ("ad_census", ADCensusConfig(disp_range=300, aggregation="cross_two_pass",
+                                 scanline=ScanlineConfig(), run_post=True)),
+], ids=["FULL", "canonical_FULL"])
+def test_pipelines_above_256_disparities_on_card(pipeline, cfg):
+    """ad_census FULL and canonical FULL at D = 300 on a 24 x 320 pair: the
+    scanline on the wide route (four wide launches a scanline call; the
+    canonical family calls it for both views), every map of FULL equal to
+    the same pipeline on CPU tensors; canonical FULL's within the 99.5 %
+    envelope outside the clamp triangle, where the cost kernel's last ulp
+    (against the plain exponential) does not meet the triangle's exact
+    ties."""
+    from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
+
+    _need_card()
+    L, R, _ = make_pair(24, 320, 300, seed=2)
+    fn = get_pipeline(pipeline)[0]
+    before = dict(banded.LAUNCHES)
+    res = fn(*pair_to_torch(L, R, "cuda"), cfg)
+    torch.cuda.synchronize()
+    entry = banded.WIDE[cfg.aggregation == "cross_two_pass"]
+    assert banded.LAUNCHES[entry] - before[entry] == (4 if entry == banded.WIDE[False] else 8)
+    plain = fn(*pair_to_torch(L, R, "cpu"), cfg)
+    for f in ("disp_left", "disp_right", "disp_final"):
+        got, want = getattr(res, f).cpu(), getattr(plain, f)
+        if cfg.aggregation != "cross_two_pass":
+            assert torch.equal(got, want), f
+            continue
+        cols = slice(None, -300) if f == "disp_right" else slice(300, None)
+        assert (got[:, cols] == want[:, cols]).double().mean().item() >= 0.995, f
 
 
 # -- the band entries: both horizontal passes of a band in one launch --------
@@ -915,21 +1119,29 @@ def test_horizontal_band_entry_bit_exact_on_card(t, d, w, halo, case):
 
 @pytest.mark.cuda
 def test_horizontal_band_entries_check_inputs():
-    """D above 256, image rows that do not match the band, tensors on two
+    """D above 256 (two launches of the wide kernel, none of the band
+    entries) is bit for bit the plain version, on a halo-cropped band with
+    W % 4 != 0; image rows that do not match the band, tensors on two
     devices and a float64 band raise ValueError and launch nothing."""
     from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
 
     _need_card()
     legacy = banded.horizontal_passes_banded_cuda
     canonical = banded.canonical_horizontal_passes_banded_cuda
+    for d in WIDE_DS:
+        for case in ("legacy", "left u8", "right float32"):
+            name, kernel, plain = _entry_case(case, 6, d, 37, 2, seed=d)
+            before = dict(banded.LAUNCHES)
+            got = kernel()
+            torch.cuda.synchronize()
+            assert banded.LAUNCHES[name] == before[name]
+            entry = banded.WIDE[case != "legacy"]
+            assert banded.LAUNCHES[entry] == before[entry] + 2
+            for g, v in zip(got, plain()):
+                assert g.shape == (d, 6, 37) and torch.equal(g, v), (d, case)
     before = dict(banded.LAUNCHES)
     grey = torch.zeros((4, 8), device="cuda")
     img = grey.to(torch.uint8)
-    big = torch.zeros((257, 4, 8), device="cuda")
-    with pytest.raises(ValueError, match="D <= 256"):
-        legacy(big, grey, 0.5, 4.0)
-    with pytest.raises(ValueError, match="D <= 256"):
-        canonical(big, img, img, 1.0, 3.0, 15.0, False)
     cost = torch.zeros((3, 4, 8), device="cuda")
     with pytest.raises(ValueError, match="image rows"):
         legacy(cost, grey[:3], 0.5, 4.0)

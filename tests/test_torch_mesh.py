@@ -68,13 +68,13 @@ def test_tiled_four_ranks_match_direct(case, ranks):
 
 def test_mesh_helpers(ranks):
     """``make_mesh`` over the world, its errors (more devices than the
-    world, a shape that does not use them, a subset of the world), the
-    second ``initialize`` and ``host_chip_mesh`` by ``LOCAL_WORLD_SIZE``."""
+    world, a shape that does not use them), the second ``initialize`` and
+    ``host_chip_mesh`` by ``LOCAL_WORLD_SIZE``."""
     r = ranks[0]
     assert list(r["mesh|grid_shape"]) == [2, 2]
     assert str(r["mesh|again"]) == "already-initialized"
     assert str(r["status|initialize"]) == "initialized"
-    for label in ("too_many", "bad_shape", "subset"):
+    for label in ("too_many", "bad_shape"):
         assert "devices" in str(r[f"mesh|{label}"]), label
     assert list(r["mesh|host_chip"]) == [2, 2]
     assert list(r["mesh|host_chip_names"]) == ["host", "chip"]
@@ -196,3 +196,40 @@ def test_batched_pipeline_and_serve_pairs_over_a_mesh(ranks):
     assert "must divide the batch axis (4)" in str(ranks[0]["batch|odd"])
     served = batched_pipeline("sad", sad)(*(torch.from_numpy(np.stack(s)) for s in zip(*pairs)))
     np.testing.assert_array_equal(ranks[0]["serve|disp"], served.disp_left.numpy())
+
+
+@pytest.fixture(scope="module")
+def subset_ranks(tmp_path_factory):
+    """The ``subset`` suite, run once by four ranks, in a launch of its own
+    with its own time limit."""
+    return worker.launch("subset", WORLD, tmp_path_factory.mktemp("subset4"), timeout=240.0)
+
+
+def test_mesh_over_the_first_ranks(subset_ranks):
+    """``make_mesh(2)`` in a world of 4 (JAX's mesh of the first
+    ``n_devices``): ranks 0-1 run ``run_tiled`` (legacy and canonical FULL),
+    ``ad_census_tile_disp`` on a (1, 2) mesh, a batch and ``serve_pairs``
+    over the two and give the direct path's maps; ranks 2-3 get None (and
+    no served map) before any collective, and all four meet in an
+    all-reduce of the whole world afterwards."""
+    lt, rt, _ = worker.pair()
+    fn = get_pipeline("ad_census")[0]
+    sad = C.SADConfig(max_disparity=8, winsize=1)
+    pairs = [make_pair(16, 24, 8, seed=s)[:2] for s in range(3)]
+    batch = batched_pipeline("sad", sad)(*(torch.from_numpy(np.stack(x)) for x in zip(*pairs)))
+    for k, r in enumerate(subset_ranks):
+        inside = k < 2
+        assert bool(r["subset|in_mesh"]) == inside, k
+        assert r["subset|world_sum"].tolist() == [WORLD]
+        nones = [key for key in r if key.startswith("subset|none")]
+        assert len(nones) == 4 and all(bool(r[key]) != inside for key in nones), (k, nones)
+        assert int(r["subset|served"]) == (3 if inside else 0), k
+        if not inside:
+            assert not [key for key in r if key.startswith("subset ")], k
+            continue
+        for case, cfg in worker.subset_cases().items():
+            hold(case_of(r, f"subset {case}"), fn(lt, rt, cfg), False, f"{case} rank {k}")
+        hold(case_of(r, "subset tile_disp"), fn(lt, rt, C.ADCensusConfig(disp_range=10)),
+             False, f"tile_disp rank {k}")
+        np.testing.assert_array_equal(r["subset batch|disp_left"], batch.disp_left.numpy()[:2])
+        np.testing.assert_array_equal(r["subset serve|disp"], batch.disp_left.numpy())

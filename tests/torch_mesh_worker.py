@@ -13,7 +13,9 @@ five pipelines with and without post, gathered and sharded post, the
 legacy and canonical scanline, asw ``lab`` with aux inputs) and ``mesh``
 (a world of 4: the ``(tile, disp)`` runners on a 2 x 2 mesh, the sharded
 WTAs, the halo exchange, the sharded post functions, batches over a mesh,
-and the mesh helpers).
+and the mesh helpers) and ``subset`` (a world of 4: meshes over its first
+two ranks, ``make_mesh(2)``; the ranks outside return None and take part
+in a collective of the whole world after them).
 """
 
 from __future__ import annotations
@@ -150,8 +152,7 @@ def run_mesh_suite(world):
     out["mesh|grid_local"] = np.array([grid.get_local_rank("tile"), grid.get_local_rank("disp")])
     out["mesh|again"] = np.array(distributed.initialize())
     for label, call in (("too_many", lambda: make_mesh(99, ("tile",))),
-                        ("bad_shape", lambda: make_mesh(4, ("tile",), shape=(3,))),
-                        ("subset", lambda: make_mesh(2, ("tile",)))):
+                        ("bad_shape", lambda: make_mesh(4, ("tile",), shape=(3,)))):
         try:
             call()
             out[f"mesh|{label}"] = np.array("no error")
@@ -241,7 +242,64 @@ def run_mesh_suite(world):
     return out
 
 
-SUITES = {"tiled": run_tiled_suite, "mesh": run_mesh_suite}
+def subset_cases():
+    """``{case: cfg}`` of the ``subset`` suite's ``run_tiled`` calls."""
+    from stereo_match_traditional_tpu_torch import config as C
+
+    scan = C.ScanlineConfig()
+    return {"FULL": C.ADCensusConfig(disp_range=D, scanline=scan, run_post=True),
+            "canonical FULL": C.ADCensusConfig(disp_range=D, aggregation="cross_two_pass",
+                                               scanline=scan, run_post=True)}
+
+
+def run_subset_suite(world):
+    import torch
+    import torch.distributed as dist
+
+    from stereo_match_traditional_tpu_torch import config as C
+    from stereo_match_traditional_tpu_torch.models.batch import batched_pipeline, serve_pairs
+    from stereo_match_traditional_tpu_torch.parallel import ad_census_tile_disp, make_mesh, run_tiled
+    from stereo_match_traditional_tpu_torch.parallel.mesh import in_mesh
+    from stereo_match_traditional_tpu_torch.utils.synthetic import make_pair
+
+    lt, rt, _ = pair()
+    out = {}
+    line = make_mesh(2, ("tile",))
+    out["subset|in_mesh"] = np.array(in_mesh(line))
+    for case, cfg in subset_cases().items():
+        res = run_tiled("ad_census", lt, rt, cfg, line)
+        out[f"subset|none {case}"] = np.array(res is None)
+        if res is not None:
+            for field, v in res._asdict().items():
+                if v is not None:
+                    out[f"subset {case}|{field}"] = v.numpy()
+    grid = make_mesh(2, ("tile", "disp"), (1, 2))
+    res = ad_census_tile_disp(C.ADCensusConfig(disp_range=D), grid)(lt, rt)
+    out["subset|none tile_disp"] = np.array(res is None)
+    if res is not None:
+        for field, v in res._asdict().items():
+            if v is not None:
+                out[f"subset tile_disp|{field}"] = v.numpy()
+    batch = make_mesh(2, ("batch",))
+    sad = C.SADConfig(max_disparity=8, winsize=1)
+    pairs = [make_pair(16, 24, 8, seed=s)[:2] for s in range(3)]
+    ls = torch.from_numpy(np.stack([p[0] for p in pairs[:2]]))
+    rs = torch.from_numpy(np.stack([p[1] for p in pairs[:2]]))
+    res = batched_pipeline("sad", sad, mesh=batch)(ls, rs)
+    out["subset|none batch"] = np.array(res is None)
+    if res is not None:
+        out["subset batch|disp_left"] = res.disp_left.numpy()
+    served = list(serve_pairs("sad", pairs, sad, batch_size=2, mesh=batch, device="cpu"))
+    out["subset|served"] = np.array(len(served))
+    if served:
+        out["subset serve|disp"] = np.stack(served)
+    total = torch.tensor([1.0])
+    dist.all_reduce(total)          # every rank, in the mesh or not, is still in step
+    out["subset|world_sum"] = total.numpy()
+    return out
+
+
+SUITES = {"tiled": run_tiled_suite, "mesh": run_mesh_suite, "subset": run_subset_suite}
 
 
 def launch(suites: str, world: int, out_dir, timeout: float = 300.0) -> list:
