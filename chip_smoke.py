@@ -22,14 +22,17 @@ canonical family's stages by the pipeline's own ``stereo/<stage>`` ranges
 under ``torch.profiler``).  Then the serving surfaces: each pipeline's
 ``return_stages`` and its re-entry from the saved stages
 (``finish_from_volumes``), the command line as a subprocess, and
-``serve_pairs`` over the prefetching ``PairLoader`` with its launch counts,
-its ms a pair over a served stream of 240 pairs and the card's idle
-share.  Then the dormant variants: the SAD kernel's colour mode against its
-plain version, and every variant configuration (ncc ``shifted``, asw ``lab``
-and ``grid``, cblsm's ``sad_mean``, ``sad_mean_v4``, ``local_mean`` and
-``rect_mean_v4``, the speckle filter's block form, the bilateral filter) at
-the same size against the port's CPU plain path.  Then the streamed
-executor (``parallel.streamed``, phase 21): its banded scanline kernels
+``serve_pairs`` over the two prefetching pair loaders (``utils.loader``'s
+Python threads and ``utils.native``'s C++ threads, the native host library
+built from ``native/stereo_host`` beside the kernels) with their launch
+counts, their ms a pair over a served stream of 240 pairs beside the pairs
+in memory, and the card's idle share under each.  Then the dormant
+variants: the SAD kernel's colour mode against its plain version, and
+every variant configuration (ncc ``shifted``, asw ``lab`` and ``grid``,
+cblsm's ``sad_mean``, ``sad_mean_v4``, ``local_mean`` and ``rect_mean_v4``,
+the speckle filter's block form, the bilateral filter) at the same size
+against the port's CPU plain path.  Then the streamed executor
+(``parallel.streamed``, phase 21): its banded scanline kernels
 and the band entries that run both horizontal passes of a band in one
 launch against their plain versions and timed (the band entries also
 against the strided banded pair that ran them before, at a 4K-wide band and
@@ -41,10 +44,12 @@ equality, every banded pass also on the wide kernel), the direct path's peak
 at 1080x1920, D=256, and 2160x3840, D=256 on the JAX package's
 representative pair (active, legacy FULL with penalty_scale='auto',
 canonical FULL in two stages), each held to the JAX package's bad-2.0 and
-timed, with its band, peak memory, launches and stages.  Then the tiled
-executor (``parallel.tiled``, phase 22): the cost kernels' disparity slices
-(``d_offset``) against their plain versions and joined against the whole
-volume, and timed; the banded vertical kernels at its whole-column shapes
+timed, with its band, peak memory, launches and stages; and, one untimed
+call each, legacy FULL with the reference's penalties on that pair and the
+four paths on the legacy 4K pair, each held to the JAX package's bad-2.0.
+Then the tiled executor (``parallel.tiled``, phase 22): the cost kernels'
+disparity slices (``d_offset``) against their plain versions and joined
+against the whole volume, and timed; the banded vertical kernels at its whole-column shapes
 against plain and the wide kernel, and timed; the five reference
 configurations at Teddy, the ``(tile, disp)`` runners and legacy and
 canonical FULL at 720x1280, D=128 over a world of one in this process
@@ -54,7 +59,12 @@ kernel) and over two processes sharing the card (gloo, ``chip_smoke.py
 peak memory.  Then above 256 disparities (phase 23, D=300): every scanline
 wrapper's wide route against the CPU plain path bit for bit, the wide
 kernel timed, and ad_census FULL and canonical FULL through
-``get_pipeline`` with their launch counts.  Each
+``get_pipeline`` with their launch counts.  Last the port's two examples
+(phase 24) in this process at 375x450, D=60: ``examples/demo_torch.py``
+(the five pipelines, each bad-2.0 within its limit and equal to a direct
+call's) and ``examples/serving_torch.py`` (ad_census FULL over the native
+``PairLoader``, the maps ``serve_pairs``'), the asw, AD-Census, scanline and
+window kernels each launched.  Each
 phase prints one JSON line; any failure raises and exits non-zero.  The
 last three lines are the card's ``nvidia-smi`` name and power limit, the
 kernel summary ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -71,6 +81,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -191,10 +202,11 @@ SURFACE_STAGES = {"asw": COST, "ad_census": AGGREGATED, "sad": COST[:1], "ncc": 
 SERVED_PAIRS = 8                          # make_pair seeds 0-7, served in batches of 3
 SERVE_BATCH = 3
 # The timed served stream: the 8 PGM pairs cycled to SERVE_STREAM pairs a
-# window, SERVE_WINDOWS windows of each way of serving, in turns; and one
-# window of SERVE_TRACED pairs under torch.profiler for the idle share
+# window, SERVE_WINDOWS rotations of one window of each way of serving (the
+# ways' order reversed every other rotation); and one window of
+# SERVE_TRACED pairs under torch.profiler for the idle share
 SERVE_STREAM = 240
-SERVE_WINDOWS = 3
+SERVE_WINDOWS = 9
 SERVE_TRACED = 96
 # The trace categories of the card's own work: kernels, copies, fills
 # (h, w, D, radius) for the SAD kernel's colour mode (channel_min): one row,
@@ -207,7 +219,15 @@ GRID_BAD2_TOL = 0.005
 WALK_SHAPE = (96, 128, 16)  # where the 625-offset plain loops (Lab, bilateral) meet the CPU
 VARIANT_REPS = 3
 DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
-TRACE_TRIES = 3
+TRACE_TRIES = 5
+# Around the traced calls, each trace runs a lead of small kernels and a
+# host pause, before and after: the profiler has lost the first kernels of a
+# trace on the card (H100, torch 2.11), all of them in a trace of one short
+# call.  The tries each trace took are kept for the "profiler" line
+TRACE_LEAD_KERNELS = 64
+TRACE_LEAD_SECONDS = 0.05
+TRACED_RANGE = "traced_calls"
+TRACE_TRIES_TAKEN: list = []
 # The streamed executor (phase 21): the five reference configurations at
 # Teddy in bands of 128 rows, legacy and canonical FULL at 720p in bands of
 # 256, the whole-image path's peak at 1080p/D=256 (four times fewer pixels
@@ -218,6 +238,12 @@ STREAM_SERVING_TILE = 256
 DENSE_PROBE = (1080, 1920, 256)
 HUGE_PAIR_SCALE = 102
 HUGE_BAD2 = {"active": 0.1002, "FULL auto": 0.0681, "canonical FULL": 0.0820}
+# The accuracy cells of the same table, one untimed call each: legacy FULL
+# with the reference's penalties (P1=10/P2=150) on the representative pair,
+# and the four paths on the legacy pair (make_pair's default feature_scale)
+HUGE_ACCURACY = {("representative", "FULL parity"): 0.1524, ("legacy", "active"): 0.4337,
+                 ("legacy", "FULL parity"): 0.4924, ("legacy", "FULL auto"): 0.4085,
+                 ("legacy", "canonical FULL"): 0.4107}
 HUGE_BAD2_TOL = 0.005
 HUGE_TIMED_CALLS = 2
 # The tiled executor (phase 22): the d-slices of the two kernels with
@@ -252,6 +278,9 @@ WIDE_IMAGE = (64, 96)
 WIDE_TIMED = (375, 450)
 WIDE_PAIR = (24, 320)
 WIDE_ENTRIES = ("scanline_banded_wide_f32", "scanline_banded_wide_canonical_f32")
+# The port's examples (phase 24): the serving example's pairs and batch
+EXAMPLE_PAIRS = 16
+EXAMPLE_BATCH = 4
 
 
 def check(ok: bool, what) -> None:
@@ -328,27 +357,56 @@ def traced_events(fn, reps: int) -> list:
     kernels carry their names and the correlation ids of their launches,
     also of launches made through a C entry).
 
-    A trace that holds the launches but no event of the card at all is
-    taken again, up to TRACE_TRIES times: the profiler has been seen to
-    lose every device event of a short trace (H100, torch 2.11), which
-    no ``fn`` here can cause."""
+    The calls run in a ``TRACED_RANGE`` range between two leads
+    (``TRACE_LEAD_KERNELS`` small kernels, a host pause of
+    ``TRACE_LEAD_SECONDS``, the kernels again, a synchronise), so that a
+    loss at either end of the trace falls on a lead; of the card's events
+    only those launched inside the range are returned.  A
+    trace in which a kernel launched in the range has no kernel event is
+    taken again, up to TRACE_TRIES times; the last one is returned, and
+    the callers check what they read of it."""
     import tempfile
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    for _ in range(TRACE_TRIES):
+    lead = torch.zeros(1024, device="cuda")
+
+    def lead_work():
+        for pause in (TRACE_LEAD_SECONDS, 0.0):
+            for _ in range(TRACE_LEAD_KERNELS):
+                lead.add_(1.0)
+            time.sleep(pause)
+        torch.cuda.synchronize()
+
+    for tries in range(1, TRACE_TRIES + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+            lead_work()
+            with record_function(TRACED_RANGE):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            lead_work()
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "trace.json")
             prof.export_chrome_trace(path)
             with open(path) as f:
                 events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
-        if any(e.get("cat") in DEVICE_EVENTS for e in events):
+        spans = [e for e in events
+                 if e.get("cat") == "user_annotation" and e["name"] == TRACED_RANGE]
+        check(len(spans) == 1, (TRACED_RANGE, "ranges in the trace", len(spans)))
+        span = spans[0]
+        launches = [e for e in events if e.get("cat", "").startswith("cuda_")
+                    and "correlation" in (e.get("args") or {})
+                    and span["ts"] <= e["ts"] <= span["ts"] + span["dur"]]
+        launched = {e["args"]["correlation"] for e in launches}
+        events = [e for e in events if e.get("cat") not in DEVICE_EVENTS
+                  or (e.get("args") or {}).get("correlation") in launched]
+        seen = {e["args"]["correlation"] for e in events if e.get("cat") == "kernel"}
+        if all(e["args"]["correlation"] in seen for e in launches
+               if "LaunchKernel" in e["name"]):
             break
+    TRACE_TRIES_TAKEN.append(tries)
     return events
 
 
@@ -421,12 +479,18 @@ def main() -> None:
     from stereo_match_traditional_tpu_torch.models.asw import _minmax_u8, asw_post
     from stereo_match_traditional_tpu_torch.ops import post, volume, wta
     from stereo_match_traditional_tpu_torch.ops.kernels import asw_cuda, build
+    from stereo_match_traditional_tpu_torch.utils import native
     from stereo_match_traditional_tpu_torch.utils.convert import (
         pair_to_torch, result_to_numpy,
     )
     from stereo_match_traditional_tpu_torch.utils.synthetic import (
         bad_pixel_rate, make_pair,
     )
+
+    # the profiler keeps CUPTI between traces (torch's own setting under CUDA
+    # graphs): traces after the first have lost their first kernels, or all
+    # of them, and the teardown between traces is the suspect
+    os.environ["TEARDOWN_CUPTI"] = "0"
 
     # -- 1. device --------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -437,15 +501,20 @@ def main() -> None:
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # -- 2. build ---------------------------------------------------------
+    # -- 2. build: the kernels (nvcc), and the native host library (g++) in
+    # a thread beside them
     t0 = time.perf_counter()
-    lib_path = build.library_path()
-    build.library()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native.library_path)
+        lib_path = build.library_path()
+        build.library()
+        host_lib = host.result()
     log = lib_path.with_suffix(".log")
     ptxas = [ln.strip() for ln in log.read_text().splitlines()
              if "ptxas info" in ln] if log.exists() else []
+    check(native.available(), "the native host library does not load")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": lib_path.name, "ptxas": ptxas})
+          "library": lib_path.name, "ptxas": ptxas, "native_host_library": host_lib.name})
 
     # -- 3. kernel against its plain version ------------------------------
     max_abs = 0.0
@@ -544,11 +613,14 @@ def main() -> None:
     streamed = streamed_phase()
     tiled = tiled_phase(kind)
     wide = wide_phase()
+    examples_phase()
 
     for banned in ("jax", "stereo_match_traditional_tpu"):   # the name or a dotted prefix
         loaded = [m for m in sys.modules if m == banned or m.startswith(banned + ".")]
         check(not loaded, (banned, "was imported", loaded[:5]))
     teddy = timing[TEDDY]
+    emit({"phase": "profiler", "traces": len(TRACE_TRIES_TAKEN),
+          "tries_taken": TRACE_TRIES_TAKEN, "teardown_cupti": os.environ["TEARDOWN_CUPTI"]})
     print(smi, flush=True)
     emit({"kernels": [
         {
@@ -1301,8 +1373,9 @@ def surfaces_phase(kind: str) -> None:
     """The serving surfaces on the card at the reference size: every
     pipeline's ``return_stages`` and re-entry from its saved stages
     (``utils.checkpoint``, ``models.registry.finish_from_volumes``), the
-    command line as a subprocess, and ``serve_pairs`` over the
-    prefetching ``PairLoader``."""
+    command line as a subprocess, and ``serve_pairs`` over the two
+    prefetching pair loaders, ``utils.loader``'s (Python threads) and
+    ``utils.native``'s (C++ threads)."""
     import tempfile
 
     import numpy as np
@@ -1317,7 +1390,7 @@ def surfaces_phase(kind: str) -> None:
     from stereo_match_traditional_tpu_torch.ops.kernels import (
         ad_census_cuda, asw_cuda, scanline_canonical_cuda, scanline_cuda, window_cost_cuda,
     )
-    from stereo_match_traditional_tpu_torch.utils import checkpoint, loader
+    from stereo_match_traditional_tpu_torch.utils import checkpoint, loader, native
     from stereo_match_traditional_tpu_torch.utils.convert import pair_to_torch
     from stereo_match_traditional_tpu_torch.utils.io import read_pfm
     from stereo_match_traditional_tpu_torch.utils.synthetic import bad_pixel_rate, make_pair
@@ -1417,12 +1490,14 @@ def surfaces_phase(kind: str) -> None:
           ("cli stages", saved))
     check(devices and devices[0] == kind, ("cli info does not name the card", devices))
 
-    # -- 17. serving over the prefetching pair loader -----------------------
+    # -- 17. serving over the prefetching pair loaders --------------------
     cfg = ADCensusConfig()
     pairs = [make_pair(h, w, d, seed=s)[:2] for s in range(SERVED_PAIRS)]
     fn = get_pipeline("ad_census")[0]
     single = [fn(*pair_to_torch(a, b, "cuda"), cfg).disp_left.cpu().numpy() for a, b in pairs]
     counters = (ad_census_cuda, asw_cuda, scanline_cuda, scanline_canonical_cuda)
+    # the Python loader (utils.loader) and the native one (utils.native: C++ threads)
+    loaders = {"PairLoader": loader.PairLoader, "native PairLoader": native.PairLoader}
     with tempfile.TemporaryDirectory() as tmp:
         paths = []
         for k, (a, b) in enumerate(pairs):
@@ -1430,67 +1505,94 @@ def surfaces_phase(kind: str) -> None:
             loader.write_pnm(paths[-1][0], a)
             loader.write_pnm(paths[-1][1], b)
 
-        def served():
-            return list(serve_pairs("ad_census", loader.PairLoader(paths), batch_size=SERVE_BATCH))
-
-        for m in counters:
-            m.LAUNCHES = 0
-        window_cost_cuda.LAUNCHES = dict.fromkeys(window_cost_cuda.LAUNCHES, 0)
-        out = served()
-        launches = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES for m in counters}
-        launches.update(window_cost_cuda.LAUNCHES)
-        check(len(out) == SERVED_PAIRS and all(np.array_equal(a, b) for a, b in zip(out, single)),
-              "served maps differ from the single-pair calls")
-        check(launches == {"ad_census_cuda": SERVED_PAIRS, "asw_cuda": 0, "scanline_cuda": 0,
-                           "scanline_canonical_cuda": 0, "sad_volume_f32": 0,
-                           "ncc_volume_f32": 0}, ("launches while serving", launches))
+        launches = {}
+        for name, make in loaders.items():
+            for m in counters:
+                m.LAUNCHES = 0
+            window_cost_cuda.LAUNCHES = dict.fromkeys(window_cost_cuda.LAUNCHES, 0)
+            out = list(serve_pairs("ad_census", make(paths), batch_size=SERVE_BATCH))
+            launches[name] = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES for m in counters}
+            launches[name].update(window_cost_cuda.LAUNCHES)
+            check(len(out) == SERVED_PAIRS
+                  and all(np.array_equal(a, b) for a, b in zip(out, single)),
+                  (name, "served maps differ from the single-pair calls"))
+            check(launches[name] == {"ad_census_cuda": SERVED_PAIRS, "asw_cuda": 0,
+                                     "scanline_cuda": 0, "scanline_canonical_cuda": 0,
+                                     "sad_volume_f32": 0, "ncc_volume_f32": 0},
+                  (name, "launches while serving", launches[name]))
         emit({"phase": "surfaces", "part": "serving", "pipeline": "ad_census",
               "shape": [h, w], "disp_range": d, "pairs": SERVED_PAIRS,
-              "batch_size": SERVE_BATCH, "bit_exact_with_single_calls": True,
-              "launches": launches, "bad2_first_pair": bad_pixel_rate(out[0], gt)})
+              "batch_size": SERVE_BATCH, "bit_exact_with_single_calls": list(loaders),
+              "launches": launches, "bad2_first_pair": bad_pixel_rate(out[0], gt),
+              "native_library": native.library_path().name})
 
         # -- 18. the served stream, timed: the files cycled ------------------
         cycles = SERVE_STREAM // SERVED_PAIRS
-        ways = {
-            "over PairLoader": lambda: list(serve_pairs(
-                "ad_census", loader.PairLoader(paths * cycles), batch_size=SERVE_BATCH)),
-            "over pairs in memory": lambda: list(serve_pairs(
-                "ad_census", pairs * cycles, batch_size=SERVE_BATCH)),
-        }
+        ways = {f"over {name}": make for name, make in loaders.items()}
+        ways["over pairs in memory"] = None
         ms_a_pair = {k: [] for k in ways}
+        threads = {}                       # each loader's decode workers, as it reports them
         for k in range(SERVE_WINDOWS):
             for way in (list(ways) if k % 2 == 0 else list(ways)[::-1]):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                out = ways[way]()
+                if ways[way] is None:
+                    feed = pairs * cycles
+                else:
+                    feed = ways[way](paths * cycles)
+                    threads[way] = feed.threads
+                out = list(serve_pairs("ad_census", feed, batch_size=SERVE_BATCH))
                 ms_a_pair[way].append((time.perf_counter() - t0) * 1e3 / SERVE_STREAM)
                 check(len(out) == SERVE_STREAM
                       and all(np.array_equal(m, single[i % SERVED_PAIRS])
                               for i, m in enumerate(out)), (way, "served maps differ"))
+        # each rotation's loaders against its own in-memory window: the
+        # excess a pair over memory, and the share of the Python loader's
+        # excess that the native loader does not pay
+        rotations = []
+        for py, nat, mem in zip(*(ms_a_pair[f"over {n}"] for n in loaders),
+                                ms_a_pair["over pairs in memory"]):
+            rotations.append({"python_excess_ms": py - mem, "native_excess_ms": nat - mem,
+                              "recovered_share": (py - nat) / (py - mem) if py != mem else None})
 
-        def window():
-            with torch.profiler.record_function("serve_window"):
-                list(serve_pairs("ad_census", loader.PairLoader(
-                    paths * (SERVE_TRACED // SERVED_PAIRS)), batch_size=SERVE_BATCH))
+        # each loader's own time a pair, drained with no card work beside it
+        alone = {}
+        for name, make in loaders.items():
+            t0 = time.perf_counter()
+            check(sum(1 for _ in make(paths * cycles)) == SERVE_STREAM, (name, "drained"))
+            alone[name] = (time.perf_counter() - t0) * 1e3 / SERVE_STREAM
 
-        events = traced_events(window, 1)
-    spans = [e for e in events
-             if e.get("name") == "serve_window" and e.get("cat") == "user_annotation"]
-    check(len(spans) == 1, ("serve_window ranges in the trace", len(spans)))
-    busy = busy_share(events, spans[0])
-    # the card's busy time a pair, from the trace, against the untraced
-    # stream's host time a pair: the profiler slows the host
-    busy_ms = busy * spans[0]["dur"] / 1e3 / SERVE_TRACED
-    loader_ms = statistics.median(ms_a_pair["over PairLoader"])
+        traced = {}
+        for name, make in loaders.items():
+            def window(make=make):
+                with torch.profiler.record_function("serve_window"):
+                    list(serve_pairs("ad_census", make(paths * (SERVE_TRACED // SERVED_PAIRS)),
+                                     batch_size=SERVE_BATCH))
+
+            events = traced_events(window, 1)
+            spans = [e for e in events
+                     if e.get("name") == "serve_window" and e.get("cat") == "user_annotation"]
+            check(len(spans) == 1, (name, "serve_window ranges in the trace", len(spans)))
+            busy = busy_share(events, spans[0])
+            # the card's busy time a pair, from the trace, against the
+            # untraced stream's host time a pair: the profiler slows the host
+            busy_ms = busy * spans[0]["dur"] / 1e3 / SERVE_TRACED
+            traced[f"over {name}"] = {
+                "traced_ms_a_pair": spans[0]["dur"] / 1e3 / SERVE_TRACED,
+                "idle_share_of_traced_window": 1.0 - busy,
+                "card_busy_ms_a_pair": busy_ms,
+                "idle_share_against_untraced_median":
+                    1.0 - busy_ms / statistics.median(ms_a_pair[f"over {name}"])}
     emit({"phase": "surfaces", "part": "served stream", "pipeline": "ad_census",
           "shape": [h, w], "disp_range": d, "pairs_a_window": SERVE_STREAM,
           "batch_size": SERVE_BATCH, "windows_of_each": SERVE_WINDOWS,
+          "loader_threads": threads, "host_cpu_count": os.cpu_count(),
           "ms_a_pair": {k: {"median": statistics.median(v), "min": min(v), "max": max(v),
                             "windows": v} for k, v in ms_a_pair.items()},
-          "traced_pairs": SERVE_TRACED, "traced_ms_a_pair": spans[0]["dur"] / 1e3 / SERVE_TRACED,
-          "idle_share_of_traced_window": 1.0 - busy,
-          "card_busy_ms_a_pair": busy_ms,
-          "idle_share_against_untraced_median": 1.0 - busy_ms / loader_ms,
+          "rotations": rotations,
+          "median_excess_ms": {k: statistics.median(r[k] for r in rotations)
+                               for k in ("python_excess_ms", "native_excess_ms")},
+          "loader_alone_ms_a_pair": alone, "traced_pairs": SERVE_TRACED, "traced": traced,
           "surfaces_seconds": time.perf_counter() - start})
 
 
@@ -2398,6 +2500,28 @@ def streamed_phase() -> dict:
         check(run["launches"].get(name, 0) == 3 * per
               and run["launches"].get(entry, 0) == per, (label, run))
 
+    # -- 21f'. 4K accuracy cells, one untimed call each ---------------------
+    runs["FULL parity"] = (C.ADCensusConfig(disp_range=hd, run_post=True,
+                                            scanline=C.ScanlineConfig()), "disp_final")
+    legacy = make_pair(hh, hw, hd, seed=0)
+    inputs = {"representative": (lt, rt, gt),
+              "legacy": (*pair_to_torch(*legacy[:2], "cuda"), legacy[2])}
+    for (pair, label), want in HUGE_ACCURACY.items():
+        cfg, scored = runs[label]
+        a, b, g = inputs[pair]
+        res = (streamed_canonical_staged(cfg)(a, b) if label == "canonical FULL"
+               else run_streamed("ad_census", a, b, cfg))
+        bad2 = {f: bad_pixel_rate(getattr(res, f).cpu().numpy(), g)
+                for f in ("disp_left", "disp_final") if getattr(res, f) is not None}
+        rec = {"phase": "streamed", "part": "4K accuracy", "pair": pair, "config": label,
+               "shape": [hh, hw], "disp_range": hd, "bad2": bad2, "scored": scored,
+               "bad2_of_the_jax_package": want}
+        emit(rec)
+        check(abs(bad2[scored] - want) <= HUGE_BAD2_TOL, rec)
+        del res
+    del inputs, legacy
+    torch.cuda.empty_cache()
+
     # the cost kernel on the band the 4K FULL call runs (its first band)
     cfg = runs["FULL auto"][0]
     tile = auto_row_tile("ad_census", cfg, hh, hw)
@@ -2537,6 +2661,85 @@ def banded_vertical_checks(shapes, phase: str) -> dict:
             del cost, pen, prev, zero
             torch.cuda.empty_cache()
     return out
+
+
+def examples_phase() -> None:
+    """Phase 24, the port's two examples in this process on the card at the
+    reference size (375x450, D=60): ``examples/demo_torch.py`` (the five
+    pipelines on ``make_pair``) and ``examples/serving_torch.py`` (ad_census
+    FULL over the native ``PairLoader``, 16 pairs in batches of 4), with
+    every launch count set to 0 just before and read just after.  The asw,
+    AD-Census, scanline and window kernels must each have launched; each
+    pipeline's bad-2.0 must be within its limit and equal to a direct
+    call's on the same pair; the demo's images and checkpoints and the
+    served images must hold the direct calls' and ``serve_pairs``' maps.
+    Both examples write PGM with the native codec; the serving example is
+    handed ad_census FULL as its ``cfg``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stereo_match_traditional_tpu_torch.config import (
+        ADCensusConfig, ScanlineConfig, disp_override_kw,
+    )
+    from stereo_match_traditional_tpu_torch.models import PIPELINES, get_pipeline
+    from stereo_match_traditional_tpu_torch.models.batch import serve_pairs
+    from stereo_match_traditional_tpu_torch.utils import checkpoint, native
+    from stereo_match_traditional_tpu_torch.utils.convert import pair_to_torch
+    from stereo_match_traditional_tpu_torch.utils.io import normalize_u8
+    from stereo_match_traditional_tpu_torch.utils.synthetic import bad_pixel_rate, make_pair
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples"))
+    import demo_torch
+    import serving_torch
+
+    start = time.perf_counter()
+    h, w, d = TEDDY
+    size = ["--size", f"{h}x{w}", "--disp", str(d)]
+    full = ADCensusConfig(**disp_override_kw(ADCensusConfig, d), scanline=ScanlineConfig(),
+                          run_post=True)
+    limits = {"asw": MAX_BAD2, "ad_census": MAX_BAD2, **MAX_BAD2_WINDOW}
+    with tempfile.TemporaryDirectory() as tmp:
+        demo_dir, serve_dir = os.path.join(tmp, "demo"), os.path.join(tmp, "serving")
+        _reset_launches()
+        t0 = time.perf_counter()
+        bad2 = demo_torch.main([*size, "--out-dir", demo_dir])
+        demo_s = time.perf_counter() - t0
+        served = serving_torch.main([*size, "--pairs", str(EXAMPLE_PAIRS), "--batch",
+                                     str(EXAMPLE_BATCH), "--out-dir", serve_dir], cfg=full)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _launches().items() if v}
+
+        L, R, gt = make_pair(h, w, d, seed=0)
+        lt, rt = pair_to_torch(L, R, "cuda")
+        direct = {}
+        for name in sorted(PIPELINES):
+            fn, cfg_cls = get_pipeline(name)
+            disp = fn(lt, rt, cfg_cls(**disp_override_kw(cfg_cls, d))).disp_left.cpu().numpy()
+            direct[name] = bad_pixel_rate(disp, gt)
+            check(np.array_equal(native.read_pnm(os.path.join(demo_dir, f"disp_{name}.pgm")),
+                                 normalize_u8(disp)), (name, "the demo's image"))
+            saved = checkpoint.load_result(os.path.join(demo_dir, f"stages_{name}"))
+            check(np.array_equal(saved.disp_left, disp), (name, "the demo's checkpoint"))
+        pairs = [make_pair(h, w, d, seed=i)[:2] for i in range(EXAMPLE_PAIRS)]
+        want = list(serve_pairs("ad_census", pairs, full, batch_size=EXAMPLE_BATCH))
+        maps_equal = (served["pairs"] == len(served["maps"]) == EXAMPLE_PAIRS
+                      and all(np.array_equal(native.read_pnm(p), normalize_u8(m))
+                              for p, m in zip(served["maps"], want)))
+    rec = {"phase": "examples", "shape": [h, w], "disp_range": d, "demo_bad2": bad2,
+           "direct_bad2": direct, "limits": limits, "demo_seconds": demo_s,
+           "served": {k: served[k] for k in ("pairs", "seconds", "pairs_per_s", "loader",
+                                             "world", "mesh")},
+           "served_config": "ad_census FULL", "served_maps_equal_serve_pairs": maps_equal,
+           "launches": launches, "seconds": time.perf_counter() - start}
+    emit(rec)
+    check(bad2 == direct, ("the demo's bad-2.0 differs from direct calls", rec))
+    check(all(bad2[k] <= limits[k] for k in PIPELINES), ("bad-2.0 above its limit", rec))
+    check(maps_equal, ("the served images differ from serve_pairs over the pairs", rec))
+    for entry in ("asw_volume_left_f32", "ad_census_volume_f32", "scanline_optimize_f32",
+                  "sad_volume_f32", "ncc_volume_f32"):
+        check(launches.get(entry, 0) >= 1, (entry, "did not launch in the examples", rec))
 
 
 def wide_phase() -> dict:

@@ -3,9 +3,10 @@
 
 The reference processes exactly one hard-coded pair per run
 (`SAD/SADmain.cpp:27-28` et al.).  For serving, the port runs a batch pair
-by pair on the card and stacks every result field along axis 0, and
-`utils.loader.PairLoader` decodes the pairs ahead on worker threads while
-the card runs.  With a mesh, the batch is split over the ranks of its
+by pair on the card and stacks every result field along axis 0, and a
+pair loader decodes the pairs ahead while the card runs:
+`utils.native.PairLoader` on C++ threads, or `utils.loader.PairLoader` on
+Python threads.  With a mesh, the batch is split over the ranks of its
 ``batch`` axis (one process a device, ``parallel.mesh``), each rank runs its
 share and the results are gathered: batch data parallelism, no collective
 but the gather.
@@ -94,9 +95,10 @@ def serve_pairs(
 
     Each batch is uploaded with a plain copy: a Teddy pair is 2 x 169 KB,
     and a copy stream with pinned staging measured no faster on the card
-    (PERF.md).  Pass `utils.loader.PairLoader` as ``pairs`` to decode
-    the pairs ahead on worker threads.  ``device`` is the card unless the
-    caller asks for the CPU.  With ``mesh`` each batch is split over its
+    (PERF.md).  Pass a pair loader as ``pairs`` to decode the pairs
+    ahead while the card runs: `utils.native.PairLoader` (C++ threads) or
+    `utils.loader.PairLoader` (Python threads).  ``device`` is the card
+    unless the caller asks for the CPU.  With ``mesh`` each batch is split over its
     ``batch`` axis (:func:`batched_pipeline`; every rank iterates the same
     pairs and yields every map), ``batch_size`` a multiple of the axis'
     ranks, and a partial last batch is padded with its last pair, whose

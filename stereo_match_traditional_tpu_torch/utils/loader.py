@@ -1,8 +1,11 @@
-"""Binary PGM/PPM codec and a prefetching stereo-pair loader, the
-counterparts of ``read_pnm``, ``write_pnm`` and ``PairLoader`` in the JAX
-package's ``utils/native`` (which wraps the C++ codec and worker pool of
-``native/stereo_host``).  Plain Python and NumPy: the format, the decode
-and the order of the pairs are the native ones.
+"""Binary PGM/PPM codec and a prefetching stereo-pair loader in plain
+Python and NumPy: ``read_pnm``, ``write_pnm`` and ``PairLoader`` mirror
+the names of ``utils.native``, the port's binding of the C++ host library
+(``native/stereo_host``), whose ``PairLoader`` decodes on C++ threads.
+The format, the decode and the order of the pairs are the native ones; a
+PPM's grey image may differ from the native one by 1 where the rounding of
+``rgb_to_gray_u8`` ties.  This is the loader to ask for by name where no
+C++ compiler is at hand: ``utils.native`` has no fallback.
 """
 
 from __future__ import annotations
@@ -95,8 +98,9 @@ class PairLoader:
                  depth: int = 4) -> None:
         self._todo = deque((str(a), str(b)) for a, b in pairs)
         self._depth = max(1, depth)
+        self.threads = max(1, threads)      # the decode workers that run
         self._pool: Optional[concurrent.futures.ThreadPoolExecutor] = (
-            concurrent.futures.ThreadPoolExecutor(max(1, threads),
+            concurrent.futures.ThreadPoolExecutor(self.threads,
                                                   thread_name_prefix="pair-loader"))
         self._ahead: deque = deque()
         self._fill()

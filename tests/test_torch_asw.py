@@ -167,3 +167,24 @@ def test_convert_round_trip_and_validation():
         pair_to_torch(L.astype(np.float32), R, "cpu")
     with pytest.raises(ValueError, match="differ"):
         pair_to_torch(L, R[:, :5], "cpu")
+
+
+@pytest.mark.slow
+def test_asw_at_reference_size_matches_jax():
+    """Reference-shape parity (375x450, D=60, win_size 11), the open cell of
+    ROADMAP's "Measurement cells": the port's CPU path against JAX's plain
+    reference volume under the slice's envelopes, and bad-2.0 within
+    tests/test_tpu_smoke.py's 0.15.  Slow: the 625-offset plain volume."""
+    L, R, gt = make_pair(375, 450, 60, seed=0)
+    cfg = cfgs.ASWConfig(use_pallas=False)
+    jres = jax_get_pipeline("asw")[0](jnp.asarray(L), jnp.asarray(R), cfg)
+    got = result_to_numpy(get_pipeline("asw")[0](*pair_to_torch(L, R, "cpu"), port_cfg(cfg)))
+    for f in FIELDS:
+        a, b = np.asarray(getattr(jres, f)), getattr(got, f)
+        assert b.shape == a.shape == (375, 450) and b.dtype == np.float32
+        same = float((a == b).mean())
+        print(f"{f}: {same:.4%} of pixels equal")
+        assert same >= MIN_AGREE[f], (f, same)
+    bad2 = bad_pixel_rate(got.disp_left, gt)
+    print(f"bad-2.0 of disp_left: {bad2}")
+    assert bad2 <= 0.15

@@ -1,9 +1,10 @@
 """The port imports neither jax nor the JAX package: every module imports
-with both blocked, and no source file of the port, ``chip_smoke.py`` or the
-multi-rank test worker (``tests/torch_mesh_worker.py``) names either in an
-import."""
+with both blocked, and no source file of the port, ``chip_smoke.py``, the
+port's examples (``examples/*_torch.py``) or the multi-rank test worker
+(``tests/torch_mesh_worker.py``) names either in an import."""
 
 import ast
+import glob
 import os
 import pkgutil
 import subprocess
@@ -40,7 +41,8 @@ def test_port_modules_are_found():
                      "utils.profiling", "ops.filters", "parallel", "parallel.streamed",
                      "parallel.tiled", "parallel.halo", "ops.kernels.scanline_banded_cuda",
                      "parallel.comm", "parallel.mesh", "parallel.distributed",
-                     "parallel.scan_carry", "parallel.wta_shard", "parallel.post_shard"):
+                     "parallel.scan_carry", "parallel.wta_shard", "parallel.post_shard",
+                     "utils.native"):
         assert f"{PKG}.{expected}" in mods
 
 
@@ -69,6 +71,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield from glob.glob(os.path.join(REPO, "examples", "*_torch.py"))
     yield os.path.join(REPO, "tests", "torch_mesh_worker.py")
 
 

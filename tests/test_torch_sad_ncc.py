@@ -412,3 +412,18 @@ def test_unknown_ncc_options_rejected(cfg):
     L, R, _ = make_pair(8, 8, 2, seed=0)
     with pytest.raises(ValueError):
         get_pipeline("ncc")[0](*pair_to_torch(L, R, "cpu"), cfg)
+
+
+@pytest.mark.slow
+def test_ncc_at_reference_size_and_committed_range_matches_jax():
+    """Reference shape at the committed range (375x450, D=200, the 21x21
+    window), the open cell of ROADMAP's "Measurement cells": the port's CPU
+    path against JAX within the WTA envelope.  Slow: JAX's eager volume."""
+    L, R, gt = make_pair(375, 450, 200, seed=0)
+    cfg = cfgs.NCCConfig()
+    assert cfg.disp_range == 200
+    jres = jax_get_pipeline("ncc")[0](jnp.asarray(L), jnp.asarray(R), cfg)
+    got = result_to_numpy(get_pipeline("ncc")[0](*pair_to_torch(L, R, "cpu"), port_cfg(cfg)))
+    _agreement(jres._asdict(), got._asdict(), ("disp_left",))
+    print(f"bad-2.0 of disp_left: {bad_pixel_rate(got.disp_left, gt)} "
+          f"(JAX: {bad_pixel_rate(np.asarray(jres.disp_left), gt)})")

@@ -4,8 +4,9 @@ behaviour of the arguments that make them equal.
 A caller moving from the JAX package to the port passes the same
 arguments in the same positions, so every public function of the port's
 ``models/*``, ``ops/{post,volume,wta,aggregate,scanline,filters}``,
-``utils/{checkpoint,io}`` and ``parallel/{streamed,tiled,halo,mesh,
-distributed,scan_carry,wta_shard,post_shard}`` that has a JAX counterpart of
+``utils/{checkpoint,io,native,profiling,synthetic}`` and
+``parallel/{streamed,tiled,halo,mesh,distributed,scan_carry,wta_shard,
+post_shard}`` that has a JAX counterpart of
 the same name takes the same parameter names in the same order, but for the
 exceptions listed here; every public function, class and constant of those
 JAX modules exists in the port or is listed here with its reason; and the
@@ -42,9 +43,9 @@ from stereo_match_traditional_tpu_torch.utils.synthetic import make_pair
 MODULES = ["models.ad_census", "models.asw", "models.base", "models.batch", "models.cblsm",
            "models.ncc", "models.registry", "models.sad", "ops.post", "ops.volume", "ops.wta",
            "ops.aggregate", "ops.scanline", "ops.filters", "utils.checkpoint", "utils.io",
-           "parallel.streamed", "parallel.tiled", "parallel.halo", "parallel.mesh",
-           "parallel.distributed", "parallel.scan_carry", "parallel.wta_shard",
-           "parallel.post_shard"]
+           "utils.native", "utils.profiling", "utils.synthetic", "parallel.streamed",
+           "parallel.tiled", "parallel.halo", "parallel.mesh", "parallel.distributed",
+           "parallel.scan_carry", "parallel.wta_shard", "parallel.post_shard"]
 # Trailing keywords of JAX signatures that the port may lack: none since the
 # multi-device executors came (the sharded post's median_filter row window,
 # the (tile, disp) runners' d_offset).
