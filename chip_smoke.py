@@ -58,8 +58,11 @@ kernel) and over two processes sharing the card (gloo, ``chip_smoke.py
 --tiled-rank``), each against the direct path, with ms a pair, launches and
 peak memory.  Then above 256 disparities (phase 23, D=300): every scanline
 wrapper's wide route against the CPU plain path bit for bit, the wide
-kernel timed, and ad_census FULL and canonical FULL through
-``get_pipeline`` with their launch counts.  Last the port's two examples
+kernel timed against plain at Teddy's size, the Middlebury 2014 full-size
+volume and a D=800 band, and ad_census FULL and canonical FULL through
+``get_pipeline`` with their launch counts, on a small pair, direct at
+994x1440/D=320 and streamed at 1988x2880/D=290 (their scanline passes held
+to plain on the card).  Last the port's two examples
 (phase 24) in this process at 375x450, D=60: ``examples/demo_torch.py``
 (the five pipelines, each bad-2.0 within its limit and equal to a direct
 call's) and ``examples/serving_torch.py`` (ad_census FULL over the native
@@ -271,12 +274,20 @@ BAND_ENTRIES = ("scanline_horizontal_band_f32", "scanline_canonical_horizontal_b
 # four cards, and Teddy; bit for bit against plain and the wide kernel, timed
 TILED_VERTICAL = [(128, 720, 1280), (128, 720, 320), (60, 375, 450)]
 # Above 256 disparities (phase 23): the wide route of every scanline wrapper
-# on a [D, H, W] volume, timed at a Teddy-sized one; ad_census FULL and
-# canonical FULL through get_pipeline on a small pair
+# on a [D, H, W] volume; ad_census FULL and canonical FULL through
+# get_pipeline on a small pair; the wide kernel timed at [D, H, W] = a
+# Teddy-sized volume, the Middlebury 2014 full-size geometry (pairs of about
+# 2880x1988 whose calib.txt ndisp runs from 260 to several hundred;
+# Adirondack's is 290) and a band of the top of ROADMAP's 300-800 range;
+# ad_census FULL and canonical FULL direct at the half-size geometry and
+# streamed at the full-size one, their scanline passes held to plain
 WIDE_ROUTE_D = 300
 WIDE_IMAGE = (64, 96)
-WIDE_TIMED = (375, 450)
+WIDE_TIMED = {"Teddy": (300, 375, 450), "full size": (290, 1988, 2880),
+              "D=800 band": (800, 256, 2880)}
 WIDE_PAIR = (24, 320)
+WIDE_HALF = (994, 1440, 320)
+WIDE_FULL = (1988, 2880, 290)
 WIDE_ENTRIES = ("scanline_banded_wide_f32", "scanline_banded_wide_canonical_f32")
 # The port's examples (phase 24): the serving example's pairs and batch
 EXAMPLE_PAIRS = 16
@@ -2749,12 +2760,16 @@ def wide_phase() -> dict:
     entries'): ``scanline_optimize_cuda`` (both vertical quirks) and
     ``scanline_optimize_canonical_cuda`` (both views) on a WIDE_IMAGE volume,
     both band entries on a halo-cropped band, both vertical banded passes
-    (a carry, a reset, both directions); the wide kernel timed on a
-    Teddy-sized volume (a vertical pass, and a horizontal one on the copy
-    whose rows are contiguous, the copy timed alone); then ad_census FULL
-    and canonical FULL through ``get_pipeline`` on a WIDE_PAIR pair with
-    the launch counts set to 0 just before and read just after, against
-    the CPU plain path.  Returns the two wide entries' summary fields."""
+    (a carry, a reset, both directions); the wide kernel at WIDE_TIMED's
+    volumes (a vertical pass and both horizontal ones on the volume as it
+    lies, with the pipeline's own penalties and scales), each bit for bit
+    against the plain pass on the same card tensors and timed beside it and
+    its bound, and the volumes the band entries' horizontal passes allocate
+    counted (no row-contiguous copy); then ad_census FULL and canonical FULL
+    through ``get_pipeline`` on a WIDE_PAIR pair with the launch counts set
+    to 0 just before and read just after, against the CPU plain path; then
+    the same at realistic sizes (``wide_pipelines_at_scale``).  Returns the
+    two wide entries' summary fields."""
     import torch
 
     from stereo_match_traditional_tpu_torch import config as C
@@ -2834,36 +2849,74 @@ def wide_phase() -> dict:
              banded.canonical_pass_banded_cuda(cv_c, scale.cpu(), carry_c, h // 3, 1.0, 3.0,
                                                reverse=reverse))
 
-    # the wide kernel timed on a Teddy-sized [D, H, W] volume: a vertical pass
-    # (lanes contiguous), and a horizontal one on the row-contiguous copy
-    th, tw = WIDE_TIMED
-    vol = torch.rand((d, th, tw), device="cuda", generator=gen) * 20
-    timing = {}
-    for canonical, entry in enumerate(WIDE_ENTRIES):
-        recs = {}
-        for layout in ("vertical", "horizontal (on the copy)"):
-            c = vol.permute(1, 0, 2) if layout == "vertical" else vol.permute(2, 0, 1).contiguous()
-            n, m = c.shape[0], c.shape[2]
-            pen = (levels[torch.randint(0, 3, (n, d, m), device="cuda", generator=gen)]
-                   if canonical else torch.rand((n, m), device="cuda", generator=gen) * 3 + 0.5)
-            zero = (torch.zeros((d, m), device="cuda"), torch.zeros((m,), device="cuda"))
+    # the wide kernel at WIDE_TIMED's [D, H, W] volumes, against plain on the
+    # same card tensors and its bound: a vertical pass (lanes contiguous) and
+    # both horizontal ones (steps contiguous: the volume as it lies), with the
+    # pipeline's own penalties (scales) of random images
+    timing = {entry: {} for entry in WIDE_ENTRIES}
+    for shape_label, (td, th, tw) in WIDE_TIMED.items():
+        vol = torch.rand((td, th, tw), device="cuda", generator=gen) * 20
+        base, match = (torch.randint(0, 256, (th, tw), device="cuda", generator=gen,
+                                     dtype=torch.uint8) for _ in range(2))
+        zeros = {m: (torch.zeros((td, m), device="cuda"), torch.zeros((m,), device="cuda"))
+                 for m in (th, tw)}
+        for canonical, entry in enumerate(WIDE_ENTRIES):
+            recs = {}
             a, b = (1.0, 3.0) if canonical else (0.5, 0.0)
-            call = lambda: banded._launch(bool(canonical), c, pen, zero, None, a, b,  # noqa: E731
-                                          True, False, True)
-            plain = (lambda: scanline.canonical_pass_banded(c, pen, zero, None, a, b)) \
-                if canonical else (lambda: scanline.directional_pass_banded(c, pen, zero, None,
-                                                                          a, True))
-            ms, plain_ms = alternate(plain, call, 1, 5)
-            recs[layout] = {"shape": [d, n, m], "ms": ms, "plain_ms": plain_ms,
-                            **bound(8 * d * n * m + 4 * pen.numel(), 10.0 * d * n * m)}
-            recs[layout]["share_of_bound"] = recs[layout]["bound_ms"] / ms
-            del c, pen
-        recs["row_contiguous_copy_ms"] = statistics.median(cuda_ms(
-            lambda: vol.permute(2, 0, 1).contiguous(), 5))
-        timing[entry] = recs
-        emit({"phase": "wide", "part": "timing_kernels", "kernel": entry, **recs})
-    del vol
-    torch.cuda.empty_cache()
+
+            def fn(c, p, cr, rs, canonical=canonical, a=a, b=b):
+                if canonical:
+                    return scanline.canonical_pass_banded(c, p, cr, rs, a, b)
+                return scanline.directional_pass_banded(c, p, cr, rs, a, True)
+
+            for layout in ("vertical", "horizontal"):
+                if layout == "vertical":
+                    c = vol.permute(1, 0, 2)
+                    pens = (scanline.vertical_scales(td, base, match, 15.0, False) if canonical
+                            else scanline.vertical_p2(base, a, 4.0))
+                else:
+                    c = vol.permute(2, 0, 1)
+                    pens = (scanline.horizontal_scales(td, base, match, 15.0, False)
+                            if canonical else scanline.horizontal_p2(base, a, 4.0))
+                lr, rl = (pens[:-1], pens[1:]) if canonical else pens
+                zero = zeros[c.shape[2]]
+                for reverse, pen in ((False, lr), (True, rl)):
+                    call = lambda: banded._launch(  # noqa: E731
+                        bool(canonical), c, pen, zero, None, a, b, True, reverse, True)
+                    plain = lambda: banded._plain(fn, c, pen, zero, None, reverse, True)  # noqa
+                    got, want = call()[0], plain()[0]
+                    torch.cuda.synchronize()
+                    exact = bool(torch.equal(got, want))
+                    del got, want
+                    ms, plain_ms = alternate(plain, call, 1, 5)
+                    n, m = c.shape[0], c.shape[2]
+                    rec = {"shape": [td, th, tw], "steps": n, "lanes": m, "ms": ms,
+                           "plain_ms": plain_ms, "bit_exact_with_plain": exact,
+                           **bound(8 * td * n * m + 4 * pen.numel() + 8 * (td * m + m),
+                                   10.0 * td * n * m)}
+                    rec["share_of_bound"] = rec["bound_ms"] / ms
+                    recs[layout + (" reversed" if reverse else "")] = rec
+                    check(exact, (entry, shape_label, layout, reverse, rec))
+                del pens, lr, rl
+            if shape_label == "Teddy":
+                # the band entries' horizontal passes: no volume allocated but
+                # lr and rl (no row-contiguous copy)
+                s_ = (scanline.horizontal_scales(td, base, match, 15.0, False) if canonical
+                      else None)
+                lr_pen, rl_pen = ((s_[:-1], s_[1:]) if canonical
+                                  else scanline.horizontal_p2(base, a, 4.0))
+                _, peak, _ = _peak_run(lambda: banded._rows(bool(canonical), vol, lr_pen,
+                                                            rl_pen, a, b))
+                volume = 4 * td * th * tw
+                recs["row_contiguous_copies"] = round((peak - 2 * volume) / volume)
+                check(recs["row_contiguous_copies"] == 0, (entry, peak / volume))
+                del s_, lr_pen, rl_pen
+            timing[entry][shape_label] = recs
+            emit({"phase": "wide", "part": "timing_kernels", "kernel": entry,
+                  "volume": shape_label, **recs})
+            torch.cuda.empty_cache()
+        del vol, zeros
+        torch.cuda.empty_cache()
 
     # the main path above 256 disparities: ad_census FULL and canonical FULL
     ph, pw = WIDE_PAIR
@@ -2901,20 +2954,179 @@ def wide_phase() -> dict:
         check(min(agree.values()) == 1.0 if views == 1
               else min(rec["agree_outside_the_clamp_triangle"].values()) >= MIN_WTA_AGREE, rec)
         launches[entry] = counts[entry]
+    wide_pipelines_at_scale()
     emit({"phase": "wide", "part": "done", "seconds": time.perf_counter() - start})
 
     out = {}
     for entry in WIDE_ENTRIES:
-        rec = timing[entry]["vertical"]
+        teddy = timing[entry]["Teddy"]
+        rec = teddy["vertical"]
         out[entry] = {"launches": launches[entry], "launches_per_call": launches[entry],
                       "max_abs_err": err[entry], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                       "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                       "share_of_bound": rec["share_of_bound"], "library_ms": None,
                       "ms_covers": "one vertical pass of a [D, H, W] = [{}, {}, {}] "
-                                   "volume".format(d, *WIDE_TIMED),
-                      "horizontal": timing[entry]["horizontal (on the copy)"],
-                      "row_contiguous_copy_ms": timing[entry]["row_contiguous_copy_ms"]}
+                                   "volume".format(*WIDE_TIMED["Teddy"]),
+                      "horizontal": teddy["horizontal"],
+                      "horizontal_reversed": teddy["horizontal reversed"],
+                      "row_contiguous_copies": teddy["row_contiguous_copies"],
+                      "full_size": timing[entry]["full size"],
+                      "d800_band": timing[entry]["D=800 band"]}
     return out
+
+
+@contextlib.contextmanager
+def held_to_plain(module, name, hold):
+    """``module.name`` wrapped for the duration: each call runs the wrapped
+    function, then ``hold(args, result)``, whose records are collected in
+    the list this yields."""
+    wrapped, records = getattr(module, name), []
+
+    def call(*args, **kwargs):
+        result = wrapped(*args, **kwargs)
+        rec = hold(args, kwargs, result)
+        if rec is not None:
+            records.append(rec)
+        return result
+
+    setattr(module, name, call)
+    try:
+        yield records
+    finally:
+        setattr(module, name, wrapped)
+
+
+def wide_pipelines_at_scale() -> None:
+    """Phase 23b: ad_census FULL and canonical FULL above 256 disparities at
+    realistic sizes, the wide kernel on their whole scanline: direct at the
+    Middlebury 2014 half-size geometry (WIDE_HALF, each scanline call held
+    bit for bit to the port's plain whole-image scanline on the same card
+    tensors), and streamed at the full-size one (WIDE_FULL, legacy FULL and
+    canonical staged: the first wide launch of each family, layout and
+    direction held bit for bit to the plain banded pass), each with its
+    launches, ms a pair, peak memory and (streamed) device ms by ``stereo/``
+    range."""
+    import torch
+
+    from stereo_match_traditional_tpu_torch import config as C
+    from stereo_match_traditional_tpu_torch.models import ad_census as ad_model
+    from stereo_match_traditional_tpu_torch.models import get_pipeline
+    from stereo_match_traditional_tpu_torch.ops import scanline
+    from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
+    from stereo_match_traditional_tpu_torch.parallel import (
+        auto_row_tile, run_streamed, streamed_canonical_staged,
+    )
+    from stereo_match_traditional_tpu_torch.utils.convert import pair_to_torch
+    from stereo_match_traditional_tpu_torch.utils.synthetic import make_pair
+
+    def full(d):
+        return C.ADCensusConfig(disp_range=d, scanline=C.ScanlineConfig(), run_post=True)
+
+    def canonical_full(d):
+        return C.ADCensusConfig(disp_range=d, aggregation="cross_two_pass",
+                                scanline=C.ScanlineConfig(), run_post=True)
+
+    # direct at the half-size geometry
+    h, w, d = WIDE_HALF
+    L, R, _ = make_pair(h, w, d, seed=0)
+    lt, rt = pair_to_torch(L, R, "cuda")
+    fn = get_pipeline("ad_census")[0]
+    for label, cfg, name, plain_fn, entry in (
+            ("ad_census FULL", full(d), "scanline_optimize_cuda", scanline.scanline_optimize,
+             WIDE_ENTRIES[0]),
+            ("ad_census canonical FULL", canonical_full(d), "scanline_optimize_canonical_cuda",
+             scanline.scanline_optimize_canonical, WIDE_ENTRIES[1])):
+        def hold(args, kwargs, result, plain_fn=plain_fn):
+            want = plain_fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            return bool(torch.equal(result, want)) and result.is_contiguous()
+
+        _reset_launches()
+        with held_to_plain(ad_model, name, hold) as held:
+            res = fn(lt, rt, cfg)
+            torch.cuda.synchronize()
+        counts = {k: v for k, v in _launches().items() if v}
+        del res
+        _, peak, reserved = _peak_run(lambda: fn(lt, rt, cfg))
+        ms = statistics.median(cuda_ms(lambda: fn(lt, rt, cfg), 2))
+        views = 2 if "canonical" in label else 1
+        rec = {"phase": "wide", "part": "direct at scale", "config": label, "shape": [h, w],
+               "disp_range": d, "launches": counts, "ms_a_pair": ms,
+               "mpixdisp_per_s": h * w * d / (ms / 1e3) / 1e6, "peak_bytes": peak,
+               "peak_reserved_bytes": reserved,
+               "scanline_calls_bit_exact_with_plain": held}
+        emit(rec)
+        check(len(held) == views and all(held) and counts.get(entry, 0) == 4 * views
+              and counts.get("scanline_optimize_f32", 0) == 0
+              and counts.get("scanline_canonical_f32", 0) == 0, rec)
+        torch.cuda.empty_cache()
+    del lt, rt
+    torch.cuda.empty_cache()
+
+    # streamed at the full-size geometry
+    h, w, d = WIDE_FULL
+    L, R, _ = make_pair(h, w, d, seed=0)
+    lt, rt = pair_to_torch(L, R, "cuda")
+    for label, cfg in (("FULL", full(d)), ("canonical FULL", canonical_full(d))):
+        tile = auto_row_tile("ad_census", cfg, h, w)
+
+        def call(row_tile=None, label=label, cfg=cfg):
+            if label == "canonical FULL":
+                return streamed_canonical_staged(cfg, row_tile)(lt, rt)
+            return run_streamed("ad_census", lt, rt, cfg, row_tile)
+
+        seen = set()
+
+        def hold(args, kwargs, result, cfg=cfg):
+            canonical, cost, pen, carry, reset, p1, p2, dm1, reverse, store = args[:10]
+            key = (bool(canonical), cost.stride(0) in (1, -1), bool(reverse))
+            if key in seen:
+                return None
+            seen.add(key)
+
+            def plain_fn(c, p, cr, rs):
+                if canonical:
+                    return scanline.canonical_pass_banded(c, p, cr, rs, p1, p2)
+                return scanline.directional_pass_banded(c, p, cr, rs, p1, dm1)
+
+            want = banded._plain(plain_fn, cost, pen, carry, reset, reverse, store)
+            torch.cuda.synchronize()
+            same = [torch.equal(x, y) for x, y in zip(
+                (result[0], *result[1]), (want[0], *want[1])) if x is not None]
+            return {"canonical": key[0], "steps_contiguous": key[1], "reversed": key[2],
+                    "shape": list(cost.shape), "bit_exact_with_plain": all(same)}
+
+        # the held call in bands of half the rows: room for the plain passes
+        with held_to_plain(banded, "_launch", hold) as held:
+            call(max(64, tile // 2))
+            torch.cuda.synchronize()
+        _reset_launches()
+        res, peak, reserved = _peak_run(call)
+        counts = {k: v for k, v in _launches().items() if v}
+        check(bool(torch.isfinite(res.disp_left).all()), label)
+        del res
+        times = cuda_ms(call, 2)
+        ms = statistics.median(times)
+        rec = {"phase": "wide", "part": "streamed at scale", "config": label, "shape": [h, w],
+               "disp_range": d, "row_tile": tile, "launches": counts, "calls": 1,
+               "ms_a_pair": ms, "ms_timed_calls": times,
+               "mpixdisp_per_s": h * w * d / (ms / 1e3) / 1e6, "peak_bytes": peak,
+               "peak_reserved_bytes": reserved,
+               "card_memory_bytes": torch.cuda.get_device_properties(0).total_memory,
+               "wide_launches_held_to_plain": held,
+               "stage_ms": profiled_stages(call, 1, warm_up=False)}
+        emit(rec)
+        entry = WIDE_ENTRIES[label == "canonical FULL"]
+        # vertical and horizontal passes, both directions, on the wide kernel only
+        check(len(held) == 4 and all(r["bit_exact_with_plain"] for r in held)
+              and counts.get(entry, 0) > 0 and counts.get(BAND_ENTRIES[0], 0) == 0
+              and counts.get(BAND_ENTRIES[1], 0) == 0
+              and counts.get("scanline_banded_f32", 0) == 0
+              and counts.get("scanline_banded_canonical_f32", 0) == 0
+              and reserved < rec["card_memory_bytes"], rec)
+        torch.cuda.empty_cache()
+    del lt, rt
+    torch.cuda.empty_cache()
 
 
 def _tiled_runs() -> list:

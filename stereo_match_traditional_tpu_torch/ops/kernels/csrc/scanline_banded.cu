@@ -59,13 +59,36 @@
 // slab) takes about its path length times that; a wide one is moved at the
 // rate its blocks' copies reach.
 //
-// The wide kernel (any D, any strides: D > 256, the strided horizontal
-// layout, and the whole-image passes of the direct entries above 256
-// disparities) keeps prev of WL = 8 lanes in shared memory ([D][8], updated
-// in place) and gives each of WG = 32 thread groups a run of ceil(D / 32)
-// disparities; a step is two barriers: the neighbours' edge values are read,
-// then the runs are updated upward in place and their minima reduced.
-// Shared memory, 32 D + 1 KB, is its only limit: D <= 7232 (227 KB).
+// The wide kernel (any D up to 7232, any strides: D > 256, the strided
+// horizontal layout, the whole-image passes of the direct entries and both
+// horizontal passes of the band entries above 256 disparities, read from the
+// d-major volume as it lies) carries the same design to wide D.  For D <=
+// 1024 one walker warp holds one lane's D values in registers (K = ceil(D /
+// 32) a thread, rounded up to 1, 2, 4, 8 or a multiple of 4) and steps with
+// walk_steps; the block meets at one barrier a tile.  Four mover warps stage
+// tiles of [steps][lanes][32 K slots] (canonical: the scales' tile beside it;
+// legacy: [steps][lanes] penalties) through a ring of 4 stages (run_tiles),
+// cut into chunks of up to 4 neighbours along the cost's contiguous
+// dimension: along the lanes for a vertical pass (8 lanes a block: 32-byte
+// runs of a row), along the steps for a horizontal one (a lane a block, up
+// to 32 steps a tile: 128-byte runs; a reversed path's chunk is copied in
+// memory order and read mirrored).  A mover copies a chunk whole, 16 or 8
+// bytes where copy_width allows, else value by value (any strides); a warp
+// of movers covers all chunks of a few slots, so each copy instruction
+// touches a few d-planes of the volume.  Walkers read a vertical tile one
+// value a slot (4-way bank conflicts), a horizontal one a chunk of 4 steps a
+// slot (one 16-byte load, the steps walked from registers).  The tile takes
+// the most steps whose ring fits a SM's shared memory.  Above 1024
+// disparities the shared-memory kernel runs instead: prev of WL = 8 lanes in
+// shared memory ([D][8], updated in place), each of WG = 32 thread groups a
+// run of ceil(D / 32) disparities, two barriers a step; 32 D + 1 KB of
+// shared memory, so D <= 7232 (227 KB).
+//
+// What bounds the wide kernel: bytes, as above.  Its movers reach ~13 GB/s
+// a SM (NVIDIA H100 80GB HBM3 at 700 W, tools/wide_variants.py with the
+// walkers off), half the card's share, so a pass of the full-size
+// Middlebury volume takes about twice its bound; a horizontal pass (a
+// walker warp a SM) is bound as much by the walkers' step chain.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -522,18 +545,398 @@ int run_walker(const Pass& a, void* stream) {
 // The wide kernel: any D, any strides.
 // ---------------------------------------------------------------------------
 
-constexpr int WL = 8;    // lanes a block (32-byte runs of a row when lanes are contiguous)
+constexpr int WMOVERS = 128;         // mover threads a block (4 warps)
+constexpr int WIDE_LANES = 8;        // the most lanes a block, one walker warp each
+constexpr int WIDE_NS = 4;           // stages of the ring: two tiles on their way
+constexpr int WIDE_REG_MAX_DISP = 1024;  // the walker / mover route: K <= 32
+constexpr int WIDE_MAX_DISP = 7232;  // the shared-memory route: 32 D + 1 KB <= 227 KB
+
+// A launch's tiles: 1 << lb lanes a block, 1 << vb steps a tile, P of them.
+// A tile is cut into chunks of C = min(4, NI) neighbours along its inner
+// dimension, the one the cost is contiguous along (`lanes_inner`: the lanes,
+// a vertical pass; else the steps, a horizontal pass on a d-major band; NI
+// its extent, NO the other's): chunk (o, ci) of slot s (slot k 32 + l holds
+// d = l K + k, walker lane l's value k) lies at o os + ci cs + s C, so that a
+// mover copies a chunk whole (16, 8 or 4 bytes) and a warp of movers covers
+// all chunks of 32 / PPS slots (PPS = NO NC chunks a slot), a few d, each in
+// its own stretch of the d-major volume.  cs = C (32 K + u), os = NC cs, u =
+// max(1, 32 / P): the movers' copies are free of bank conflicts; a walker
+// reading 32 slots of one chunk position meets C-way conflicts (lanes
+// inner), or reads whole chunks, 32 of them side by side (steps inner).
+struct WideTile {
+  int lb, vb, lanes_inner;
+  int rev;            // steps inner on a reversed path: a chunk holds its steps mirrored
+  int cl, lnc, lpps;  // log2 of C, of the chunks along the inner dimension, of PPS
+  int cs, os, tile, stage;  // words; stage: cost (+ scales) + legacy penalties
+};
+
+template <int K, bool CANON>
+WideTile wide_tile(int lb, int vb, int lanes_inner, int rev) {
+  WideTile g{lb, vb, lanes_inner, rev, 0, 0, 0, 0, 0, 0, 0};
+  const int ni = lanes_inner ? lb : vb, no = lanes_inner ? vb : lb;
+  g.cl = ni < 2 ? ni : 2;
+  g.lnc = ni - g.cl;
+  g.lpps = no + g.lnc;
+  const int u = lb + vb < 5 ? 32 >> (lb + vb) : 1;
+  g.cs = (32 * K + u) << g.cl;
+  g.os = g.cs << g.lnc;
+  g.tile = g.os << no;
+  g.stage = CANON ? 2 * g.tile : g.tile + (((1 << (lb + vb)) + 3) & ~3);
+  return g;
+}
+
+// How a wide block's movers copy one tensor: w floats a copy along the
+// tile's inner dimension (4 or 2: that dimension contiguous in the path's
+// direction and every chunk 4 w bytes aligned, as copy_width finds; a
+// reversed path's chunk is copied in memory order, its steps mirrored), or
+// w = 1: each value alone at stride `is` along it (any strides).
+struct WideCopy {
+  int w;
+  long long is;
+};
+
+// One tensor of a wide block's movers: a volume [T, D, M] (cost, scales,
+// out) at its strides.  Mover mt carries chunk (o, ci) = the tile's piece
+// mt % PPS of slots mt / PPS + 128 / PPS i; f(word, address, n) for each
+// chunk in the band (its first n <= C values, d < D).  Every offset is
+// 64-bit.
+template <int K>
+struct WideVolume {
+  static constexpr int SLOTS = 32 * K;
+  const float* base;
+  long long st, sd, sm;
+
+  template <typename F>
+  __device__ __forceinline__ void pieces(const WideTile& g, int mt, int ti, int x0, int n_steps,
+                                         int d_range, int m_lanes, F f) const {
+    const int oc = mt & ((1 << g.lpps) - 1);
+    const int o = oc >> g.lnc, ci = oc & ((1 << g.lnc) - 1), c = 1 << g.cl;
+    int t, x, n;
+    if (g.lanes_inner) {
+      t = ti * (1 << g.vb) + o;
+      x = x0 + (ci << g.cl);
+      n = t < n_steps ? min(c, m_lanes - x) : 0;
+    } else {
+      t = ti * (1 << g.vb) + (ci << g.cl);
+      x = x0 + o;
+      n = x < m_lanes ? min(c, n_steps - t) : 0;
+    }
+    if (n <= 0) return;
+    const float* row = base + (long long)t * st + (long long)x * sm;
+    const int word = o * g.os + ci * g.cs;
+    for (int slot = mt >> g.lpps; slot < SLOTS; slot += WMOVERS >> g.lpps) {
+      const int d = (slot & 31) * K + (slot >> 5);
+      if (d < d_range) f(word + (slot << g.cl), row + (long long)d * sd, n);
+    }
+  }
+};
+
+// K values a walker lane (a power of two up to 8, then multiples of 4 up to
+// 32: D <= 1024) for d_range disparities
+inline int wide_k(int d_range) {
+  const int k = (d_range + 31) / 32;
+  return k <= 2 ? k : (k <= 4 ? 4 : (k <= 8 ? 8 : (k + 3) / 4 * 4));
+}
+
+// G neighbouring floats of shared memory (aligned to G), reversed when
+// `rev`, and back
+template <int G>
+__device__ __forceinline__ void load_run(const float* p, bool rev, float (&v)[G]) {
+  if constexpr (G == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    if (rev) { v[0] = t.w; v[1] = t.z; v[2] = t.y; v[3] = t.x; }
+    else { v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w; }
+  } else if constexpr (G == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    if (rev) { v[0] = t.y; v[1] = t.x; }
+    else { v[0] = t.x; v[1] = t.y; }
+  } else {
+    v[0] = *p;
+  }
+}
+template <int G>
+__device__ __forceinline__ void store_run(float* p, bool rev, const float (&v)[G]) {
+  if constexpr (G == 4) {
+    *reinterpret_cast<float4*>(p) = rev ? make_float4(v[3], v[2], v[1], v[0])
+                                        : make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (G == 2) {
+    *reinterpret_cast<float2*>(p) = rev ? make_float2(v[1], v[0]) : make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// A walker's tile where the steps are inner: G steps at a time from the
+// runs of its slots' chunks (one 4 G-byte load a slot, conflict-free),
+// walked from registers (walk_steps), stored back over the costs when there
+// is an output.
+template <int K, int G, bool CANON>
+__device__ __forceinline__ void walk_runs(float* stage, const WideTile& g, int ti, int b,
+                                          int lane, float (&prev)[1][K], float (&m)[1],
+                                          float p1, float p2_base, bool dm1, int n_steps,
+                                          int reset, int d_range, bool store) {
+  const int c = 1 << g.cl, vt = 1 << g.vb;
+  const float* pens = stage + g.tile + b;
+  for (int j = 0; j < vt; j += G) {
+    const int t = ti * vt + j;
+    if (t >= n_steps) break;
+    const int at = g.rev ? c - G - (j & (c - 1)) : j & (c - 1);
+    float* run = stage + b * g.os + (j >> g.cl) * g.cs + at + lane * c;
+    float cv[1][G][K], s[1][G][K], p2[G][1];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float v[G];
+      load_run<G>(run + 32 * k * c, g.rev, v);
+#pragma unroll
+      for (int e = 0; e < G; ++e) cv[0][e][k] = v[e];
+      if (CANON) {
+        load_run<G>(run + g.tile + 32 * k * c, g.rev, v);
+#pragma unroll
+        for (int e = 0; e < G; ++e) s[0][e][k] = v[e];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < G; ++e) p2[e][0] = CANON ? 0.f : pens[(j + e) << g.lb];
+    walk_steps<K, 1, G, CANON>(cv, s, p2, prev, m, p1, p2_base, dm1, t, n_steps, reset,
+                               d_range, lane);
+    if (store) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        float v[G];
+#pragma unroll
+        for (int e = 0; e < G; ++e) v[e] = cv[0][e][k];
+        store_run<G>(run + 32 * k * c, g.rev, v);
+      }
+    }
+  }
+}
+
+// Steps a walker takes from registers where they are inner: as many as a
+// chunk holds, fewer where the values of 4 steps (and scales) would crowd
+// the registers
+template <int K, bool CANON>
+constexpr int WIDE_RUN = (CANON ? 8 : 4) * K <= 96 ? 4 : ((CANON ? 4 : 2) * K <= 96 ? 2 : 1);
+
+template <int K, bool CANON>
+__global__ void __launch_bounds__(32 * WIDE_LANES + WMOVERS)
+banded_wide_kernel(Pass a, WideTile g, WideCopy cost_copy, WideCopy pen_copy,
+                   WideCopy out_copy) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int lanes = 1 << g.lb, vt = 1 << g.vb;
+  const int x0 = blockIdx.x * lanes;
+  const int ntiles = (a.n_steps + vt - 1) / vt;
+  const bool walker = tid < 32 * lanes;
+  const int mt = tid - 32 * lanes;
+  const WideVolume<K> cost{a.cost, a.cs_t, a.cs_d, a.cs_m};
+  const WideVolume<K> scale{a.pen, a.ps_t, a.ps_d, a.ps_m};
+  const WideVolume<K> out{a.out, a.os_t, a.os_d, a.os_m};
+
+  // costs of slots d >= D stay +inf (and their values with them), scales 1
+  for (int i = tid; i < WIDE_NS * g.stage; i += blockDim.x) {
+    smem[i] = i % g.stage < g.tile ? CUDART_INF_F : 1.f;
+  }
+
+  // Walker warp b walks lane x0 + b from the incoming carry.
+  const int b = tid >> 5, x = x0 + b;
+  const bool walks = walker && x < a.m_lanes;
+  float prev[1][K], m[1];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int d = lane * K + k;
+    prev[0][k] = walks && d < a.d_range ? a.cin[(size_t)d * a.m_lanes + x] : CUDART_INF_F;
+  }
+  m[0] = walks ? a.cin_min[x] : 0.f;
+  __syncthreads();
+
+  auto fetch = [&](int in) {
+    if (in < ntiles) {
+      float* stage = smem + (in % WIDE_NS) * g.stage;
+      const auto copy = [rev = g.rev, c = 1 << g.cl](float* dst, WideCopy cp) {
+        return [dst, cp, rev, c](int word, const float* row, int n) {
+          if (cp.w > 1) {  // n values from the lowest address, n % w == 0
+            float* to = dst + word + (rev ? c - n : 0);
+            const float* from = rev ? row - (n - 1) : row;
+            if (cp.w == 4) {
+              cp_async16(to, from);
+            } else {
+              cp_async8(to, from);
+              if (n > 2) cp_async8(to + 2, from + 2);
+            }
+          } else {
+            for (int e = 0; e < n; ++e) {
+              cp_async4(dst + word + (rev ? c - 1 - e : e), row + e * cp.is);
+            }
+          }
+        };
+      };
+      cost.pieces(g, mt, in, x0, a.n_steps, a.d_range, a.m_lanes, copy(stage, cost_copy));
+      if (CANON) {
+        scale.pieces(g, mt, in, x0, a.n_steps, a.d_range, a.m_lanes,
+                     copy(stage + g.tile, pen_copy));
+      } else {  // the tile's [vt][lanes] penalties
+        for (int q = mt; q < lanes * vt; q += WMOVERS) {
+          const int j = q >> g.lb, xb = x0 + (q & (lanes - 1)), t = in * vt + j;
+          if (t < a.n_steps && xb < a.m_lanes) {
+            cp_async4(stage + g.tile + q, a.pen + (long long)t * a.ps_t + (long long)xb * a.ps_m);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  auto write_out = [&](int done) {
+    if (a.out == nullptr) return;
+    const float* stage = smem + (done % WIDE_NS) * g.stage;
+    const WideCopy cp = out_copy;
+    out.pieces(g, mt, done, x0, a.n_steps, a.d_range, a.m_lanes,
+               [stage, cp, rev = g.rev, c = 1 << g.cl](int word, const float* at, int n) {
+                 float* row = const_cast<float*>(at);
+                 if (cp.w > 1) {  // n values to the lowest address, n % w == 0
+                   const float* from = stage + word + (rev ? c - n : 0);
+                   float* to = rev ? row - (n - 1) : row;
+                   if (cp.w == 4) {
+                     *reinterpret_cast<float4*>(to) = *reinterpret_cast<const float4*>(from);
+                   } else {
+                     *reinterpret_cast<float2*>(to) = *reinterpret_cast<const float2*>(from);
+                     if (n > 2) {
+                       *reinterpret_cast<float2*>(to + 2) =
+                           *reinterpret_cast<const float2*>(from + 2);
+                     }
+                   }
+                 } else {
+                   for (int e = 0; e < n; ++e) row[e * cp.is] = stage[word + (rev ? c - 1 - e : e)];
+                 }
+               });
+  };
+  const bool dm1 = a.dm1 != 0;
+  auto walk = [&](int ti) {
+    if (!walks) return;
+    const int c = 1 << g.cl;
+    float* stage = smem + (ti % WIDE_NS) * g.stage;
+    if (!g.lanes_inner) {  // runs of G steps
+      constexpr int R = WIDE_RUN<K, CANON>;
+      const bool store = a.out != nullptr;
+      if (R >= 4 && c >= 4) {
+        walk_runs<K, (R >= 4 ? 4 : 1), CANON>(stage, g, ti, b, lane, prev, m, a.p1, a.p2, dm1,
+                                               a.n_steps, a.reset, a.d_range, store);
+      } else if (R >= 2 && c >= 2) {
+        walk_runs<K, (R >= 2 ? 2 : 1), CANON>(stage, g, ti, b, lane, prev, m, a.p1, a.p2, dm1,
+                                               a.n_steps, a.reset, a.d_range, store);
+      } else {
+        walk_runs<K, 1, CANON>(stage, g, ti, b, lane, prev, m, a.p1, a.p2, dm1, a.n_steps,
+                               a.reset, a.d_range, store);
+      }
+      return;
+    }
+    // lanes inner: one step at a time, lane b's position in its chunks
+    const float* pens = stage + g.tile + b;
+    for (int j = 0; j < vt; ++j) {
+      const int t = ti * vt + j;
+      if (t >= a.n_steps) break;
+      float* vals = stage + j * g.os + (b >> g.cl) * g.cs + (b & (c - 1)) + lane * c;
+      float cv[1][1][K], s[1][1][K], p2[1][1];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        cv[0][0][k] = vals[32 * k * c];
+        s[0][0][k] = CANON ? vals[g.tile + 32 * k * c] : 0.f;
+      }
+      p2[0][0] = CANON ? 0.f : pens[j << g.lb];
+      walk_steps<K, 1, 1, CANON>(cv, s, p2, prev, m, a.p1, a.p2, dm1, t, a.n_steps, a.reset,
+                                 a.d_range, lane);
+      if (a.out != nullptr) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) vals[32 * k * c] = cv[0][0][k];
+      }
+    }
+  };
+  run_tiles<WIDE_NS, false>(walker, ntiles, fetch, [](int) {}, write_out, walk);
+
+  if (!walks) return;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int d = lane * K + k;
+    if (d < a.d_range) a.cout[(size_t)d * a.m_lanes + x] = prev[0][k];
+  }
+  if (lane == 0) a.cout_min[x] = m[0];
+}
+
+// The tile of 1 << lb lanes with the most steps (up to 32) whose ring fits
+// `budget` bytes; vb = -1 where not even one step fits.
+template <int K, bool CANON>
+WideTile fit_tile(int lb, int lanes_inner, int rev, size_t budget) {
+  for (int vb = 5; vb >= 0; --vb) {
+    const WideTile g = wide_tile<K, CANON>(lb, vb, lanes_inner, rev);
+    if (sizeof(float) * WIDE_NS * (size_t)g.stage <= budget) return g;
+  }
+  WideTile g = wide_tile<K, CANON>(lb, 0, lanes_inner, rev);
+  g.vb = -1;
+  return g;
+}
+
+// How the movers copy a tensor at strides (st, sd, sm) from `base` (its
+// path's first step) in tile g: along the inner dimension in pieces of
+// copy_width floats where it runs contiguous there in the path's direction,
+// else value by value.
+inline WideCopy wide_copy(const WideTile& g, const float* base, long long st, long long sd,
+                          long long sm, int n_steps, int m_lanes) {
+  const long long is = g.lanes_inner ? sm : st;
+  int w = 1;
+  if (g.lanes_inner && is == 1) {
+    w = copy_width(base, st, sd, m_lanes);
+  } else if (!g.lanes_inner && is == (g.rev ? -1 : 1)) {
+    // a chunk's lowest address: its first step, or its last on a reversed path
+    const int c = 1 << g.cl;
+    w = copy_width(g.rev ? base - (c - 1) : base, sm, sd, n_steps);
+  }
+  return WideCopy{w < (1 << g.cl) ? w : 1 << g.cl, is};
+}
+
+template <int K, bool CANON>
+cudaError_t launch_wide(const Pass& a, int device, int sm_count, cudaStream_t s) {
+  static std::atomic<bool> sized[MAX_DEVICES];  // per instance and device, false at first
+  constexpr size_t BUDGET = 227 * 1024 - 2048;  // one block a SM
+  const cudaError_t err = allow_shared_bytes(sized[device], banded_wide_kernel<K, CANON>, BUDGET);
+  if (err != cudaSuccess) return err;
+  // The cost's contiguous dimension: its steps (a step stride of +-1), else
+  // its lanes.  Along the lanes a block takes 8 (32-byte runs of a row),
+  // fewer where not one step of 8 fits; along the steps one.  Then the most
+  // steps (up to 32: 128-byte runs along the steps) whose ring fits a SM.
+  const int lanes_inner = a.cs_t == 1 || a.cs_t == -1 ? 0 : 1;
+  const int rev = !lanes_inner && a.cs_t < 0;
+  int lb = lanes_inner ? 3 : 0;
+  WideTile g = fit_tile<K, CANON>(lb, lanes_inner, rev, BUDGET);
+  while (lb > 0 && g.vb < 0) g = fit_tile<K, CANON>(--lb, lanes_inner, rev, BUDGET);
+  if (g.vb < 0) return cudaErrorInvalidValue;  // not reached: one lane's step fits at D <= 1024
+  const WideCopy cc = wide_copy(g, a.cost, a.cs_t, a.cs_d, a.cs_m, a.n_steps, a.m_lanes);
+  const WideCopy pc = wide_copy(g, a.pen, a.ps_t, a.ps_d, a.ps_m, a.n_steps, a.m_lanes);
+  const WideCopy oc = a.out != nullptr
+                          ? wide_copy(g, a.out, a.os_t, a.os_d, a.os_m, a.n_steps, a.m_lanes)
+                          : WideCopy{1, 0};
+  const int blocks = (a.m_lanes + (1 << lb) - 1) >> lb, threads = 32 * (1 << lb) + WMOVERS;
+  const size_t bytes = sizeof(float) * WIDE_NS * g.stage;
+  banded_wide_kernel<K, CANON><<<blocks, threads, bytes, s>>>(a, g, cc, pc, oc);
+  return cudaGetLastError();
+}
+
+// The shared-memory route, for 1024 < D <= 7232: prev of WL = 8 lanes in
+// shared memory ([D][8], updated in place), each of WG = 32 thread groups a
+// run of ceil(D / 32) disparities; a step is two barriers: the neighbours'
+// edge values are read, then the runs are updated upward in place and their
+// minima reduced.
+constexpr int WL = 8;    // lanes a block
 constexpr int WG = 32;   // disparity groups a block
-constexpr int WIDE_MAX_DISP = 7232;  // 32 D + 1 KB of shared memory <= 227 KB
 
 template <bool CANON>
 __global__ void __launch_bounds__(WL * WG)
-banded_wide_kernel(const float* __restrict__ cost, long long cs_t, long long cs_d, long long cs_m,
-                   const float* __restrict__ pen, long long ps_t, long long ps_d, long long ps_m,
-                   float* __restrict__ out, long long os_t, long long os_d, long long os_m,
-                   const float* __restrict__ cin, const float* __restrict__ cin_min,
-                   float* cout, float* cout_min, int n_steps, int d_range, int m_lanes,
-                   float p1, float p2, int reset, int dm1) {
+banded_wide_smem_kernel(const float* __restrict__ cost, long long cs_t, long long cs_d,
+                        long long cs_m, const float* __restrict__ pen, long long ps_t,
+                        long long ps_d, long long ps_m, float* __restrict__ out, long long os_t,
+                        long long os_d, long long os_m, const float* __restrict__ cin,
+                        const float* __restrict__ cin_min, float* cout, float* cout_min,
+                        int n_steps, int d_range, int m_lanes, float p1, float p2, int reset,
+                        int dm1) {
   extern __shared__ float wide_smem[];
   float* P = wide_smem;                   // [D][WL]: prev of the block's lanes
   float* part = wide_smem + d_range * WL;  // [WG][WL]: a group's minimum of the step
@@ -593,24 +996,41 @@ banded_wide_kernel(const float* __restrict__ cost, long long cs_t, long long cs_
 }
 
 template <bool CANON>
+cudaError_t launch_wide_smem(const Pass& a, int device, cudaStream_t s) {
+  static std::atomic<bool> sized[MAX_DEVICES];  // per family and device, false at first
+  const cudaError_t err = allow_shared_bytes(sized[device], banded_wide_smem_kernel<CANON>,
+                                             sizeof(float) * (WIDE_MAX_DISP * WL + WG * WL));
+  if (err != cudaSuccess) return err;
+  const size_t bytes = sizeof(float) * ((size_t)a.d_range * WL + WG * WL);
+  banded_wide_smem_kernel<CANON><<<(a.m_lanes + WL - 1) / WL, dim3(WL, WG), bytes, s>>>(
+      a.cost, a.cs_t, a.cs_d, a.cs_m, a.pen, a.ps_t, a.ps_d, a.ps_m, a.out, a.os_t, a.os_d,
+      a.os_m, a.cin, a.cin_min, a.cout, a.cout_min, a.n_steps, a.d_range, a.m_lanes, a.p1, a.p2,
+      a.reset, a.dm1);
+  return cudaGetLastError();
+}
+
+template <bool CANON>
 int run_wide(const Pass& a, void* stream) {
   if (a.n_steps < 1 || a.d_range < 1 || a.d_range > WIDE_MAX_DISP || a.m_lanes < 1) {
     return (int)cudaErrorInvalidValue;
   }
   int device = 0, sm_count = 0;
-  cudaError_t err = current_device(&device, &sm_count);
+  const cudaError_t err = current_device(&device, &sm_count);
   if (err != cudaSuccess) return (int)err;
-  static std::atomic<bool> sized[MAX_DEVICES];  // per family and device, false at first
-  err = allow_shared_bytes(sized[device], banded_wide_kernel<CANON>,
-                           sizeof(float) * (WIDE_MAX_DISP * WL + WG * WL));
-  if (err != cudaSuccess) return (int)err;
-  const size_t bytes = sizeof(float) * ((size_t)a.d_range * WL + WG * WL);
-  banded_wide_kernel<CANON><<<(a.m_lanes + WL - 1) / WL, dim3(WL, WG), bytes,
-                              (cudaStream_t)stream>>>(
-      a.cost, a.cs_t, a.cs_d, a.cs_m, a.pen, a.ps_t, a.ps_d, a.ps_m, a.out, a.os_t, a.os_d,
-      a.os_m, a.cin, a.cin_min, a.cout, a.cout_min, a.n_steps, a.d_range, a.m_lanes, a.p1, a.p2,
-      a.reset, a.dm1);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (a.d_range > WIDE_REG_MAX_DISP) return (int)launch_wide_smem<CANON>(a, device, s);
+  switch (wide_k(a.d_range)) {
+    case 1: return (int)launch_wide<1, CANON>(a, device, sm_count, s);
+    case 2: return (int)launch_wide<2, CANON>(a, device, sm_count, s);
+    case 4: return (int)launch_wide<4, CANON>(a, device, sm_count, s);
+    case 8: return (int)launch_wide<8, CANON>(a, device, sm_count, s);
+    case 12: return (int)launch_wide<12, CANON>(a, device, sm_count, s);
+    case 16: return (int)launch_wide<16, CANON>(a, device, sm_count, s);
+    case 20: return (int)launch_wide<20, CANON>(a, device, sm_count, s);
+    case 24: return (int)launch_wide<24, CANON>(a, device, sm_count, s);
+    case 28: return (int)launch_wide<28, CANON>(a, device, sm_count, s);
+    default: return (int)launch_wide<32, CANON>(a, device, sm_count, s);
+  }
 }
 
 Pass legacy_pass(const void* cost, long long cs_t, long long cs_d, long long cs_m, const void* p2,

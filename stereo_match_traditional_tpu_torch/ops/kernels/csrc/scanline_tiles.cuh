@@ -39,15 +39,17 @@ __device__ __forceinline__ float warp_min(float v) {
   return __int_as_float(ordered(r));
 }
 
+// The minimum of K values by halving (any K: an odd count keeps its middle
+// value for the next round)
 template <int K>
 __device__ __forceinline__ float tree_min(const float (&v)[K]) {
   float t[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) t[k] = v[k];
 #pragma unroll
-  for (int n = K / 2; n >= 1; n /= 2) {
+  for (int n = K; n > 1; n = (n + 1) / 2) {
 #pragma unroll
-    for (int k = 0; k < n; ++k) t[k] = fminf(t[k], t[k + n]);
+    for (int k = 0; k < n / 2; ++k) t[k] = fminf(t[k], t[k + (n + 1) / 2]);
   }
   return t[0];
 }

@@ -19,10 +19,12 @@ canonical scales) and the result, the walker / mover kernel
 passes of both executors); otherwise, D > 256 or lanes along strided
 memory, the wide kernel (``scanline_banded_wide_f32``,
 ``scanline_banded_wide_canonical_f32``: any D up to :data:`WIDE_MAX_DISP`,
-any strides).  ``LAUNCHES`` counts each by its C entry.  Above 256
+any strides; walker warps with the values in registers up to 1024
+disparities, its movers copying along whichever of the steps or the lanes
+is contiguous).  ``LAUNCHES`` counts each by its C entry.  Above 256
 disparities the band entries and the whole-image scanline wrappers run
-their horizontal passes as two wide launches on a copy of the volume whose
-rows are contiguous (:func:`scanline_optimize_composed`,
+their horizontal passes as two wide launches on the d-major volume as it
+lies (:func:`scanline_optimize_composed`,
 :func:`scanline_canonical_composed`), bit for bit the plain versions.
 
 The kernels read ``cost`` and the penalties and write the result through
@@ -51,7 +53,7 @@ LAUNCHES = {"scanline_banded_f32": 0, "scanline_banded_canonical_f32": 0,
             "scanline_horizontal_band_f32": 0, "scanline_canonical_horizontal_band_f32": 0}
 
 MAX_DISP = 256         # the walker / mover kernel and the band entries: 8 values a walker lane
-WIDE_MAX_DISP = 7232   # the wide kernel: 32 D + 1 KB of shared memory <= 227 KB
+WIDE_MAX_DISP = 7232   # the wide kernel above 1024 (its shared-memory route): 32 D + 1 KB <= 227 KB
 WALKER = {False: "scanline_banded_f32", True: "scanline_banded_canonical_f32"}
 WIDE = {False: "scanline_banded_wide_f32", True: "scanline_banded_wide_canonical_f32"}
 
@@ -220,12 +222,15 @@ def _pass(canonical, cost, pen, a, b, dm1, reverse):
 
 def _rows(canonical, cost, pen_lr, pen_rl, a, b):
     """Both passes along the rows of a ``[D, t, W]`` volume, each row a
-    whole path, on a copy whose rows are contiguous (``[W, D, t]``: the
-    strided view would read 4 bytes a row).  ``pen_lr`` / ``pen_rl``: the
-    penalties of each direction's steps in column order, ``[W, t]``
-    (legacy; ``a, b = p1, 0``) or ``[W, D, t]`` (canonical; ``a, b = p1,
-    p2``).  Returns ``(lr, rl)``, ``[D, t, W]`` views."""
-    ch = cost.permute(2, 0, 1).to(torch.float32).contiguous()          # [W, D, t]
+    whole path, read as it lies: the passes run on its ``[W, D, t]`` view
+    (on the card the wide kernel's movers copy along the columns, its
+    contiguous dimension) and write their results in its memory order.
+    ``pen_lr`` / ``pen_rl``: the penalties of each direction's steps in
+    column order, ``[W, t]`` (legacy; ``a, b = p1, 0``) or ``[W, D, t]``
+    (canonical; ``a, b = p1, p2``).  Returns ``(lr, rl)``, ``[D, t, W]``
+    views (on the card, of a ``cost``'s layout: contiguous for a contiguous
+    or halo-cropped band)."""
+    ch = cost.permute(2, 0, 1)                                          # [W, D, t]
     lr = _pass(canonical, ch, pen_lr, a, b, True, False)
     rl = _pass(canonical, ch, pen_rl, a, b, True, True)
     return lr.permute(1, 2, 0), rl.permute(1, 2, 0)
@@ -243,7 +248,7 @@ def _columns(canonical, cost, pen_dn, pen_up, a, b, dm1):
 def scanline_optimize_composed(cost: torch.Tensor, gray: torch.Tensor, p1: float,
                                p2_init: float, vert_dm1: bool, first_ref: bool) -> torch.Tensor:
     """``ops.scanline.scanline_optimize`` as four banded passes from a zero
-    carry: the horizontal ones on a row-contiguous copy with P2 of
+    carry: the horizontal ones along the volume's rows with P2 of
     ``ops.scanline.horizontal_p2``, the vertical ones with ``vertical_p2``,
     summed in the plain version's order, ``(lr + rl) + (ud + du)``; bit for
     bit the plain version.  The route of ``scanline_optimize_cuda`` above
@@ -263,7 +268,7 @@ def scanline_optimize_composed(cost: torch.Tensor, gray: torch.Tensor, p1: float
 def scanline_canonical_composed(cost: torch.Tensor, left: torch.Tensor, right: torch.Tensor,
                                 p1: float, p2: float, tso: float, view: str) -> torch.Tensor:
     """``ops.scanline.scanline_optimize_canonical`` of one view as four
-    canonical banded passes: the horizontal ones on a row-contiguous copy,
+    canonical banded passes: the horizontal ones along the volume's rows,
     the scales of ``ops.scanline.horizontal_scales`` and
     ``vertical_scales``, averaged in the plain version's order,
     ``((lr + rl) + (ud + du)) * 0.25``; bit for bit the plain version.  The
@@ -328,10 +333,11 @@ def horizontal_passes_banded_cuda(cost: torch.Tensor, grey: torch.Tensor, p1: fl
     (any strides; a halo-cropped view is read in place) and its ``[t, W]``
     grey rows: for CUDA inputs one launch of ``scanline_horizontal_band_f32``
     (D <= 256), both directions, or above 256 disparities two launches of
-    ``scanline_banded_wide_f32`` (:func:`_rows`); the plain version for
-    CPU inputs.  Returns ``(lr, rl)``, on the card ``[D, t, W]`` views (for
-    D <= 256 of volumes whose rows are padded to a multiple of 4 columns,
-    contiguous when ``W % 4 == 0``)."""
+    ``scanline_banded_wide_f32`` on the band as it lies (:func:`_rows`); the
+    plain version for CPU inputs.  Returns ``(lr, rl)``, on the card
+    ``[D, t, W]`` views: for D <= 256 of volumes whose rows are padded to a
+    multiple of 4 columns (contiguous when ``W % 4 == 0``), above 256
+    contiguous."""
     if cost.is_cuda != grey.is_cuda:
         raise ValueError(f"cost on {cost.device}, grey on {grey.device}")
     if not cost.is_cuda:

@@ -284,13 +284,17 @@ def horizontal_scales(d: int, base: torch.Tensor, match: torch.Tensor, tso: floa
     from its ``[t, W]`` rows of the view's own grey image (``base``) and of
     the other one (``match``, read at column ``x - d``, or ``x + d`` for the
     right view, clamped).  A scale is symmetric in its two neighbours, so
-    ``[:-1]`` serves the left-right pass and ``[1:]`` the right-left one."""
-    g = base.to(torch.float32).T                                            # [W, t]
+    ``[:-1]`` serves the left-right pass and ``[1:]`` the right-left one.
+    The columns are contiguous in memory (a ``[D, t, W + 1]`` volume seen
+    as ``[W + 1, D, t]``), as in the band, so that the banded kernels read
+    the scales of a row's steps side by side."""
+    g = base.to(torch.float32)                                              # [t, W]
     g2 = shifted_stack(match.to(torch.float32), d,
-                       "right" if right_view else "left").permute(2, 0, 1)  # [W, D, t]
-    g = torch.cat([g[:1], g, g[-1:]])
-    g2 = torch.cat([g2[:1], g2, g2[-1:]])
-    return canonical_scale(g[1:], g[:-1], g2[1:], g2[:-1], tso)
+                       "right" if right_view else "left")                   # [D, t, W]
+    g = torch.cat([g[:, :1], g, g[:, -1:]], 1)
+    g2 = torch.cat([g2[..., :1], g2, g2[..., -1:]], 2)
+    return canonical_scale(g[:, 1:].T, g[:, :-1].T, g2[..., 1:].permute(2, 0, 1),
+                           g2[..., :-1].permute(2, 0, 1), tso)
 
 
 def vertical_scales(d: int, base: torch.Tensor, match: torch.Tensor, tso: float,

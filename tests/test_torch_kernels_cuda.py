@@ -260,8 +260,13 @@ def test_ad_census_launch_checks_inputs(bad):
         ad_census_cuda._launch(left, right, 4, rows, 7, 10.0, 30.0, view, "cost")
 
 
-# Disparity ranges above scanline_optimize_f32's 256: the wide route
-WIDE_DS = (257, 300, 512)
+# Disparity ranges of the wide banded kernel: its walker / mover route (any
+# D from 1: one value a walker lane, the tuned kernels' 256, the K edges
+# 512 / 513 and 1024, the top of Middlebury's 300-800) and, above 1024, its
+# shared-memory route (1025); the ones above 256 are the wrappers' wide
+# route (above scanline_optimize_f32's 256)
+WIDE_DS = (1, 33, 256, 257, 300, 512, 513, 800, 1024, 1025)
+ROUTE_DS = tuple(d for d in WIDE_DS if d > 256)
 
 
 @pytest.mark.cuda
@@ -280,7 +285,7 @@ def test_scanline_kernel_checks_inputs():
     with pytest.raises(ValueError):
         scanline_cuda.scanline_optimize_cuda(torch.zeros((4, 8, 9)).cuda(), x[:4].cuda())
     g = torch.Generator(device="cuda").manual_seed(7)
-    for d in WIDE_DS:
+    for d in ROUTE_DS:
         cost = torch.rand((d, 8, 9), device="cuda", generator=g) * 20
         gray = torch.randint(0, 256, (8, 9), device="cuda", generator=g, dtype=torch.uint8)
         for cfg in (ScanlineConfig(), ScanlineConfig(faithful_vertical_l2=True,
@@ -290,7 +295,7 @@ def test_scanline_kernel_checks_inputs():
             torch.cuda.synchronize()
             assert banded.LAUNCHES["scanline_banded_wide_f32"] == wide + 4
             want = scanline.scanline_optimize(cost, gray, cfg)
-            assert got.shape == (d, 8, 9) and torch.equal(got, want), d
+            assert got.shape == (d, 8, 9) and got.is_contiguous() and torch.equal(got, want), d
     assert scanline_cuda.LAUNCHES == before
 
 
@@ -721,7 +726,7 @@ def test_canonical_scanline_kernel_checks_inputs():
     _need_card()
     fn = scanline_canonical_cuda.scanline_optimize_canonical_cuda
     g = torch.Generator(device="cuda").manual_seed(8)
-    for d in WIDE_DS:
+    for d in ROUTE_DS:
         cost = torch.rand((d, 8, 9), device="cuda", generator=g) * 20
         lu, ru = (torch.randint(0, 256, (8, 9), device="cuda", generator=g, dtype=torch.uint8)
                   for _ in range(2))
@@ -731,7 +736,8 @@ def test_canonical_scanline_kernel_checks_inputs():
             torch.cuda.synchronize()
             assert banded.LAUNCHES["scanline_banded_wide_canonical_f32"] == wide + 4
             want = scanline.scanline_optimize_canonical(cost, lu, ru, 1.0, 3.0, 15.0, view)
-            assert got.shape == (d, 8, 9) and torch.equal(got, want), (d, view)
+            assert got.shape == (d, 8, 9) and got.is_contiguous(), (d, view)
+            assert torch.equal(got, want), (d, view)
     img = torch.zeros((8, 9), dtype=torch.uint8, device="cuda")
     before = scanline_canonical_cuda.LAUNCHES
     with pytest.raises(ValueError, match="one device"):
@@ -878,7 +884,7 @@ def test_banded_kernel_checks_inputs():
     _need_card()
     for family in ("legacy", "canonical"):
         banded, kernel, plain = _banded_pair(family)
-        for d in WIDE_DS:
+        for d in ROUTE_DS:
             cost, p2, scale, carry_of = _band_inputs(9, d, 33, seed=d, carry=True)
             c = cost.permute(1, 0, 2)
             pen = p2 if family == "legacy" else scale.permute(1, 0, 2)
@@ -1007,6 +1013,80 @@ def test_banded_walker_edges_on_card(d, n, m, layout, family):
     _hold_walker(d, n, m, layout, family)
 
 
+def _wide_case(d, layout, family, seed):
+    """(cost, penalties, random carry) of one pass on the wide kernel:
+    ``vertical`` the permute(1, 0, 2) of a [D, 70, 37] band (lanes
+    contiguous); ``horizontal`` the permute(2, 0, 1) of a [D, 5, 37] band
+    (steps contiguous), canonical scales [37, D, 5] contiguous (lanes
+    contiguous, unlike the cost: copied value by value); ``cropped`` the
+    same of a halo-cropped [D, 5, 37] view of 9 rows, the scales in the
+    band's layout (as ``ops.scanline.horizontal_scales`` gives them)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    levels = torch.tensor([1.0, 0.25, 0.1], device="cuda")
+    t = 70 if layout == "vertical" else 5
+    band = torch.rand((d, t + 4, 37), device="cuda", generator=g) * 4
+    band = band.narrow(1, 2, t) if layout == "cropped" else band[:, :t].contiguous()
+    if layout == "vertical":
+        cost = band.permute(1, 0, 2)
+    else:
+        cost = band.permute(2, 0, 1)
+    n, m = cost.shape[0], cost.shape[2]
+    if family == "legacy":
+        pen = torch.rand((m, n), device="cuda", generator=g).T * 3 + 0.5
+    else:
+        pen = levels[torch.randint(0, 3, (n, d, m), device="cuda", generator=g)]
+        if layout == "cropped":
+            pen = torch.empty_like(band).permute(2, 0, 1).copy_(pen)
+    prev = torch.rand((d, m), device="cuda", generator=g) * 5
+    return cost, pen, (prev, prev.amin(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["vertical", "horizontal", "cropped"])
+@pytest.mark.parametrize("family", ["legacy", "canonical"])
+@pytest.mark.parametrize("d", WIDE_DS)
+def test_banded_wide_kernel_bit_exact_on_card(d, family, layout):
+    """The wide kernel, forced at every D of WIDE_DS (the walker / mover
+    route up to 1024, the shared-memory one at 1025): lanes contiguous
+    (vertical), steps contiguous (horizontal, with the canonical scales'
+    lanes contiguous) and a halo-cropped band, 37 lanes or steps; a random
+    carry with a reset mid-path and a zero one without, both directions,
+    with the output and carry-only: one launch a call, bit for bit the plain
+    version run on the same card tensors, the output in the band's memory
+    order."""
+    from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
+
+    _need_card()
+    canonical = family == "canonical"
+    _, _, plain = _banded_pair(family)
+    entry = banded.WIDE[canonical]
+    cost, pen, carry = _wide_case(d, layout, family, seed=d + len(layout))
+    n = cost.shape[0]
+    zero = (torch.zeros_like(carry[0]), torch.zeros_like(carry[1]))
+    args = (1.0, 3.0, True) if canonical else (0.5, 0.0, True)
+    for cr, reset in ((carry, n // 2), (zero, None)):
+        for reverse in (False, True):
+            before = dict(banded.LAUNCHES)
+            out, (cp, cm) = banded._launch(canonical, cost, pen, cr, reset, *args, reverse, True,
+                                           entry)
+            none, (sp, sm) = banded._launch(canonical, cost, pen, cr, reset, *args, reverse,
+                                            False, entry)
+            torch.cuda.synchronize()
+            assert banded.LAUNCHES[entry] == before[entry] + 2
+            assert sum(banded.LAUNCHES.values()) == sum(before.values()) + 2
+            r = None if reset is None else (n - 1 - reset if reverse else reset)
+            if reverse:
+                want, (wp, wm) = plain(cost.flip(0), pen.flip(0), cr, r)
+                want = want.flip(0)
+            else:
+                want, (wp, wm) = plain(cost, pen, cr, r)
+            assert torch.equal(out, want), (reset, reverse, (out != want).sum().item())
+            assert torch.equal(cp, wp) and torch.equal(cm, wm), (reset, reverse)
+            assert none is None and torch.equal(sp, wp) and torch.equal(sm, wm)
+            back = out.permute(1, 0, 2) if layout == "vertical" else out.permute(1, 2, 0)
+            assert back.is_contiguous()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("family", ["legacy", "canonical"])
 def test_banded_wide_kernel_4096_on_card(family):
@@ -1072,9 +1152,10 @@ HORIZONTAL_BANDS = [(128, 60, 450, 0), (64, 256, 3840, 0), (48, 200, 301, 4),
 
 
 def _entry_case(case, t, d, w, halo, seed):
-    """(C entry, kernel call, plain call) of one band entry on a random
-    [D, t, W] band (the cropped view of t + 2 halo rows) and two u8 image
-    rows: ``legacy``, or ``<view> <u8|float32>`` for the canonical entry."""
+    """(C entry, kernel call, plain call, band) of one band entry on a
+    random [D, t, W] band (the cropped view of t + 2 halo rows) and two u8
+    image rows: ``legacy``, or ``<view> <u8|float32>`` for the canonical
+    entry."""
     from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1085,13 +1166,14 @@ def _entry_case(case, t, d, w, halo, seed):
         grey = imgs[0].float()
         return ("scanline_horizontal_band_f32",
                 lambda: banded.horizontal_passes_banded_cuda(agg, grey, 0.5, 4.0),
-                lambda: scanline.horizontal_passes_banded(agg, grey, 0.5, 4.0))
+                lambda: scanline.horizontal_passes_banded(agg, grey, 0.5, 4.0), agg)
     view, kind = case.split()
     b, m = imgs if kind == "u8" else [x.float() for x in imgs]
     rv = view == "right"
     return ("scanline_canonical_horizontal_band_f32",
             lambda: banded.canonical_horizontal_passes_banded_cuda(agg, b, m, 1.0, 3.0, 15.0, rv),
-            lambda: scanline.canonical_horizontal_passes_banded(agg, b, m, 1.0, 3.0, 15.0, rv))
+            lambda: scanline.canonical_horizontal_passes_banded(agg, b, m, 1.0, 3.0, 15.0, rv),
+            agg)
 
 
 @pytest.mark.cuda
@@ -1105,7 +1187,7 @@ def test_horizontal_band_entry_bit_exact_on_card(t, d, w, halo, case):
     _need_card()
     from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
 
-    name, kernel, plain = _entry_case(case, t, d, w, halo, seed=t + d + w)
+    name, kernel, plain, _ = _entry_case(case, t, d, w, halo, seed=t + d + w)
     before = dict(banded.LAUNCHES)
     got = kernel()
     torch.cuda.synchronize()
@@ -1118,27 +1200,49 @@ def test_horizontal_band_entry_bit_exact_on_card(t, d, w, halo, case):
 
 
 @pytest.mark.cuda
-def test_horizontal_band_entries_check_inputs():
-    """D above 256 (two launches of the wide kernel, none of the band
-    entries) is bit for bit the plain version, on a halo-cropped band with
-    W % 4 != 0; image rows that do not match the band, tensors on two
-    devices and a float64 band raise ValueError and launch nothing."""
+def test_horizontal_band_entries_check_inputs(monkeypatch):
+    """D above 256 is bit for bit the plain version, on a halo-cropped band
+    with W % 4 != 0: two launches of the wide kernel and none of the band
+    entries, each reading the band itself (a view of its memory, no copy;
+    legacy: no volume allocated but lr and rl), the results contiguous.
+    Image rows that do not match the band, tensors on two devices and a
+    float64 band raise ValueError and launch nothing."""
     from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
 
     _need_card()
     legacy = banded.horizontal_passes_banded_cuda
     canonical = banded.canonical_horizontal_passes_banded_cuda
-    for d in WIDE_DS:
+    launch, read = banded._launch, []
+
+    def recorded(canonical, cost, *args, **kwargs):
+        read.append(cost)
+        return launch(canonical, cost, *args, **kwargs)
+
+    monkeypatch.setattr(banded, "_launch", recorded)
+    for d in ROUTE_DS:
         for case in ("legacy", "left u8", "right float32"):
-            name, kernel, plain = _entry_case(case, 6, d, 37, 2, seed=d)
+            name, kernel, plain, band = _entry_case(case, 6, d, 37, 2, seed=d)
             before = dict(banded.LAUNCHES)
+            read.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
             got = kernel()
             torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
             assert banded.LAUNCHES[name] == before[name]
             entry = banded.WIDE[case != "legacy"]
             assert banded.LAUNCHES[entry] == before[entry] + 2
+            assert sum(banded.LAUNCHES.values()) == sum(before.values()) + 2
+            assert len(read) == 2 and all(
+                c.data_ptr() == band.data_ptr() and c.stride() == band.permute(2, 0, 1).stride()
+                for c in read), (d, case)
+            volume = 4 * d * 6 * 37
+            if case == "legacy":
+                assert peak < 2.5 * volume, (d, peak / volume)
             for g, v in zip(got, plain()):
-                assert g.shape == (d, 6, 37) and torch.equal(g, v), (d, case)
+                assert g.shape == (d, 6, 37) and g.is_contiguous(), (d, case)
+                assert torch.equal(g, v), (d, case)
     before = dict(banded.LAUNCHES)
     grey = torch.zeros((4, 8), device="cuda")
     img = grey.to(torch.uint8)

@@ -25,6 +25,7 @@ import torch
 from stereo_match_traditional_tpu import config as cfgs
 from stereo_match_traditional_tpu.models import get_pipeline as jax_get_pipeline
 from stereo_match_traditional_tpu.ops import scanline as jscan
+from stereo_match_traditional_tpu.ops import volume as jvolume
 from stereo_match_traditional_tpu_torch.models import get_pipeline
 from stereo_match_traditional_tpu_torch.ops import scanline as tscan
 from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
@@ -35,8 +36,10 @@ from stereo_match_traditional_tpu_torch.utils.convert import (
 from stereo_match_traditional_tpu_torch.utils.synthetic import make_pair
 from test_torch_ad_census import _agreement
 
-# (D, H, W) above 256 disparities, D > W
-SHAPES = [(300, 6, 9), (260, 5, 7)]
+# (D, H, W) above 256 disparities, D > W, and the wide kernel's route edges
+# on the card: 513 (past 16 values a walker lane) and 1025 (past 1024, the
+# shared-memory route)
+SHAPES = [(300, 6, 9), (260, 5, 7), (513, 5, 6), (1025, 5, 5)]
 CONFIGS = [cfgs.ScanlineConfig(),
            cfgs.ScanlineConfig(faithful_vertical_l2=True, faithful_vertical_p2=True)]
 
@@ -150,3 +153,86 @@ def test_full_pipeline_at_300_disparities_matches_jax():
     got = result_to_numpy(get_pipeline("ad_census")[0](*pair_to_torch(L, R, "cpu"), port))
     assert got.disp_left.max() <= d - 1
     _agreement(jres._asdict(), got._asdict(), d)
+
+
+@pytest.mark.parametrize("canonical", [False, True], ids=["legacy", "canonical"])
+def test_rows_pass_the_band_as_it_lies(canonical, monkeypatch):
+    """The horizontal passes above 256 disparities (``_rows``, under both
+    band entries and both composed routes) hand the passes the band's own
+    ``[W, D, t]`` view, a halo-cropped one too: no row-contiguous copy.  The
+    results equal the plain horizontal passes."""
+    d, t, w = 300, 4, 9
+    cost, left, right = (torch.from_numpy(x) for x in _inputs(d, t + 4, w, 11))
+    band = cost.narrow(1, 2, t)
+    rows_l, rows_r = left[2:-2], right[2:-2]
+    seen = []
+    run = banded._pass
+
+    def recorded(canonical_, c, *args):
+        seen.append(c)
+        return run(canonical_, c, *args)
+
+    monkeypatch.setattr(banded, "_pass", recorded)
+    if canonical:
+        s = tscan.horizontal_scales(d, rows_l, rows_r, 15.0, False)
+        got = banded._rows(True, band, s[:-1], s[1:], 1.0, 3.0)
+        want = tscan.canonical_horizontal_passes_banded(band, rows_l, rows_r, 1.0, 3.0, 15.0,
+                                                        False)
+    else:
+        grey = rows_l.float()
+        got = banded._rows(False, band, *tscan.horizontal_p2(grey, 0.5, 4.0), 0.5, 0.0)
+        want = tscan.horizontal_passes_banded(band, grey, 0.5, 4.0)
+    assert len(seen) == 2
+    for c in seen:
+        assert c.data_ptr() == band.data_ptr() and c.stride() == band.permute(2, 0, 1).stride()
+    for g, v in zip(got, want):
+        assert g.shape == (d, t, w) and torch.equal(g, v)
+
+
+# [D, t, W] bands and the view a pass takes of them: a vertical pass's
+# permute(1, 0, 2), a horizontal one's permute(2, 0, 1), a halo-cropped
+# band's, one row, one column
+LAYOUTS = [("vertical", (300, 7, 9), None), ("horizontal", (300, 7, 9), None),
+           ("horizontal", (300, 7, 9), 2), ("horizontal", (257, 1, 9), None),
+           ("vertical", (257, 7, 1), 1)]
+
+
+@pytest.mark.parametrize("kind,shape,halo", LAYOUTS)
+def test_wide_output_in_the_band_layout(kind, shape, halo):
+    """The output a wide launch writes (``_empty_in_layout`` of the cost
+    view, through whose strides the kernel's movers pick their copy order)
+    is a new ``[D, t, W]`` band, contiguous, seen through the same
+    permutation: the composed routes and band entries return contiguous
+    volumes with no copy."""
+    d, t, w = shape
+    band = torch.zeros((d, t + 2 * (halo or 0), w))
+    if halo:
+        band = band.narrow(1, halo, t)
+    perm = (1, 0, 2) if kind == "vertical" else (2, 0, 1)
+    view = band.permute(*perm)
+    out = banded._empty_in_layout(view)
+    assert out.shape == view.shape
+    back = out.permute(*[perm.index(i) for i in range(3)])
+    assert back.shape == (d, t, w) and back.is_contiguous()
+
+
+@pytest.mark.parametrize("t,w", [(4, 9), (1, 7), (6, 1)])
+@pytest.mark.parametrize("view", ["left", "right"])
+def test_horizontal_scales_run_along_the_columns(t, w, view):
+    """``horizontal_scales`` (the canonical horizontal passes' penalties above
+    256 disparities) lies in memory as the band does, ``[D, t, W + 1]``: the
+    steps of a row side by side, the order in which the wide kernel copies
+    a band read as it lies.  Its values are the JAX package's."""
+    rng = np.random.default_rng(t * w)
+    base, match = (rng.integers(0, 256, (t, w)).astype(np.uint8) for _ in range(2))
+    got = tscan.horizontal_scales(300, torch.from_numpy(base), torch.from_numpy(match), 15.0,
+                                  view == "right")
+    assert got.shape == (w + 1, 300, t)
+    assert got.permute(1, 2, 0).is_contiguous()
+    for half in (got[:-1], got[1:]):
+        assert half.stride(0) == 1
+    g = np.pad(base.astype(np.float32).T, ((1, 1), (0, 0)), mode="edge")     # [W + 2, t]
+    g2 = np.asarray(jvolume.shifted_stack(jnp.asarray(match, jnp.float32), 300, view))
+    g2 = np.pad(g2.transpose(2, 0, 1), ((1, 1), (0, 0), (0, 0)), mode="edge")  # [W + 2, D, t]
+    want = jscan.canonical_scale(g[1:], g[:-1], g2[1:], g2[:-1], 15.0)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
