@@ -62,12 +62,21 @@ kernel timed against plain at Teddy's size, the Middlebury 2014 full-size
 volume and a D=800 band, and ad_census FULL and canonical FULL through
 ``get_pipeline`` with their launch counts, on a small pair, direct at
 994x1440/D=320 and streamed at 1988x2880/D=290 (their scanline passes held
-to plain on the card).  Last the port's two examples
+to plain on the card).  Then the port's two examples
 (phase 24) in this process at 375x450, D=60: ``examples/demo_torch.py``
 (the five pipelines, each bad-2.0 within its limit and equal to a direct
 call's) and ``examples/serving_torch.py`` (ad_census FULL over the native
 ``PairLoader``, the maps ``serve_pairs``'), the asw, AD-Census, scanline and
-window kernels each launched.  Each
+window kernels each launched.  Last the aggregation and post kernels (phase
+25: cross arms, the rect mean, the 8-direction fill, the speckle filter):
+each against its plain version at five geometries from one row to 720p and
+on the real inputs of ad_census FULL at 375x450/D=60 and 720x1280/D=128 and
+of the sad, asw and cblsm post chains, timed against it beside its bound;
+ad_census FULL at both sizes with its launch counts, device kernels and
+stage times beside the same calls on the plain bodies, whose maps it
+equals bit for bit, as do sad, asw and cblsm with post there, the 4K
+legacy FULL call of phase 21 (its peak memory not above) and the tiled
+legacy FULL calls of phase 22.  Each
 phase prints one JSON line; any failure raises and exits non-zero.  The
 last three lines are the card's ``nvidia-smi`` name and power limit, the
 kernel summary ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -76,7 +85,7 @@ bound: the least time the card could take for the same function at the
 same shape, the larger of its bytes (every input once, the output once)
 over the card's memory rate and its operations (by the cheapest exact
 algorithm known) over the card's float32 rate.  No single PyTorch call
-computes any of the fourteen entries' functions, so ``library_ms`` is null.
+computes any of the eighteen entries' functions, so ``library_ms`` is null.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -292,6 +301,21 @@ WIDE_ENTRIES = ("scanline_banded_wide_f32", "scanline_banded_wide_canonical_f32"
 # The port's examples (phase 24): the serving example's pairs and batch
 EXAMPLE_PAIRS = 16
 EXAMPLE_BATCH = 4
+# The aggregation and post kernels (phase 25): (h, w, D, seed) one row, one
+# column, W % 4 != 0, the reference size and the serving size; their C
+# entries; the FULL calls timed a turn (kernels, plain bodies, twice each)
+AGG_POST_GEOMETRIES = [(1, 67, 9, 1), (53, 1, 7, 2), (37, 61, 13, 3), (*TEDDY, 0),
+                       (*SERVING, 1)]
+AGG_POST_ENTRIES = ("cross_arms_i32", "rect_mean_f32", "fill_pass_f32", "remove_speckles_f32")
+AGG_POST_FULL_REPS = 5
+# The rect mean on volumes whose float64 sums are not exact: the kernel's
+# table is summed in the plain version's order (rows, then down each column
+# one row after another), so its means are held within a float32 ulp of the
+# plain version's; where the two differ, both are compared with the
+# rectangle's direct float64 sum (at most RECT_DIRECT_CHECKS values a
+# volume), and the counts are reported
+RECT_ULPS = 1
+RECT_DIRECT_CHECKS = 2000
 
 
 def check(ok: bool, what) -> None:
@@ -625,6 +649,7 @@ def main() -> None:
     tiled = tiled_phase(kind)
     wide = wide_phase()
     examples_phase()
+    agg = agg_post_phase()
 
     for banned in ("jax", "stereo_match_traditional_tpu"):   # the name or a dotted prefix
         loaded = [m for m in sys.modules if m == banned or m.startswith(banned + ".")]
@@ -743,6 +768,14 @@ def main() -> None:
             "replaces": "stereo_match_traditional_tpu/ops/volume.py:296",
             **tiled["ncc_volume_f32"],
         },
+        *({"name": entry, "route": "cuda",
+           "source": f"stereo_match_traditional_tpu_torch/ops/kernels/csrc/{src}",
+           "replaces": f"stereo_match_traditional_tpu/ops/{where}", **agg[entry]}
+          for entry, src, where in (
+              ("cross_arms_i32", "aggregate.cu", "aggregate.py:119"),
+              ("rect_mean_f32", "aggregate.cu", "aggregate.py:486"),
+              ("fill_pass_f32", "post.cu", "post.py:658"),
+              ("remove_speckles_f32", "post.cu", "post.py:169"))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -2098,13 +2131,14 @@ def equal_to_strided(part, label, shape, call, got, phase="streamed"):
 def _reset_launches():
     """Every kernel wrapper's launch count set to 0."""
     from stereo_match_traditional_tpu_torch.ops.kernels import (
-        ad_census_cuda, asw_cuda, scanline_banded_cuda, scanline_canonical_cuda,
-        scanline_cuda, window_cost_cuda,
+        ad_census_cuda, aggregate_cuda, asw_cuda, post_cuda, scanline_banded_cuda,
+        scanline_canonical_cuda, scanline_cuda, window_cost_cuda,
     )
 
     ad_census_cuda.LAUNCHES = asw_cuda.LAUNCHES = 0
     scanline_cuda.LAUNCHES = scanline_canonical_cuda.LAUNCHES = 0
-    for counts in (window_cost_cuda.LAUNCHES, scanline_banded_cuda.LAUNCHES):
+    for counts in (window_cost_cuda.LAUNCHES, scanline_banded_cuda.LAUNCHES,
+                   aggregate_cuda.LAUNCHES, post_cuda.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -2112,15 +2146,16 @@ def _reset_launches():
 def _launches() -> dict:
     """Every kernel wrapper's launch count, by C entry."""
     from stereo_match_traditional_tpu_torch.ops.kernels import (
-        ad_census_cuda, asw_cuda, scanline_banded_cuda, scanline_canonical_cuda,
-        scanline_cuda, window_cost_cuda,
+        ad_census_cuda, aggregate_cuda, asw_cuda, post_cuda, scanline_banded_cuda,
+        scanline_canonical_cuda, scanline_cuda, window_cost_cuda,
     )
 
     return {"asw_volume_left_f32": asw_cuda.LAUNCHES,
             "ad_census_volume_f32": ad_census_cuda.LAUNCHES,
             "scanline_optimize_f32": scanline_cuda.LAUNCHES,
             "scanline_canonical_f32": scanline_canonical_cuda.LAUNCHES,
-            **window_cost_cuda.LAUNCHES, **scanline_banded_cuda.LAUNCHES}
+            **window_cost_cuda.LAUNCHES, **scanline_banded_cuda.LAUNCHES,
+            **aggregate_cuda.LAUNCHES, **post_cuda.LAUNCHES}
 
 
 def _agreement(got, want, d: int) -> dict:
@@ -2499,7 +2534,22 @@ def streamed_phase() -> dict:
             check(launches.get("scanline_optimize_f32", 0) == 0
                   and launches.get("scanline_canonical_f32", 0) == 0, rec)
         summary[label] = {"launches": launches, "calls": calls, "bands": rec["bands"]}
-        del res, out
+        del out
+        if label == "FULL auto":
+            # the same call on the plain bodies of the aggregation and post
+            # functions (the path before their kernels): its maps bit for bit,
+            # its peak not below the kernels'
+            torch.cuda.empty_cache()
+            with plain_bodies():
+                want, plain_peak, plain_reserved = _peak_run(call)
+            rec = {"phase": "streamed", "part": "4K against the plain bodies", "config": label,
+                   "maps_equal": _maps_equal(res, want), "peak_bytes": peak,
+                   "plain_bodies_peak_bytes": plain_peak, "peak_reserved_bytes": reserved,
+                   "plain_bodies_peak_reserved_bytes": plain_reserved}
+            emit(rec)
+            check(all(rec["maps_equal"].values()) and peak <= plain_peak, rec)
+            del want
+        del res
         torch.cuda.empty_cache()
     # the banded kernel runs the vertical passes only (3 a band and view), the
     # band entry both horizontal passes of a band and view in one launch
@@ -3364,7 +3414,25 @@ def tiled_phase(kind: str) -> dict:
         call = lambda: run_tiled(name, lt, rt, cfg, tiles)  # noqa: E731
         equal_to_strided("world of one (NCCL)", label, list(SERVING[:2]), call, call(),
                          phase="tiled")
-    del lt, rt
+    # legacy FULL's maps against the plain bodies of the aggregation and post
+    # functions (the path before their kernels): bit for bit
+    pairs = {SERVING[:2]: (lt, rt)}
+    for label, name, (th, tw, td), cfg, runner in _tiled_runs():
+        if runner != "tiled" or not label.startswith("ad_census FULL"):
+            continue
+        if (th, tw) not in pairs:
+            pairs[th, tw] = pair_to_torch(*make_pair(th, tw, td, seed=0)[:2], "cuda")
+        a, b = pairs[th, tw]
+        got = run_tiled(name, a, b, cfg, tiles)
+        with plain_bodies():
+            want = run_tiled(name, a, b, cfg, tiles)
+        rec = {"phase": "tiled", "part": "world of one (NCCL) against the plain bodies",
+               "config": label, "shape": [th, tw], "disp_range": td,
+               "maps_equal": _maps_equal(got, want)}
+        emit(rec)
+        check(all(rec["maps_equal"].values()), rec)
+        del got, want
+    del lt, rt, pairs
     torch.cuda.empty_cache()
     dist.destroy_process_group()
 
@@ -3417,6 +3485,466 @@ def tiled_phase(kind: str) -> dict:
         summary[k]["launches"] = n
     emit({"phase": "tiled", "part": "done", "seconds": time.perf_counter() - start})
     return summary
+
+
+@contextlib.contextmanager
+def plain_bodies():
+    """The four public functions that dispatch to the aggregation and post
+    kernels (``aggregate.cross_arms``, ``aggregate.rect_mean_aggregate``,
+    ``post.remove_speckles``, ``post.fill_holes_8dir``, and the fill's pass
+    ``post._fill_from_candidates``) routed to their plain bodies for the
+    duration: the path the port took on the card before the kernels, to
+    hold the maps and the peaks of a call against in the same run."""
+    from stereo_match_traditional_tpu_torch.ops import aggregate, post
+
+    def rect(vol, arms, inclusive=True, max_span=None, layout="auto"):
+        return aggregate._rect_mean_aggregate_plain(vol, arms, inclusive)
+
+    def speckles(disp, diff_insame=1.0, min_speckle_area=80, invalid_value=post.INVALID,
+                 background=None, max_iters=None, connectivity=8, block=None):
+        return post._remove_speckles_plain(disp, diff_insame, min_speckle_area, invalid_value,
+                                           background, max_iters, connectivity)
+
+    patches = [(aggregate, "cross_arms", aggregate._cross_arms_plain),
+               (aggregate, "rect_mean_aggregate", rect),
+               (post, "remove_speckles", speckles),
+               (post, "fill_holes_8dir", post._fill_holes_8dir_plain),
+               (post, "_fill_from_candidates", post._fill_from_candidates_plain)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
+    for m, n, f in patches:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def _maps_equal(a, b) -> dict:
+    """``torch.equal`` of each map of two pipeline results."""
+    import torch
+
+    out = {}
+    for f in ("disp_left", "disp_right", "disp_final", "occlusion", "mismatch"):
+        x, y = getattr(a, f), getattr(b, f)
+        check((x is None) == (y is None), f)
+        if x is not None:
+            out[f] = bool(x.shape == y.shape and torch.equal(x, y))
+    return out
+
+
+def _speckle_map(h, w, seed, holes, invalid):
+    """Integer disparities in 5x5 patches with noise and a share of invalid
+    pixels, and an occlusion / mismatch split of the invalid ones, on the
+    card: components and holes of many sizes."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    coarse = rng.integers(0, 12, size=(h // 5 + 1, w // 5 + 1))
+    d = np.kron(coarse, np.ones((5, 5)))[:h, :w]
+    d = np.where(rng.random((h, w)) < 0.1, rng.integers(0, 12, size=(h, w)), d)
+    d = np.where(rng.random((h, w)) < holes, invalid, d).astype(np.float32)
+    bad = ~np.isfinite(d) | (d == np.float32(invalid))
+    occl = bad & (rng.random((h, w)) < 0.5)
+    mism = bad & ~occl & (rng.random((h, w)) < 0.7)
+    return tuple(torch.from_numpy(a).cuda() for a in (d, occl, mism))
+
+
+def _ulps(got, want) -> int:
+    """The largest distance in float32 ulps between two volumes of
+    non-negative values."""
+    import torch
+
+    return int((got.view(torch.int32).long() - want.view(torch.int32).long()).abs().max())
+
+
+def _full_inputs(h, w, d, seed):
+    """The real inputs of the four functions in one ad_census FULL call on
+    ``cuda_pair(h, w, d, seed)``, by the kernels: the images, both cost
+    volumes, both views' arms and aggregated volumes, the LR check's map and
+    masks, and the speckle-filtered map."""
+    from stereo_match_traditional_tpu_torch import config as C
+    from stereo_match_traditional_tpu_torch.ops import aggregate, post, wta
+    from stereo_match_traditional_tpu_torch.ops.kernels import ad_census_cuda, scanline_cuda
+
+    full = C.ADCensusConfig(disp_range=d, scanline=C.ScanlineConfig(), run_post=True)
+    lt, rt = cuda_pair(h, w, d, seed)
+    vol_l, vol_r = ad_census_cuda.ad_census_volumes_cuda(lt, rt, d)
+    arms_l, arms_r = aggregate.cross_arms(lt, full.arms), aggregate.cross_arms(rt, full.arms)
+    agg_l = aggregate.rect_mean_aggregate(vol_l, arms_l)
+    agg_r = aggregate.rect_mean_aggregate(vol_r, arms_r)
+    opt = scanline_cuda.scanline_optimize_cuda(agg_l, lt, full.scanline)
+    lr = post.lr_check_consistency(wta.wta(opt), wta.wta(agg_r), full.lr_gate, post.INVALID)
+    spk = post.remove_speckles(lr.disp, full.speckle_diff, full.speckle_area,
+                               invalid_value=post.INVALID)
+    return dict(cfg=full, lt=lt, rt=rt, vol_l=vol_l, vol_r=vol_r, arms_l=arms_l,
+                arms_r=arms_r, agg_l=agg_l, agg_r=agg_r, lr=lr, spk=spk)
+
+
+def agg_post_phase() -> dict:
+    """Phase 25, the aggregation and post kernels (``csrc/aggregate.cu``:
+    ``cross_arms_i32``, ``rect_mean_f32``; ``csrc/post.cu``:
+    ``fill_pass_f32``, ``remove_speckles_f32``).  (a) Each against its plain
+    version on the same CUDA tensors at AGG_POST_GEOMETRIES (cross arms grey
+    and colour, u8 and float32, and a band with ``row_offset``; the rect mean
+    on both AD-Census views, the two concatenated, inclusive and exclusive,
+    bit for bit, and on random volumes and a second pass's means within a
+    float32 ulp; the fill with rays capped and unbounded; the speckle
+    filter with 4- and 8-connectivity and a background); the raise on an
+    explicit ``max_iters`` below the cap.  (b) The real inputs of ad_census
+    FULL at Teddy and 720p, sad's (unbounded fill, background speckles),
+    asw's (4-connectivity) and cblsm's (its stacked second pass), bit for
+    bit.  (c) Each timed against its plain version on those inputs beside
+    its bound.  (d) ad_census FULL through ``get_pipeline`` at Teddy
+    (launch counts set to 0 just before, read just after) and at 720p: ms
+    and per-stage ms beside the same calls on the plain bodies, the device
+    kernels of one call from a trace, and the maps of FULL and of sad, asw
+    and cblsm with post equal to the plain bodies' bit for bit.  Returns
+    each kernel's summary fields."""
+    import torch
+
+    from stereo_match_traditional_tpu_torch import config as C
+    from stereo_match_traditional_tpu_torch.models import get_pipeline
+    from stereo_match_traditional_tpu_torch.models.asw import _minmax_u8
+    from stereo_match_traditional_tpu_torch.ops import aggregate, post, wta
+    from stereo_match_traditional_tpu_torch.ops.kernels import (
+        ad_census_cuda, post_cuda, scanline_cuda, window_cost_cuda,
+    )
+    from stereo_match_traditional_tpu_torch.utils.synthetic import bad_pixel_rate, make_pair
+
+    start = time.perf_counter()
+    err = dict.fromkeys(AGG_POST_ENTRIES, 0.0)
+
+    def direct_means(vol, arms, flat):
+        """The inclusive rect means at the flat indices ``flat`` of ``vol``,
+        each from a float64 sum of its rectangle's values (no summed-area
+        table: magnitudes of the rectangle's alone) and the float32
+        division: the reference where the kernel and the plain version
+        differ."""
+        n, hh, ww = vol.shape
+        out = []
+        for t in flat:
+            s, p = divmod(int(t), hh * ww)
+            i, j = divmod(p, ww)
+            u, dn, lf, rt_ = (int(a[i, j]) for a in (arms.up, arms.down, arms.left, arms.right))
+            total = vol[s, max(i - u, 0): min(i + dn, hh - 1) + 1,
+                        max(j - lf, 0): min(j + rt_, ww - 1) + 1].double().sum().float()
+            count = torch.tensor(float((u + dn + 1) * (lf + rt_ + 1)), device=vol.device)
+            out.append(torch.div(total, count).item())
+        return out
+
+    def hold(entry, rec, got, want, ulps=0, vol=None, arms=None):
+        if isinstance(got, tuple):
+            exact = all(torch.equal(g, x) for g, x in zip(got, want))
+            diff = max((g - x).abs().max().item() for g, x in zip(got, want))
+        else:
+            exact = torch.equal(got, want)
+            fin = torch.isfinite(want)
+            diff = (got[fin] - want[fin]).abs().max().item() if bool(fin.any()) else 0.0
+            check(torch.equal(torch.isfinite(got), fin), rec)
+        rec.update(kernel=entry, bit_exact=exact)
+        if ulps:
+            # where the two differ, each against the direct float64 sum of
+            # the rectangle
+            off = torch.nonzero((got != want).reshape(-1)).reshape(-1)[:RECT_DIRECT_CHECKS]
+            ref = direct_means(vol, arms, off.tolist())
+            g, x = got.reshape(-1)[off].tolist(), want.reshape(-1)[off].tolist()
+            rec.update(max_ulps=_ulps(got, want), values_off=int((got != want).sum()),
+                       values=int(want.numel()), checked_against_direct_sum=len(ref),
+                       kernel_equals_direct=sum(a == r for a, r in zip(g, ref)),
+                       plain_equals_direct=sum(b == r for b, r in zip(x, ref)))
+            check(rec["max_ulps"] <= ulps, rec)
+        else:
+            check(exact, rec)
+        err[entry] = max(err[entry], diff)
+        emit(rec)
+
+    # -- 25a. the kernels against their plain versions ----------------------
+    arm_cfg = C.ADCensusConfig().arms
+    for h, w, d, seed in AGG_POST_GEOMETRIES:
+        lt, rt = cuda_pair(h, w, d, seed)
+        base = {"phase": "agg_post", "part": "kernel_check", "geometry": [h, w, d]}
+        colour = torch.stack([lt, lt.roll(1, 1), lt // 2 + 40], dim=-1)
+        for label, img in (("u8", lt), ("float32", lt.float() * 0.75), ("colour u8", colour),
+                           ("colour float32", colour.float() * 0.75)):
+            hold("cross_arms_i32", dict(base, image=label), tuple(aggregate.cross_arms(
+                img, arm_cfg)), tuple(aggregate._cross_arms_plain(img, arm_cfg)))
+        vol_l, vol_r = ad_census_cuda.ad_census_volumes_cuda(lt, rt, d)
+        arms = aggregate.cross_arms(lt, arm_cfg)
+        for inclusive in (True, False):
+            for label, vol in (("left", vol_l), ("right", vol_r),
+                               ("both views concatenated", torch.cat([vol_l, vol_r]))):
+                hold("rect_mean_f32", dict(base, volume=f"AD-Census {label}",
+                                           inclusive=inclusive),
+                     aggregate.rect_mean_aggregate(vol, arms, inclusive),
+                     aggregate._rect_mean_aggregate_plain(vol, arms, inclusive))
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        rand = torch.rand((d, h, w), device="cuda", generator=gen) * 3.0
+        second = aggregate.rect_mean_aggregate(vol_l, arms)
+        for label, vol in (("random", rand), ("second pass", second)):
+            hold("rect_mean_f32", dict(base, volume=label), aggregate.rect_mean_aggregate(
+                vol, arms), aggregate._rect_mean_aggregate_plain(vol, arms, True),
+                 ulps=RECT_ULPS, vol=vol, arms=arms)
+        del vol_l, vol_r, rand, second
+        for invalid in (float("inf"), -1.0):
+            disp, occl, mism = _speckle_map(h, w, seed, 0.3, invalid)
+            for ms in (None, d):
+                hold("fill_pass_f32", dict(base, invalid=str(invalid), max_search=ms),
+                     post.fill_holes_8dir(disp, occl, mism, invalid, ms),
+                     post._fill_holes_8dir_plain(disp, occl, mism, invalid, ms))
+        for conn, bg, invalid in ((8, None, float("inf")), (4, None, float("inf")),
+                                  (8, 0.0, float("inf")), (4, 0.0, 0.0)):
+            disp = _speckle_map(h, w, seed + 1, 0.15, invalid)[0]
+            hold("remove_speckles_f32",
+                 dict(base, connectivity=conn, background=bg, invalid=str(invalid)),
+                 post.remove_speckles(disp, 1.0, 30, invalid, bg, None, conn),
+                 post._remove_speckles_plain(disp, 1.0, 30, invalid, bg, None, conn))
+    # a band of rows placed in a taller image (the executors' halo'd bands)
+    lt = cuda_pair(*TEDDY, 0)[0]
+    h = lt.shape[0]
+    for ro, rows in ((-34, h - 34), (41, h), (h - 75, h)):
+        band = lt[max(ro, 0): max(ro, 0) + 75]
+        hold("cross_arms_i32", {"phase": "agg_post", "part": "kernel_check",
+                                "band": [ro, rows, list(band.shape)]},
+             tuple(aggregate.cross_arms(band, arm_cfg, ro, rows)),
+             tuple(aggregate._cross_arms_plain(band, arm_cfg, ro, rows)))
+    disp = _speckle_map(40, 60, 3, 0.1, float("inf"))[0]
+    cap = post_cuda.speckle_iteration_cap(40, 60)
+    try:
+        post.remove_speckles(disp, 1.0, 30, max_iters=cap - 1)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    emit({"phase": "agg_post", "part": "max_iters below the cap", "cap": cap,
+          "max_iters": cap - 1, "raised": raised})
+    check(raised is not None and "max_iters" in raised, raised)
+
+    # -- 25b. the real inputs of the main path and of the other chains -------
+    inputs = {}
+    for (h, w, d), seed in ((TEDDY, 0), (SERVING, 1)):
+        x = inputs[h, w, d] = _full_inputs(h, w, d, seed)
+        base = {"phase": "agg_post", "part": "FULL inputs", "geometry": [h, w, d]}
+        for view in ("l", "r"):
+            img = x["lt"] if view == "l" else x["rt"]
+            hold("cross_arms_i32", dict(base, view=view), x[f"arms_{view}"],
+                 tuple(aggregate._cross_arms_plain(img, x["cfg"].arms)))
+            hold("rect_mean_f32", dict(base, view=view), x[f"agg_{view}"],
+                 aggregate._rect_mean_aggregate_plain(x[f"vol_{view}"], x[f"arms_{view}"], True))
+        lr, cfg = x["lr"], x["cfg"]
+        hold("remove_speckles_f32", dict(base, map="LR map, 8-connectivity"), x["spk"],
+             post._remove_speckles_plain(lr.disp, cfg.speckle_diff, cfg.speckle_area,
+                                         post.INVALID, None, None, 8))
+        hold("fill_pass_f32", dict(base, map="speckle-filtered LR map", max_search=d),
+             post.fill_holes_8dir(x["spk"], lr.occlusion, lr.mismatch, post.INVALID, d),
+             post._fill_holes_8dir_plain(x["spk"], lr.occlusion, lr.mismatch, post.INVALID, d))
+    h, w, d = TEDDY
+    x = inputs[TEDDY]
+    lt, rt = x["lt"], x["rt"]
+    sc = C.SADConfig(run_post=True)
+    sdl = wta.optimal_disparity(window_cost_cuda.sad_volume_cuda(lt, rt, d, sc.winsize))
+    sdr = wta.wta(window_cost_cuda.sad_volume_cuda(lt, rt, d, sc.winsize, "right"))
+    slr = post.lr_check_simple(sdl, sdr, sc.lr_gate, post.INVALID)
+    sspk = post.remove_speckles(slr.disp, sc.speckle_diff, sc.speckle_area,
+                                invalid_value=post.INVALID, background=0.0)
+    base = {"phase": "agg_post", "part": "sad post inputs", "geometry": [h, w, d]}
+    hold("remove_speckles_f32", dict(base, map="LR map, background 0"), sspk,
+         post._remove_speckles_plain(slr.disp, sc.speckle_diff, sc.speckle_area, post.INVALID,
+                                     0.0, None, 8))
+    hold("fill_pass_f32", dict(base, max_search=None),
+         post.fill_holes_8dir(sspk, slr.occlusion, slr.mismatch, post.INVALID),
+         post._fill_holes_8dir_plain(sspk, slr.occlusion, slr.mismatch, post.INVALID))
+    ac = C.ASWConfig()
+    alr = post.lr_check_simple(wta.wta(x["vol_l"]), wta.wta(x["vol_r"]), ac.lr_gate, 0.0)
+    scaled = _minmax_u8(alr.disp)
+    hold("remove_speckles_f32", {"phase": "agg_post", "part": "asw post inputs",
+                                 "map": "min-max u8 map, 4-connectivity, invalid 0"},
+         post.remove_speckles(scaled, ac.speckle_diff, ac.speckle_area + 1, invalid_value=0.0,
+                              connectivity=4),
+         post._remove_speckles_plain(scaled, ac.speckle_diff, ac.speckle_area + 1, 0.0, None,
+                                     None, 4))
+    cb = C.CBLSMConfig()
+    ad_l, ad_r = ad_census_cuda.ad_volumes_cuda(lt, rt, d)
+    c_arms = aggregate.cross_arms(lt, cb.arms)
+    first = torch.cat([aggregate.rect_mean_aggregate(ad_l, c_arms),
+                       aggregate.rect_mean_aggregate(ad_r, aggregate.cross_arms(rt, cb.arms))])
+    hold("rect_mean_f32", {"phase": "agg_post", "part": "cblsm inputs",
+                           "volume": "AD costs, first pass"},
+         first[:d], aggregate._rect_mean_aggregate_plain(ad_l, c_arms, True))
+    hold("rect_mean_f32", {"phase": "agg_post", "part": "cblsm inputs",
+                           "volume": "stacked second pass (non-integer means)"},
+         aggregate.rect_mean_aggregate(first, c_arms),
+         aggregate._rect_mean_aggregate_plain(first, c_arms, True), ulps=RECT_ULPS, vol=first,
+         arms=c_arms)
+    del ad_l, ad_r, first
+
+    # -- 25c. the kernels timed against their plain versions ----------------
+    timing = {}
+    for (h, w, d), x in inputs.items():
+        lr, cfg = x["lr"], x["cfg"]
+        cases = {
+            # one image: u8 in, four int32 maps out
+            "cross_arms_i32": (
+                lambda: aggregate._cross_arms_plain(x["lt"], cfg.arms),
+                lambda: aggregate.cross_arms(x["lt"], cfg.arms), h * w + 16 * h * w),
+            # one view: the volume in and out, the four arm maps in
+            "rect_mean_f32": (
+                lambda: aggregate._rect_mean_aggregate_plain(x["vol_l"], x["arms_l"], True),
+                lambda: aggregate.rect_mean_aggregate(x["vol_l"], x["arms_l"]),
+                8 * d * h * w + 16 * h * w),
+            # the map and both masks in, the map out (the three passes)
+            "fill_pass_f32": (
+                lambda: post._fill_holes_8dir_plain(x["spk"], lr.occlusion, lr.mismatch,
+                                                    post.INVALID, d),
+                lambda: post.fill_holes_8dir(x["spk"], lr.occlusion, lr.mismatch, post.INVALID,
+                                             d), 10 * h * w),
+            # the map in and out
+            "remove_speckles_f32": (
+                lambda: post._remove_speckles_plain(lr.disp, cfg.speckle_diff,
+                                                    cfg.speckle_area, post.INVALID, None,
+                                                    None, 8),
+                lambda: post.remove_speckles(lr.disp, cfg.speckle_diff, cfg.speckle_area,
+                                             invalid_value=post.INVALID), 8 * h * w),
+        }
+        for entry, (plain_fn, kernel_fn, nbytes) in cases.items():
+            k_ms, p_ms = alternate(plain_fn, kernel_fn, plain_reps=3, kernel_reps=10)
+            rec = {"kernel_ms": k_ms, "back_to_back_ms": back_to_back_ms(kernel_fn),
+                   "plain_ms": p_ms, "speedup": p_ms / k_ms, **bound(nbytes, 0.0)}
+            rec["share_of_bound"] = rec["bound_ms"] / k_ms
+            timing[entry, f"{h}x{w}/D={d}"] = rec
+        emit({"phase": "agg_post", "part": "timing_kernels", "shape": [h, w], "disp_range": d,
+              "covers": {"cross_arms_i32": "one image", "rect_mean_f32": "one view",
+                         "fill_pass_f32": "one fill_holes_8dir call (three launches)",
+                         "remove_speckles_f32": "one call"},
+              "kernels": {k: v for (k, s), v in timing.items() if s == f"{h}x{w}/D={d}"}})
+
+    # -- 25d. ad_census FULL through its entry point, against the plain bodies
+    fn = get_pipeline("ad_census")[0]
+    h, w, d = TEDDY
+    lt, rt = inputs[TEDDY]["lt"], inputs[TEDDY]["rt"]
+    full = inputs[TEDDY]["cfg"]
+    _reset_launches()
+    for _ in range(MAIN_PATH_CALLS):
+        res = fn(lt, rt, full)
+    torch.cuda.synchronize()
+    launches = _launches()
+    counted = {k: launches[k] for k in AGG_POST_ENTRIES}
+    want = {"cross_arms_i32": 2, "rect_mean_f32": 2, "fill_pass_f32": 3,
+            "remove_speckles_f32": 1}
+    check(counted == {k: n * MAIN_PATH_CALLS for k, n in want.items()}, counted)
+    with plain_bodies():
+        plain_res = fn(lt, rt, full)
+        kernels_plain = traced_events(lambda: fn(lt, rt, full), 1)
+    kernels_now = traced_events(lambda: fn(lt, rt, full), 1)
+    device = {label: {"kernels": sum(e.get("cat") == "kernel" for e in ev),
+                      "device_events": sum(e.get("cat") in DEVICE_EVENTS for e in ev)}
+              for label, ev in (("kernels", kernels_now), ("plain bodies", kernels_plain))}
+    _, _, gt = make_pair(h, w, d, seed=0)
+    equal = _maps_equal(res, plain_res)
+    rec = {"phase": "agg_post", "part": "main path", "pipeline": "ad_census",
+           "config": "FULL (entry())", "shape": [h, w], "disp_range": d,
+           "launches": {k: v for k, v in launches.items() if v}, "calls": MAIN_PATH_CALLS,
+           "device_work_of_one_call": device, "maps_equal_to_plain_bodies": equal,
+           "bad2_final": bad_pixel_rate(res.disp_final.cpu().numpy(), gt)}
+    emit(rec)
+    check(all(equal.values()), rec)
+    check(rec["bad2_final"] <= MAX_BAD2, rec)
+    del kernels_plain, kernels_now
+
+    pipelines = {}
+    for (h, w, d), x in inputs.items():
+        lt, rt, cfg = x["lt"], x["rt"], x["cfg"]
+        call = lambda: fn(lt, rt, cfg)  # noqa: E731
+        with plain_bodies():
+            plain_res = call()
+            plain_ms = cuda_ms(call, AGG_POST_FULL_REPS)
+        got = call()
+        kernel_ms = cuda_ms(call, AGG_POST_FULL_REPS)
+        with plain_bodies():
+            plain_ms += cuda_ms(call, AGG_POST_FULL_REPS)
+        kernel_ms += cuda_ms(call, AGG_POST_FULL_REPS)
+        equal = _maps_equal(got, plain_res)
+        lr = x["lr"]
+        opt = scanline_cuda.scanline_optimize_cuda(x["agg_l"], lt, cfg.scanline)
+        dl, dr = wta.wta(opt), wta.wta(x["agg_r"])
+        filled = post.fill_holes_8dir(x["spk"], lr.occlusion, lr.mismatch, post.INVALID, d)
+        stage_fns = {
+            "cost": lambda: ad_census_cuda.ad_census_volumes_cuda(lt, rt, d),
+            "arms (both images)": lambda: (aggregate.cross_arms(lt, cfg.arms),
+                                           aggregate.cross_arms(rt, cfg.arms)),
+            "rect mean (both views)": lambda: (
+                aggregate.rect_mean_aggregate(x["vol_l"], x["arms_l"]),
+                aggregate.rect_mean_aggregate(x["vol_r"], x["arms_r"])),
+            "scanline": lambda: scanline_cuda.scanline_optimize_cuda(x["agg_l"], lt,
+                                                                      cfg.scanline),
+            "wta (both)": lambda: (wta.wta(opt), wta.wta(x["agg_r"])),
+            "lr_check_consistency": lambda: post.lr_check_consistency(dl, dr, cfg.lr_gate,
+                                                                      post.INVALID),
+            "remove_speckles": lambda: post.remove_speckles(
+                lr.disp, cfg.speckle_diff, cfg.speckle_area, invalid_value=post.INVALID),
+            "fill_holes_8dir": lambda: post.fill_holes_8dir(x["spk"], lr.occlusion,
+                                                            lr.mismatch, post.INVALID, d),
+            "median": lambda: post.median_filter(filled, cfg.median_size, "truncate"),
+        }
+        stages = {}
+        for name, f in stage_fns.items():
+            with plain_bodies():
+                p = statistics.median(cuda_ms(f, 5))
+            stages[name] = {"kernels_ms": statistics.median(cuda_ms(f, 5)), "plain_bodies_ms": p}
+        rec = {"phase": "agg_post", "part": "timing_stages", "pipeline": "ad_census",
+               "config": "FULL", "shape": [h, w], "disp_range": d,
+               "pipeline_ms": statistics.median(kernel_ms), "ms_timed_calls": kernel_ms,
+               "plain_bodies_pipeline_ms": statistics.median(plain_ms),
+               "plain_bodies_ms_timed_calls": plain_ms,
+               "mpixdisp_per_s": h * w * d / (statistics.median(kernel_ms) / 1e3) / 1e6,
+               "stage_ms": stages, "maps_equal_to_plain_bodies": equal}
+        emit(rec)
+        check(all(equal.values()), rec)
+        pipelines[f"{h}x{w}/D={d}"] = rec["pipeline_ms"]
+        del got, plain_res, opt
+
+    # sad, asw and cblsm with their post chains: the maps of the plain bodies
+    h, w, d = TEDDY
+    lt, rt = inputs[TEDDY]["lt"], inputs[TEDDY]["rt"]
+    for name, cfg in (("sad", C.SADConfig(run_post=True)), ("asw", C.ASWConfig()),
+                      ("cblsm", C.CBLSMConfig(run_post=True))):
+        f = get_pipeline(name)[0]
+        _reset_launches()
+        got = f(lt, rt, cfg)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _launches().items() if k in AGG_POST_ENTRIES and v}
+        with plain_bodies():
+            plain_res = f(lt, rt, cfg)
+        equal = _maps_equal(got, plain_res)
+        rec = {"phase": "agg_post", "part": "post chains", "pipeline": name, "shape": [h, w],
+               "launches": launched, "maps_equal_to_plain_bodies": equal,
+               "agree_with_plain_bodies": _agreement(got, plain_res, d)}
+        emit(rec)
+        check(launched.get("remove_speckles_f32", 0) == 1, rec)
+        # cblsm's second rect-mean pass sums non-integer means, which the
+        # kernel holds within a float32 ulp: its maps within the envelope
+        check(all(equal.values()) if name != "cblsm"
+              else min(rec["agree_with_plain_bodies"].values()) >= MIN_FINAL_AGREE, rec)
+    del inputs
+    torch.cuda.empty_cache()
+    emit({"phase": "agg_post", "part": "done", "seconds": time.perf_counter() - start})
+
+    h, w, d = TEDDY
+    teddy = f"{h}x{w}/D={d}"
+    serving = f"{SERVING[0]}x{SERVING[1]}/D={SERVING[2]}"
+    return {entry: {"launches": counted[entry],
+                    "launches_per_call": counted[entry] / MAIN_PATH_CALLS,
+                    "max_abs_err": err[entry], "ms": timing[entry, teddy]["kernel_ms"],
+                    "plain_ms": timing[entry, teddy]["plain_ms"],
+                    "bound_ms": timing[entry, teddy]["bound_ms"],
+                    "bound_by": timing[entry, teddy]["bound_by"], "library_ms": None,
+                    "ms_covers": {"cross_arms_i32": "one image", "rect_mean_f32": "one view",
+                                  "fill_pass_f32": "one fill_holes_8dir call (3 launches)",
+                                  "remove_speckles_f32": "one call"}[entry],
+                    "back_to_back_ms": timing[entry, teddy]["back_to_back_ms"],
+                    "at_720p": timing[entry, serving],
+                    "full_ms": pipelines}
+            for entry in AGG_POST_ENTRIES}
 
 
 if __name__ == "__main__":

@@ -99,7 +99,23 @@ def cross_arms(
     `CrossArm.cpp:265` fixed as the JAX package does).  ``row_offset`` /
     ``global_rows`` place a row band in an image of ``global_rows`` rows
     (the row executors, ``parallel``): the vertical arms stop at the
-    image's borders, not the band's."""
+    image's borders, not the band's.
+
+    A CUDA image launches the arm kernel
+    (``ops.kernels.aggregate_cuda.cross_arms_cuda``), a CPU image runs the
+    plain version below; the two agree bit for bit."""
+    if img.is_cuda:
+        from stereo_match_traditional_tpu_torch.ops.kernels.aggregate_cuda import cross_arms_cuda
+
+        return cross_arms_cuda(img, cfg, row_offset, global_rows)
+    return _cross_arms_plain(img, cfg, row_offset, global_rows)
+
+
+def _cross_arms_plain(
+    img: torch.Tensor, cfg: CrossArmConfig, row_offset: int = 0, global_rows: int = None
+) -> Arms:
+    """The plain version of :func:`cross_arms`: a stack of shifted images
+    and a leading-ones count a direction."""
     return Arms(
         left=_arm_one_direction(img, cfg, 1, -1),
         right=_arm_one_direction(img, cfg, 1, +1),
@@ -213,9 +229,24 @@ def rect_mean_aggregate(
     ported (ROADMAP.md, North star), so every ``layout`` runs the port's one
     layout and ``max_span`` changes nothing.  An unknown ``layout`` raises
     ``ValueError``.
+
+    A CUDA volume launches the rect-mean kernel
+    (``ops.kernels.aggregate_cuda.rect_mean_cuda``), a CPU volume runs the
+    plain version below: bit for bit the same on AD-Census volumes, whose
+    float64 sums are exact, and within a float32 ulp on others.
     """
     if layout not in RECT_LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; expected one of {RECT_LAYOUTS}")
+    if vol.is_cuda:
+        from stereo_match_traditional_tpu_torch.ops.kernels.aggregate_cuda import rect_mean_cuda
+
+        return rect_mean_cuda(vol, arms, inclusive)
+    return _rect_mean_aggregate_plain(vol, arms, inclusive)
+
+
+def _rect_mean_aggregate_plain(vol: torch.Tensor, arms: Arms, inclusive: bool = True):
+    """The plain version of :func:`rect_mean_aggregate`: a float64 SAT of
+    the whole volume and four corner gathers."""
     h, w = vol.shape[-2:]
     ii = torch.arange(h, device=vol.device, dtype=torch.int64)[:, None]
     jj = torch.arange(w, device=vol.device, dtype=torch.int64)[None, :]

@@ -4,7 +4,15 @@ from stereo_match_traditional_tpu_torch.ops.kernels.ad_census_cuda import (  # n
     ad_census_volume_cuda,
     ad_census_volumes_cuda,
 )
+from stereo_match_traditional_tpu_torch.ops.kernels.aggregate_cuda import (  # noqa: F401
+    cross_arms_cuda,
+    rect_mean_cuda,
+)
 from stereo_match_traditional_tpu_torch.ops.kernels.asw_cuda import asw_volume_cuda  # noqa: F401
+from stereo_match_traditional_tpu_torch.ops.kernels.post_cuda import (  # noqa: F401
+    fill_holes_8dir_cuda,
+    remove_speckles_cuda,
+)
 from stereo_match_traditional_tpu_torch.ops.kernels.scanline_banded_cuda import (  # noqa: F401
     canonical_horizontal_passes_banded_cuda,
     canonical_pass_banded_cuda,

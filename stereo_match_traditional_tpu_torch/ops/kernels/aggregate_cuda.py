@@ -1,0 +1,112 @@
+"""CUDA cross arms and arm-rectangle mean (``csrc/aggregate.cu``).
+
+Counterparts of ``ops.aggregate.cross_arms`` and
+``ops.aggregate.rect_mean_aggregate``, whose private ``_plain`` bodies are
+their plain versions.  No Pallas kernel stands behind them: they replace the
+XLA ops of the JAX package's ``cross_arms``
+(`stereo_match_traditional_tpu/ops/aggregate.py:119`) and
+``rect_mean_aggregate`` (`:486`).  Dispatch is by the device of the inputs,
+never by a fallback: CPU tensors take the plain version; CUDA tensors launch
+the kernel or raise.  ``ops.aggregate``'s public functions call these for
+CUDA tensors.
+
+Both are bit-exact with their plain versions: the arms are integer counts
+of float32 comparisons, and the rectangle sums are float64 sums of a
+summed-area table, exact for AD-Census volumes in any order (otherwise
+within a float32 ulp of the mean).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from stereo_match_traditional_tpu_torch.ops.kernels.launch import (
+    current,
+    raise_on_error,
+    stream,
+)
+
+# Kernel launches so far, one per call of each C entry point; a run resets
+# them to show its path went through the kernels.  Only the launches below
+# increment them.
+LAUNCHES = {"cross_arms_i32": 0, "rect_mean_f32": 0}
+
+# The rect mean's float64 summed-area table is built a chunk of slices at a
+# time in a scratch of at most this many bytes (one slice at the least): a
+# 720p slice is 7.4 MB, so 138 slices a chunk; the plain version holds
+# float64 copies of the whole volume.
+SCRATCH_BYTES = 1 << 30
+
+
+def cross_arms_cuda(img: torch.Tensor, cfg, row_offset: int = 0, global_rows: int = None):
+    """Drop-in for ``ops.aggregate.cross_arms``: one launch of
+    ``cross_arms_i32`` for a CUDA image (grey ``[H, W]`` or colour
+    ``[H, W, 3]``, uint8 or float32, any strides), the plain version for a
+    CPU image.  The four int32 maps are planes of one ``[4, H, W]`` tensor."""
+    from stereo_match_traditional_tpu_torch.ops import aggregate
+
+    if not img.is_cuda:
+        return aggregate._cross_arms_plain(img, cfg, row_offset, global_rows)
+    from stereo_match_traditional_tpu_torch.ops.kernels.build import library
+
+    if not (img.dim() == 2 or (img.dim() == 3 and img.shape[-1] == 3)):
+        raise ValueError(f"img must be [H, W] or [H, W, 3], got {tuple(img.shape)}")
+    if img.dtype not in (torch.uint8, torch.float32):
+        raise ValueError(f"img must be uint8 or float32, got {img.dtype}")
+    h, w = img.shape[:2]
+    if h < 1 or w < 1:
+        raise ValueError(f"empty image: {tuple(img.shape)}")
+    if cfg.max_length < 1:
+        raise ValueError(f"max_length must be >= 1, got {cfg.max_length}")
+    if global_rows is None:
+        global_rows = h
+    img = img.contiguous()
+    out = torch.empty((4, h, w), dtype=torch.int32, device=img.device)
+    lib = library()
+    with current(img.device):
+        err = lib.cross_arms_i32(
+            img.data_ptr(), 1 if img.dim() == 2 else 3, int(img.dtype == torch.uint8), h, w,
+            int(row_offset), int(global_rows), cfg.max_length, cfg.sec_length,
+            float(cfg.tao1), float(cfg.tao2), out.data_ptr(), stream(img.device),
+        )
+    raise_on_error(lib, "cross_arms_i32", err)
+    LAUNCHES["cross_arms_i32"] += 1
+    return aggregate.Arms(*out.unbind(0))
+
+
+def rect_mean_cuda(vol: torch.Tensor, arms, inclusive: bool = True) -> torch.Tensor:
+    """Drop-in for ``ops.aggregate.rect_mean_aggregate`` (its ``max_span``
+    and ``layout`` change nothing there either): one launch of
+    ``rect_mean_f32`` for a CUDA volume (float32 ``[D, H, W]``, any strides;
+    a batch of volumes sharing the arms concatenated along D), the plain
+    version for a CPU volume."""
+    from stereo_match_traditional_tpu_torch.ops import aggregate
+
+    if not vol.is_cuda:
+        return aggregate._rect_mean_aggregate_plain(vol, arms, inclusive)
+    from stereo_match_traditional_tpu_torch.ops.kernels.build import library
+
+    if vol.dim() != 3 or vol.dtype != torch.float32:
+        raise ValueError(f"vol must be float32 [D, H, W], got {vol.dtype} {tuple(vol.shape)}")
+    n, h, w = vol.shape
+    if n < 1 or h < 1 or w < 1:
+        raise ValueError(f"empty volume: {tuple(vol.shape)}")
+    maps = [arms.left, arms.right, arms.up, arms.down]
+    for name, a in zip(("left", "right", "up", "down"), maps):
+        if a.shape != (h, w) or a.device != vol.device:
+            raise ValueError(f"arms.{name} must be [{h}, {w}] on {vol.device}, got "
+                             f"{tuple(a.shape)} on {a.device}")
+    maps = [a.to(torch.int32).contiguous() for a in maps]
+    vol = vol.contiguous()
+    chunk = int(max(1, min(n, SCRATCH_BYTES // (8 * (h + 1) * (w + 1)))))
+    scratch = torch.empty((chunk, h + 1, w + 1), dtype=torch.float64, device=vol.device)
+    out = torch.empty_like(vol)
+    lib = library()
+    with current(vol.device):
+        err = lib.rect_mean_f32(
+            vol.data_ptr(), n, h, w, *(a.data_ptr() for a in maps), int(bool(inclusive)),
+            scratch.data_ptr(), chunk, out.data_ptr(), stream(vol.device),
+        )
+    raise_on_error(lib, "rect_mean_f32", err)
+    LAUNCHES["rect_mean_f32"] += 1
+    return out

@@ -141,6 +141,16 @@ def library() -> ctypes.CDLL:
                                                            vp, i32, i32, i32, f32, f32, f32,
                                                            i32, vp]
     lib.scanline_canonical_horizontal_band_f32.restype = i32
+    lib.cross_arms_i32.argtypes = [vp, i32, i32, i32, i32, i32, i32, i32, i32, f32, f32, vp,
+                                   vp]
+    lib.cross_arms_i32.restype = i32
+    lib.rect_mean_f32.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, i32, vp, i32, vp, vp]
+    lib.rect_mean_f32.restype = i32
+    lib.fill_pass_f32.argtypes = [vp, vp, vp, i32, i32, i32, f32, i32, i32, i32, i32, i32, vp]
+    lib.fill_pass_f32.restype = i32
+    lib.remove_speckles_f32.argtypes = [vp, vp, vp, i32, i32, f32, f32, i32, i32, i32, f32,
+                                        vp]
+    lib.remove_speckles_f32.restype = i32
     lib.stereo_kernels_error_string.argtypes = [i32]
     lib.stereo_kernels_error_string.restype = ctypes.c_char_p
     return lib

@@ -160,11 +160,30 @@ def remove_speckles(
     and stops after at most ``max_iters`` sweeps; ``None`` takes the JAX
     package's cap, ``32 + 8 * max(1, (h*w - 1).bit_length())``, which real
     maps (<= 20 sweeps) never reach.
+
+    A CUDA map launches the speckle kernel
+    (``ops.kernels.post_cuda.remove_speckles_cuda``: union-find to the
+    fixpoint on the device, no host round trip), a CPU map runs the plain
+    version below; the two agree bit for bit.  On the card an explicit
+    ``max_iters`` below the default cap raises ``ValueError``.
     """
     if connectivity not in (4, 8):
         raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
     if block == 0:
         raise ValueError("remove_speckles(block=0): a block has at least one row and column")
+    if disp.is_cuda:
+        from stereo_match_traditional_tpu_torch.ops.kernels.post_cuda import remove_speckles_cuda
+
+        return remove_speckles_cuda(disp, diff_insame, min_speckle_area, invalid_value,
+                                    background, max_iters, connectivity)
+    return _remove_speckles_plain(disp, diff_insame, min_speckle_area, invalid_value,
+                                  background, max_iters, connectivity)
+
+
+def _remove_speckles_plain(disp, diff_insame, min_speckle_area, invalid_value, background,
+                           max_iters, connectivity):
+    """The plain version of :func:`remove_speckles`: label sweeps with a
+    host check of the fixpoint after each."""
     h, w = disp.shape
     if max_iters is None:
         max_iters = 32 + 8 * max(1, (h * w - 1).bit_length())
@@ -369,7 +388,25 @@ def directional_candidates(disp: torch.Tensor, valid: torch.Tensor):
 def _fill_from_candidates(disp, target, second_smallest: bool, max_axis_steps, max_diag_steps):
     """Fill ``target`` pixels from the 8-ray candidates: second-smallest
     for occlusions, median for mismatches (`PostProcessing.h:229-239`).
-    Pixels whose rays found nothing keep their value."""
+    Pixels whose rays found nothing keep their value.  A CUDA map launches
+    one pass of the fill kernel
+    (``ops.kernels.post_cuda.fill_from_candidates_cuda``), a CPU map runs
+    the plain version below."""
+    if disp.is_cuda:
+        from stereo_match_traditional_tpu_torch.ops.kernels.post_cuda import (
+            fill_from_candidates_cuda,
+        )
+
+        return fill_from_candidates_cuda(disp, target, second_smallest, max_axis_steps,
+                                         max_diag_steps)
+    return _fill_from_candidates_plain(disp, target, second_smallest, max_axis_steps,
+                                       max_diag_steps)
+
+
+def _fill_from_candidates_plain(disp, target, second_smallest: bool, max_axis_steps,
+                                max_diag_steps):
+    """The plain version of :func:`_fill_from_candidates`: the 8 rays'
+    candidates of :func:`directional_candidates`, sorted."""
     cand, steps = directional_candidates(disp, torch.isfinite(disp))
     if max_axis_steps is not None:
         limit = torch.tensor([max_axis_steps] * 4 + [max_diag_steps] * 4, device=disp.device)
@@ -398,13 +435,27 @@ def fill_holes_8dir(
     still invalid the median.  ``max_search`` caps the rays at
     ``max_search - 1`` axis steps and ``round(0.7071 * that)`` diagonal
     steps (`PostProcessing.h:169`); None leaves them unbounded.
+
+    A CUDA map launches the fill kernel once a pass
+    (``ops.kernels.post_cuda.fill_holes_8dir_cuda``), a CPU map runs the
+    plain version below; the two agree bit for bit.
     """
+    if disp.is_cuda:
+        from stereo_match_traditional_tpu_torch.ops.kernels.post_cuda import fill_holes_8dir_cuda
+
+        return fill_holes_8dir_cuda(disp, occlusion, mismatch, invalid_value, max_search)
+    return _fill_holes_8dir_plain(disp, occlusion, mismatch, invalid_value, max_search)
+
+
+def _fill_holes_8dir_plain(disp, occlusion, mismatch, invalid_value=INVALID, max_search=None):
+    """The plain version of :func:`fill_holes_8dir`: three passes of
+    :func:`_fill_from_candidates_plain`."""
     max_axis = None if max_search is None else max(max_search - 1, 0)
     max_diag = None if max_search is None else int(round(max_axis * 0.70710678))
     d = torch.where(disp == invalid_value, float("inf"), disp.to(torch.float32))
-    d = _fill_from_candidates(d, occlusion & ~torch.isfinite(d), True, max_axis, max_diag)
-    d = _fill_from_candidates(d, mismatch & ~torch.isfinite(d), False, max_axis, max_diag)
-    d = _fill_from_candidates(d, ~torch.isfinite(d), False, max_axis, max_diag)
+    d = _fill_from_candidates_plain(d, occlusion & ~torch.isfinite(d), True, max_axis, max_diag)
+    d = _fill_from_candidates_plain(d, mismatch & ~torch.isfinite(d), False, max_axis, max_diag)
+    d = _fill_from_candidates_plain(d, ~torch.isfinite(d), False, max_axis, max_diag)
     return torch.where(torch.isfinite(d), d, invalid_value)
 
 

@@ -1374,3 +1374,288 @@ def test_d_offset_rejects_negative_offsets():
         ad_census_cuda.ad_census_volumes_cuda(lt, lt, 3, d_offset=-1)
     with pytest.raises(ValueError, match="d_offset"):
         window_cost_cuda.ncc_volume_cuda(lt, lt, 3, 1, d_offset=-1)
+
+
+# ---------------------------------------------------------------------------
+# The aggregation and post kernels (csrc/aggregate.cu, csrc/post.cu): cross
+# arms, the rect mean, the 8-direction fill and the speckle filter, each
+# against its plain version on the same CUDA tensors
+# ---------------------------------------------------------------------------
+
+# (h, w, D, seed): one row, one column, W % 4 != 0, Teddy, 720p
+AGG_POST_GEOMETRIES = [(1, 67, 9, 1), (53, 1, 7, 2), (37, 61, 13, 3), (375, 450, 60, 0),
+                       (720, 1280, 128, 1)]
+
+
+def _agg_post_modules():
+    from stereo_match_traditional_tpu_torch.ops import aggregate, post
+    from stereo_match_traditional_tpu_torch.ops.kernels import aggregate_cuda, post_cuda
+
+    return aggregate, post, aggregate_cuda, post_cuda
+
+
+def _images(h, w, d, seed, colour=False):
+    """A synthetic pair on the card (random u8 images where it is too small
+    for one); ``colour`` stacks three channels of shifted greys."""
+    if min(h, w) == 1:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        lt, rt = (torch.randint(0, 256, (h, w), device="cuda", generator=gen,
+                                dtype=torch.uint8) for _ in range(2))
+    else:
+        L, R, _ = make_pair(h, w, min(d, w - 1), seed=seed)
+        lt, rt = pair_to_torch(L, R, "cuda")
+    if colour:
+        lt, rt = (torch.stack([x, x.roll(1, 1), (x // 2 + 40)], dim=-1) for x in (lt, rt))
+    return lt, rt
+
+
+def _disp_map(h, w, seed, holes=0.25, invalid=float("inf"), levels=12):
+    """Integer disparities in 5x5 patches with noise and a share of invalid
+    pixels: components and holes of many sizes (numpy, then the card)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    coarse = rng.integers(0, levels, size=(h // 5 + 1, w // 5 + 1))
+    d = np.kron(coarse, np.ones((5, 5)))[:h, :w]
+    d = np.where(rng.random((h, w)) < 0.1, rng.integers(0, levels, size=(h, w)), d)
+    d = np.where(rng.random((h, w)) < holes, invalid, d).astype(np.float32)
+    bad = ~np.isfinite(d) | (d == np.float32(invalid))
+    occl = bad & (rng.random((h, w)) < 0.5)
+    mism = bad & ~occl & (rng.random((h, w)) < 0.7)
+    return tuple(torch.from_numpy(a).cuda() for a in (d, occl, mism))
+
+
+def _arm_cfg():
+    return ADCensusConfig().arms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["u8", "float32", "colour u8", "colour float32"])
+@pytest.mark.parametrize("h,w,d,seed", AGG_POST_GEOMETRIES)
+def test_cross_arms_kernel_bit_exact_on_card(h, w, d, seed, kind):
+    aggregate, _, aggregate_cuda, _ = _agg_post_modules()
+    _need_card()
+    img = _images(h, w, d, seed, colour=kind.startswith("colour"))[0]
+    if kind.endswith("float32"):
+        img = img.float() * 0.75
+    before = aggregate_cuda.LAUNCHES["cross_arms_i32"]
+    got = aggregate.cross_arms(img, _arm_cfg())
+    torch.cuda.synchronize()
+    assert aggregate_cuda.LAUNCHES["cross_arms_i32"] == before + 1
+    want = aggregate._cross_arms_plain(img, _arm_cfg())
+    for name, g, x in zip(("left", "right", "up", "down"), got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, x), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_offset,global_rows", [(0, 40), (-34, 40), (21, 40), (-5, 7)])
+def test_cross_arms_band_on_card(row_offset, global_rows):
+    """A band of rows placed in a taller image (the executors' halo'd
+    bands): the vertical arms stop at the image's borders."""
+    aggregate, _, _, _ = _agg_post_modules()
+    _need_card()
+    img = _images(19, 45, 8, 4)[0]
+    got = aggregate.cross_arms(img, _arm_cfg(), row_offset, global_rows)
+    want = aggregate._cross_arms_plain(img, _arm_cfg(), row_offset, global_rows)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inclusive", [True, False])
+@pytest.mark.parametrize("h,w,d,seed", AGG_POST_GEOMETRIES)
+def test_rect_mean_kernel_bit_exact_on_card(h, w, d, seed, inclusive):
+    """AD-Census volumes (both views, and both concatenated as cblsm's
+    second pass does) bit for bit; a non-contiguous view too."""
+    aggregate, _, aggregate_cuda, _ = _agg_post_modules()
+    _need_card()
+    lt, rt = _images(h, w, d, seed)
+    vol_l, vol_r = ad_census_cuda.ad_census_volumes_cuda(lt, rt, d)
+    arms = aggregate.cross_arms(lt, _arm_cfg())
+    before = aggregate_cuda.LAUNCHES["rect_mean_f32"]
+    for vol in (vol_l, vol_r, torch.cat([vol_l, vol_r]), vol_l[:, :, : max(w - 3, 1)]):
+        a = arms if vol.shape[-1] == w else aggregate.Arms(
+            *(x[:, : vol.shape[-1]].contiguous() for x in arms))
+        got = aggregate.rect_mean_aggregate(vol, a, inclusive)
+        torch.cuda.synchronize()
+        assert torch.equal(got, aggregate._rect_mean_aggregate_plain(vol, a, inclusive))
+    assert aggregate_cuda.LAUNCHES["rect_mean_f32"] == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,d,seed", AGG_POST_GEOMETRIES[:4])
+def test_rect_mean_kernel_within_an_ulp_on_card(h, w, d, seed):
+    """Other float32 volumes (a second pass's means, random values): the
+    float64 sums round in another order than the card's cumsum, so the
+    mean is held within one float32 ulp."""
+    aggregate, _, _, _ = _agg_post_modules()
+    _need_card()
+    lt, _ = _images(h, w, d, seed)
+    arms = aggregate.cross_arms(lt, _arm_cfg())
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    vol = torch.rand((d, h, w), device="cuda", generator=gen) * 3.0
+    for x in (vol, aggregate.rect_mean_aggregate(vol, arms)):
+        got = aggregate.rect_mean_aggregate(x, arms)
+        want = aggregate._rect_mean_aggregate_plain(x, arms, True)
+        ulps = (got.view(torch.int32) - want.view(torch.int32)).abs().max().item()
+        assert ulps <= 1, ulps
+
+
+@pytest.mark.cuda
+def test_rect_mean_kernel_peak_below_plain_on_card():
+    """The kernel's float64 table is chunked: its peak is below the plain
+    version's whole-volume float64 copies."""
+    aggregate, _, _, _ = _agg_post_modules()
+    _need_card()
+    lt, rt = _images(375, 450, 60, 0)
+    vol = ad_census_cuda.ad_census_volumes_cuda(lt, rt, 60)[0]
+    arms = aggregate.cross_arms(lt, _arm_cfg())
+    peaks = []
+    for fn in (aggregate.rect_mean_aggregate,
+               lambda v, a: aggregate._rect_mean_aggregate_plain(v, a, True)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn(vol, arms)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+    assert peaks[0] < peaks[1], peaks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_search", [None, 60])
+@pytest.mark.parametrize("invalid", [float("inf"), -1.0], ids=["inf", "minus_one"])
+@pytest.mark.parametrize("h,w,d,seed", AGG_POST_GEOMETRIES)
+def test_fill_kernel_bit_exact_on_card(h, w, d, seed, invalid, max_search):
+    _, post, _, post_cuda = _agg_post_modules()
+    _need_card()
+    disp, occl, mism = _disp_map(h, w, seed, invalid=invalid)
+    before = post_cuda.LAUNCHES["fill_pass_f32"]
+    got = post.fill_holes_8dir(disp, occl, mism, invalid, max_search)
+    torch.cuda.synchronize()
+    assert post_cuda.LAUNCHES["fill_pass_f32"] == before + 3
+    want = post._fill_holes_8dir_plain(disp, occl, mism, invalid, max_search)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("second", [True, False])
+def test_fill_pass_any_target_on_card(second):
+    """One pass with a target mask that also holds finite pixels (the
+    sharded post's call): those are refilled from their rays as in the
+    plain version."""
+    _, post, _, _ = _agg_post_modules()
+    _need_card()
+    disp, occl, mism = _disp_map(64, 77, 5)
+    target = occl | mism | (torch.rand(disp.shape, device="cuda") < 0.2)
+    got = post._fill_from_candidates(disp, target, second, 9, 6)
+    want = post._fill_from_candidates_plain(disp, target, second, 9, 6)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["8", "4", "8 background", "4 background", "zero invalid"])
+@pytest.mark.parametrize("h,w,d,seed", AGG_POST_GEOMETRIES)
+def test_speckle_kernel_bit_exact_on_card(h, w, d, seed, mode):
+    _, post, _, post_cuda = _agg_post_modules()
+    _need_card()
+    invalid = 0.0 if mode == "zero invalid" else float("inf")
+    background = 0.0 if "background" in mode else None
+    connectivity = 4 if mode.startswith("4") else 8
+    disp = _disp_map(h, w, seed, holes=0.15, invalid=invalid)[0]
+    before = post_cuda.LAUNCHES["remove_speckles_f32"]
+    got = post.remove_speckles(disp, 1.0, 30, invalid, background, None, connectivity)
+    torch.cuda.synchronize()
+    assert post_cuda.LAUNCHES["remove_speckles_f32"] == before + 1
+    want = post._remove_speckles_plain(disp, 1.0, 30, invalid, background, None, connectivity)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("connectivity", [4, 8])
+def test_speckle_kernel_serpentine_on_card(connectivity):
+    _, post, _, _ = _agg_post_modules()
+    _need_card()
+    snake = torch.zeros((151, 120), device="cuda")
+    snake[0::2, :] = 5.0
+    snake[1::4, -1] = 5.0
+    snake[3::4, 0] = 5.0
+    got = post.remove_speckles(snake, 0.0, 9000, 0.0, connectivity=connectivity)
+    assert torch.equal(got, snake)
+
+
+@pytest.mark.cuda
+def test_speckle_kernel_rejects_short_max_iters():
+    """The kernel labels to the fixpoint: an explicit cap below the plain
+    version's raises on the card; the cap itself and above are taken."""
+    _, post, _, post_cuda = _agg_post_modules()
+    _need_card()
+    disp = _disp_map(20, 30, 1)[0]
+    cap = post_cuda.speckle_iteration_cap(20, 30)
+    with pytest.raises(ValueError, match="max_iters"):
+        post.remove_speckles(disp, 1.0, 10, max_iters=cap - 1)
+    want = post._remove_speckles_plain(disp, 1.0, 10, float("inf"), None, None, 8)
+    for cap_ok in (cap, cap + 5):
+        assert torch.equal(post.remove_speckles(disp, 1.0, 10, max_iters=cap_ok), want)
+
+
+@pytest.mark.cuda
+def test_agg_post_wrappers_check_inputs():
+    aggregate, post, aggregate_cuda, post_cuda = _agg_post_modules()
+    _need_card()
+    img = torch.zeros((6, 7), dtype=torch.uint8, device="cuda")
+    with pytest.raises(ValueError, match="uint8 or float32"):
+        aggregate.cross_arms(img.to(torch.int32), _arm_cfg())
+    with pytest.raises(ValueError):
+        aggregate.cross_arms(img[None], _arm_cfg())
+    arms = aggregate.cross_arms(img, _arm_cfg())
+    vol = torch.zeros((3, 6, 7), device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        aggregate.rect_mean_aggregate(vol.double(), arms)
+    with pytest.raises(ValueError, match="arms"):
+        aggregate.rect_mean_aggregate(vol[:, :, :5], arms)
+    d = torch.zeros((6, 7), device="cuda")
+    mask = torch.zeros((6, 7), dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="bool"):
+        post.fill_holes_8dir(d, mask.float(), mask)
+    with pytest.raises(ValueError, match="mask"):
+        post.fill_holes_8dir(d, mask[:, :5], mask)
+    with pytest.raises(ValueError):
+        post.fill_holes_8dir(d, mask.cpu(), mask)
+    with pytest.raises(ValueError):
+        post.remove_speckles(d[None])
+
+
+@pytest.mark.cuda
+def test_ad_census_full_launches_agg_post_kernels_on_card(monkeypatch):
+    """One FULL call launches each of the four: the arms and the rect mean
+    once a view, the speckle filter once, the fill once a pass; its maps
+    equal those of the same call with the plain bodies, bit for bit."""
+    aggregate, post, aggregate_cuda, post_cuda = _agg_post_modules()
+    _need_card()
+    L, R, _ = make_pair(60, 96, 16, seed=3)
+    lt, rt = pair_to_torch(L, R, "cuda")
+    fn = get_pipeline("ad_census")[0]
+    cfg = ADCensusConfig(disp_range=16, scanline=ScanlineConfig(), run_post=True)
+    before = {**aggregate_cuda.LAUNCHES, **post_cuda.LAUNCHES}
+    got = fn(lt, rt, cfg)
+    torch.cuda.synchronize()
+    after = {**aggregate_cuda.LAUNCHES, **post_cuda.LAUNCHES}
+    assert {k: after[k] - before[k] for k in after} == {
+        "cross_arms_i32": 2, "rect_mean_f32": 2, "fill_pass_f32": 3, "remove_speckles_f32": 1}
+    def rect_plain(vol, arms, inclusive=True, max_span=None, layout="auto"):
+        return aggregate._rect_mean_aggregate_plain(vol, arms, inclusive)
+
+    def speckles_plain(disp, diff_insame=1.0, min_speckle_area=80, invalid_value=post.INVALID,
+                       background=None, max_iters=None, connectivity=8, block=None):
+        return post._remove_speckles_plain(disp, diff_insame, min_speckle_area, invalid_value,
+                                           background, max_iters, connectivity)
+
+    monkeypatch.setattr(aggregate, "cross_arms", aggregate._cross_arms_plain)
+    monkeypatch.setattr(aggregate, "rect_mean_aggregate", rect_plain)
+    monkeypatch.setattr(post, "fill_holes_8dir", post._fill_holes_8dir_plain)
+    monkeypatch.setattr(post, "remove_speckles", speckles_plain)
+    want = fn(lt, rt, cfg)
+    assert {**aggregate_cuda.LAUNCHES, **post_cuda.LAUNCHES} == after
+    for f in ("disp_left", "disp_right", "disp_final", "occlusion", "mismatch"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
