@@ -306,8 +306,19 @@ EXAMPLE_BATCH = 4
 # entries; the FULL calls timed a turn (kernels, plain bodies, twice each)
 AGG_POST_GEOMETRIES = [(1, 67, 9, 1), (53, 1, 7, 2), (37, 61, 13, 3), (*TEDDY, 0),
                        (*SERVING, 1)]
-AGG_POST_ENTRIES = ("cross_arms_i32", "rect_mean_f32", "fill_pass_f32", "remove_speckles_f32")
+AGG_POST_ENTRIES = ("cross_arms_i32", "rect_mean_f32", "rect_mean_walker_f32", "fill_pass_f32",
+                    "remove_speckles_f32")
 AGG_POST_FULL_REPS = 5
+# The rect mean's strip walker (rect_mean_walker_f32) at the edges of its
+# strips and ring, on integer volumes (exact sums) with arms at the cap:
+# (n, h, w, cap) widths 128 does not divide, h < 2L + 2, one row, one
+# column, one pixel, the cap 0 and the largest the walker takes (48)
+WALKER_EDGES = [(5, 40, 65, 34), (4, 33, 255, 34), (6, 30, 200, 34), (7, 1, 300, 34),
+                (7, 300, 1, 34), (3, 1, 1, 34), (4, 26, 95, 0), (3, 140, 301, 48)]
+# The speckle filter's tile-local labelling at the edges of its tiles: (h,
+# w) of maps that are one component, a checkerboard of single pixels, and
+# diagonal stripes that cross many tiles
+SPECKLE_EDGES = [(375, 450), (720, 1280), (33, 65), (1, 300), (300, 1)]
 # The rect mean on volumes whose float64 sums are not exact: the kernel's
 # table is summed in the plain version's order (rows, then down each column
 # one row after another), so its means are held within a float32 ulp of the
@@ -774,6 +785,7 @@ def main() -> None:
           for entry, src, where in (
               ("cross_arms_i32", "aggregate.cu", "aggregate.py:119"),
               ("rect_mean_f32", "aggregate.cu", "aggregate.py:486"),
+              ("rect_mean_walker_f32", "aggregate.cu", "aggregate.py:486"),
               ("fill_pass_f32", "post.cu", "post.py:658"),
               ("remove_speckles_f32", "post.cu", "post.py:169"))),
     ]})
@@ -3559,6 +3571,39 @@ def _ulps(got, want) -> int:
     return int((got.view(torch.int32).long() - want.view(torch.int32).long()).abs().max())
 
 
+def _capped_arms(h, w, cap, seed, at_cap=0.5):
+    """Random arms in [0, cap] on the card, half exactly at it, clipped to
+    the image as real arms are."""
+    import torch
+
+    from stereo_match_traditional_tpu_torch.ops.aggregate import Arms
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ii = torch.arange(h, device="cuda")[:, None].expand(h, w)
+    jj = torch.arange(w, device="cuda")[None, :].expand(h, w)
+    out = []
+    for room in (jj, w - 1 - jj, ii, h - 1 - ii):
+        a = torch.randint(0, cap + 1, (h, w), device="cuda", generator=gen)
+        a = torch.where(torch.rand((h, w), device="cuda", generator=gen) < at_cap, cap, a)
+        out.append(torch.minimum(a, room).to(torch.int32))
+    return Arms(*out)
+
+
+def _kernel_ms(fn, reps: int, names) -> dict:
+    """Device ms a call of each kernel whose name holds one of ``names``,
+    from a trace of ``reps`` calls of ``fn`` (kernels launched through a C
+    entry are read from the trace, not the profiler's op tree); None for a
+    kernel of which the trace lost a launch (the profiler can, see
+    ``traced_events``): these times explain the wrapper's, which the phase
+    times by CUDA events and checks."""
+    events = traced_events(fn, reps)
+    out = {}
+    for name in names:
+        durs = [e["dur"] for e in events if e.get("cat") == "kernel" and name in e["name"]]
+        out[name] = sum(durs) / 1e3 / reps if len(durs) == reps else None
+    return out
+
+
 def _full_inputs(h, w, d, seed):
     """The real inputs of the four functions in one ad_census FULL call on
     ``cuda_pair(h, w, d, seed)``, by the kernels: the images, both cost
@@ -3572,8 +3617,8 @@ def _full_inputs(h, w, d, seed):
     lt, rt = cuda_pair(h, w, d, seed)
     vol_l, vol_r = ad_census_cuda.ad_census_volumes_cuda(lt, rt, d)
     arms_l, arms_r = aggregate.cross_arms(lt, full.arms), aggregate.cross_arms(rt, full.arms)
-    agg_l = aggregate.rect_mean_aggregate(vol_l, arms_l)
-    agg_r = aggregate.rect_mean_aggregate(vol_r, arms_r)
+    agg_l = aggregate.rect_mean_aggregate(vol_l, arms_l, max_span=full.arms.max_length)
+    agg_r = aggregate.rect_mean_aggregate(vol_r, arms_r, max_span=full.arms.max_length)
     opt = scanline_cuda.scanline_optimize_cuda(agg_l, lt, full.scanline)
     lr = post.lr_check_consistency(wta.wta(opt), wta.wta(agg_r), full.lr_gate, post.INVALID)
     spk = post.remove_speckles(lr.disp, full.speckle_diff, full.speckle_area,
@@ -3584,23 +3629,32 @@ def _full_inputs(h, w, d, seed):
 
 def agg_post_phase() -> dict:
     """Phase 25, the aggregation and post kernels (``csrc/aggregate.cu``:
-    ``cross_arms_i32``, ``rect_mean_f32``; ``csrc/post.cu``:
-    ``fill_pass_f32``, ``remove_speckles_f32``).  (a) Each against its plain
-    version on the same CUDA tensors at AGG_POST_GEOMETRIES (cross arms grey
-    and colour, u8 and float32, and a band with ``row_offset``; the rect mean
-    on both AD-Census views, the two concatenated, inclusive and exclusive,
-    bit for bit, and on random volumes and a second pass's means within a
-    float32 ulp; the fill with rays capped and unbounded; the speckle
-    filter with 4- and 8-connectivity and a background); the raise on an
-    explicit ``max_iters`` below the cap.  (b) The real inputs of ad_census
-    FULL at Teddy and 720p, sad's (unbounded fill, background speckles),
-    asw's (4-connectivity) and cblsm's (its stacked second pass), bit for
-    bit.  (c) Each timed against its plain version on those inputs beside
-    its bound.  (d) ad_census FULL through ``get_pipeline`` at Teddy
-    (launch counts set to 0 just before, read just after) and at 720p: ms
-    and per-stage ms beside the same calls on the plain bodies, the device
+    ``cross_arms_i32``, ``rect_mean_f32`` (the chunked table: calls without
+    a cap), ``rect_mean_walker_f32`` (the strip walker: calls with the arms'
+    cap, the main path's); ``csrc/post.cu``: ``fill_pass_f32``,
+    ``remove_speckles_f32`` (tile-local labelling)).  (a) Each against its
+    plain version on the same CUDA tensors at AGG_POST_GEOMETRIES (cross
+    arms grey and colour, u8 and float32, and a band with ``row_offset``;
+    both rect-mean routes on both AD-Census views, the two concatenated,
+    inclusive and exclusive, bit for bit, and on random volumes and a second
+    pass's means within a float32 ulp; the fill with rays capped and
+    unbounded; the speckle filter with 4- and 8-connectivity and a
+    background); the raise on an explicit ``max_iters`` below the cap.  (a')
+    The walker at WALKER_EDGES, bit for bit, its word of arms over the cap
+    read as 0, the route by the cap (none and 49: the chunked table) and a
+    cap below the arms counted; the speckle filter at SPECKLE_EDGES (one
+    component, a checkerboard, stripes across tiles).  (b) The real inputs
+    of ad_census FULL at Teddy and 720p, sad's (unbounded fill, background
+    speckles), asw's (4-connectivity) and cblsm's (its stacked second pass),
+    bit for bit.  (c) Each timed against its plain version on those inputs
+    beside its bound, the walker's pre-pass and the speckle filter's four
+    kernels apart from a trace.  (d) ad_census FULL through
+    ``get_pipeline`` at Teddy (launch counts set to 0 just before, read just
+    after; the word of arms over the cap read as 0) and at 720p: ms and
+    per-stage ms beside the same calls on the plain bodies, the device
     kernels of one call from a trace, and the maps of FULL and of sad, asw
-    and cblsm with post equal to the plain bodies' bit for bit.  Returns
+    and cblsm with post equal to the plain bodies' bit for bit; the chunked
+    table's own path (the public function without a cap) counted.  Returns
     each kernel's summary fields."""
     import torch
 
@@ -3609,7 +3663,7 @@ def agg_post_phase() -> dict:
     from stereo_match_traditional_tpu_torch.models.asw import _minmax_u8
     from stereo_match_traditional_tpu_torch.ops import aggregate, post, wta
     from stereo_match_traditional_tpu_torch.ops.kernels import (
-        ad_census_cuda, post_cuda, scanline_cuda, window_cost_cuda,
+        ad_census_cuda, aggregate_cuda, post_cuda, scanline_cuda, window_cost_cuda,
     )
     from stereo_match_traditional_tpu_torch.utils.synthetic import bad_pixel_rate, make_pair
 
@@ -3662,6 +3716,8 @@ def agg_post_phase() -> dict:
 
     # -- 25a. the kernels against their plain versions ----------------------
     arm_cfg = C.ADCensusConfig().arms
+    span = arm_cfg.max_length
+    aggregate_cuda.arms_over_cap("cuda", reset=True)
     for h, w, d, seed in AGG_POST_GEOMETRIES:
         lt, rt = cuda_pair(h, w, d, seed)
         base = {"phase": "agg_post", "part": "kernel_check", "geometry": [h, w, d]}
@@ -3672,20 +3728,23 @@ def agg_post_phase() -> dict:
                 img, arm_cfg)), tuple(aggregate._cross_arms_plain(img, arm_cfg)))
         vol_l, vol_r = ad_census_cuda.ad_census_volumes_cuda(lt, rt, d)
         arms = aggregate.cross_arms(lt, arm_cfg)
-        for inclusive in (True, False):
-            for label, vol in (("left", vol_l), ("right", vol_r),
-                               ("both views concatenated", torch.cat([vol_l, vol_r]))):
-                hold("rect_mean_f32", dict(base, volume=f"AD-Census {label}",
-                                           inclusive=inclusive),
-                     aggregate.rect_mean_aggregate(vol, arms, inclusive),
-                     aggregate._rect_mean_aggregate_plain(vol, arms, inclusive))
         gen = torch.Generator(device="cuda").manual_seed(seed)
         rand = torch.rand((d, h, w), device="cuda", generator=gen) * 3.0
-        second = aggregate.rect_mean_aggregate(vol_l, arms)
-        for label, vol in (("random", rand), ("second pass", second)):
-            hold("rect_mean_f32", dict(base, volume=label), aggregate.rect_mean_aggregate(
-                vol, arms), aggregate._rect_mean_aggregate_plain(vol, arms, True),
-                 ulps=RECT_ULPS, vol=vol, arms=arms)
+        # without a cap the chunked-table kernels, with the arms' cap the
+        # strip walker
+        for entry, cap in (("rect_mean_f32", None), ("rect_mean_walker_f32", span)):
+            for inclusive in (True, False):
+                for label, vol in (("left", vol_l), ("right", vol_r),
+                                   ("both views concatenated", torch.cat([vol_l, vol_r]))):
+                    hold(entry, dict(base, volume=f"AD-Census {label}", inclusive=inclusive,
+                                     max_span=cap),
+                         aggregate.rect_mean_aggregate(vol, arms, inclusive, max_span=cap),
+                         aggregate._rect_mean_aggregate_plain(vol, arms, inclusive))
+            second = aggregate.rect_mean_aggregate(vol_l, arms, max_span=cap)
+            for label, vol in (("random", rand), ("second pass", second)):
+                hold(entry, dict(base, volume=label, max_span=cap), aggregate.rect_mean_aggregate(
+                    vol, arms, max_span=cap), aggregate._rect_mean_aggregate_plain(vol, arms, True),
+                     ulps=RECT_ULPS, vol=vol, arms=arms)
         del vol_l, vol_r, rand, second
         for invalid in (float("inf"), -1.0):
             disp, occl, mism = _speckle_map(h, w, seed, 0.3, invalid)
@@ -3720,6 +3779,56 @@ def agg_post_phase() -> dict:
           "max_iters": cap - 1, "raised": raised})
     check(raised is not None and "max_iters" in raised, raised)
 
+    # -- 25a'. the walker's strips and ring at their edges, its route by the
+    # cap and its word of arms over the cap; the speckle tiles at theirs
+    for n, h, w, cap in WALKER_EDGES:
+        gen = torch.Generator(device="cuda").manual_seed(n + h + w)
+        vol = torch.randint(0, 9, (n, h, w), device="cuda", generator=gen).float()
+        arms = _capped_arms(h, w, cap, h * w)
+        for inclusive in (True, False):
+            hold("rect_mean_walker_f32", {"phase": "agg_post", "part": "walker edges",
+                                          "shape": [n, h, w], "max_span": cap,
+                                          "inclusive": inclusive},
+                 aggregate.rect_mean_aggregate(vol, arms, inclusive, max_span=cap),
+                 aggregate._rect_mean_aggregate_plain(vol, arms, inclusive))
+    over = aggregate_cuda.arms_over_cap("cuda", reset=True)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    vol = torch.randint(0, 9, (9, 90, 170), device="cuda", generator=gen).float()
+    arms = _capped_arms(90, 170, 20, 3)
+    walked = aggregate.rect_mean_aggregate(vol, arms, max_span=20)
+    _reset_launches()
+    routes = {str(cap): torch.equal(aggregate.rect_mean_aggregate(vol, arms, max_span=cap),
+                                    walked) for cap in (None, 49)}
+    route_launches = {k: v for k, v in _launches().items() if v}
+    clamped = aggregate.Arms(*(a.clamp(max=7) for a in arms))
+    below = torch.equal(aggregate.rect_mean_aggregate(vol, arms, max_span=7),
+                        aggregate._rect_mean_aggregate_plain(vol, clamped, True))
+    rec = {"phase": "agg_post", "part": "walker route and cap",
+           "arms_over_cap_before": over, "chunked_route_equal_to_walker": routes,
+           "route_launches": route_launches, "cap_7_equal_to_clamped_plain": below,
+           "arms_over_cap_7": aggregate_cuda.arms_over_cap("cuda", reset=True),
+           "arms_above_7": sum(int((a > 7).sum()) for a in arms)}
+    emit(rec)
+    check(over == 0 and all(routes.values()) and below, rec)
+    check(route_launches == {"rect_mean_f32": 2}, rec)
+    check(rec["arms_over_cap_7"] == rec["arms_above_7"] > 0, rec)
+    for h, w in SPECKLE_EDGES:
+        ii = torch.arange(h, device="cuda")[:, None]
+        jj = torch.arange(w, device="cuda")[None, :]
+        one = torch.full((h, w), 5.0, device="cuda")
+        one[::2, 1::3] = 5.5
+        maps = {"one component": (one, 1.0, h * w), "one component, area above": (
+                    one, 1.0, h * w + 1),
+                "checkerboard": (torch.where((ii + jj) % 2 == 0, 3.0, float("inf")).float(),
+                                 0.0, 2),
+                "stripes across tiles": (((ii + jj) // 7 % 5).float(), 0.0, 40)}
+        for label, (disp, diff, area) in maps.items():
+            for conn in (4, 8):
+                hold("remove_speckles_f32", {"phase": "agg_post", "part": "speckle tile edges",
+                                             "shape": [h, w], "map": label, "connectivity": conn},
+                     post.remove_speckles(disp, diff, area, connectivity=conn),
+                     post._remove_speckles_plain(disp, diff, area, float("inf"), None, None, conn))
+
     # -- 25b. the real inputs of the main path and of the other chains -------
     inputs = {}
     for (h, w, d), seed in ((TEDDY, 0), (SERVING, 1)):
@@ -3729,7 +3838,7 @@ def agg_post_phase() -> dict:
             img = x["lt"] if view == "l" else x["rt"]
             hold("cross_arms_i32", dict(base, view=view), x[f"arms_{view}"],
                  tuple(aggregate._cross_arms_plain(img, x["cfg"].arms)))
-            hold("rect_mean_f32", dict(base, view=view), x[f"agg_{view}"],
+            hold("rect_mean_walker_f32", dict(base, view=view), x[f"agg_{view}"],
                  aggregate._rect_mean_aggregate_plain(x[f"vol_{view}"], x[f"arms_{view}"], True))
         lr, cfg = x["lr"], x["cfg"]
         hold("remove_speckles_f32", dict(base, map="LR map, 8-connectivity"), x["spk"],
@@ -3766,14 +3875,16 @@ def agg_post_phase() -> dict:
     cb = C.CBLSMConfig()
     ad_l, ad_r = ad_census_cuda.ad_volumes_cuda(lt, rt, d)
     c_arms = aggregate.cross_arms(lt, cb.arms)
-    first = torch.cat([aggregate.rect_mean_aggregate(ad_l, c_arms),
-                       aggregate.rect_mean_aggregate(ad_r, aggregate.cross_arms(rt, cb.arms))])
-    hold("rect_mean_f32", {"phase": "agg_post", "part": "cblsm inputs",
-                           "volume": "AD costs, first pass"},
+    c_span = cb.arms.max_length
+    first = torch.cat([aggregate.rect_mean_aggregate(ad_l, c_arms, max_span=c_span),
+                       aggregate.rect_mean_aggregate(ad_r, aggregate.cross_arms(rt, cb.arms),
+                                                     max_span=c_span)])
+    hold("rect_mean_walker_f32", {"phase": "agg_post", "part": "cblsm inputs",
+                                  "volume": "AD costs, first pass"},
          first[:d], aggregate._rect_mean_aggregate_plain(ad_l, c_arms, True))
-    hold("rect_mean_f32", {"phase": "agg_post", "part": "cblsm inputs",
-                           "volume": "stacked second pass (non-integer means)"},
-         aggregate.rect_mean_aggregate(first, c_arms),
+    hold("rect_mean_walker_f32", {"phase": "agg_post", "part": "cblsm inputs",
+                                  "volume": "stacked second pass (non-integer means)"},
+         aggregate.rect_mean_aggregate(first, c_arms, max_span=c_span),
          aggregate._rect_mean_aggregate_plain(first, c_arms, True), ulps=RECT_ULPS, vol=first,
          arms=c_arms)
     del ad_l, ad_r, first
@@ -3787,10 +3898,16 @@ def agg_post_phase() -> dict:
             "cross_arms_i32": (
                 lambda: aggregate._cross_arms_plain(x["lt"], cfg.arms),
                 lambda: aggregate.cross_arms(x["lt"], cfg.arms), h * w + 16 * h * w),
-            # one view: the volume in and out, the four arm maps in
+            # one view: the volume in and out, the four arm maps in; without
+            # a cap (the chunked table) and with the main path's (the walker)
             "rect_mean_f32": (
                 lambda: aggregate._rect_mean_aggregate_plain(x["vol_l"], x["arms_l"], True),
                 lambda: aggregate.rect_mean_aggregate(x["vol_l"], x["arms_l"]),
+                8 * d * h * w + 16 * h * w),
+            "rect_mean_walker_f32": (
+                lambda: aggregate._rect_mean_aggregate_plain(x["vol_l"], x["arms_l"], True),
+                lambda: aggregate.rect_mean_aggregate(x["vol_l"], x["arms_l"],
+                                                      max_span=cfg.arms.max_length),
                 8 * d * h * w + 16 * h * w),
             # the map and both masks in, the map out (the three passes)
             "fill_pass_f32": (
@@ -3812,8 +3929,16 @@ def agg_post_phase() -> dict:
                    "plain_ms": p_ms, "speedup": p_ms / k_ms, **bound(nbytes, 0.0)}
             rec["share_of_bound"] = rec["bound_ms"] / k_ms
             timing[entry, f"{h}x{w}/D={d}"] = rec
+        # the kernels of one call, from a trace: the walker's pre-pass apart
+        # from the walker, the speckle filter's four
+        timing["rect_mean_walker_f32", f"{h}x{w}/D={d}"]["kernels_ms"] = _kernel_ms(
+            cases["rect_mean_walker_f32"][1], 5, ("rect_carry_kernel", "rect_walker_kernel"))
+        timing["remove_speckles_f32", f"{h}x{w}/D={d}"]["kernels_ms"] = _kernel_ms(
+            cases["remove_speckles_f32"][1], 5, ("speckle_tile_kernel", "speckle_merge_kernel",
+                                                 "speckle_tally_kernel", "speckle_kill_kernel"))
         emit({"phase": "agg_post", "part": "timing_kernels", "shape": [h, w], "disp_range": d,
-              "covers": {"cross_arms_i32": "one image", "rect_mean_f32": "one view",
+              "covers": {"cross_arms_i32": "one image", "rect_mean_f32": "one view, no cap",
+                         "rect_mean_walker_f32": "one view, the main path's cap",
                          "fill_pass_f32": "one fill_holes_8dir call (three launches)",
                          "remove_speckles_f32": "one call"},
               "kernels": {k: v for (k, s), v in timing.items() if s == f"{h}x{w}/D={d}"}})
@@ -3829,9 +3954,20 @@ def agg_post_phase() -> dict:
     torch.cuda.synchronize()
     launches = _launches()
     counted = {k: launches[k] for k in AGG_POST_ENTRIES}
-    want = {"cross_arms_i32": 2, "rect_mean_f32": 2, "fill_pass_f32": 3,
-            "remove_speckles_f32": 1}
+    want = {"cross_arms_i32": 2, "rect_mean_f32": 0, "rect_mean_walker_f32": 2,
+            "fill_pass_f32": 3, "remove_speckles_f32": 1}
     check(counted == {k: n * MAIN_PATH_CALLS for k, n in want.items()}, counted)
+    over = aggregate_cuda.arms_over_cap("cuda", reset=True)
+    check(over == 0, ("arms over the cap on the main path", over))
+    # the chunked-table kernels are on no pipeline's path now; their own
+    # path is the public function without a cap (the JAX package's
+    # default), one view a call, counted apart from the main path's
+    _reset_launches()
+    for _ in range(MAIN_PATH_CALLS):
+        aggregate.rect_mean_aggregate(inputs[TEDDY]["vol_l"], inputs[TEDDY]["arms_l"])
+    torch.cuda.synchronize()
+    own_path = {"rect_mean_f32": _launches()["rect_mean_f32"]}
+    check(own_path["rect_mean_f32"] == MAIN_PATH_CALLS, own_path)
     with plain_bodies():
         plain_res = fn(lt, rt, full)
         kernels_plain = traced_events(lambda: fn(lt, rt, full), 1)
@@ -3844,6 +3980,7 @@ def agg_post_phase() -> dict:
     rec = {"phase": "agg_post", "part": "main path", "pipeline": "ad_census",
            "config": "FULL (entry())", "shape": [h, w], "disp_range": d,
            "launches": {k: v for k, v in launches.items() if v}, "calls": MAIN_PATH_CALLS,
+           "arms_over_cap": over,
            "device_work_of_one_call": device, "maps_equal_to_plain_bodies": equal,
            "bad2_final": bad_pixel_rate(res.disp_final.cpu().numpy(), gt)}
     emit(rec)
@@ -3873,8 +4010,10 @@ def agg_post_phase() -> dict:
             "arms (both images)": lambda: (aggregate.cross_arms(lt, cfg.arms),
                                            aggregate.cross_arms(rt, cfg.arms)),
             "rect mean (both views)": lambda: (
-                aggregate.rect_mean_aggregate(x["vol_l"], x["arms_l"]),
-                aggregate.rect_mean_aggregate(x["vol_r"], x["arms_r"])),
+                aggregate.rect_mean_aggregate(x["vol_l"], x["arms_l"],
+                                              max_span=cfg.arms.max_length),
+                aggregate.rect_mean_aggregate(x["vol_r"], x["arms_r"],
+                                              max_span=cfg.arms.max_length)),
             "scanline": lambda: scanline_cuda.scanline_optimize_cuda(x["agg_l"], lt,
                                                                       cfg.scanline),
             "wta (both)": lambda: (wta.wta(opt), wta.wta(x["agg_r"])),
@@ -3938,9 +4077,16 @@ def agg_post_phase() -> dict:
                     "plain_ms": timing[entry, teddy]["plain_ms"],
                     "bound_ms": timing[entry, teddy]["bound_ms"],
                     "bound_by": timing[entry, teddy]["bound_by"], "library_ms": None,
-                    "ms_covers": {"cross_arms_i32": "one image", "rect_mean_f32": "one view",
+                    "ms_covers": {"cross_arms_i32": "one image",
+                                  "rect_mean_f32": "one view, no cap (on no pipeline's "
+                                                   "path: launches 0 on ad_census FULL)",
+                                  "rect_mean_walker_f32": "one view, the main path's cap",
                                   "fill_pass_f32": "one fill_holes_8dir call (3 launches)",
                                   "remove_speckles_f32": "one call"}[entry],
+                    **({"own_path_launches": own_path[entry],
+                        "own_path": "rect_mean_aggregate without max_span, one view a call, "
+                                    f"{MAIN_PATH_CALLS} calls"}
+                       if entry in own_path else {}),
                     "back_to_back_ms": timing[entry, teddy]["back_to_back_ms"],
                     "at_720p": timing[entry, serving],
                     "full_ms": pipelines}

@@ -102,8 +102,8 @@ def ad_census_pipeline(
             arms_l = aggregate.cross_arms(left, cfg.arms)
             arms_r = aggregate.cross_arms(right, cfg.arms)
             for _ in range(cfg.agg_iters):
-                agg_l = aggregate.rect_mean_aggregate(agg_l, arms_l)
-                agg_r = aggregate.rect_mean_aggregate(agg_r, arms_r)
+                agg_l = aggregate.rect_mean_aggregate(agg_l, arms_l, max_span=cfg.arms.max_length)
+                agg_r = aggregate.rect_mean_aggregate(agg_r, arms_r, max_span=cfg.arms.max_length)
     elif canonical:
         with stage_scope("arms"):
             arms_l = aggregate.canonical_cross_arms(

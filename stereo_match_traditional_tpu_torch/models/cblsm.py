@@ -111,16 +111,18 @@ def cblsm_pipeline(
     agg_l, agg_r = vol_l, vol_r
 
     if cfg.aggregation == "rect_mean":
+        span = cfg.arms.max_length
         with stage_scope("aggregate"):
-            agg_l = aggregate.rect_mean_aggregate(agg_l, arms_l)
-            agg_r = aggregate.rect_mean_aggregate(agg_r, arms_r)
+            agg_l = aggregate.rect_mean_aggregate(agg_l, arms_l, max_span=span)
+            agg_r = aggregate.rect_mean_aggregate(agg_r, arms_r, max_span=span)
             for _ in range(cfg.agg_passes - 1):
                 if cfg.second_pass_left_arms:
-                    both = aggregate.rect_mean_aggregate(torch.cat([agg_l, agg_r]), arms_l)
+                    both = aggregate.rect_mean_aggregate(torch.cat([agg_l, agg_r]), arms_l,
+                                                         max_span=span)
                     agg_l, agg_r = both[:d], both[d:]
                 else:
-                    agg_l = aggregate.rect_mean_aggregate(agg_l, arms_l)
-                    agg_r = aggregate.rect_mean_aggregate(agg_r, arms_r)
+                    agg_l = aggregate.rect_mean_aggregate(agg_l, arms_l, max_span=span)
+                    agg_r = aggregate.rect_mean_aggregate(agg_r, arms_r, max_span=span)
     elif cfg.aggregation == "rect_mean_v4":
         with stage_scope("aggregate"):
             support = aggregate.cblsm_arm_volumes(arms_l, arms_r, d, max_steps=cfg.arms.max_length)

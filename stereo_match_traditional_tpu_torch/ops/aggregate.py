@@ -223,14 +223,19 @@ def rect_mean_aggregate(
     centre cost is kept (the reference divides 0/0 there).
 
     ``max_span`` and ``layout`` take the JAX package's positions and values
-    so that its call sites copy across.  There they choose how the TPU
-    gathers (a row-chunked gather source bounded by ``max_span``; the
-    ``'dmajor'`` or ``'pixel_major'`` SAT layout): the TPU layouts are not
-    ported (ROADMAP.md, North star), so every ``layout`` runs the port's one
-    layout and ``max_span`` changes nothing.  An unknown ``layout`` raises
-    ``ValueError``.
+    so that its call sites copy across.  ``max_span`` is, as there, a static
+    bound on the arm lengths (the callers pass ``cfg.arms.max_length``): on
+    the card it picks the strip walker, whose ring of table rows it sizes
+    (``ops.kernels.aggregate_cuda.walker_takes``); without it the card runs
+    the chunked-table kernels, and on the CPU it changes nothing.  A cap
+    below the arms breaks that contract: the card clamps such arms to the
+    cap (and counts them, ``aggregate_cuda.arms_over_cap``), the CPU does
+    not, so the two then give different means.  The TPU's
+    ``'dmajor'`` and ``'pixel_major'`` SAT layouts are not ported (ROADMAP.md,
+    North star), so every ``layout`` runs the port's one layout.  An unknown
+    ``layout`` raises ``ValueError``.
 
-    A CUDA volume launches the rect-mean kernel
+    A CUDA volume launches a rect-mean kernel
     (``ops.kernels.aggregate_cuda.rect_mean_cuda``), a CPU volume runs the
     plain version below: bit for bit the same on AD-Census volumes, whose
     float64 sums are exact, and within a float32 ulp on others.
@@ -240,7 +245,7 @@ def rect_mean_aggregate(
     if vol.is_cuda:
         from stereo_match_traditional_tpu_torch.ops.kernels.aggregate_cuda import rect_mean_cuda
 
-        return rect_mean_cuda(vol, arms, inclusive)
+        return rect_mean_cuda(vol, arms, inclusive, max_span)
     return _rect_mean_aggregate_plain(vol, arms, inclusive)
 
 

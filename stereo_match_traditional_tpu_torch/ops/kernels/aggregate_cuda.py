@@ -14,9 +14,19 @@ Both are bit-exact with their plain versions: the arms are integer counts
 of float32 comparisons, and the rectangle sums are float64 sums of a
 summed-area table, exact for AD-Census volumes in any order (otherwise
 within a float32 ulp of the mean).
+
+The rect mean takes one of two routes, chosen by its arguments and not by a
+failure: with a cap on the arms (``max_span``, as the JAX package's call
+sites pass ``cfg.arms.max_length``) whose ring fits a block
+(:func:`walker_takes`), the strip walker ``rect_mean_walker_f32`` (no
+float64 table in device memory); without one, or with a cap above 48, the
+three kernels of ``rect_mean_f32`` on a chunked float64 table.
+``csrc/aggregate.cu``'s header describes both.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -29,13 +39,51 @@ from stereo_match_traditional_tpu_torch.ops.kernels.launch import (
 # Kernel launches so far, one per call of each C entry point; a run resets
 # them to show its path went through the kernels.  Only the launches below
 # increment them.
-LAUNCHES = {"cross_arms_i32": 0, "rect_mean_f32": 0}
+LAUNCHES = {"cross_arms_i32": 0, "rect_mean_f32": 0, "rect_mean_walker_f32": 0}
 
-# The rect mean's float64 summed-area table is built a chunk of slices at a
-# time in a scratch of at most this many bytes (one slice at the least): a
-# 720p slice is 7.4 MB, so 138 slices a chunk; the plain version holds
-# float64 copies of the whole volume.
+# The three-kernel route builds its float64 summed-area table a chunk of
+# slices at a time in a scratch of at most this many bytes (one slice at the
+# least): a 720p slice is 7.4 MB, so 138 slices a chunk; the plain version
+# holds float64 copies of the whole volume.
 SCRATCH_BYTES = 1 << 30
+
+# The strip walker's output columns a strip (``csrc/aggregate.cu``'s WALK_S:
+# it sizes the carries) and its largest cap (WALK_MAX_SPAN: the largest whose
+# ring fits a block's shared memory; the C source holds the layout).
+WALKER_STRIP = 128
+WALKER_MAX_SPAN = 48
+
+# A word a device that the walker adds the arms outside [0, max_span] to
+# (read by :func:`arms_over_cap`; the main path reads nothing back).
+_OVER_CAP = {}
+
+
+def walker_takes(max_span, slices: int = 1) -> bool:
+    """Whether a call with this cap on a volume of ``slices`` slices takes
+    the strip walker: a cap is given, lies in [0, WALKER_MAX_SPAN], and the
+    slices fit the grid's second dimension (<= 65535)."""
+    return (max_span is not None and 0 <= int(max_span) <= WALKER_MAX_SPAN
+            and slices <= 65535)
+
+
+def _over_cap_word(device: torch.device) -> torch.Tensor:
+    """The word of a CUDA device (``cuda`` is the current one)."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    word = _OVER_CAP.get(index)
+    if word is None:
+        word = _OVER_CAP[index] = torch.zeros(1, dtype=torch.int32, device=f"cuda:{index}")
+    return word
+
+
+def arms_over_cap(device, reset: bool = False) -> int:
+    """The number of arms outside [0, max_span] that the walker has met on
+    ``device`` since the word was last reset (a host sync: for checks, not
+    for the main path); ``reset`` sets the word to 0 after reading it."""
+    word = _over_cap_word(torch.device(device))
+    n = int(word.item())
+    if reset:
+        word.zero_()
+    return n
 
 
 def cross_arms_cuda(img: torch.Tensor, cfg, row_offset: int = 0, global_rows: int = None):
@@ -74,12 +122,15 @@ def cross_arms_cuda(img: torch.Tensor, cfg, row_offset: int = 0, global_rows: in
     return aggregate.Arms(*out.unbind(0))
 
 
-def rect_mean_cuda(vol: torch.Tensor, arms, inclusive: bool = True) -> torch.Tensor:
-    """Drop-in for ``ops.aggregate.rect_mean_aggregate`` (its ``max_span``
-    and ``layout`` change nothing there either): one launch of
-    ``rect_mean_f32`` for a CUDA volume (float32 ``[D, H, W]``, any strides;
-    a batch of volumes sharing the arms concatenated along D), the plain
-    version for a CPU volume."""
+def rect_mean_cuda(vol: torch.Tensor, arms, inclusive: bool = True,
+                   max_span: Optional[int] = None) -> torch.Tensor:
+    """Drop-in for ``ops.aggregate.rect_mean_aggregate`` (its ``layout``
+    changes nothing there either) for a CUDA volume (float32 ``[D, H, W]``,
+    any strides; a batch of volumes sharing the arms concatenated along D),
+    the plain version for a CPU volume.  Where :func:`walker_takes`
+    ``max_span``, one launch of ``rect_mean_walker_f32`` (arms outside
+    [0, max_span] are clamped and counted, see :func:`arms_over_cap`); else
+    one launch of ``rect_mean_f32``."""
     from stereo_match_traditional_tpu_torch.ops import aggregate
 
     if not vol.is_cuda:
@@ -98,10 +149,24 @@ def rect_mean_cuda(vol: torch.Tensor, arms, inclusive: bool = True) -> torch.Ten
                              f"{tuple(a.shape)} on {a.device}")
     maps = [a.to(torch.int32).contiguous() for a in maps]
     vol = vol.contiguous()
-    chunk = int(max(1, min(n, SCRATCH_BYTES // (8 * (h + 1) * (w + 1)))))
-    scratch = torch.empty((chunk, h + 1, w + 1), dtype=torch.float64, device=vol.device)
     out = torch.empty_like(vol)
     lib = library()
+    if walker_takes(max_span, n):
+        strips = -(-w // WALKER_STRIP)
+        carries = torch.empty((n, strips, h), dtype=torch.float64, device=vol.device)
+        geom = torch.empty((h, w, 2), dtype=torch.int32, device=vol.device)
+        word = _over_cap_word(vol.device)
+        with current(vol.device):
+            err = lib.rect_mean_walker_f32(
+                vol.data_ptr(), n, h, w, *(a.data_ptr() for a in maps), int(bool(inclusive)),
+                int(max_span), carries.data_ptr(), geom.data_ptr(), word.data_ptr(),
+                out.data_ptr(), stream(vol.device),
+            )
+        raise_on_error(lib, "rect_mean_walker_f32", err)
+        LAUNCHES["rect_mean_walker_f32"] += 1
+        return out
+    chunk = int(max(1, min(n, SCRATCH_BYTES // (8 * (h + 1) * (w + 1)))))
+    scratch = torch.empty((chunk, h + 1, w + 1), dtype=torch.float64, device=vol.device)
     with current(vol.device):
         err = lib.rect_mean_f32(
             vol.data_ptr(), n, h, w, *(a.data_ptr() for a in maps), int(bool(inclusive)),

@@ -146,6 +146,9 @@ def library() -> ctypes.CDLL:
     lib.cross_arms_i32.restype = i32
     lib.rect_mean_f32.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, i32, vp, i32, vp, vp]
     lib.rect_mean_f32.restype = i32
+    lib.rect_mean_walker_f32.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, i32, i32, vp, vp,
+                                         vp, vp, vp]
+    lib.rect_mean_walker_f32.restype = i32
     lib.fill_pass_f32.argtypes = [vp, vp, vp, i32, i32, i32, f32, i32, i32, i32, i32, i32, vp]
     lib.fill_pass_f32.restype = i32
     lib.remove_speckles_f32.argtypes = [vp, vp, vp, i32, i32, f32, f32, i32, i32, i32, f32,

@@ -22,28 +22,67 @@
 // four int32 maps out (~2.4 us at Teddy); the walk is ~4 x 34 cached loads
 // a pixel at most, latency the real limit.
 //
-// rect_mean_f32: the plain version's float64 summed-area table S of every
+// The rect mean: the plain version's float64 summed-area table S of every
 // d-slice (S[i][j] = sum x[:i, :j], a zero row and column in front), the
 // rectangle sum of the four corner picks in its order, ((S[i1+1][j1+1] -
 // S[i0][j1+1]) - S[i1+1][j0]) + S[i0][j0], rounded to float32 once and
-// divided by the float32 count.  Three kernels a chunk of slices on a
-// float64 scratch of the chunk (the wrapper sizes it): a warp a row scans
-// along it (float32 in, float64 out), a thread a column sums down the rows
-// in place, a thread an output picks its corners.  The AD-Census costs sum
-// exactly in float64 (`_sat`'s note), so the result is the plain version's
-// whatever the order of the sums.  For other float32 volumes the table's
-// entries round: the plain version sums along the rows, then down each
-// column one row after another, and so does this, so that two corners of a
-// column share the rounding of the rows above both, which cancels in their
+// divided by the float32 count.  The AD-Census costs sum exactly in float64
+// (`_sat`'s note), so the result is the plain version's whatever the order
+// of the sums.  For other float32 volumes the table's entries round: the
+// plain version sums along the rows, then down each column one row after
+// another, and so do both routes below, so that two corners of a column
+// share the rounding of the rows above both, which cancels in their
 // difference as it does in the plain version (a table summed in the other
-// order, or rounded once an entry, strays from it by up to 2 float32 ulps
-// of a mean at 720p).  Bound: bytes, the volume in and out once (0.024 ms at
-// Teddy, 0.28 ms at 720p, a view); this design moves ~40 bytes a
-// value (the table written, read and written again, four corners read),
-// and the corner picks, scattered float64 reads, take half its time.
+// order, or rounded once an entry, strays from it by up to 2 float32 ulps of
+// a mean at 720p).  Bound: bytes, the volume in and out once, the arms in
+// (0.025 ms at Teddy, 0.286 ms at 720p, a view).  Two routes, chosen by the
+// arguments (the wrapper, `aggregate_cuda.rect_mean_cuda`, says which):
+//
+// rect_mean_walker_f32, where the caller gives a static bound on the arms
+// (`max_span`, the JAX package's argument; the cap L) and its ring fits a
+// block's shared memory (L <= 48): no float64 table reaches device memory.
+//   * A pre-pass, a warp a (slice, row), scans each row in float64 and
+//     writes the row prefix at every strip's left halo edge (the carries,
+//     n * h * ceil(W / 128) doubles); slice 0's warps also write each pixel's
+//     rectangle, shared by the slices (its corners as byte offsets from the
+//     pixel and its float count, 8 bytes), from the arms clamped into
+//     [0, L], and count the arms outside into a device word (a cap below the
+//     arms gives clamped rectangles; the callers' caps are the arms' own
+//     bound, and the card checks read 0).
+//   * The walker: a block of 1024 threads owns one slice's strip of 128
+//     output columns and walks down the slice, 16 table rows a step, reading
+//     the columns [c0 - L, c0 + 128 + L) of each row and the rows' carries
+//     through cp.async one step ahead.
+//     A step (a) scans its rows from their carries, a warp a row, (b) adds
+//     them to each column's running sum, a thread a column, down the rows
+//     one after another (the plain version's second cumsum), into a ring of
+//     2L + 17 table rows in shared memory, and (c) writes every output row
+//     whose rectangle rows [r - L, r + L + 1] are in the ring: four
+//     shared-memory corner reads, one rounding, __fdiv_rn, the centre cost
+//     where the count is 0, coalesced float32 stores.  The ring is
+//     (2L + 17) * (2L + 129) doubles (131 KB at L = 34; 156 KB with the
+//     stages): one block a SM.  No division or modulo in the step's loops:
+//     ring slots and copy positions advance by increments.  (Strips of 64
+//     columns, two blocks of 512 threads a SM, took 14-17 % longer on an
+//     H100 at 720p/D=128 and 375x450/D=60; 32 columns, three times as long:
+//     each strip scans and sums its halo's columns again.  Writing a step's
+//     outputs beside the next step's scan, two barriers a step and 16 more
+//     ring rows, took 4 % longer.)
+//   Each value is read twice from device memory (pre-pass and walker) and
+//   written once, about 12 bytes against the bound's 8.
+//
+// rect_mean_f32, a call without a cap or with one whose ring does not fit:
+// three kernels a chunk of slices on a float64 scratch of the chunk (the
+// wrapper sizes it): a warp a row scans along it (float32 in, float64 out),
+// a thread a column sums down the rows in place, a thread an output picks
+// its corners.  This design moves ~40 bytes a value (the table written,
+// read and written again, four corners read), and the corner picks,
+// scattered float64 reads of a table long gone from L2, take half its time.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -235,6 +274,287 @@ rect_pick_kernel(const float* __restrict__ x, const double* __restrict__ sat, in
   out[t] = count > 0 ? mean : __ldg(x + t);
 }
 
+
+// ---- rect mean: the strip walker ---------------------------------------------
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WALK_S = 128;      // output columns of a strip
+constexpr int WALK_R = 16;       // table rows a step (a warp a row in the scan)
+constexpr int WALK_NT = 1024;    // threads of a walker block (one a SM)
+constexpr int WALK_STAGES = 2;   // input steps in flight
+constexpr int WALK_PRE = WALK_R * WALK_S / WALK_NT;  // outputs a thread in a steady step
+constexpr int WALK_MAX_SPAN = 48;                    // the largest cap whose ring fits a block
+constexpr int WALK_PER = (WALK_S + 2 * WALK_MAX_SPAN + 31) / 32;  // input columns a lane, at most
+constexpr size_t WALK_SHARED_LIMIT = 232448;         // dynamic shared memory a block may use
+constexpr int MAX_DEVICES = 64;  // devices whose launch attributes a process keeps
+
+// The walker's shared memory at cap L: the ring of 2L + 1 + WALK_R table rows
+// of WALK_S + 2L + 1 doubles, then WALK_STAGES steps of WALK_R carries
+// (doubles) and of WALK_R input rows of WALK_S + 2L floats.
+__host__ __device__ constexpr size_t walker_shared_bytes(int span) {
+  return (size_t)(2 * span + 1 + WALK_R) * (WALK_S + 2 * span + 1) * sizeof(double) +
+         (size_t)WALK_STAGES * WALK_R * sizeof(double) +
+         (size_t)WALK_STAGES * WALK_R * (WALK_S + 2 * span) * sizeof(float);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(a), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The pre-pass: one warp a (slice, row).  The row prefix P[e] = sum x[:e]
+// (float64) at each strip k's left halo edge e = k * WALK_S - span, where
+// that is > 0, into carries[s][k][i] (strips whose edge is <= 0 start from 0
+// and read none): the edges lie WALK_S apart, so the warp sums each run
+// between two edges (WALK_S / 32 columns a lane, a butterfly of the lanes)
+// onto the carry.  The warps of slice 0 also write each pixel's rectangle, shared
+// by the slices, from its arms clamped into [0, span] (and add the number
+// of arms outside to *over_cap): geom[p].x packs the table rows and columns
+// of its corners as offsets from the pixel, r - i0, i1 + 1 - r, j - j0 and
+// j1 + 1 - j, a byte each from the low byte (each <= span + 1), geom[p].y
+// the float32 count of the rectangle (0: the centre cost).
+__global__ void __launch_bounds__(256)
+rect_carry_kernel(const float* __restrict__ x, int n, int h, int w, int span, int strips,
+                  const int* __restrict__ arm_l, const int* __restrict__ arm_r,
+                  const int* __restrict__ arm_u, const int* __restrict__ arm_d, int inclusive,
+                  double* __restrict__ carries, uint2* __restrict__ geom,
+                  int* __restrict__ over_cap) {
+  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= (long long)n * h) return;
+  const int s = (int)(warp / h);
+  const int i = (int)(warp - (long long)s * h);
+  const float* src = x + ((long long)s * h + i) * w;
+  double* dst = carries + (long long)s * strips * h + i;  // strip k's carry at dst[k * h]
+  double carry = 0.0;
+#pragma unroll 4
+  for (int k = 1; k < strips; ++k) {
+    const int e = k * WALK_S - span;  // this strip's edge; the run [e - WALK_S, e) before it
+    if (e <= 0) continue;
+    const int j = max(e - WALK_S, 0) + lane;
+    double v = 0.0;
+#pragma unroll
+    for (int q = 0; q < WALK_S; q += 32) v += j + q < e ? (double)__ldg(src + j + q) : 0.0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+    carry += v;
+    if (lane == 0) dst[(long long)k * h] = carry;
+  }
+  if (s != 0) return;
+  const int ex = inclusive ? 0 : 1;
+  int over = 0;
+  for (int j = lane; j < w; j += 32) {
+    const long long p = (long long)i * w + j;
+    const int a[4] = {__ldg(arm_l + p), __ldg(arm_r + p), __ldg(arm_u + p), __ldg(arm_d + p)};
+    int c[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      c[k] = min(max(a[k], 0), span);
+      over += c[k] != a[k];
+    }
+    const int left = c[0], right = c[1], up = c[2], down = c[3];
+    const int count =
+        inclusive ? (up + down + 1) * (left + right + 1) : (up + down) * (left + right);
+    const unsigned d_up = min(up, i);
+    const unsigned d_down = min(max(i + down - ex, 0), h - 1) + 1 - i;
+    const unsigned d_left = min(left, j);
+    const unsigned d_right = min(max(j + right - ex, 0), w - 1) + 1 - j;
+    geom[p] = make_uint2(d_up | d_down << 8 | d_left << 16 | d_right << 24,
+                         __float_as_uint((float)count));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) over += __shfl_down_sync(FULL, over, o);
+  if (lane == 0 && over) atomicAdd(over_cap, over);
+}
+
+// The walker: block (k, s) writes the rect means of slice s's columns
+// [k * WALK_S, (k + 1) * WALK_S), walking down the slice WALK_R table rows a
+// step (the header describes it).  Table row t lives in the ring at slot
+// t % ring_rows (slots tracked by increments, no division in the loop);
+// table columns jlo..jhi of the strip at ring columns 0..jhi - jlo.  After
+// table row T is built, output row r needs table rows max(r - span, 0) ..
+// min(r + span + 1, h): the rows r < T - span are written (all that are
+// left once T = h), and the ring, 2 * span + 1 + WALK_R rows, still holds the
+// oldest row they need, r - span >= T - WALK_R - 2 * span.  The next step's
+// first barrier keeps its rows from overwriting the ring before the outputs
+// are read.  Each step's input rows and carries arrive by cp.async one step
+// ahead.
+__global__ void __launch_bounds__(WALK_NT, 1)
+rect_walker_kernel(const float* __restrict__ x, int h, int w, int span, int strips,
+                   const double* __restrict__ carries, const uint2* __restrict__ geom,
+                   float* __restrict__ out) {
+  extern __shared__ double ring[];
+  const int cols = WALK_S + 2 * span + 1;
+  const int ring_rows = 2 * span + 1 + WALK_R;
+  const int stage_len = WALK_R * (cols - 1);
+  double* stage_carry = ring + (size_t)ring_rows * cols;  // [stage][row]
+  // [stage][row][column]
+  float* stages = reinterpret_cast<float*>(stage_carry + WALK_STAGES * WALK_R);
+  const int k = blockIdx.x;
+  const long long s = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c0 = k * WALK_S;
+  const int jlo = max(c0 - span, 0);
+  const int nin = min(c0 + WALK_S + span, w) - jlo;  // input columns a row; table columns nin + 1
+  const float* xs = x + s * h * w;
+  const double* cs = carries + (s * strips + k) * h;
+  const bool carried = c0 - span > 0;
+  const int steps = (h + WALK_R - 1) / WALK_R;
+  // this thread's first (row, column) of a step's rows x nin inputs, and its
+  // stride in rows and columns
+  const int fr = tid / nin, fc = tid - fr * nin;
+  const int dr = WALK_NT / nin, dc = WALK_NT - dr * nin;
+
+  auto fetch = [&](int step) {
+    if (step < steps) {
+      const int b = step % WALK_STAGES;
+      float* st = stages + b * stage_len;
+      const int rows = min(WALK_R, h - step * WALK_R);
+      const float* src = xs + (long long)step * WALK_R * w + jlo;
+      for (int r = fr, c = fc; r < rows;) {
+        cp_async4(st + r * (cols - 1) + c, src + (long long)r * w + c);
+        r += dr;
+        c += dc;
+        if (c >= nin) {
+          c -= nin;
+          ++r;
+        }
+      }
+      if (carried && tid < rows)
+        cp_async8(stage_carry + b * WALK_R + tid, cs + step * WALK_R + tid);
+    }
+    cp_async_commit();
+  };
+
+  for (int c = tid; c <= nin; c += WALK_NT) ring[c] = 0.0;  // table row 0
+  double acc = 0.0;  // thread c's running sum down table column jlo + c
+  fetch(0);
+  int done = 0;       // output rows written
+  int slot_t0 = 1;    // the slot of this step's first table row
+  int slot_done = 0;  // the slot of table row `done`
+  for (int step = 0; step < steps; ++step) {
+    fetch(step + 1);
+    const int t0 = 1 + step * WALK_R;
+    const int nrows = min(WALK_R, h + 1 - t0);  // this step builds table rows [t0, t0 + nrows)
+    const int last = t0 + nrows - 1;
+    const int upto = last == h ? h : max(last - span, 0);  // then writes rows [done, upto)
+    // ahead of the barrier: the rectangles of the step's first outputs
+    uint2 pre[WALK_PRE];
+#pragma unroll
+    for (int q = 0; q < WALK_PRE; ++q) {
+      const int e = q * WALK_NT + tid;
+      const int r = done + e / WALK_S, j = c0 + e % WALK_S;
+      pre[q] = r < upto && j < w ? __ldg(geom + (long long)r * w + j) : make_uint2(0u, 0u);
+    }
+    cp_async_wait<WALK_STAGES - 1>();
+    __syncthreads();
+    // (a) row t0 + warp's prefixes from its carry: a lane sums a run of
+    // columns, a warp scan of the runs, the lane's run written out
+    if (warp < nrows) {
+      const int b = step % WALK_STAGES;
+      const float* src = stages + b * stage_len + warp * (cols - 1);
+      int slot = slot_t0 + warp;
+      if (slot >= ring_rows) slot -= ring_rows;
+      double* row = ring + (size_t)slot * cols;
+      const double carry = carried ? stage_carry[b * WALK_R + warp] : 0.0;
+      const int per = (nin + 31) >> 5;
+      const int lo = min(lane * per, nin), hi = min(lo + per, nin);
+      double v[WALK_PER];
+      double part = 0.0;
+#pragma unroll
+      for (int q = 0; q < WALK_PER; ++q) {
+        v[q] = lo + q < hi ? (double)src[lo + q] : 0.0;
+        part += v[q];
+      }
+      double incl = part;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const double u = __shfl_up_sync(FULL, incl, o);
+        if (lane >= o) incl += u;
+      }
+      const double before = __shfl_up_sync(FULL, incl, 1);
+      double run = lane == 0 ? carry : carry + before;
+#pragma unroll
+      for (int q = 0; q < WALK_PER; ++q)
+        if (lo + q < hi) {
+          run += v[q];
+          row[lo + q + 1] = run;
+        }
+      if (lane == 0) row[0] = carry;
+    }
+    __syncthreads();
+    // (b) down each column, one row after another, eight rows' loads ahead
+    if (tid <= nin) {
+      int slot = slot_t0;
+#pragma unroll
+      for (int half = 0; half < WALK_R; half += 8) {
+        double v[8];
+        int at[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          at[r] = slot * cols + tid;
+          if (half + r < nrows) v[r] = ring[at[r]];
+          if (++slot == ring_rows) slot = 0;
+        }
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          if (half + r < nrows) {
+            acc = acc + v[r];
+            ring[at[r]] = acc;
+          }
+      }
+    }
+    __syncthreads();
+    // (c) output rows [done, upto)
+    auto emit = [&](int e, uint2 g) {
+      const int rr = e / WALK_S, r = done + rr, j = c0 + e % WALK_S;
+      if (j >= w) return;
+      const float count = __uint_as_float(g.y);
+      float res;
+      if (count > 0.0f) {
+        int sr = slot_done + rr;
+        if (sr >= ring_rows) sr -= ring_rows;
+        int s0 = sr - (int)(g.x & 0xffu);  // table row i0
+        if (s0 < 0) s0 += ring_rows;
+        int s1 = sr + (int)((g.x >> 8) & 0xffu);  // table row i1 + 1
+        if (s1 >= ring_rows) s1 -= ring_rows;
+        const int j0 = j - jlo - (int)((g.x >> 16) & 0xffu), j1 = j - jlo + (int)(g.x >> 24);
+        const double* lo = ring + (size_t)s0 * cols;
+        const double* hi = ring + (size_t)s1 * cols;
+        const float total = (float)(((hi[j1] - lo[j1]) - hi[j0]) + lo[j0]);
+        res = __fdiv_rn(total, count);
+      } else {
+        res = __ldg(xs + (long long)r * w + j);
+      }
+      out[(s * h + r) * w + j] = res;
+    };
+    const int nout = (upto - done) * WALK_S;
+#pragma unroll
+    for (int q = 0; q < WALK_PRE; ++q)
+      if (q * WALK_NT + tid < nout) emit(q * WALK_NT + tid, pre[q]);
+    for (int e = WALK_PRE * WALK_NT + tid; e < nout; e += WALK_NT) {
+      const int r = done + e / WALK_S, j = c0 + e % WALK_S;
+      emit(e, j < w ? __ldg(geom + (long long)r * w + j) : make_uint2(0u, 0u));
+    }
+    slot_done += upto - done;
+    if (slot_done >= ring_rows) slot_done -= ring_rows;
+    done = upto;
+    slot_t0 += WALK_R;
+    if (slot_t0 >= ring_rows) slot_t0 -= ring_rows;
+  }
+}
+
 }  // namespace
 
 // The four cross arms of an image, on `stream`: img [h, w] (channels 1) or
@@ -292,4 +612,46 @@ extern "C" int rect_mean_f32(const void* vol, long long n, int h, int w, const v
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
+}
+
+// The rect mean of every slice of vol [n, h, w] by the strip walker, for
+// arms within [0, span] (the cap; a caller's `max_span`), on `stream`; the
+// other arguments as rect_mean_f32's.  scratch: carries, float64, n *
+// ceil(w / 128) * h values; geom, 2 * h * w 32-bit words (8-byte aligned);
+// over_cap, one int32 that the call adds the arms outside [0, span] to.
+// n <= 65535, 0 <= span <= 48 (walker_shared_bytes(span) <= 227 KB).
+// Returns a cudaError_t code.
+extern "C" int rect_mean_walker_f32(const void* vol, long long n, int h, int w,
+                                    const void* arm_l, const void* arm_r, const void* arm_u,
+                                    const void* arm_d, int inclusive, int span, void* carries,
+                                    void* geom, void* over_cap, void* out, void* stream) {
+  if (n < 1 || n > 65535 || h < 1 || w < 1 || span < 0 || span > WALK_MAX_SPAN ||
+      walker_shared_bytes(span) > WALK_SHARED_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device < 0 || device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  static std::atomic<bool> sized[MAX_DEVICES];  // per device, false at first
+  if (!sized[device].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(rect_walker_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)WALK_SHARED_LIMIT);
+    if (err != cudaSuccess) return (int)err;
+    // the largest shared-memory carveout
+    err = cudaFuncSetAttribute(rect_walker_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    sized[device].store(true, std::memory_order_release);
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const int strips = (w + WALK_S - 1) / WALK_S;
+  const long long warps = n * h;
+  rect_carry_kernel<<<(unsigned)((warps * 32 + 255) / 256), 256, 0, s>>>(
+      (const float*)vol, (int)n, h, w, span, strips, (const int*)arm_l, (const int*)arm_r,
+      (const int*)arm_u, (const int*)arm_d, inclusive, (double*)carries, (uint2*)geom,
+      (int*)over_cap);
+  rect_walker_kernel<<<dim3(strips, (unsigned)n), WALK_NT, walker_shared_bytes(span), s>>>(
+      (const float*)vol, h, w, span, strips, (const double*)carries, (const uint2*)geom,
+      (float*)out);
+  return (int)cudaGetLastError();
 }

@@ -25,19 +25,31 @@
 //
 // remove_speckles_f32: connected components of the valid pixels (finite
 // and != invalid_value) whose neighbours (left, up, and with 8-connectivity
-// up-right and up-left) differ by <= diff_insame in float32, by union-find
-// on the device (Playne and Hawick's linking: a root is hooked under the
-// smaller root by atomicMin, and the hook retried from the value the atomic
-// returns, so no host round trip is needed; each walk to a root halves the
-// path it takes, as ECL-CC's do).  Then every valid pixel's root
-// (the smallest index of its component) counts its area and, with a
-// background value, its members that are not background, with atomics;
-// pixels of components smaller than min_area, and with a background value
-// holding a member that is not background, become invalid_value.  Only the
-// areas reach the output, so the result is the plain version's bit for bit
-// whatever order the links take.  Four kernels and a memset a call.
-// Bound: bytes, the map in and out (~1.4 us at Teddy); the atomics and the
-// walks up the trees are what it spends.
+// up-right and up-left) differ by <= diff_insame in float32; pixels of
+// components smaller than min_area, and with a background value holding a
+// member that is not background, become invalid_value.  Only the areas
+// reach the output, so the result is the plain version's bit for bit
+// whatever order the links take.  Four kernels a call, no memset, no host
+// round trip:
+//   * tile: a block labels its 32 x 32 tile by union-find in shared memory
+//     (a root hooked under the smaller root by a shared atomicMin, the hook
+//     retried from the value it returns, Playne and Hawick's linking), so a
+//     label is the smallest index of its tile-local component; it writes
+//     each pixel's label as a global index, each tile root's area and
+//     foreground count (summed a warp at a time by __match_any_sync, one
+//     shared atomic a warp and root) and zeroes the totals;
+//   * merge: a thread a pixel of a tile's top row and first and last
+//     columns unites, by the same linking on the global labels, only the
+//     pairs that cross a tile border; each walk to a root halves the path
+//     it takes, as ECL-CC's do;
+//   * tally: each tile root adds its area and foreground count to its
+//     global root's totals, one 64-bit atomic (area low, count high);
+//   * kill: each valid pixel walks to its root and reads the totals.
+// The first design linked every pixel pair in global memory and counted each
+// pixel by an atomic on its root: the areas of a plane of 10^4-10^5 pixels
+// queued on one address.  Bound: bytes, the map in and out (~1.4 us at
+// Teddy); the per-pixel work is now shared-memory atomics and the global
+// work ~1/8 of the pixels' links and one atomic a tile-local component.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -95,12 +107,16 @@ fill_pass_kernel(const float* __restrict__ in, const uint8_t* __restrict__ mask,
 
 // ---- speckles ---------------------------------------------------------------
 
-// The root of x's tree.  A label is never above its pixel's index and a
-// root labels itself, so the walk stops at the first label that does not
-// fall; on the way each visited pixel is pointed at its grandparent (path
-// halving: an ancestor, so every tree stays a tree of its component).
-// Reads and writes go past the L1 cache: other blocks hook roots with
-// atomics.
+constexpr int TILE = 32;       // a speckle tile's side (a warp a tile row)
+constexpr int TILE_ROWS = 8;   // thread rows of a tile block: 4 pixel rows each
+constexpr unsigned FULL = 0xffffffffu;
+
+// The root of x's tree, in shared or global memory.  A label is never above
+// its pixel's index and a root labels itself, so the walk stops at the
+// first label that does not fall; on the way each visited pixel is pointed
+// at its grandparent (path halving: an ancestor, so every tree stays a tree
+// of its component).  Reads and writes go past the L1 cache: other threads
+// hook roots with atomics.
 __device__ __forceinline__ int find_root(int* labels, int x) {
   volatile int* l = labels;
   int curr = l[x];
@@ -136,59 +152,195 @@ __device__ __forceinline__ bool speckle_valid(float v, float invalid) {
   return isfinite(v) && v != invalid;
 }
 
-__global__ void __launch_bounds__(256) label_init_kernel(int* labels, int n) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p < n) labels[p] = p;
+// Whether the pixels of values v and u are linked (both valid, close).
+__device__ __forceinline__ bool linked(float v, float u, float invalid, float diff) {
+  return speckle_valid(v, invalid) && speckle_valid(u, invalid) && fabsf(v - u) <= diff;
 }
 
-__global__ void __launch_bounds__(256)
-label_link_kernel(const float* __restrict__ d, int* labels, int h, int w, float invalid,
-                  float diff, int conn8) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= h || j >= w) return;
-  const int p = i * w + j;
-  const float v = __ldg(d + p);
-  if (!speckle_valid(v, invalid)) return;
-  // left, up, up-right, up-left (the plain version's pairs)
-  const int di[4] = {0, -1, -1, -1};
-  const int dj[4] = {-1, 0, 1, -1};
-  const int dirs = conn8 ? 4 : 2;
-  for (int k = 0; k < dirs; ++k) {
-    const int ii = i + di[k], jj = j + dj[k];
-    if (ii < 0 || jj < 0 || jj >= w) continue;
-    const int q = ii * w + jj;
-    const float u = __ldg(d + q);
-    if (speckle_valid(u, invalid) && fabsf(v - u) <= diff) unite(labels, p, q);
+// Which of the links of pixel p to its up, up-left and up-right neighbours
+// must be united: a link whose union another link already gives is left
+// out (a run is united along its left links first).  With a, b the up-left
+// and up neighbours' values, c the up-right's, l the left's, and
+// left_b / left_c the up and up-right neighbours' own left links:
+//   up (p, b): implied by the left links of p and b and the up link of
+//     p's left neighbour (l, a);
+//   up-left (p, a): implied by p's left link and (l, a), or by (p, b) and
+//     b's left link;
+//   up-right (p, c): implied by (p, b) and c's left link.
+// Every implication rests on links to the left or straight up, so none
+// rests on a link left out in its turn: the unions stay those of all links.
+struct UpLinks {
+  bool up, up_left, up_right;
+};
+__device__ __forceinline__ UpLinks up_links(float v, float l, float a, float b, float c,
+                                            bool left_p, bool left_b, bool left_c, bool has_l,
+                                            bool has_r, int conn8, float invalid, float diff) {
+  const bool lb = linked(v, b, invalid, diff);
+  const bool la = conn8 && has_l && linked(v, a, invalid, diff);
+  const bool lc = conn8 && has_r && linked(v, c, invalid, diff);
+  const bool l_a = has_l && linked(l, a, invalid, diff);
+  UpLinks u;
+  u.up = lb && !(left_p && left_b && l_a);
+  u.up_left = la && !((left_p && l_a) || (lb && left_b));
+  u.up_right = lc && !(lb && left_c);
+  return u;
+}
+
+// Block (tx, ty) of TILE x TILE_ROWS threads labels tile (blockIdx.y,
+// blockIdx.x); thread (tx, ty) holds pixels (ty + TILE_ROWS * q, tx), so a
+// warp holds a tile row.  Each run of left links in a row is labelled with
+// its first pixel by a ballot (no atomics); then the up, up-left and
+// up-right links inside the tile that no other link implies unite the
+// runs' roots (up_links).  labels[p] = the global index of p's tile root (p
+// for an invalid pixel); local[p] = a tile root's area | foreground count
+// << 16 (0 elsewhere); total[p] = 0.
+__global__ void __launch_bounds__(TILE * TILE_ROWS)
+speckle_tile_kernel(const float* __restrict__ d, int h, int w, float invalid, float diff,
+                    int conn8, int has_bg, float bg, int* __restrict__ labels,
+                    int* __restrict__ local, unsigned long long* __restrict__ total) {
+  __shared__ float val[TILE][TILE];
+  __shared__ unsigned lefts[TILE];  // bit tx of row r: pixel (r, tx) links to its left
+  __shared__ int lab[TILE * TILE];
+  __shared__ int stats[TILE * TILE];
+  constexpr int Q = TILE / TILE_ROWS;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int ti0 = blockIdx.y * TILE, tj0 = blockIdx.x * TILE;
+  const int j = tj0 + tx;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int r = ty + TILE_ROWS * q, i = ti0 + r;
+    val[r][tx] = i < h && j < w ? __ldg(d + (long long)i * w + j) : invalid;
+    stats[r * TILE + tx] = 0;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int r = ty + TILE_ROWS * q;
+    const bool left = tx > 0 && linked(val[r][tx], val[r][tx - 1], invalid, diff);
+    const unsigned mask = __ballot_sync(FULL, left);
+    // the run's first pixel: the last pixel at or before tx with no left link
+    const unsigned starts = ~mask & (tx == 31 ? FULL : (2u << tx) - 1u);
+    lab[r * TILE + tx] = r * TILE + 31 - __clz(starts);
+    if (tx == 0) lefts[r] = mask;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int r = ty + TILE_ROWS * q, l = r * TILE + tx;
+    const float v = val[r][tx];
+    if (r == 0 || !speckle_valid(v, invalid)) continue;
+    const bool has_l = tx > 0, has_r = tx + 1 < TILE;
+    const unsigned above = lefts[r - 1];
+    const UpLinks u = up_links(
+        v, has_l ? val[r][tx - 1] : invalid, has_l ? val[r - 1][tx - 1] : invalid,
+        val[r - 1][tx], has_r ? val[r - 1][tx + 1] : invalid, (lefts[r] >> tx) & 1u,
+        (above >> tx) & 1u, has_r && ((above >> (tx + 1)) & 1u), has_l, has_r, conn8, invalid,
+        diff);
+    if (u.up) unite(lab, l, l - TILE);
+    if (u.up_left) unite(lab, l, l - TILE - 1);
+    if (u.up_right) unite(lab, l, l - TILE + 1);
+  }
+  __syncthreads();
+  // each pixel's tile root; areas and foreground counts summed a warp (a
+  // tile row) at a time, one shared atomic a root
+  int root[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int r = ty + TILE_ROWS * q, l = r * TILE + tx;
+    const float v = val[r][tx];
+    const bool valid = speckle_valid(v, invalid);
+    int x = l;
+    if (valid)
+      while (lab[x] != x) x = lab[x];
+    root[q] = valid ? x : -1;
+    const unsigned peers = __match_any_sync(FULL, root[q]);
+    const unsigned fg = __ballot_sync(FULL, valid && has_bg && v != bg);
+    if (valid && tx == __ffs(peers) - 1)
+      atomicAdd(&stats[x], __popc(peers) | (__popc(peers & fg) << 16));
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int r = ty + TILE_ROWS * q, i = ti0 + r, l = r * TILE + tx;
+    if (i >= h || j >= w) continue;
+    const long long p = (long long)i * w + j;
+    const int x = root[q];
+    labels[p] = x < 0 ? (int)p : (ti0 + x / TILE) * w + tj0 + x % TILE;
+    local[p] = x == l ? stats[l] : 0;
+    total[p] = 0ull;
   }
 }
 
-__global__ void __launch_bounds__(256)
-label_count_kernel(const float* __restrict__ d, int* labels, int* __restrict__ area,
-                   int* __restrict__ foreground, int n, float invalid, int has_bg, float bg) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
+// The links that cross a tile border, by the global labels: block (tx, ty)
+// of TILE x 3 threads for tile (blockIdx.y, blockIdx.x); ty = 0 the top row
+// (up, and up-right / up-left with 8-connectivity), ty = 1 the first column
+// (left; up-left below the top row), ty = 2 the last column (up-right below
+// the top row).  The links up_links finds implied are left out: each
+// implication rests on links inside a tile (united by the tile kernel) or
+// on crossing left links (always united here).
+__global__ void __launch_bounds__(TILE * 3)
+speckle_merge_kernel(const float* __restrict__ d, int* labels, int h, int w, float invalid,
+                     float diff, int conn8) {
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int ti0 = blockIdx.y * TILE, tj0 = blockIdx.x * TILE;
+  const int i = ty == 0 ? ti0 : ti0 + tx;
+  const int j = ty == 0 ? tj0 + tx : ty == 1 ? tj0 : tj0 + TILE - 1;
+  if (i >= h || j >= w || (ty > 0 && tx == 0)) {
+    // the top-left and top-right pixels' up links are the top row's; the
+    // top-left pixel's left link is still the first column's
+    if (!(ty == 1 && tx == 0 && i < h && j < w)) return;
+  }
+  const int p = i * w + j;
   const float v = __ldg(d + p);
   if (!speckle_valid(v, invalid)) return;
-  // no store of r to labels[p]: another thread's halving may still write p
-  // an ancestor after it, so the kill kernel walks to the root itself
+  const auto at = [&](int ii, int jj) {
+    return ii < 0 || jj < 0 || jj >= w ? invalid : __ldg(d + ii * w + jj);
+  };
+  const float l = at(i, j - 1);
+  if (ty == 1 && linked(v, l, invalid, diff)) unite(labels, p, p - 1);
+  if (i == 0 || (ty == 1 && tx == 0)) return;
+  const bool has_l = j > 0, has_r = j + 1 < w;
+  const float a = at(i - 1, j - 1), b = at(i - 1, j), c = at(i - 1, j + 1);
+  const UpLinks u = up_links(v, l, a, b, c, linked(v, l, invalid, diff),
+                             linked(b, a, invalid, diff), linked(c, b, invalid, diff), has_l,
+                             has_r, conn8, invalid, diff);
+  if (ty == 0) {  // every up link of the top row crosses
+    if (u.up) unite(labels, p, p - w);
+    if (u.up_left) unite(labels, p, p - w - 1);
+    if (u.up_right) unite(labels, p, p - w + 1);
+  } else if (ty == 1) {
+    if (u.up_left) unite(labels, p, p - w - 1);
+  } else if (u.up_right && has_r) {
+    unite(labels, p, p - w + 1);
+  }
+}
+
+// Each tile root's area and foreground count added to its global root's.
+__global__ void __launch_bounds__(256)
+speckle_tally_kernel(int* labels, const int* __restrict__ local,
+                     unsigned long long* __restrict__ total, int n) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  const int stats = __ldg(local + p);
+  if (stats == 0) return;
   const int r = find_root(labels, p);
-  atomicAdd(area + r, 1);
-  if (has_bg && v != bg) atomicAdd(foreground + r, 1);
+  atomicAdd(total + r, ((unsigned long long)(stats >> 16) << 32) | (unsigned)(stats & 0xffff));
 }
 
 __global__ void __launch_bounds__(256)
 speckle_kill_kernel(const float* __restrict__ d, const int* __restrict__ labels,
-                    const int* __restrict__ area, const int* __restrict__ foreground,
-                    float* __restrict__ out, int n, float invalid, int min_area, int has_bg) {
+                    const unsigned long long* __restrict__ total, float* __restrict__ out, int n,
+                    float invalid, int min_area, int has_bg) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
   const float v = __ldg(d + p);
   bool kill = false;
   if (speckle_valid(v, invalid)) {
-    int r = p;   // the trees no longer change: a plain walk, halved above
+    int r = p;  // the trees no longer change: a plain walk, halved above
     while (labels[r] != r) r = labels[r];
-    kill = area[r] < min_area && (!has_bg || foreground[r] > 0);
+    const unsigned long long t = total[r];
+    const int area = (int)(t & 0xffffffffull), foreground = (int)(t >> 32);
+    kill = area < min_area && (!has_bg || foreground > 0);
   }
   out[p] = kill ? invalid : v;
 }
@@ -216,29 +368,28 @@ extern "C" int fill_pass_f32(const void* in, const void* mask, void* out, int h,
 }
 
 // Speckle removal of disp float32 [h, w] into out (the same shape), on
-// `stream`.  scratch: int32, 3 * h * w values (labels, areas, counts of
-// members that are not background); conn8 != 0 takes 8-connectivity, else
-// 4; has_bg != 0 spares components with no member != bg.  All contiguous
-// on the current device; h * w < 2^31.  Returns a cudaError_t code.
+// `stream`.  scratch: 4 * h * w int32 values, 8-byte aligned (the totals,
+// 64-bit, then the labels and the tile roots' counts); conn8 != 0 takes
+// 8-connectivity, else 4; has_bg != 0 spares components with no member !=
+// bg.  All contiguous on the current device; h * w < 2^31.  Returns a
+// cudaError_t code.
 extern "C" int remove_speckles_f32(const void* disp, void* out, void* scratch, int h, int w,
                                    float invalid, float diff, int min_area, int conn8,
                                    int has_bg, float bg, void* stream) {
   if (h < 1 || w < 1 || (long long)h * w >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int n = h * w;
-  int* labels = (int*)scratch;
-  int* area = labels + n;
-  int* foreground = area + n;
-  cudaError_t err = cudaMemsetAsync(area, 0, 2 * sizeof(int) * (size_t)n, s);
-  if (err != cudaSuccess) return (int)err;
+  unsigned long long* total = (unsigned long long*)scratch;
+  int* labels = (int*)(total + n);
+  int* local = labels + n;
   const float* d = (const float*)disp;
+  const dim3 tiles((w + TILE - 1) / TILE, (h + TILE - 1) / TILE);
+  speckle_tile_kernel<<<tiles, dim3(TILE, TILE_ROWS), 0, s>>>(d, h, w, invalid, diff, conn8,
+                                                              has_bg, bg, labels, local, total);
+  speckle_merge_kernel<<<tiles, dim3(TILE, 3), 0, s>>>(d, labels, h, w, invalid, diff, conn8);
   const unsigned flat = (unsigned)((n + 255) / 256);
-  label_init_kernel<<<flat, 256, 0, s>>>(labels, n);
-  const dim3 block(32, 8);
-  const dim3 grid((w + 31) / 32, (h + 7) / 8);
-  label_link_kernel<<<grid, block, 0, s>>>(d, labels, h, w, invalid, diff, conn8);
-  label_count_kernel<<<flat, 256, 0, s>>>(d, labels, area, foreground, n, invalid, has_bg, bg);
-  speckle_kill_kernel<<<flat, 256, 0, s>>>(d, labels, area, foreground, (float*)out, n,
-                                           invalid, min_area, has_bg);
+  speckle_tally_kernel<<<flat, 256, 0, s>>>(labels, local, total, n);
+  speckle_kill_kernel<<<flat, 256, 0, s>>>(d, labels, total, (float*)out, n, invalid, min_area,
+                                           has_bg);
   return (int)cudaGetLastError();
 }

@@ -139,11 +139,12 @@ def remove_speckles_cuda(
     connectivity: int = 8,
 ) -> torch.Tensor:
     """Drop-in for ``ops.post.remove_speckles`` (``block`` changes nothing
-    there): one launch of ``remove_speckles_f32`` (four kernels, no host
-    round trip) for a CUDA map, the plain version for a CPU one.  The kernel
-    labels to the fixpoint: an explicit ``max_iters`` below
-    :func:`speckle_iteration_cap`, where the plain version could stop
-    short of it, raises ``ValueError``."""
+    there): one launch of ``remove_speckles_f32`` (four kernels: tile-local
+    labels in shared memory, the links across tile borders, the tile roots'
+    counts, the kill; no host round trip) for a CUDA map, the plain version
+    for a CPU one.  The kernel labels to the fixpoint: an explicit
+    ``max_iters`` below :func:`speckle_iteration_cap`, where the plain
+    version could stop short of it, raises ``ValueError``."""
     from stereo_match_traditional_tpu_torch.ops import post
 
     if not disp.is_cuda:
@@ -164,7 +165,8 @@ def remove_speckles_cuda(
         raise ValueError(f"map too large for int32 labels: {h}x{w}")
     d = disp.to(torch.float32).contiguous()
     out = torch.empty_like(d)
-    scratch = torch.empty(3 * h * w, dtype=torch.int32, device=d.device)
+    # 64-bit totals, then the labels and the tile roots' counts
+    scratch = torch.empty(4 * h * w, dtype=torch.int32, device=d.device)
     # the area test in int32 (area < x iff area < ceil(x)): every area lies
     # in [0, H*W]
     min_area = int(min(max(math.ceil(min_speckle_area), -1), h * w + 1))

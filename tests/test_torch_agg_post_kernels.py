@@ -5,8 +5,10 @@ the CPU, and the device dispatch of the four public functions they serve.
 The CUDA kernels run only on a card (``tests/test_torch_kernels_cuda.py``
 holds them against their plain versions there).  Here each kernel's
 algorithm is modelled in NumPy as the kernel computes it: the union-find
-labelling of ``remove_speckles_f32`` (links in an arbitrary order, roots
-hooked under the smaller root, areas counted at the roots), the 8-ray
+linking that ``remove_speckles_f32`` runs (links in an arbitrary order,
+roots hooked under the smaller root, areas counted at the roots; here over
+every pair of the map, where the kernel links inside tiles and then across
+their borders: ``tests/test_torch_walker_tiles.py`` models that), the 8-ray
 walker of ``fill_pass_f32`` (the first finite value a ray, an insertion
 sort, the rank pick, three passes), the arm walker of ``cross_arms_i32``
 and the row-then-column float64 table of ``rect_mean_f32``.  Every model

@@ -1522,6 +1522,147 @@ def test_rect_mean_kernel_peak_below_plain_on_card():
     assert peaks[0] < peaks[1], peaks
 
 
+# The strip walker (``rect_mean_walker_f32``): the main path's cap, the
+# arms' own bound
+SPAN = ADCensusConfig().arms.max_length
+
+
+def _walker_launches(aggregate_cuda, fn):
+    """``fn()``'s launches of both rect-mean entries, and the arms outside
+    the cap it met (the device word, read and reset)."""
+    before = dict(aggregate_cuda.LAUNCHES)
+    aggregate_cuda.arms_over_cap("cuda", reset=True)
+    out = fn()
+    torch.cuda.synchronize()
+    launched = {k: aggregate_cuda.LAUNCHES[k] - before[k]
+                for k in ("rect_mean_f32", "rect_mean_walker_f32")}
+    return out, launched, aggregate_cuda.arms_over_cap("cuda", reset=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inclusive", [True, False])
+@pytest.mark.parametrize("h,w,d,seed", AGG_POST_GEOMETRIES)
+def test_rect_mean_walker_bit_exact_on_card(h, w, d, seed, inclusive):
+    """With the cap, AD-Census volumes (both views, both concatenated, a
+    non-contiguous view) bit for bit through the walker, no arm over it."""
+    aggregate, _, aggregate_cuda, _ = _agg_post_modules()
+    _need_card()
+    lt, rt = _images(h, w, d, seed)
+    vol_l, vol_r = ad_census_cuda.ad_census_volumes_cuda(lt, rt, d)
+    arms = aggregate.cross_arms(lt, _arm_cfg())
+    for vol in (vol_l, vol_r, torch.cat([vol_l, vol_r]), vol_l[:, :, : max(w - 3, 1)]):
+        a = arms if vol.shape[-1] == w else aggregate.Arms(
+            *(x[:, : vol.shape[-1]].contiguous() for x in arms))
+        got, launched, over = _walker_launches(
+            aggregate_cuda, lambda: aggregate.rect_mean_aggregate(vol, a, inclusive, max_span=SPAN))
+        assert launched == {"rect_mean_f32": 0, "rect_mean_walker_f32": 1} and over == 0
+        assert torch.equal(got, aggregate._rect_mean_aggregate_plain(vol, a, inclusive))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,d,seed", AGG_POST_GEOMETRIES)
+def test_rect_mean_walker_within_an_ulp_on_card(h, w, d, seed):
+    """Random volumes and a second pass's means through the walker: within
+    one float32 ulp of the plain version (its carries and scans add in
+    another order than the card's cumsum)."""
+    aggregate, _, _, _ = _agg_post_modules()
+    _need_card()
+    lt, _ = _images(h, w, d, seed)
+    arms = aggregate.cross_arms(lt, _arm_cfg())
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    vol = torch.rand((d, h, w), device="cuda", generator=gen) * 3.0
+    for x in (vol, aggregate.rect_mean_aggregate(vol, arms, max_span=SPAN)):
+        got = aggregate.rect_mean_aggregate(x, arms, max_span=SPAN)
+        want = aggregate._rect_mean_aggregate_plain(x, arms, True)
+        ulps = (got.view(torch.int32) - want.view(torch.int32)).abs().max().item()
+        assert ulps <= 1, ulps
+
+
+def _capped_arms(h, w, cap, seed, at_cap=0.5):
+    """Random arms in [0, cap], half exactly at it, clipped to the image as
+    real arms are (int32 on the card)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ii = torch.arange(h, device="cuda")[:, None].expand(h, w)
+    jj = torch.arange(w, device="cuda")[None, :].expand(h, w)
+    out = []
+    for room in (jj, w - 1 - jj, ii, h - 1 - ii):
+        a = torch.randint(0, cap + 1, (h, w), device="cuda", generator=gen)
+        a = torch.where(torch.rand((h, w), device="cuda", generator=gen) < at_cap, cap, a)
+        out.append(torch.minimum(a, room).to(torch.int32))
+    from stereo_match_traditional_tpu_torch.ops.aggregate import Arms
+
+    return Arms(*out)
+
+
+# (n, h, w, cap): widths 128 does not divide, h < 2L + 2, one row, one
+# column, one pixel, the cap 0 and the largest the walker takes (48)
+RECT_WALKER_EDGES = [(5, 40, 65, 34), (4, 33, 255, 34), (3, 50, 129, 34), (6, 30, 200, 34),
+                     (7, 1, 300, 34), (7, 300, 1, 34), (3, 1, 1, 34), (4, 26, 95, 0), (3, 140, 301, 48)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inclusive", [True, False])
+@pytest.mark.parametrize("n,h,w,cap", RECT_WALKER_EDGES)
+def test_rect_mean_walker_edges_on_card(n, h, w, cap, inclusive):
+    """Integer volumes (exact sums) with arms at the cap: the walker bit for
+    bit, its word 0."""
+    aggregate, _, aggregate_cuda, _ = _agg_post_modules()
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(n + h + w)
+    vol = torch.randint(0, 9, (n, h, w), device="cuda", generator=gen).float()
+    arms = _capped_arms(h, w, cap, h * w)
+    got, launched, over = _walker_launches(
+        aggregate_cuda, lambda: aggregate.rect_mean_aggregate(vol, arms, inclusive, max_span=cap))
+    assert launched == {"rect_mean_f32": 0, "rect_mean_walker_f32": 1} and over == 0
+    assert torch.equal(got, aggregate._rect_mean_aggregate_plain(vol, arms, inclusive))
+
+
+@pytest.mark.cuda
+def test_rect_mean_routes_by_the_cap_on_card():
+    """No cap, or one above 48: the chunked-table kernels, equal to the
+    walker's result where both run; arms above a cap are clamped into it
+    and counted in the device word."""
+    aggregate, _, aggregate_cuda, _ = _agg_post_modules()
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    vol = torch.randint(0, 9, (9, 90, 170), device="cuda", generator=gen).float()
+    arms = _capped_arms(90, 170, 20, 3)
+    walked, launched, _ = _walker_launches(
+        aggregate_cuda, lambda: aggregate.rect_mean_aggregate(vol, arms, max_span=20))
+    assert launched == {"rect_mean_f32": 0, "rect_mean_walker_f32": 1}
+    for cap in (None, 49):
+        got, launched, _ = _walker_launches(
+            aggregate_cuda, lambda: aggregate.rect_mean_aggregate(vol, arms, max_span=cap))
+        assert launched == {"rect_mean_f32": 1, "rect_mean_walker_f32": 0}
+        assert torch.equal(got, walked)
+    got, _, over = _walker_launches(
+        aggregate_cuda, lambda: aggregate.rect_mean_aggregate(vol, arms, max_span=7))
+    want = sum(int((a > 7).sum()) for a in arms)
+    assert over == want > 0
+    clamped = aggregate.Arms(*(a.clamp(max=7) for a in arms))
+    assert torch.equal(got, aggregate._rect_mean_aggregate_plain(vol, clamped, True))
+
+
+@pytest.mark.cuda
+def test_rect_mean_walker_peak_below_chunked_on_card():
+    """The walker holds no float64 table: its peak is the output, the
+    carries and the packed arms, below the chunked route's."""
+    aggregate, _, _, _ = _agg_post_modules()
+    _need_card()
+    lt, rt = _images(375, 450, 60, 0)
+    vol = ad_census_cuda.ad_census_volumes_cuda(lt, rt, 60)[0]
+    arms = aggregate.cross_arms(lt, _arm_cfg())
+    peaks = []
+    for cap in (SPAN, None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        aggregate.rect_mean_aggregate(vol, arms, max_span=cap)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+    assert peaks[0] < 1.2 * vol.numel() * 4 < peaks[1], peaks
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("max_search", [None, 60])
 @pytest.mark.parametrize("invalid", [float("inf"), -1.0], ids=["inf", "minus_one"])
@@ -1585,6 +1726,33 @@ def test_speckle_kernel_serpentine_on_card(connectivity):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("h,w", [(375, 450), (720, 1280), (33, 65), (1, 300), (300, 1)])
+def test_speckle_kernel_one_component_and_checkerboard_on_card(h, w, connectivity):
+    """One component over the whole map (every tile; kept at its area,
+    removed one above), a checkerboard of single pixels (joined along the
+    diagonals with 8-connectivity, alone with 4), and diagonal stripes that
+    cross many tiles: bit for bit."""
+    _, post, _, _ = _agg_post_modules()
+    _need_card()
+    one = torch.full((h, w), 5.0, device="cuda")
+    one[::2, 1::3] = 5.5
+    for area in (h * w, h * w + 1):
+        got = post.remove_speckles(one, 1.0, area, connectivity=connectivity)
+        assert torch.equal(got, post._remove_speckles_plain(one, 1.0, area, float("inf"), None,
+                                                            None, connectivity))
+    ii = torch.arange(h, device="cuda")[:, None]
+    jj = torch.arange(w, device="cuda")[None, :]
+    board = torch.where((ii + jj) % 2 == 0, 3.0, float("inf")).float()
+    stripes = ((ii + jj) // 7 % 5).float()
+    for disp, area in ((board, 2), (stripes, 40), (stripes, 4000)):
+        got = post.remove_speckles(disp, 0.0, area, connectivity=connectivity)
+        want = post._remove_speckles_plain(disp, 0.0, area, float("inf"), None, None,
+                                           connectivity)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_speckle_kernel_rejects_short_max_iters():
     """The kernel labels to the fixpoint: an explicit cap below the plain
     version's raises on the card; the cap itself and above are taken."""
@@ -1629,8 +1797,9 @@ def test_agg_post_wrappers_check_inputs():
 @pytest.mark.cuda
 def test_ad_census_full_launches_agg_post_kernels_on_card(monkeypatch):
     """One FULL call launches each of the four: the arms and the rect mean
-    once a view, the speckle filter once, the fill once a pass; its maps
-    equal those of the same call with the plain bodies, bit for bit."""
+    (the strip walker: the call passes ``max_span``) once a view, the
+    speckle filter once, the fill once a pass; its maps equal those of the
+    same call with the plain bodies, bit for bit."""
     aggregate, post, aggregate_cuda, post_cuda = _agg_post_modules()
     _need_card()
     L, R, _ = make_pair(60, 96, 16, seed=3)
@@ -1642,7 +1811,8 @@ def test_ad_census_full_launches_agg_post_kernels_on_card(monkeypatch):
     torch.cuda.synchronize()
     after = {**aggregate_cuda.LAUNCHES, **post_cuda.LAUNCHES}
     assert {k: after[k] - before[k] for k in after} == {
-        "cross_arms_i32": 2, "rect_mean_f32": 2, "fill_pass_f32": 3, "remove_speckles_f32": 1}
+        "cross_arms_i32": 2, "rect_mean_f32": 0, "rect_mean_walker_f32": 2, "fill_pass_f32": 3,
+        "remove_speckles_f32": 1}
     def rect_plain(vol, arms, inclusive=True, max_span=None, layout="auto"):
         return aggregate._rect_mean_aggregate_plain(vol, arms, inclusive)
 
