@@ -307,8 +307,18 @@ EXAMPLE_BATCH = 4
 AGG_POST_GEOMETRIES = [(1, 67, 9, 1), (53, 1, 7, 2), (37, 61, 13, 3), (*TEDDY, 0),
                        (*SERVING, 1)]
 AGG_POST_ENTRIES = ("cross_arms_i32", "rect_mean_f32", "rect_mean_walker_f32", "fill_pass_f32",
-                    "remove_speckles_f32")
+                    "fill_holes_8dir_f32", "remove_speckles_f32")
 AGG_POST_FULL_REPS = 5
+# The fill's tiles and the arms' blocks at their edges: (h, w) one row and
+# one column at a 4K frame's width and height, sides that 32 and the arms'
+# 128-column blocks do not divide, a 4K-wide strip; the fill's max_search
+# (caps 0, 1, a word and more, beyond max(H, W), none) and one pass's caps
+# (axis, diagonal); the arms' max_length (one offset, the main path's 34,
+# groups of offsets past the first 64)
+FILL_ARMS_EDGES = [(1, 3840), (2160, 1), (33, 65), (17, 31), (8, 3840)]
+FILL_EDGE_SEARCH = [1, 2, 34, 4000, None]
+FILL_PASS_CAPS = [(0, 0), (1, 0), (32, 23), (5000, 5000)]
+ARM_EDGE_LENGTHS = [1, 34, 65]
 # The rect mean's strip walker (rect_mean_walker_f32) at the edges of its
 # strips and ring, on integer volumes (exact sums) with arms at the cap:
 # (n, h, w, cap) widths 128 does not divide, h < 2L + 2, one row, one
@@ -786,7 +796,8 @@ def main() -> None:
               ("cross_arms_i32", "aggregate.cu", "aggregate.py:119"),
               ("rect_mean_f32", "aggregate.cu", "aggregate.py:486"),
               ("rect_mean_walker_f32", "aggregate.cu", "aggregate.py:486"),
-              ("fill_pass_f32", "post.cu", "post.py:658"),
+              ("fill_pass_f32", "post.cu", "post.py:629"),
+              ("fill_holes_8dir_f32", "post.cu", "post.py:658"),
               ("remove_speckles_f32", "post.cu", "post.py:169"))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2622,6 +2633,14 @@ def streamed_phase() -> dict:
                 else (lambda: run_streamed("ad_census", lt, rt, cfg)))
         emit({"phase": "streamed", "part": "4K stages", "config": label, "shape": [hh, hw],
               "disp_range": hd, "stage_ms": profiled_stages(fn4k, 1, warm_up=False)})
+        if staged is None:
+            # the fill (three passes, two kernels each) and the arms (six
+            # launches a call)
+            emit({"phase": "streamed", "part": "4K fill and arms kernels", "config": label,
+                  "shape": [hh, hw], "disp_range": hd,
+                  "fill_ms": _kernel_ms(fn4k, 1, ("fill_bits_kernel", "fill_pass_kernel"),
+                                        per_call=3),
+                  "arms_ms": _kernel_ms(fn4k, 1, ("cross_arms",), per_call=6)})
     del lt, rt
     torch.cuda.empty_cache()
     emit({"phase": "streamed", "part": "done", "seconds": time.perf_counter() - start})
@@ -3589,18 +3608,18 @@ def _capped_arms(h, w, cap, seed, at_cap=0.5):
     return Arms(*out)
 
 
-def _kernel_ms(fn, reps: int, names) -> dict:
-    """Device ms a call of each kernel whose name holds one of ``names``,
-    from a trace of ``reps`` calls of ``fn`` (kernels launched through a C
-    entry are read from the trace, not the profiler's op tree); None for a
-    kernel of which the trace lost a launch (the profiler can, see
-    ``traced_events``): these times explain the wrapper's, which the phase
-    times by CUDA events and checks."""
+def _kernel_ms(fn, reps: int, names, per_call: int = 1) -> dict:
+    """Device ms a call of each kernel whose name holds one of ``names``
+    (launched ``per_call`` times a call), from a trace of ``reps`` calls of
+    ``fn`` (kernels launched through a C entry are read from the trace, not
+    the profiler's op tree); None for a kernel of which the trace lost a
+    launch (the profiler can, see ``traced_events``): these times explain
+    the wrapper's, which the phase times by CUDA events and checks."""
     events = traced_events(fn, reps)
     out = {}
     for name in names:
         durs = [e["dur"] for e in events if e.get("cat") == "kernel" and name in e["name"]]
-        out[name] = sum(durs) / 1e3 / reps if len(durs) == reps else None
+        out[name] = sum(durs) / 1e3 / reps if len(durs) == reps * per_call else None
     return out
 
 
@@ -3608,7 +3627,10 @@ def _full_inputs(h, w, d, seed):
     """The real inputs of the four functions in one ad_census FULL call on
     ``cuda_pair(h, w, d, seed)``, by the kernels: the images, both cost
     volumes, both views' arms and aggregated volumes, the LR check's map and
-    masks, and the speckle-filtered map."""
+    masks, the speckle-filtered map, and the fill's first pass's map, target
+    mask and caps."""
+    import torch
+
     from stereo_match_traditional_tpu_torch import config as C
     from stereo_match_traditional_tpu_torch.ops import aggregate, post, wta
     from stereo_match_traditional_tpu_torch.ops.kernels import ad_census_cuda, scanline_cuda
@@ -3623,15 +3645,22 @@ def _full_inputs(h, w, d, seed):
     lr = post.lr_check_consistency(wta.wta(opt), wta.wta(agg_r), full.lr_gate, post.INVALID)
     spk = post.remove_speckles(lr.disp, full.speckle_diff, full.speckle_area,
                                invalid_value=post.INVALID)
+    # the fill's first pass as fill_holes_8dir makes it: the map with
+    # invalid_value read as +inf, its non-finite occlusions, the caps
+    first = torch.where(spk == post.INVALID, float("inf"), spk)
     return dict(cfg=full, lt=lt, rt=rt, vol_l=vol_l, vol_r=vol_r, arms_l=arms_l,
-                arms_r=arms_r, agg_l=agg_l, agg_r=agg_r, lr=lr, spk=spk)
+                arms_r=arms_r, agg_l=agg_l, agg_r=agg_r, lr=lr, spk=spk, first=first,
+                occluded=lr.occlusion & ~torch.isfinite(first),
+                caps=(d - 1, int(round((d - 1) * 0.70710678))))
 
 
 def agg_post_phase() -> dict:
     """Phase 25, the aggregation and post kernels (``csrc/aggregate.cu``:
     ``cross_arms_i32``, ``rect_mean_f32`` (the chunked table: calls without
     a cap), ``rect_mean_walker_f32`` (the strip walker: calls with the arms'
-    cap, the main path's); ``csrc/post.cu``: ``fill_pass_f32``,
+    cap, the main path's); ``csrc/post.cu``: ``fill_holes_8dir_f32`` (the
+    three passes, the main path's) and ``fill_pass_f32`` (one pass: the
+    sharded post's; bitsets and a target list, a thread a target, each),
     ``remove_speckles_f32`` (tile-local labelling)).  (a) Each against its
     plain version on the same CUDA tensors at AGG_POST_GEOMETRIES (cross
     arms grey and colour, u8 and float32, and a band with ``row_offset``;
@@ -3643,14 +3672,17 @@ def agg_post_phase() -> dict:
     The walker at WALKER_EDGES, bit for bit, its word of arms over the cap
     read as 0, the route by the cap (none and 49: the chunked table) and a
     cap below the arms counted; the speckle filter at SPECKLE_EDGES (one
-    component, a checkerboard, stripes across tiles).  (b) The real inputs
-    of ad_census FULL at Teddy and 720p, sad's (unbounded fill, background
+    component, a checkerboard, stripes across tiles); the fill and the arms
+    at FILL_ARMS_EDGES, every FILL_EDGE_SEARCH and ARM_EDGE_LENGTHS, and
+    one fill pass at FILL_PASS_CAPS with a target mask holding finite
+    pixels, on a contiguous and a transposed map.  (b) The real inputs of
+    ad_census FULL at Teddy and 720p, sad's (unbounded fill, background
     speckles), asw's (4-connectivity) and cblsm's (its stacked second pass),
     bit for bit.  (c) Each timed against its plain version on those inputs
-    beside its bound, the walker's pre-pass and the speckle filter's four
-    kernels apart from a trace.  (d) ad_census FULL through
-    ``get_pipeline`` at Teddy (launch counts set to 0 just before, read just
-    after; the word of arms over the cap read as 0) and at 720p: ms and
+    beside its bound, the walker's pre-pass, the speckle filter's four
+    kernels, the fill's two and the arms' one apart from a trace.  (d)
+    ad_census FULL through ``get_pipeline`` at Teddy (launch counts set to 0
+    just before, read just after; the word of arms over the cap read as 0) and at 720p: ms and
     per-stage ms beside the same calls on the plain bodies, the device
     kernels of one call from a trace, and the maps of FULL and of sad, asw
     and cblsm with post equal to the plain bodies' bit for bit; the chunked
@@ -3749,7 +3781,7 @@ def agg_post_phase() -> dict:
         for invalid in (float("inf"), -1.0):
             disp, occl, mism = _speckle_map(h, w, seed, 0.3, invalid)
             for ms in (None, d):
-                hold("fill_pass_f32", dict(base, invalid=str(invalid), max_search=ms),
+                hold("fill_holes_8dir_f32", dict(base, invalid=str(invalid), max_search=ms),
                      post.fill_holes_8dir(disp, occl, mism, invalid, ms),
                      post._fill_holes_8dir_plain(disp, occl, mism, invalid, ms))
         for conn, bg, invalid in ((8, None, float("inf")), (4, None, float("inf")),
@@ -3828,6 +3860,39 @@ def agg_post_phase() -> dict:
                                              "shape": [h, w], "map": label, "connectivity": conn},
                      post.remove_speckles(disp, diff, area, connectivity=conn),
                      post._remove_speckles_plain(disp, diff, area, float("inf"), None, None, conn))
+    # the fill and the arms at their edges
+    for h, w in FILL_ARMS_EDGES:
+        base = {"phase": "agg_post", "part": "fill and arms edges", "shape": [h, w]}
+        for invalid in (float("inf"), -1.0):
+            disp, occl, mism = _speckle_map(h, w, h + w, 0.4, invalid)
+            for ms in FILL_EDGE_SEARCH:
+                hold("fill_holes_8dir_f32", dict(base, invalid=str(invalid), max_search=ms),
+                     post.fill_holes_8dir(disp, occl, mism, invalid, ms),
+                     post._fill_holes_8dir_plain(disp, occl, mism, invalid, ms))
+        gen = torch.Generator(device="cuda").manual_seed(h * w)
+        # flat runs (long arms) broken by steps and noise (short ones)
+        steps = torch.randint(0, 200, (h // 37 + 1, w // 23 + 1), device="cuda", generator=gen)
+        img = steps.repeat_interleave(37, 0).repeat_interleave(23, 1)[:h, :w]
+        noise = torch.randint(-9, 10, (h, w), device="cuda", generator=gen)
+        img = (img + noise * (torch.rand((h, w), device="cuda", generator=gen) < 0.3))
+        img = img.clamp(0, 255).to(torch.uint8)
+        colour = torch.stack([img, img.roll(1, 1), img // 2 + 40], dim=-1).float() * 0.75
+        for length in ARM_EDGE_LENGTHS:
+            cfg = C.CrossArmConfig(tao1=30, tao2=6, max_length=length, sec_length=length // 2)
+            for label, x in (("u8", img), ("colour float32", colour)):
+                hold("cross_arms_i32", dict(base, image=label, max_length=length),
+                     tuple(aggregate.cross_arms(x, cfg)),
+                     tuple(aggregate._cross_arms_plain(x, cfg)))
+    disp, occl, mism = _speckle_map(150, 301, 7, 0.5, float("inf"))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    target = occl | mism | (torch.rand(disp.shape, device="cuda", generator=gen) < 0.2)
+    for caps in FILL_PASS_CAPS:
+        for layout, d, t in (("contiguous", disp, target), ("transposed", disp.t(), target.t())):
+            for second in (True, False):
+                hold("fill_pass_f32", {"phase": "agg_post", "part": "fill pass edges",
+                                       "caps": list(caps), "layout": layout, "second": second},
+                     post._fill_from_candidates(d, t, second, *caps),
+                     post._fill_from_candidates_plain(d, t, second, *caps))
 
     # -- 25b. the real inputs of the main path and of the other chains -------
     inputs = {}
@@ -3844,7 +3909,7 @@ def agg_post_phase() -> dict:
         hold("remove_speckles_f32", dict(base, map="LR map, 8-connectivity"), x["spk"],
              post._remove_speckles_plain(lr.disp, cfg.speckle_diff, cfg.speckle_area,
                                          post.INVALID, None, None, 8))
-        hold("fill_pass_f32", dict(base, map="speckle-filtered LR map", max_search=d),
+        hold("fill_holes_8dir_f32", dict(base, map="speckle-filtered LR map", max_search=d),
              post.fill_holes_8dir(x["spk"], lr.occlusion, lr.mismatch, post.INVALID, d),
              post._fill_holes_8dir_plain(x["spk"], lr.occlusion, lr.mismatch, post.INVALID, d))
     h, w, d = TEDDY
@@ -3860,7 +3925,7 @@ def agg_post_phase() -> dict:
     hold("remove_speckles_f32", dict(base, map="LR map, background 0"), sspk,
          post._remove_speckles_plain(slr.disp, sc.speckle_diff, sc.speckle_area, post.INVALID,
                                      0.0, None, 8))
-    hold("fill_pass_f32", dict(base, max_search=None),
+    hold("fill_holes_8dir_f32", dict(base, max_search=None),
          post.fill_holes_8dir(sspk, slr.occlusion, slr.mismatch, post.INVALID),
          post._fill_holes_8dir_plain(sspk, slr.occlusion, slr.mismatch, post.INVALID))
     ac = C.ASWConfig()
@@ -3879,6 +3944,8 @@ def agg_post_phase() -> dict:
     first = torch.cat([aggregate.rect_mean_aggregate(ad_l, c_arms, max_span=c_span),
                        aggregate.rect_mean_aggregate(ad_r, aggregate.cross_arms(rt, cb.arms),
                                                      max_span=c_span)])
+    hold("cross_arms_i32", {"phase": "agg_post", "part": "cblsm inputs", "image": "left"},
+         tuple(c_arms), tuple(aggregate._cross_arms_plain(lt, cb.arms)))
     hold("rect_mean_walker_f32", {"phase": "agg_post", "part": "cblsm inputs",
                                   "volume": "AD costs, first pass"},
          first[:d], aggregate._rect_mean_aggregate_plain(ad_l, c_arms, True))
@@ -3910,11 +3977,18 @@ def agg_post_phase() -> dict:
                                                       max_span=cfg.arms.max_length),
                 8 * d * h * w + 16 * h * w),
             # the map and both masks in, the map out (the three passes)
-            "fill_pass_f32": (
+            "fill_holes_8dir_f32": (
                 lambda: post._fill_holes_8dir_plain(x["spk"], lr.occlusion, lr.mismatch,
                                                     post.INVALID, d),
                 lambda: post.fill_holes_8dir(x["spk"], lr.occlusion, lr.mismatch, post.INVALID,
                                              d), 10 * h * w),
+            # one pass (the first, on its own input): the map and the
+            # target mask in, the map out
+            "fill_pass_f32": (
+                lambda: post._fill_from_candidates_plain(x["first"], x["occluded"], True,
+                                                         *x["caps"]),
+                lambda: post._fill_from_candidates(x["first"], x["occluded"], True,
+                                                   *x["caps"]), 9 * h * w),
             # the map in and out
             "remove_speckles_f32": (
                 lambda: post._remove_speckles_plain(lr.disp, cfg.speckle_diff,
@@ -3936,10 +4010,19 @@ def agg_post_phase() -> dict:
         timing["remove_speckles_f32", f"{h}x{w}/D={d}"]["kernels_ms"] = _kernel_ms(
             cases["remove_speckles_f32"][1], 5, ("speckle_tile_kernel", "speckle_merge_kernel",
                                                  "speckle_tally_kernel", "speckle_kill_kernel"))
+        # the fill's bitsets and target lists, its searches (three of each a
+        # call), the arms' kernel (the grey u8 one on these images)
+        timing["fill_holes_8dir_f32", f"{h}x{w}/D={d}"]["kernels_ms"] = _kernel_ms(
+            cases["fill_holes_8dir_f32"][1], 5, ("fill_bits_kernel", "fill_pass_kernel"),
+            per_call=3)
+        timing["cross_arms_i32", f"{h}x{w}/D={d}"]["kernels_ms"] = _kernel_ms(
+            cases["cross_arms_i32"][1], 5, ("cross_arms",))
         emit({"phase": "agg_post", "part": "timing_kernels", "shape": [h, w], "disp_range": d,
               "covers": {"cross_arms_i32": "one image", "rect_mean_f32": "one view, no cap",
                          "rect_mean_walker_f32": "one view, the main path's cap",
-                         "fill_pass_f32": "one fill_holes_8dir call (three launches)",
+                         "fill_pass_f32": "the first pass alone (the sharded post's call)",
+                         "fill_holes_8dir_f32": "one fill_holes_8dir call (three passes, each "
+                                                "the tile kernel and the search kernel)",
                          "remove_speckles_f32": "one call"},
               "kernels": {k: v for (k, s), v in timing.items() if s == f"{h}x{w}/D={d}"}})
 
@@ -3955,7 +4038,7 @@ def agg_post_phase() -> dict:
     launches = _launches()
     counted = {k: launches[k] for k in AGG_POST_ENTRIES}
     want = {"cross_arms_i32": 2, "rect_mean_f32": 0, "rect_mean_walker_f32": 2,
-            "fill_pass_f32": 3, "remove_speckles_f32": 1}
+            "fill_pass_f32": 0, "fill_holes_8dir_f32": 1, "remove_speckles_f32": 1}
     check(counted == {k: n * MAIN_PATH_CALLS for k, n in want.items()}, counted)
     over = aggregate_cuda.arms_over_cap("cuda", reset=True)
     check(over == 0, ("arms over the cap on the main path", over))
@@ -3966,8 +4049,13 @@ def agg_post_phase() -> dict:
     for _ in range(MAIN_PATH_CALLS):
         aggregate.rect_mean_aggregate(inputs[TEDDY]["vol_l"], inputs[TEDDY]["arms_l"])
     torch.cuda.synchronize()
-    own_path = {"rect_mean_f32": _launches()["rect_mean_f32"]}
-    check(own_path["rect_mean_f32"] == MAIN_PATH_CALLS, own_path)
+    # the one-pass entry's own path: the sharded post's call, a pass a call
+    x = inputs[TEDDY]
+    for _ in range(MAIN_PATH_CALLS):
+        post._fill_from_candidates(x["first"], x["occluded"], True, *x["caps"])
+    torch.cuda.synchronize()
+    own_path = {k: _launches()[k] for k in ("rect_mean_f32", "fill_pass_f32")}
+    check(own_path == dict.fromkeys(own_path, MAIN_PATH_CALLS), own_path)
     with plain_bodies():
         plain_res = fn(lt, rt, full)
         kernels_plain = traced_events(lambda: fn(lt, rt, full), 1)
@@ -4081,13 +4169,21 @@ def agg_post_phase() -> dict:
                                   "rect_mean_f32": "one view, no cap (on no pipeline's "
                                                    "path: launches 0 on ad_census FULL)",
                                   "rect_mean_walker_f32": "one view, the main path's cap",
-                                  "fill_pass_f32": "one fill_holes_8dir call (3 launches)",
+                                  "fill_pass_f32": "one pass alone (the sharded post's call; "
+                                                   "launches 0 on ad_census FULL)",
+                                  "fill_holes_8dir_f32": "one fill_holes_8dir call (3 passes, "
+                                                         "2 kernels each)",
                                   "remove_speckles_f32": "one call"}[entry],
                     **({"own_path_launches": own_path[entry],
-                        "own_path": "rect_mean_aggregate without max_span, one view a call, "
-                                    f"{MAIN_PATH_CALLS} calls"}
+                        "own_path": {"rect_mean_f32": "rect_mean_aggregate without max_span, "
+                                                      "one view a call",
+                                     "fill_pass_f32": "post._fill_from_candidates, the first "
+                                                      "pass on FULL's map, a pass a call"}[entry]
+                                    + f", {MAIN_PATH_CALLS} calls"}
                        if entry in own_path else {}),
                     "back_to_back_ms": timing[entry, teddy]["back_to_back_ms"],
+                    **({"kernels_ms": timing[entry, teddy]["kernels_ms"]}
+                       if "kernels_ms" in timing[entry, teddy] else {}),
                     "at_720p": timing[entry, serving],
                     "full_ms": pipelines}
             for entry in AGG_POST_ENTRIES}

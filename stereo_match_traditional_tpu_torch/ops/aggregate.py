@@ -102,8 +102,10 @@ def cross_arms(
     image's borders, not the band's.
 
     A CUDA image launches the arm kernel
-    (``ops.kernels.aggregate_cuda.cross_arms_cuda``), a CPU image runs the
-    plain version below; the two agree bit for bit."""
+    (``ops.kernels.aggregate_cuda.cross_arms_cuda``: a grey uint8 image four
+    pixels a thread, an offset of the four tested by SIMD instructions on
+    one word), a CPU image runs the plain version below; the two agree bit
+    for bit."""
     if img.is_cuda:
         from stereo_match_traditional_tpu_torch.ops.kernels.aggregate_cuda import cross_arms_cuda
 

@@ -89,8 +89,10 @@ def arms_over_cap(device, reset: bool = False) -> int:
 def cross_arms_cuda(img: torch.Tensor, cfg, row_offset: int = 0, global_rows: int = None):
     """Drop-in for ``ops.aggregate.cross_arms``: one launch of
     ``cross_arms_i32`` for a CUDA image (grey ``[H, W]`` or colour
-    ``[H, W, 3]``, uint8 or float32, any strides), the plain version for a
-    CPU image.  The four int32 maps are planes of one ``[4, H, W]`` tensor."""
+    ``[H, W, 3]``, uint8 or float32, any strides; a grey uint8 image, the
+    pipelines', takes the kernel that tests four pixels a word), the plain
+    version for a CPU image.  The four int32 maps are planes of one
+    ``[4, H, W]`` tensor."""
     from stereo_match_traditional_tpu_torch.ops import aggregate
 
     if not img.is_cuda:
@@ -106,6 +108,8 @@ def cross_arms_cuda(img: torch.Tensor, cfg, row_offset: int = 0, global_rows: in
         raise ValueError(f"empty image: {tuple(img.shape)}")
     if cfg.max_length < 1:
         raise ValueError(f"max_length must be >= 1, got {cfg.max_length}")
+    if 4 * h * w >= 2**31:
+        raise ValueError(f"image too large for int32 indices of its four maps: {h}x{w}")
     if global_rows is None:
         global_rows = h
     img = img.contiguous()

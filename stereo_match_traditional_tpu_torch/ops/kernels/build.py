@@ -149,8 +149,11 @@ def library() -> ctypes.CDLL:
     lib.rect_mean_walker_f32.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, i32, i32, vp, vp,
                                          vp, vp, vp]
     lib.rect_mean_walker_f32.restype = i32
-    lib.fill_pass_f32.argtypes = [vp, vp, vp, i32, i32, i32, f32, i32, i32, i32, i32, i32, vp]
+    lib.fill_pass_f32.argtypes = [vp, vp, vp, vp, i32, i32, i32, f32, i32, i32, i32, i32, i32,
+                                  vp]
     lib.fill_pass_f32.restype = i32
+    lib.fill_holes_8dir_f32.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, f32, i32, i32, vp]
+    lib.fill_holes_8dir_f32.restype = i32
     lib.remove_speckles_f32.argtypes = [vp, vp, vp, i32, i32, f32, f32, i32, i32, i32, f32,
                                         vp]
     lib.remove_speckles_f32.restype = i32

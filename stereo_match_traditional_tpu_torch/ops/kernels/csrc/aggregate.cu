@@ -9,18 +9,29 @@
 // run them as a few hundred PyTorch kernels: a stack of max_length shifted
 // images a direction, float64 cumsums of the whole volume and four gathers.
 //
-// cross_arms_i32: one thread a pixel walks its four arms, at most
-// max_length steps each, reading the image through the cache, and stops at
-// the first step that fails.  The arm is the number of leading accepted
-// offsets: offset o is accepted iff its global position is in the image
-// and the largest channel difference to the centre is <= tao(o) (tao1 for
-// o <= sec_length, else tao2), in float32; a failed first step (not the
-// border) gives 1 where the pixel is >= 2 from the border.  Vertical arms
-// of a row band read global rows (row_offset, global_rows) for both rules
-// and the band's own rows, clamped into the band, for the values, as the
-// plain version's edge-clamped shifts.  Bound: bytes, the image in and the
-// four int32 maps out (~2.4 us at Teddy); the walk is ~4 x 34 cached loads
-// a pixel at most, latency the real limit.
+// cross_arms_i32: offset o of an arm is accepted iff it is in bounds and
+// the largest channel difference to the centre is <= tao(o) (tao1 for o <=
+// sec_length, else tao2), in float32; the arm is the number of leading
+// accepted offsets, at most max_length; a refused first offset that is in
+// bounds (a NaN difference is neither accepted nor refused) gives 1 where
+// the pixel is >= 2 from the border.  Vertical arms of a row band take
+// global rows (row_offset, global_rows) for both rules and the band's own
+// rows, clamped into it, for the values (the plain version's edge-clamped
+// shifts).  The first design, a thread a pixel walking each arm through the
+// cache to its first refused offset, waited a dependent load an offset, as
+// long as the warp's longest arm.  Two kernels now, by the image:
+//   * grey uint8 (the pipelines' images; max_length <= 252):
+//     cross_arms_u8_kernel, a thread four neighbouring pixels of a row as
+//     the bytes of a word, an offset of all four tested by two SIMD
+//     instructions (__vabsdiffu4, __vcmpleu4 against the threshold as an
+//     integer), the bounds applied once at the end (__vminu4 with the
+//     packed limits), the rows' bytes for the horizontal arms staged once
+//     in shared memory;
+//   * colour or float32: cross_arms_kernel, a thread a pixel testing eight
+//     offsets at a time, their loads independent, a warp vote between the
+//     eights.
+// Bound: bytes, the image in and the four int32 maps out (~2.4 us at
+// Teddy).
 //
 // The rect mean: the plain version's float64 summed-area table S of every
 // d-slice (S[i][j] = sum x[:i, :j], a zero row and column in front), the
@@ -86,52 +97,33 @@
 
 namespace {
 
-// The largest of |a_c - b_c| over the channels, NaN if any is NaN (as
-// torch.amax).
-template <typename T, int C>
-__device__ __forceinline__ float channel_diff(const T* __restrict__ img, long long a,
-                                              long long b) {
-  float m = fabsf((float)__ldg(img + a * C) - (float)__ldg(img + b * C));
-#pragma unroll
-  for (int c = 1; c < C; ++c) {
-    const float v = fabsf((float)__ldg(img + a * C + c) - (float)__ldg(img + b * C + c));
-    m = (isnan(m) || v <= m) ? m : v;
-  }
-  return m;
+constexpr unsigned FULL = 0xffffffffu;
+
+// ---- cross arms ----------------------------------------------------------
+
+constexpr int ARM_GROUP = 8;      // offsets a generic thread tests between two warp votes
+constexpr int ARM_PACK = 4;       // pixels a thread of the u8 kernel: one 32-bit word
+constexpr int ARM_U8_COLS = 32 * ARM_PACK;  // columns of a u8 block's rows
+constexpr int ARM_U8_MAX = 252;   // the largest max_length of the u8 kernel (bytes count)
+
+// The columns a u8 block reads on each side of its 128: max_length and the
+// up to 3 offsets past it that a step of four tests, rounded up to a word.
+__host__ __device__ constexpr int arm_u8_pad(int max_length) { return (max_length + 6) & ~3; }
+
+// An arm's limit: offsets 1..lim are in bounds and within max_length; none
+// where the first offset is out (a band row beyond the image's border) or
+// the pixel is outside the image.
+__device__ __forceinline__ int arm_limit(bool inside, int pos, int sign, int gsize,
+                                         int max_length) {
+  const bool first_in = pos + sign >= 0 && pos + sign <= gsize - 1;
+  return inside && first_in ? min(max_length, sign < 0 ? pos : gsize - 1 - pos) : 0;
 }
 
-// One arm of the pixel at local (i, j): along columns (vertical == false,
-// positions j in [0, w)) or along rows (vertical, global position gi in
-// [0, global_rows), local rows clamped into [0, h)).
-template <typename T, int C>
-__device__ int arm(const T* __restrict__ img, int h, int w, int i, int j, int gi,
-                   int global_rows, bool vertical, int sign, int max_length, int sec_length,
-                   float tao1, float tao2) {
-  const int pos = vertical ? gi : j;
-  const int gsize = vertical ? global_rows : w;
-  const long long centre = (long long)i * w + j;
-  int leading = 0;
-  bool fail1 = false;
-  for (int o = 1; o <= max_length; ++o) {
-    const int t = pos + sign * o;
-    const bool inb = t >= 0 && t <= gsize - 1;
-    long long q;
-    if (vertical) {
-      const int r = min(max(i + sign * o, 0), h - 1);
-      q = (long long)r * w + j;
-    } else {
-      q = (long long)i * w + min(max(j + sign * o, 0), w - 1);
-    }
-    const float diff = channel_diff<T, C>(img, q, centre);
-    const float tao = o <= sec_length ? tao1 : tao2;
-    if (o == 1) fail1 = inb && diff > tao;
-    if (!(inb && diff <= tao)) break;
-    ++leading;
-  }
-  const bool border_ok = sign < 0 ? pos >= 2 : pos <= gsize - 3;
-  return (leading == 0 && fail1 && border_ok) ? 1 : leading;
-}
-
+// The generic kernel (colour or float32 images, or caps above ARM_U8_MAX):
+// a thread a pixel of a 32 x 8 block, the four directions in turn, offsets
+// tested ARM_GROUP at a time (their loads independent, each only where the
+// offset is within the limit), a warp vote between groups; the arm grows by
+// the group's trailing ones while every offset so far was accepted.
 template <typename T, int C>
 __global__ void __launch_bounds__(256)
 cross_arms_kernel(const T* __restrict__ img, int h, int w, int row_offset, int global_rows,
@@ -139,19 +131,149 @@ cross_arms_kernel(const T* __restrict__ img, int h, int w, int row_offset, int g
                   int* __restrict__ out) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= h || j >= w) return;
+  const bool inside = i < h && j < w;
+  const int ic = min(i, h - 1), jc = min(j, w - 1);
   const long long plane = (long long)h * w;
-  const long long p = (long long)i * w + j;
-  const int gi = i + row_offset;
-  // left, right, up, down
-  out[p] = arm<T, C>(img, h, w, i, j, gi, global_rows, false, -1, max_length, sec_length,
-                     tao1, tao2);
-  out[plane + p] = arm<T, C>(img, h, w, i, j, gi, global_rows, false, +1, max_length,
-                             sec_length, tao1, tao2);
-  out[2 * plane + p] = arm<T, C>(img, h, w, i, j, gi, global_rows, true, -1, max_length,
-                                 sec_length, tao1, tao2);
-  out[3 * plane + p] = arm<T, C>(img, h, w, i, j, gi, global_rows, true, +1, max_length,
-                                 sec_length, tao1, tao2);
+  float cen[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) cen[c] = (float)__ldg(img + ((long long)ic * w + jc) * C + c);
+#pragma unroll 1
+  for (int dir = 0; dir < 4; ++dir) {  // left, right, up, down
+    const bool vertical = dir >= 2;
+    const int sign = (dir & 1) ? 1 : -1;
+    const int pos = vertical ? i + row_offset : j;
+    const int gsize = vertical ? global_rows : w;
+    const int lim = arm_limit(inside, pos, sign, gsize, max_length);
+    int arm = 0;
+    bool open = lim >= 1, fail1 = false;
+    for (int o0 = 1; o0 <= max_length; o0 += ARM_GROUP) {
+      if (!__any_sync(FULL, open)) break;
+      unsigned acc = 0;
+#pragma unroll
+      for (int k = 0; k < ARM_GROUP; ++k) {
+        const int o = o0 + k;
+        if (o <= lim) {
+          // a vertical offset reads the band's own row, clamped into it
+          const long long at = vertical ? (long long)min(max(ic + sign * o, 0), h - 1) * w + jc
+                                        : (long long)ic * w + jc + sign * o;
+          float m = fabsf((float)__ldg(img + at * C) - cen[0]);
+#pragma unroll
+          for (int c = 1; c < C; ++c) {  // the largest channel difference, NaN if any is
+            const float d = fabsf((float)__ldg(img + at * C + c) - cen[c]);
+            m = (isnan(m) || d <= m) ? m : d;
+          }
+          const float tao = o <= sec_length ? tao1 : tao2;
+          acc |= (unsigned)(m <= tao) << k;
+          if (o == 1) fail1 = m > tao;  // a NaN difference is neither
+        }
+      }
+      if (open) {
+        const int ones = __ffs(~acc) - 1;
+        arm += ones;
+        open = ones == ARM_GROUP && o0 + ARM_GROUP <= lim;
+      }
+    }
+    const bool border_ok = sign < 0 ? pos >= 2 : pos <= gsize - 3;
+    if (inside)
+      out[dir * plane + (long long)i * w + j] = (arm == 0 && fail1 && border_ok) ? 1 : arm;
+  }
+}
+
+// The 4 bytes of a u8 image from element e on (e and the word after it
+// read as aligned 32-bit words from `words`, the image's bytes from `skew`
+// on); the word after is read only where it holds an element below `n`.
+__device__ __forceinline__ uint32_t load4(const uint32_t* __restrict__ words, int skew, int e,
+                                          int n) {
+  const int a = e + skew, wi = a >> 2, sh = (a & 3) * 8;
+  const uint32_t lo = __ldg(words + wi);
+  const uint32_t hi = sh && (wi + 1) * 4 - skew < n ? __ldg(words + wi + 1) : 0u;
+  return __funnelshift_r(lo, hi, sh);
+}
+
+// The u8 grey kernel: a thread holds 4 neighbouring pixels of a row as the 4
+// bytes of a word and tests one offset of all four at once: __vabsdiffu4
+// for the differences and __vcmpleu4 against the threshold as an integer
+// (|a - b| <= tao iff |a - b| <= floor(tao) for integer differences; t1, t2
+// in [-1, 255], -1 accepting nothing), a bytewise count of the leading
+// accepted offsets, four offsets a step, a thread stopping once its four
+// pixels' arms have closed or its largest limit is passed.  The bounds are
+// applied once at the end: the arm is the smaller of the leading accepted
+// offsets and the pixel's limit (__vminu4), so the offsets tested past a
+// limit read clamped pixels that change nothing.  Its block of 32 x 8
+// threads owns 128 columns of 8 rows, a warp a row: the horizontal arms read
+// the warp's row's bytes [j0 - pad, j0 + 128 + pad) from shared memory (the
+// columns clamped into the image; pad = arm_u8_pad(max_length), so a step's
+// last offsets stay inside), the vertical arms the image itself (the band's
+// rows clamped into it).
+__global__ void __launch_bounds__(256)
+cross_arms_u8_kernel(const uint8_t* __restrict__ img, int h, int w, int row_offset,
+                     int global_rows, int max_length, int sec_length, int t1, int t2,
+                     int* __restrict__ out) {
+  extern __shared__ uint32_t rows[];  // [8][row_words]
+  const int pad = arm_u8_pad(max_length);
+  const int row_words = (ARM_U8_COLS + 2 * pad) / 4 + 1;  // a spare word for the shifts
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int j0 = blockIdx.x * ARM_U8_COLS, i = blockIdx.y * 8 + ty, j = j0 + ARM_PACK * tx;
+  uint32_t* row = rows + ty * row_words;
+  uint8_t* bytes = reinterpret_cast<uint8_t*>(row);
+  const uint8_t* src = img + (long long)min(i, h - 1) * w;
+  for (int c = tx; c < row_words * 4; c += 32)
+    bytes[c] = __ldg(src + min(max(j0 - pad + c, 0), w - 1));
+  __syncwarp();
+  if (i >= h || j >= w) return;
+  const int n = h * w;
+  const int skew = (int)((uintptr_t)img & 3);
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(img - skew);
+  const uint32_t centre = row[(pad + ARM_PACK * tx) >> 2];
+  const uint32_t ones = 0x01010101u;
+  const uint32_t t1x4 = t1 < 0 ? 0u : (uint32_t)t1 * ones, t2x4 = t2 < 0 ? 0u : (uint32_t)t2 * ones;
+#pragma unroll 1
+  for (int dir = 0; dir < 4; ++dir) {  // left, right, up, down
+    const bool vertical = dir >= 2;
+    const int sign = (dir & 1) ? 1 : -1;
+    uint32_t lim4 = 0;  // byte b: the limit of pixel j + b
+    int most = 0;
+#pragma unroll
+    for (int b = 0; b < ARM_PACK; ++b) {
+      const int pos = vertical ? i + row_offset : j + b;
+      const int lim = arm_limit(j + b < w, pos, sign, vertical ? global_rows : w, max_length);
+      lim4 |= (uint32_t)lim << (8 * b);
+      most = max(most, lim);
+    }
+    uint32_t open = 0xffffffffu, arm = 0, first = 0;
+    for (int o0 = 1; open && o0 <= most; o0 += 4) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int o = o0 + k;
+        uint32_t x;
+        if (vertical) {
+          x = load4(words, skew, min(max(i + sign * o, 0), h - 1) * w + j, n);
+        } else {
+          const int c = pad + ARM_PACK * tx + sign * o;  // the bytes c..c + 3 of the row
+          x = __funnelshift_r(row[c >> 2], row[(c >> 2) + 1], (c & 3) * 8);
+        }
+        const bool tao1_here = o <= sec_length;
+        const uint32_t le = (tao1_here ? t1 : t2) < 0
+                                ? 0u
+                                : __vcmpleu4(__vabsdiffu4(x, centre), tao1_here ? t1x4 : t2x4);
+        if (o == 1) first = le;
+        open &= le;
+        arm = __vadd4(arm, open & ones);
+      }
+    }
+    arm = __vminu4(arm, lim4);
+    // a refused first offset in bounds: the limit is >= 1 and it failed
+    const uint32_t fail1 = __vcmpgtu4(lim4, 0u) & ~first;
+#pragma unroll
+    for (int b = 0; b < ARM_PACK; ++b) {
+      if (j + b >= w) break;
+      const int pos = vertical ? i + row_offset : j + b;
+      const int gsize = vertical ? global_rows : w;
+      const bool border_ok = sign < 0 ? pos >= 2 : pos <= gsize - 3;
+      const int a = (arm >> (8 * b)) & 0xff;
+      out[dir * n + i * w + j + b] = (a == 0 && ((fail1 >> (8 * b)) & 1u) && border_ok) ? 1 : a;
+    }
+  }
 }
 
 template <typename T, int C>
@@ -159,11 +281,15 @@ cudaError_t launch_arms(const void* img, int h, int w, int row_offset, int globa
                         int max_length, int sec_length, float tao1, float tao2, int* out,
                         cudaStream_t s) {
   const dim3 block(32, 8);
-  const dim3 grid((w + 31) / 32, (h + 7) / 8);
-  cross_arms_kernel<T, C><<<grid, block, 0, s>>>((const T*)img, h, w, row_offset,
-                                                 global_rows, max_length, sec_length, tao1,
-                                                 tao2, out);
+  cross_arms_kernel<T, C><<<dim3((w + 31) / 32, (h + 7) / 8), block, 0, s>>>(
+      (const T*)img, h, w, row_offset, global_rows, max_length, sec_length, tao1, tao2, out);
   return cudaGetLastError();
+}
+
+// The integer threshold of a u8 difference: |a - b| <= tao iff |a - b| <=
+// it; -1 where no difference is accepted.
+int u8_threshold(float tao) {
+  return tao < 0.0f ? -1 : tao >= 255.0f ? 255 : (int)floorf(tao);
 }
 
 // ---- rect mean ------------------------------------------------------------
@@ -277,7 +403,6 @@ rect_pick_kernel(const float* __restrict__ x, const double* __restrict__ sat, in
 
 // ---- rect mean: the strip walker ---------------------------------------------
 
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int WALK_S = 128;      // output columns of a strip
 constexpr int WALK_R = 16;       // table rows a step (a warp a row in the scan)
 constexpr int WALK_NT = 1024;    // threads of a walker block (one a SM)
@@ -559,17 +684,27 @@ rect_walker_kernel(const float* __restrict__ x, int h, int w, int span, int stri
 
 // The four cross arms of an image, on `stream`: img [h, w] (channels 1) or
 // [h, w, 3] (channels 3), uint8 (u8 != 0) or float32, contiguous; out int32
-// [4, h, w] (left, right, up, down), contiguous, on the current device.
+// [4, h, w] (left, right, up, down), contiguous, on the current device;
+// 4 * h * w < 2^31.
 // Row i of the image is global row row_offset + i of an image of
 // global_rows rows.  Returns a cudaError_t code.
 extern "C" int cross_arms_i32(const void* img, int channels, int u8, int h, int w,
                               int row_offset, int global_rows, int max_length, int sec_length,
                               float tao1, float tao2, void* out, void* stream) {
   if (h < 1 || w < 1 || max_length < 1 || (channels != 1 && channels != 3) ||
-      global_rows < 1)
+      global_rows < 1 || 4LL * h * w >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int* o = (int*)out;
+  if (u8 && channels == 1 && max_length <= ARM_U8_MAX && !isnan(tao1) && !isnan(tao2)) {
+    const int pad = arm_u8_pad(max_length);
+    const size_t bytes = 8 * ((ARM_U8_COLS + 2 * pad) / 4 + 1) * sizeof(uint32_t);
+    cross_arms_u8_kernel<<<dim3((w + ARM_U8_COLS - 1) / ARM_U8_COLS, (h + 7) / 8), dim3(32, 8),
+                           bytes, s>>>((const uint8_t*)img, h, w, row_offset, global_rows,
+                                       max_length, sec_length, u8_threshold(tao1),
+                                       u8_threshold(tao2), o);
+    return (int)cudaGetLastError();
+  }
   if (u8) {
     return channels == 1 ? (int)launch_arms<uint8_t, 1>(img, h, w, row_offset, global_rows,
                                                         max_length, sec_length, tao1, tao2, o, s)

@@ -9,19 +9,39 @@
 // sheared images, an [8, H, W] sort a pass, and label sweeps that stop on
 // a host check of the fixpoint after each sweep.
 //
-// fill_pass_f32: one pass of the fill, one thread a pixel.  A target pixel
-// walks the 8 rays of the pass's input map (E, W, S, N, SE, NW, SW, NE) to
-// the first finite value within the ray's cap (axis rays cap_axis steps,
-// diagonal rays cap_diag), keeps the found values sorted (at most 8, an
-// insertion each) and takes the second smallest (second != 0; the smallest
-// where only one was found) or the count / 2-th; a pixel whose rays found
-// nothing, or that is no target, keeps its value.  Bit-exact: a pure
-// selection.  The three passes are three launches, each reading the last
-// one's output; the first maps invalid_value to +inf as it reads
-// (raw != 0), the last writes invalid_value for what stays non-finite
-// (finalize != 0).  Bound: bytes, the map and the masks in and the map out
-// (~1 us at Teddy); the walks (at most ~8 x cap cached loads a target
-// pixel, more where the rays are unbounded) are what it spends.
+// fill_pass_f32 / fill_holes_8dir_f32: a pass of the fill is two kernels
+// (the target counts zeroed by a memset a call).  The first
+// design's walks (a thread a pixel stepping along each ray to the first
+// finite value, each load waiting on the branch before it, a warp as slow
+// as its longest ray, most of its lanes idle: few pixels are targets)
+// become searches of bitsets by the targets alone:
+//   * fill_bits_kernel: one bit a pixel, finite in the pass's input, along
+//     each of the four line families, a word 32 positions of a line: rows
+//     (line i, position j), columns (line j, position i), diagonals (line j
+//     - i + h - 1, position i) and anti-diagonals (line i + j, position i),
+//     the last three word-major (word q of every line, then word q + 1) so
+//     that neighbouring pixels read neighbouring words.  A block ballots
+//     the flags of 32 rows x 96 columns into shared memory and writes every
+//     word of its 32 x 32 tile and of the lines through its top row, each
+//     word of the bitsets once (~0.16 bytes a pixel, all of it in L2).  It
+//     also writes its tile's pixels that are no target as they stay and
+//     lists the targets (one global atomic a block);
+//   * fill_pass_kernel, a thread a listed target: it finds each ray's first
+//     set bit within the ray's cap (axis rays cap_axis steps, diagonal rays
+//     cap_diag, a step a position along the line) by __ffs / __clz over the
+//     line's words from its own position outwards, the bits beyond the cap
+//     masked, all rays' word loads of a round issued together; then the <=
+//     8 found values, loaded together, and the one of rank second (second
+//     != 0; the smallest where only one was found) or count / 2 in ray
+//     order (E, W, S, N, SE, NW, SW, NE) for ties; a target whose rays found
+//     nothing keeps its value.  An uncapped ray costs at most w / 32 words.
+// Bit-exact: a pure selection.  Each pass rebuilds the bits from its own
+// input (the passes fill pixels that later passes' rays must see).  The
+// three passes are one call of fill_holes_8dir_f32 (a pass a call of
+// fill_pass_f32 for the sharded post), each reading the last one's output;
+// the first maps invalid_value to +inf as it reads (raw != 0), the last
+// writes invalid_value for what stays non-finite (finalize != 0).  Bound:
+// bytes, the map and the masks in and the map out (~1 us at Teddy).
 //
 // remove_speckles_f32: connected components of the valid pixels (finite
 // and != invalid_value) whose neighbours (left, up, and with 8-connectivity
@@ -62,47 +82,205 @@ __device__ __forceinline__ float fill_value(const float* __restrict__ in, long l
   return (raw && v == invalid) ? INFINITY : v;
 }
 
+// The bitsets of one pass's input map: rows[i * nw + q] (nw = ceil(w / 32)
+// words a row), and the word-major families cols[q * w + j], diag[q * nd +
+// k] (k = j - i + h - 1), anti[q * nd + k] (k = i + j), nd = h + w - 1, q in
+// [0, nh), nh = ceil(h / 32); bit b of word q is position 32 q + b, 0 where
+// that position is outside the map.  A diagonal or anti-diagonal word whose
+// 32 positions hold no pixel of the map is never written: the searches stay
+// inside each line's pixels.
+struct FillBits {
+  uint32_t* rows;
+  uint32_t* cols;
+  uint32_t* diag;
+  uint32_t* anti;
+  int nw, nh, nd;
+};
+
+__host__ __device__ inline FillBits fill_bits(void* scratch, int h, int w) {
+  FillBits b;
+  b.nw = (w + 31) / 32;
+  b.nh = (h + 31) / 32;
+  b.nd = h + w - 1;
+  b.rows = (uint32_t*)scratch;
+  b.cols = b.rows + (size_t)h * b.nw;
+  b.diag = b.cols + (size_t)b.nh * w;
+  b.anti = b.diag + (size_t)b.nh * b.nd;
+  return b;
+}
+
+// Block (blockIdx.x - 1, blockIdx.y) of 32 x 8 threads: the 32 rows [i0, i0 +
+// 32) and the 32 columns [j0, j0 + 32), j0 = 32 (blockIdx.x - 1) (blocks -1
+// and nw reach only lines that enter or leave the map there).  Its warps
+// ballot the finite flags of the rows' columns [j0 - 32, j0 + 64) into three
+// words a row in shared memory; then each warp writes, a ballot a word, the
+// tile's row words, its column words (bit b of column c: bit c of row b's
+// word), and the diagonal and anti-diagonal words of the lines through (i0,
+// j0 + s), s < 32 (bit b: the flag at (i0 + b, j0 + s +- b), inside the 96
+// columns).  Each word of the bitsets is written by one block, once.  The
+// tile's own pixels (the middle 32 columns) are sorted on the way: a pixel
+// that is no target is written out as it will stay, a target's index is
+// appended to `targets` (each row's targets placed by a shared atomic, the
+// block's by one atomic on *count).
 __global__ void __launch_bounds__(256)
-fill_pass_kernel(const float* __restrict__ in, const uint8_t* __restrict__ mask,
+fill_bits_kernel(const float* __restrict__ in, const uint8_t* __restrict__ mask,
                  float* __restrict__ out, int h, int w, int raw, float invalid,
-                 int need_nonfinite, int second, int cap_axis, int cap_diag, int finalize) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= h || j >= w) return;
-  const long long p = (long long)i * w + j;
-  const float v = fill_value(in, p, raw, invalid);
-  const bool target = (mask == nullptr || __ldg(mask + p) != 0) &&
-                      (!need_nonfinite || !isfinite(v));
-  float res = v;
-  if (target) {
-    const int di[8] = {0, 0, 1, -1, 1, -1, 1, -1};
-    const int dj[8] = {1, -1, 0, 0, 1, -1, -1, 1};
+                 int need_nonfinite, int finalize, FillBits bits, int* __restrict__ targets,
+                 int* __restrict__ count) {
+  __shared__ unsigned flags[32][3];
+  __shared__ int block_targets, block_base;
+  const int lane = threadIdx.x, wy = threadIdx.y;
+  const int tc = (int)blockIdx.x - 1, q = blockIdx.y;
+  const int i0 = q * 32, j0 = tc * 32;
+  const bool tile = tc >= 0 && tc < bits.nw;
+  if (lane == 0 && wy == 0) block_targets = 0;
+  __syncthreads();
+  unsigned who[4];  // the targets of the warp's rows wy + 8 m, and their place
+  int at[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int r = wy + 8 * m, i = i0 + r;
+#pragma unroll
+    for (int x = 0; x < 3; ++x) {
+      const int j = j0 - 32 + 32 * x + lane;
+      const bool in_map = i < h && j >= 0 && j < w;
+      const long long p = (long long)i * w + j;
+      const float v = in_map ? fill_value(in, p, raw, invalid) : 0.0f;
+      const unsigned word = __ballot_sync(0xffffffffu, in_map && isfinite(v));
+      if (lane == 0) flags[r][x] = word;
+      if (x == 1) {
+        const bool target = tile && in_map && (mask == nullptr || __ldg(mask + p) != 0) &&
+                            (!need_nonfinite || !isfinite(v));
+        if (tile && in_map && !target) out[p] = (finalize && !isfinite(v)) ? invalid : v;
+        who[m] = __ballot_sync(0xffffffffu, target);
+        at[m] = lane == 0 && who[m] ? atomicAdd(&block_targets, __popc(who[m])) : 0;
+      }
+    }
+  }
+  __syncthreads();
+  if (lane == 0 && wy == 0 && block_targets) block_base = atomicAdd(count, block_targets);
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int place = __shfl_sync(0xffffffffu, at[m], 0);
+    if ((who[m] >> lane) & 1u)
+      targets[block_base + place + __popc(who[m] & ((1u << lane) - 1u))] =
+          (i0 + wy + 8 * m) * w + j0 + lane;
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int s = wy + 8 * m;
+    if (tile && lane == 0 && i0 + s < h)
+      bits.rows[(long long)(i0 + s) * bits.nw + tc] = flags[s][1];
+    const unsigned col = __ballot_sync(0xffffffffu, (flags[lane][1] >> s) & 1u);
+    if (tile && lane == 0 && j0 + s < w) bits.cols[(long long)q * w + j0 + s] = col;
+    // the lines through (i0, j0 + s): written where they hold a pixel of
+    // rows [i0, i0 + 32)
+    const int js = j0 + s;
+    int c = 32 + s + lane;
+    const unsigned diag = __ballot_sync(0xffffffffu, (flags[lane][c >> 5] >> (c & 31)) & 1u);
+    const int kd = js - i0 + h - 1;
+    if (lane == 0 && js >= -31 && js <= w - 1 && kd >= 0)
+      bits.diag[(long long)q * bits.nd + kd] = diag;
+    c = 32 + s - lane;
+    const unsigned anti = __ballot_sync(0xffffffffu, (flags[lane][c >> 5] >> (c & 31)) & 1u);
+    const int ka = i0 + js;
+    if (lane == 0 && js >= 0 && js <= w + 30 && ka <= bits.nd - 1)
+      bits.anti[(long long)q * bits.nd + ka] = anti;
+  }
+}
+
+// A thread a target of the list (grid-stride): it searches its 8 rays (E,
+// W along the row, S, N along the column, SE, NW along the diagonal, SW, NE
+// along the anti-diagonal; forward rays towards higher positions) over
+// positions [lo, hi]: within the cap and within the line's pixels.  Every
+// ray's first word is loaded before any is tested; rays with no set bit in
+// it load their next words a round at a time, all such rays together.  The
+// found pixels' values are then loaded together, and the one of rank `pick`
+// (second smallest, or count / 2) is chosen by counting, for each
+// candidate, the candidates below it, ties in ray order: the order of the
+// first design's insertion sort, in registers.  The list holds only the
+// targets, so a warp's lanes all search.
+__global__ void __launch_bounds__(256)
+fill_pass_kernel(const float* __restrict__ in, float* __restrict__ out,
+                 const int* __restrict__ targets, const int* __restrict__ count, int h, int w,
+                 int raw, float invalid, int second, int cap_axis, int cap_diag, int finalize,
+                 FillBits bits) {
+  const int n = *count;
+  for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < n; t += gridDim.x * blockDim.x) {
+    const int p = __ldg(targets + t);
+    const int i = p / w, j = p - i * w;
+    float res = fill_value(in, p, raw, invalid);
+    const int kd = j - i + h - 1, ka = i + j;
+    const uint32_t* line[4] = {bits.rows + (long long)i * bits.nw, bits.cols + j,
+                               bits.diag + kd, bits.anti + ka};
+    const long long stride[4] = {1, w, bits.nd, bits.nd};
+    // each family's positions that hold a pixel of the map
+    const int pmin[4] = {0, 0, max(0, i - j), max(0, i - (w - 1 - j))};
+    const int pmax[4] = {w - 1, h - 1, min(h - 1, i + w - 1 - j), min(h - 1, i + j)};
+    int lo[8], hi[8], q[8], found[8];
+    unsigned m[8];
+    bool pending[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int f = r >> 1, pos = r < 2 ? j : i, cap = r < 4 ? cap_axis : cap_diag;
+      const bool fwd = (r & 1) == 0;
+      lo[r] = fwd ? pos + 1 : max(pos - cap, pmin[f]);
+      hi[r] = fwd ? (int)min((long long)pos + cap, (long long)pmax[f]) : pos - 1;
+      q[r] = (fwd ? lo[r] : hi[r]) >> 5;
+      m[r] = lo[r] <= hi[r] ? __ldg(line[f] + q[r] * stride[f]) : 0u;
+      found[r] = -1;
+      pending[r] = lo[r] <= hi[r];
+    }
+    for (bool any = true; any;) {
+      any = false;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        if (!pending[r]) continue;
+        const bool fwd = (r & 1) == 0;
+        unsigned word = m[r];
+        if (q[r] == lo[r] >> 5) word &= ~0u << (lo[r] & 31);
+        if (q[r] == hi[r] >> 5) word &= 0xffffffffu >> (31 - (hi[r] & 31));
+        if (word) {
+          found[r] = q[r] * 32 + (fwd ? __ffs(word) - 1 : 31 - __clz(word));
+          pending[r] = false;
+        } else if (q[r] == (fwd ? hi[r] : lo[r]) >> 5) {
+          pending[r] = false;
+        } else {
+          q[r] += fwd ? 1 : -1;
+          any = true;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        if (any && pending[r]) m[r] = __ldg(line[r >> 1] + q[r] * stride[r >> 1]);
+    }
+    // the found pixels: (i, f) on the row, (f, j) on the column, (f, j +
+    // (f - i)) on the diagonal, (f, j - (f - i)) on the anti-diagonal; a bit
+    // says the pixel is finite (and not invalid_value in a raw pass)
     float cand[8];
     int k = 0;
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
-      const int cap = r < 4 ? cap_axis : cap_diag;
-      int ii = i, jj = j;
-      for (int t = 1; t <= cap; ++t) {
-        ii += di[r];
-        jj += dj[r];
-        if (ii < 0 || ii >= h || jj < 0 || jj >= w) break;
-        const float u = fill_value(in, (long long)ii * w + jj, raw, invalid);
-        if (isfinite(u)) {
-          int m = k++;
-          while (m > 0 && cand[m - 1] > u) {
-            cand[m] = cand[m - 1];
-            --m;
-          }
-          cand[m] = u;
-          break;
-        }
-      }
+      const int f = found[r];
+      const long long at = r < 2 ? (long long)i * w + f
+                           : r < 4 ? (long long)f * w + j
+                           : r < 6 ? (long long)f * w + j + (f - i)
+                                   : (long long)f * w + j - (f - i);
+      cand[r] = f >= 0 ? __ldg(in + at) : 0.0f;
+      k += f >= 0;
     }
-    if (k > 0) res = cand[second ? (k > 1 ? 1 : 0) : k / 2];
+    const int pick = second ? (k > 1 ? 1 : 0) : k / 2;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      int rank = 0;
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        rank += found[u] >= 0 && (cand[u] < cand[r] || (cand[u] == cand[r] && u < r));
+      if (found[r] >= 0 && rank == pick) res = cand[r];
+    }
+    out[p] = (finalize && !isfinite(res)) ? invalid : res;
   }
-  if (finalize && !isfinite(res)) res = invalid;
-  out[p] = res;
 }
 
 // ---- speckles ---------------------------------------------------------------
@@ -347,24 +525,86 @@ speckle_kill_kernel(const float* __restrict__ d, const int* __restrict__ labels,
 
 }  // namespace
 
+namespace {
+
+// One pass on `s`: the tile kernel, then the search kernel; *count zeroed
+// before.
+cudaError_t fill_pass(const float* in, const uint8_t* mask, float* out, const FillBits& b,
+                      int* count, int* targets, int h, int w, int raw, float invalid,
+                      int need_nonfinite, int second, int cap_axis, int cap_diag, int finalize,
+                      cudaStream_t s) {
+  fill_bits_kernel<<<dim3(b.nw + 2, b.nh), dim3(32, 8), 0, s>>>(
+      in, mask, out, h, w, raw, invalid, need_nonfinite, finalize, b, targets, count);
+  // a thread up to 8 targets, whatever their number
+  const long long blocks = ((long long)h * w + 2047) / 2048;
+  fill_pass_kernel<<<(unsigned)blocks, 256, 0, s>>>(in, out, targets, count, h, w, raw, invalid,
+                                                    second, cap_axis, cap_diag, finalize, b);
+  return cudaGetLastError();
+}
+
+// The scratch of a call: the bitsets (FillBits), FILL_COUNTS target counts,
+// then h * w target indices.
+constexpr int FILL_COUNTS = 4;
+
+}  // namespace
+
 // One pass of the 8-direction hole fill, on `stream`: in, out float32
-// [h, w] (distinct); mask uint8 [h, w] or null (every pixel); a pixel is a
-// target where its mask is set and, with need_nonfinite, its value is not
-// finite.  raw != 0 reads invalid_value as +inf; second != 0 takes the
-// second-smallest candidate, else the count / 2-th; cap_axis / cap_diag
-// cap the rays' steps; finalize != 0 writes invalid_value for non-finite
-// results.  All contiguous on the current device.  Returns a cudaError_t
-// code.
-extern "C" int fill_pass_f32(const void* in, const void* mask, void* out, int h, int w,
-                             int raw, float invalid, int need_nonfinite, int second,
+// [h, w] (distinct), h * w < 2^31; mask uint8 [h, w] or null (every pixel);
+// a pixel is a target where its mask is set and, with need_nonfinite, its
+// value is not finite.  raw != 0 reads invalid_value as +inf; second != 0
+// takes the second-smallest candidate, else the count / 2-th; cap_axis /
+// cap_diag cap the rays' steps; finalize != 0 writes invalid_value for
+// non-finite results.  scratch: the bitsets (h * ceil(w / 32) + ceil(h /
+// 32) * (w + 2 (h + w - 1)) 32-bit words), then 4 target counts and h * w
+// target indices (int32), written and read by the call.  All contiguous on
+// the current device.  Returns a cudaError_t code.
+extern "C" int fill_pass_f32(const void* in, const void* mask, void* out, void* scratch, int h,
+                             int w, int raw, float invalid, int need_nonfinite, int second,
                              int cap_axis, int cap_diag, int finalize, void* stream) {
-  if (h < 1 || w < 1 || cap_axis < 0 || cap_diag < 0) return (int)cudaErrorInvalidValue;
-  const dim3 block(32, 8);
-  const dim3 grid((w + 31) / 32, (h + 7) / 8);
-  fill_pass_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)in, (const uint8_t*)mask, (float*)out, h, w, raw, invalid,
-      need_nonfinite, second, cap_axis, cap_diag, finalize);
-  return (int)cudaGetLastError();
+  if (h < 1 || w < 1 || (long long)h * w >= (1LL << 31) || cap_axis < 0 || cap_diag < 0 ||
+      scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const FillBits b = fill_bits(scratch, h, w);
+  int* count = (int*)(b.anti + (size_t)b.nh * b.nd);
+  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)fill_pass((const float*)in, (const uint8_t*)mask, (float*)out, b, count,
+                        count + FILL_COUNTS, h, w, raw, invalid, need_nonfinite, second,
+                        cap_axis, cap_diag, finalize, s);
+}
+
+// The three passes of the fill, on `stream`, in one call: occlusion's
+// non-finite pixels by the second smallest candidate (reading in, raw != 0
+// reading invalid_value as +inf), then mismatch's by the median, then every
+// pixel still non-finite by the median, invalid_value written where none
+// was found.  in, out float32 [h, w] (distinct), occlusion and mismatch
+// uint8 [h, w]; scratch: fill_pass_f32's, then h * w float32 values (the
+// second pass's output).  All contiguous on the current device.  Returns a
+// cudaError_t code.
+extern "C" int fill_holes_8dir_f32(const void* in, const void* occlusion, const void* mismatch,
+                                   void* out, void* scratch, int h, int w, int raw,
+                                   float invalid, int cap_axis, int cap_diag, void* stream) {
+  if (h < 1 || w < 1 || (long long)h * w >= (1LL << 31) || cap_axis < 0 || cap_diag < 0 ||
+      scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const FillBits b = fill_bits(scratch, h, w);
+  int* counts = (int*)(b.anti + (size_t)b.nh * b.nd);
+  int* targets = counts + FILL_COUNTS;
+  float* second_out = (float*)(targets + (size_t)h * w);
+  float* o = (float*)out;
+  cudaError_t err = cudaMemsetAsync(counts, 0, 3 * sizeof(int), s);
+  if (err == cudaSuccess)
+    err = fill_pass((const float*)in, (const uint8_t*)occlusion, o, b, counts, targets, h, w,
+                    raw, invalid, 1, 1, cap_axis, cap_diag, 0, s);
+  if (err == cudaSuccess)
+    err = fill_pass(o, (const uint8_t*)mismatch, second_out, b, counts + 1, targets, h, w, 0,
+                    invalid, 1, 0, cap_axis, cap_diag, 0, s);
+  if (err == cudaSuccess)
+    err = fill_pass(second_out, nullptr, o, b, counts + 2, targets, h, w, 0, invalid, 1, 0,
+                    cap_axis, cap_diag, 1, s);
+  return (int)err;
 }
 
 // Speckle removal of disp float32 [h, w] into out (the same shape), on

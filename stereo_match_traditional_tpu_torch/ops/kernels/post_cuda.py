@@ -10,9 +10,12 @@ never by a fallback: CPU tensors take the plain version; CUDA tensors launch
 the kernel or raise.  ``ops.post``'s public functions call these for CUDA
 tensors.
 
-Both are bit-exact with their plain versions: the fill selects among the
-map's own values, and the speckle filter's output depends only on the
-component areas, which any exact labelling gives.  The speckle kernel
+The fill's kernels search bitsets of the map's finite pixels along its
+rows, columns, diagonals and anti-diagonals, not the map itself, a thread a
+target from a compacted list (``csrc/post.cu``'s header).  Both are
+bit-exact with their plain versions: the fill selects among the map's own
+values, and the speckle filter's output depends only on the component
+areas, which any exact labelling gives.  The speckle kernel
 labels to the fixpoint on the device, so the plain version's ``max_iters``
 cap has no counterpart: an explicit cap below the plain version's default
 raises rather than give another result.
@@ -32,9 +35,24 @@ from stereo_match_traditional_tpu_torch.ops.kernels.launch import (
 )
 
 # Kernel launches so far, one per call of each C entry point (a
-# fill_holes_8dir call is three: one a pass); a run resets them to show its
-# path went through the kernels.  Only the launches below increment them.
-LAUNCHES = {"fill_pass_f32": 0, "remove_speckles_f32": 0}
+# fill_holes_8dir call is one of fill_holes_8dir_f32: three passes, each the
+# tile kernel and the search kernel); a run resets them to show its path
+# went through the kernels.  Only the launches below increment them.
+LAUNCHES = {"fill_pass_f32": 0, "fill_holes_8dir_f32": 0, "remove_speckles_f32": 0}
+
+
+def fill_bits_words(h: int, w: int) -> int:
+    """The 32-bit words of a fill pass's bitsets (``csrc/post.cu``'s
+    ``FillBits``): the rows, ceil(w / 32) words each, then ceil(h / 32)
+    words of each column, diagonal and anti-diagonal (h + w - 1 of each)."""
+    return h * -(-w // 32) + -(-h // 32) * (w + 2 * (h + w - 1))
+
+
+def fill_scratch_words(h: int, w: int, maps: int = 0) -> int:
+    """A fill call's scratch in 32-bit words: the bitsets, four target
+    counts, a target index a pixel at most, and ``maps`` float32 maps (one
+    for the three-pass entry)."""
+    return fill_bits_words(h, w) + 4 + (1 + maps) * h * w
 
 
 def _check_map(name: str, x: torch.Tensor, like: torch.Tensor = None) -> None:
@@ -62,45 +80,51 @@ def _caps(max_axis: Optional[int], max_diag: Optional[int], h: int, w: int):
     return max(int(max_axis), 0), max(int(max_diag), 0)
 
 
-def _fill_pass(src, mask, raw, invalid, need_nonfinite, second, caps, finalize):
-    from stereo_match_traditional_tpu_torch.ops.kernels.build import library
-
-    h, w = src.shape
-    out = torch.empty_like(src)
-    lib = library()
-    with current(src.device):
-        err = lib.fill_pass_f32(
-            src.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(), h, w,
-            int(raw), float(invalid), int(need_nonfinite), int(second), caps[0], caps[1],
-            int(finalize), stream(src.device),
-        )
-    raise_on_error(lib, "fill_pass_f32", err)
-    LAUNCHES["fill_pass_f32"] += 1
-    return out
+def _scratch(like: torch.Tensor, maps: int = 0) -> torch.Tensor:
+    """Scratch for a call's bitsets and target list (its passes share it:
+    each rebuilds it on the stream before its search reads it)."""
+    h, w = like.shape
+    if h * w >= 2**31:
+        raise ValueError(f"map too large for int32 target indices: {h}x{w}")
+    return torch.empty(fill_scratch_words(h, w, maps), dtype=torch.int32, device=like.device)
 
 
 def fill_from_candidates_cuda(disp, target, second_smallest: bool, max_axis_steps,
                               max_diag_steps):
     """Drop-in for ``ops.post._fill_from_candidates`` (one pass of the fill
     on a float32 map, ``target`` the bool pixels to fill): one launch of
-    ``fill_pass_f32`` for CUDA tensors, the plain version for CPU ones."""
+    ``fill_pass_f32`` (the map's bitsets and its target list, then the
+    targets' searches) for CUDA tensors, the plain version for CPU ones."""
     from stereo_match_traditional_tpu_torch.ops import post
 
     if not disp.is_cuda:
         return post._fill_from_candidates_plain(disp, target, second_smallest, max_axis_steps,
                                                 max_diag_steps)
+    from stereo_match_traditional_tpu_torch.ops.kernels.build import library
+
     _check_map("disp", disp)
     if disp.dtype != torch.float32:
         raise ValueError(f"disp must be float32, got {disp.dtype}")
     h, w = disp.shape
-    return _fill_pass(disp.contiguous(), _mask(target, disp), False, float("inf"), False,
-                      second_smallest, _caps(max_axis_steps, max_diag_steps, h, w), False)
+    src, mask = disp.contiguous(), _mask(target, disp)
+    caps = _caps(max_axis_steps, max_diag_steps, h, w)
+    out, scratch = torch.empty_like(src), _scratch(src)
+    lib = library()
+    with current(src.device):
+        err = lib.fill_pass_f32(
+            src.data_ptr(), mask.data_ptr(), out.data_ptr(), scratch.data_ptr(), h, w, 0,
+            float("inf"), 0, int(second_smallest), caps[0], caps[1], 0, stream(src.device))
+    raise_on_error(lib, "fill_pass_f32", err)
+    LAUNCHES["fill_pass_f32"] += 1
+    return out
 
 
 def fill_holes_8dir_cuda(disp, occlusion, mismatch, invalid_value: float = float("inf"),
                          max_search: Optional[int] = None):
-    """Drop-in for ``ops.post.fill_holes_8dir``: three launches of
-    ``fill_pass_f32`` (occlusions, mismatches, what stays invalid) for CUDA
+    """Drop-in for ``ops.post.fill_holes_8dir``: one launch of
+    ``fill_holes_8dir_f32`` (three passes: occlusions, mismatches, what stays
+    invalid; each builds the bitsets of its input map and the list of its
+    targets, then searches the targets' rays in the bitsets) for CUDA
     tensors, the plain version for CPU ones.  The first pass reads
     ``invalid_value`` as +inf, the last writes it back."""
     from stereo_match_traditional_tpu_torch.ops import post
@@ -108,6 +132,8 @@ def fill_holes_8dir_cuda(disp, occlusion, mismatch, invalid_value: float = float
     if not disp.is_cuda:
         return post._fill_holes_8dir_plain(disp, occlusion, mismatch, invalid_value,
                                            max_search)
+    from stereo_match_traditional_tpu_torch.ops.kernels.build import library
+
     _check_map("disp", disp)
     occlusion, mismatch = _mask(occlusion, disp), _mask(mismatch, disp)
     h, w = disp.shape
@@ -119,9 +145,16 @@ def fill_holes_8dir_cuda(disp, occlusion, mismatch, invalid_value: float = float
         d = disp.contiguous()
     else:       # compared in disp's own dtype, as the plain version does
         d = torch.where(disp == invalid_value, float("inf"), disp.to(torch.float32))
-    d = _fill_pass(d, occlusion, raw, invalid_value, True, True, caps, False)
-    d = _fill_pass(d, mismatch, False, invalid_value, True, False, caps, False)
-    return _fill_pass(d, None, False, invalid_value, True, False, caps, True)
+    out, scratch = torch.empty_like(d), _scratch(d, maps=1)
+    lib = library()
+    with current(d.device):
+        err = lib.fill_holes_8dir_f32(
+            d.data_ptr(), occlusion.data_ptr(), mismatch.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), h, w, int(raw), float(invalid_value), caps[0], caps[1],
+            stream(d.device))
+    raise_on_error(lib, "fill_holes_8dir_f32", err)
+    LAUNCHES["fill_holes_8dir_f32"] += 1
+    return out
 
 
 def speckle_iteration_cap(h: int, w: int) -> int:

@@ -388,10 +388,11 @@ def directional_candidates(disp: torch.Tensor, valid: torch.Tensor):
 def _fill_from_candidates(disp, target, second_smallest: bool, max_axis_steps, max_diag_steps):
     """Fill ``target`` pixels from the 8-ray candidates: second-smallest
     for occlusions, median for mismatches (`PostProcessing.h:229-239`).
-    Pixels whose rays found nothing keep their value.  A CUDA map launches
-    one pass of the fill kernel
-    (``ops.kernels.post_cuda.fill_from_candidates_cuda``), a CPU map runs
-    the plain version below."""
+    Pixels whose rays found nothing keep their value.  A CUDA map takes one
+    call of the fill's C entry (``ops.kernels.post_cuda.
+    fill_from_candidates_cuda``: the map's bitsets and target list, then a
+    thread a target searching its rays in the bitsets), a CPU map runs the
+    plain version below."""
     if disp.is_cuda:
         from stereo_match_traditional_tpu_torch.ops.kernels.post_cuda import (
             fill_from_candidates_cuda,
@@ -436,9 +437,11 @@ def fill_holes_8dir(
     ``max_search - 1`` axis steps and ``round(0.7071 * that)`` diagonal
     steps (`PostProcessing.h:169`); None leaves them unbounded.
 
-    A CUDA map launches the fill kernel once a pass
-    (``ops.kernels.post_cuda.fill_holes_8dir_cuda``), a CPU map runs the
-    plain version below; the two agree bit for bit.
+    A CUDA map takes one call of the fill's C entry a pass
+    (``ops.kernels.post_cuda.fill_holes_8dir_cuda``: each builds bitsets of
+    its input's finite pixels along rows, columns and both diagonals and a
+    list of its targets, then searches the targets' rays in the bitsets), a
+    CPU map runs the plain version below; the two agree bit for bit.
     """
     if disp.is_cuda:
         from stereo_match_traditional_tpu_torch.ops.kernels.post_cuda import fill_holes_8dir_cuda

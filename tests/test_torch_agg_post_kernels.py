@@ -9,9 +9,11 @@ linking that ``remove_speckles_f32`` runs (links in an arbitrary order,
 roots hooked under the smaller root, areas counted at the roots; here over
 every pair of the map, where the kernel links inside tiles and then across
 their borders: ``tests/test_torch_walker_tiles.py`` models that), the 8-ray
-walker of ``fill_pass_f32`` (the first finite value a ray, an insertion
-sort, the rank pick, three passes), the arm walker of ``cross_arms_i32``
-and the row-then-column float64 table of ``rect_mean_f32``.  Every model
+walk of ``fill_pass_f32``'s first design (the first finite value a ray, an
+insertion sort, the rank pick, three passes), the arm walk of
+``cross_arms_i32``'s first design (both kept as models of the functions;
+``tests/test_torch_fill_arms_tiles.py`` models the kernels' present
+indexing) and the row-then-column float64 table of ``rect_mean_f32``.  Every model
 is held bit for bit against the JAX package's function (the rect mean
 against the port's plain version: the JAX package sums in float32).
 """
@@ -188,14 +190,15 @@ def test_speckle_model_hypothesis(seed, shape, connectivity, area, diff, backgro
 
 
 # ---------------------------------------------------------------------------
-# fill_pass_f32: the 8-ray walker and rank select
+# fill_pass_f32: the first design's 8-ray walk and rank select
 # ---------------------------------------------------------------------------
 
 RAYS = [(0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (-1, -1), (1, -1), (-1, 1)]
 
 
 def _fill_pass_model(src, mask, raw, invalid, need_nonfinite, second, caps, finalize):
-    """One launch of ``fill_pass_f32`` in NumPy."""
+    """One launch of ``fill_pass_f32``'s first design in NumPy: the rays
+    walked pixel by pixel."""
     h, w = src.shape
 
     def value(i, j):
@@ -291,9 +294,9 @@ def test_fill_model_hypothesis(seed, shape, share, max_search):
 
 
 def arms_model(img, arm_cfg, row_offset=0, global_rows=None):
-    """``cross_arms_i32`` in NumPy: each pixel walks each arm to the first
-    failed step; band rows clamped into the band, the rules on global
-    rows."""
+    """``cross_arms_i32``'s first design in NumPy: each pixel walks each
+    arm to the first failed step; band rows clamped into the band, the
+    rules on global rows."""
     x = np.asarray(img).astype(np.float32)
     if x.ndim == 2:
         x = x[..., None]

@@ -1671,10 +1671,10 @@ def test_fill_kernel_bit_exact_on_card(h, w, d, seed, invalid, max_search):
     _, post, _, post_cuda = _agg_post_modules()
     _need_card()
     disp, occl, mism = _disp_map(h, w, seed, invalid=invalid)
-    before = post_cuda.LAUNCHES["fill_pass_f32"]
+    before = post_cuda.LAUNCHES["fill_holes_8dir_f32"]
     got = post.fill_holes_8dir(disp, occl, mism, invalid, max_search)
     torch.cuda.synchronize()
-    assert post_cuda.LAUNCHES["fill_pass_f32"] == before + 3
+    assert post_cuda.LAUNCHES["fill_holes_8dir_f32"] == before + 1
     want = post._fill_holes_8dir_plain(disp, occl, mism, invalid, max_search)
     assert torch.equal(got, want)
 
@@ -1692,6 +1692,153 @@ def test_fill_pass_any_target_on_card(second):
     got = post._fill_from_candidates(disp, target, second, 9, 6)
     want = post._fill_from_candidates_plain(disp, target, second, 9, 6)
     assert torch.equal(got, want)
+
+
+# The redesigned fill (bitsets of the pass's input, searched a word at a
+# time) and arms (windows of the image in shared memory, 64-bit masks of
+# accepted offsets) at their edges: (h, w) one row and one column of a 4K
+# frame's width and height, sides that 32 and the arms' 16-row tiles do not
+# divide, a 4K-wide strip
+FILL_ARMS_EDGES = [(1, 3840), (2160, 1), (1, 1), (33, 65), (17, 31), (47, 129), (8, 3840)]
+# max_search of the fill: caps 0 (max_search 1), 1, a word and more, at and
+# beyond max(H, W), and none
+FILL_CAPS = [1, 2, 34, 90, 4000, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_search", FILL_CAPS)
+@pytest.mark.parametrize("h,w", FILL_ARMS_EDGES)
+def test_fill_bitsets_bit_exact_at_edges_on_card(h, w, max_search):
+    _, post, _, post_cuda = _agg_post_modules()
+    _need_card()
+    for invalid in (float("inf"), -1.0):
+        disp, occl, mism = _disp_map(h, w, h + w, holes=0.4, invalid=invalid)
+        got = post.fill_holes_8dir(disp, occl, mism, invalid, max_search)
+        want = post._fill_holes_8dir_plain(disp, occl, mism, invalid, max_search)
+        assert torch.equal(got, want), invalid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps", [(0, 0), (1, 1), (1, 0), (31, 22), (32, 23), (33, 23),
+                                  (5000, 5000), (None, None)])
+@pytest.mark.parametrize("second", [True, False])
+def test_fill_pass_caps_and_targets_on_card(caps, second):
+    """The one-pass entry (the sharded post's) at every cap, with a target
+    mask holding finite pixels, on a non-contiguous map and mask."""
+    _, post, _, post_cuda = _agg_post_modules()
+    _need_card()
+    disp, occl, mism = _disp_map(150, 301, 7, holes=0.5)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    target = occl | mism | (torch.rand(disp.shape, device="cuda", generator=gen) < 0.2)
+    for d, t in ((disp, target), (disp.t(), target.t()), (disp[::2, 1::3], target[::2, 1::3])):
+        before = post_cuda.LAUNCHES["fill_pass_f32"]
+        got = post._fill_from_candidates(d, t, second, *caps)
+        assert post_cuda.LAUNCHES["fill_pass_f32"] == before + 1
+        assert torch.equal(got, post._fill_from_candidates_plain(d, t, second, *caps))
+
+
+@pytest.mark.cuda
+def test_fill_all_invalid_and_one_valid_on_card():
+    _, post, _, _ = _agg_post_modules()
+    _need_card()
+    for invalid in (float("inf"), -1.0):
+        d = torch.full((90, 130), invalid, device="cuda")
+        occl = torch.ones_like(d, dtype=torch.bool)
+        mism = torch.zeros_like(occl)
+        for max_search in (None, 5):
+            assert torch.equal(post.fill_holes_8dir(d, occl, mism, invalid, max_search),
+                               post._fill_holes_8dir_plain(d, occl, mism, invalid, max_search))
+            one = d.clone()
+            one[45, 64] = 4.0
+            got = post.fill_holes_8dir(one, occl, mism, invalid, max_search)
+            assert torch.equal(got, post._fill_holes_8dir_plain(one, occl, mism, invalid,
+                                                                max_search))
+            assert int((got == 4.0).sum()) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_length", [1, 34, 64, 65, 130, 252, 253])
+@pytest.mark.parametrize("kind", ["u8", "float32", "colour u8", "colour float32"])
+@pytest.mark.parametrize("h,w", FILL_ARMS_EDGES)
+def test_cross_arms_windows_bit_exact_at_edges_on_card(h, w, kind, max_length):
+    """Blocks at the image's borders, max_length 1, 64, 65 and 130, the
+    grey u8 kernel's largest cap (252) and the generic kernel above it."""
+    from stereo_match_traditional_tpu_torch.config import CrossArmConfig
+
+    aggregate, _, _, _ = _agg_post_modules()
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(h * w + max_length)
+    # flat runs (long arms) broken by steps and noise (short ones)
+    steps = torch.randint(0, 200, (h // 37 + 1, w // 23 + 1), device="cuda", generator=gen)
+    img = steps.repeat_interleave(37, 0).repeat_interleave(23, 1)[:h, :w]
+    noise = torch.randint(-9, 10, (h, w), device="cuda", generator=gen)
+    img = (img + noise * (torch.rand((h, w), device="cuda", generator=gen) < 0.3)).clamp(0, 255)
+    img = img.to(torch.uint8)
+    if kind.startswith("colour"):
+        img = torch.stack([img, img.roll(1, 1), img // 2 + 40], dim=-1)
+    if kind.endswith("float32"):
+        img = img.float() * 0.75
+    cfg = CrossArmConfig(tao1=30, tao2=6, max_length=max_length, sec_length=max_length // 2)
+    got = aggregate.cross_arms(img, cfg)
+    want = aggregate._cross_arms_plain(img, cfg)
+    for name, g, x in zip(("left", "right", "up", "down"), got, want):
+        assert torch.equal(g, x), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", [0, 1, 2, 3, 5, 37])
+def test_cross_arms_u8_band_views_on_card(start):
+    """Grey u8 bands as views of a taller image (rows of 450 bytes, so the
+    band's first byte sits anywhere in its 32-bit word): the u8 kernel's
+    unaligned loads, bit for bit with the plain version."""
+    aggregate, _, _, _ = _agg_post_modules()
+    _need_card()
+    img = _images(120, 450, 60, 6)[0]
+    band = img[start: start + 75]
+    assert band.is_contiguous() and band.data_ptr() % 4 == (start * 450) % 4
+    for ro in (start - 34, start):
+        got = aggregate.cross_arms(band, _arm_cfg(), ro, 120)
+        want = aggregate._cross_arms_plain(band, _arm_cfg(), ro, 120)
+        for g, w_ in zip(got, want):
+            assert torch.equal(g, w_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tao1,tao2", [(0, 0), (6.5, 0.5), (-1, 6), (30, -0.5), (255, 300),
+                                       (float("inf"), 6), (float("nan"), 6)])
+def test_cross_arms_thresholds_on_card(tao1, tao2):
+    """Float thresholds that the u8 kernel takes as integers (0, fractions,
+    below 0, 255 and above), and a NaN one, which the generic kernel takes."""
+    from stereo_match_traditional_tpu_torch.config import CrossArmConfig
+
+    aggregate, _, _, _ = _agg_post_modules()
+    _need_card()
+    img = _images(60, 140, 20, 9)[0]
+    cfg = CrossArmConfig(tao1=tao1, tao2=tao2, max_length=34, sec_length=17)
+    for g, w_ in zip(aggregate.cross_arms(img, cfg), aggregate._cross_arms_plain(img, cfg)):
+        assert torch.equal(g, w_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_length", [1, 34, 70])
+@pytest.mark.parametrize("row_offset,global_rows", [(-3, 30), (0, 19), (5, 24), (5, 60),
+                                                    (-40, 19)])
+def test_cross_arms_band_windows_on_card(row_offset, global_rows, max_length):
+    """Band rows clamped into the band in the vertical windows, the rules
+    on global rows, rows beyond the image's border (row_offset < 0), with
+    NaN pixels in a float32 colour band."""
+    from stereo_match_traditional_tpu_torch.config import CrossArmConfig
+
+    aggregate, _, _, _ = _agg_post_modules()
+    _need_card()
+    img = _images(19, 45, 8, 4, colour=True)[0].float()
+    img[3, 7, 1] = img[10, 20, 0] = float("nan")
+    cfg = CrossArmConfig(tao1=30, tao2=6, max_length=max_length, sec_length=17)
+    for x in (img, img[..., 0]):
+        got = aggregate.cross_arms(x, cfg, row_offset, global_rows)
+        want = aggregate._cross_arms_plain(x, cfg, row_offset, global_rows)
+        for g, w_ in zip(got, want):
+            assert torch.equal(g, w_)
 
 
 @pytest.mark.cuda
@@ -1811,8 +1958,8 @@ def test_ad_census_full_launches_agg_post_kernels_on_card(monkeypatch):
     torch.cuda.synchronize()
     after = {**aggregate_cuda.LAUNCHES, **post_cuda.LAUNCHES}
     assert {k: after[k] - before[k] for k in after} == {
-        "cross_arms_i32": 2, "rect_mean_f32": 0, "rect_mean_walker_f32": 2, "fill_pass_f32": 3,
-        "remove_speckles_f32": 1}
+        "cross_arms_i32": 2, "rect_mean_f32": 0, "rect_mean_walker_f32": 2, "fill_pass_f32": 0,
+        "fill_holes_8dir_f32": 1, "remove_speckles_f32": 1}
     def rect_plain(vol, arms, inclusive=True, max_span=None, layout="auto"):
         return aggregate._rect_mean_aggregate_plain(vol, arms, inclusive)
 
