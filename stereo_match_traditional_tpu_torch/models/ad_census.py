@@ -16,16 +16,21 @@ from stereo_match_traditional_tpu_torch.utils.profiling import stage_scope
 
 def ad_census_post(disp_l, disp_r, cfg: ADCensusConfig):
     """Dormant AD-Census post chain (`main.cpp:91-94`): LeftRightConsistency
-    -> RemoveSpeckles -> 8-direction FillTheHole -> MedianFilter.  Returns
-    ``(disp, occlusion, mismatch)``."""
-    lr = post.lr_check_consistency(disp_l, disp_r, cfg.lr_gate, post.INVALID)
-    dmap = post.remove_speckles(
-        lr.disp, cfg.speckle_diff, cfg.speckle_area, invalid_value=post.INVALID
-    )
-    dmap = post.fill_holes_8dir(
-        dmap, lr.occlusion, lr.mismatch, post.INVALID, max_search=cfg.disp_range
-    )
-    dmap = post.median_filter(dmap, cfg.median_size, border="truncate")
+    -> RemoveSpeckles -> 8-direction FillTheHole -> MedianFilter, in the
+    ranges ``stereo/lr_check``, ``speckle``, ``fill`` and ``median``.
+    Returns ``(disp, occlusion, mismatch)``."""
+    with stage_scope("lr_check"):
+        lr = post.lr_check_consistency(disp_l, disp_r, cfg.lr_gate, post.INVALID)
+    with stage_scope("speckle"):
+        dmap = post.remove_speckles(
+            lr.disp, cfg.speckle_diff, cfg.speckle_area, invalid_value=post.INVALID
+        )
+    with stage_scope("fill"):
+        dmap = post.fill_holes_8dir(
+            dmap, lr.occlusion, lr.mismatch, post.INVALID, max_search=cfg.disp_range
+        )
+    with stage_scope("median"):
+        dmap = post.median_filter(dmap, cfg.median_size, border="truncate")
     return dmap, lr.occlusion, lr.mismatch
 
 
@@ -99,8 +104,9 @@ def ad_census_pipeline(
     agg_l, agg_r = vol_l, vol_r
     if cfg.aggregation == "rect_mean":
         with stage_scope("aggregate"):
-            arms_l = aggregate.cross_arms(left, cfg.arms)
-            arms_r = aggregate.cross_arms(right, cfg.arms)
+            with stage_scope("arms"):
+                arms_l = aggregate.cross_arms(left, cfg.arms)
+                arms_r = aggregate.cross_arms(right, cfg.arms)
             for _ in range(cfg.agg_iters):
                 agg_l = aggregate.rect_mean_aggregate(agg_l, arms_l, max_span=cfg.arms.max_length)
                 agg_r = aggregate.rect_mean_aggregate(agg_r, arms_r, max_span=cfg.arms.max_length)

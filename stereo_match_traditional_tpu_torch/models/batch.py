@@ -22,6 +22,7 @@ import torch
 
 from stereo_match_traditional_tpu_torch.models.base import StereoResult
 from stereo_match_traditional_tpu_torch.models.registry import get_pipeline
+from stereo_match_traditional_tpu_torch.utils.profiling import count, span
 
 
 def batched_pipeline(name: str, cfg=None, method: str = "map",
@@ -103,6 +104,14 @@ def serve_pairs(
     pairs and yields every map), ``batch_size`` a multiple of the axis'
     ranks, and a partial last batch is padded with its last pair, whose
     maps are dropped; a rank outside the mesh yields nothing.
+
+    Each batch is five :func:`utils.profiling.span` s, all with ``pair=``
+    the stream index of its first pair: ``stereo/serve_next`` (taking the
+    pairs from ``pairs``), ``stereo/serve_upload`` (stacking and copying
+    them to ``device``), ``stereo/serve_run`` (the pipeline's enqueue),
+    ``stereo/serve_wait`` (the card's stream drained; on a card only) and
+    ``stereo/serve_download`` (the maps copied to the host); and three
+    counters: ``serve.pairs``, ``serve.bytes_up`` and ``serve.bytes_down``.
     """
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
@@ -112,12 +121,29 @@ def serve_pairs(
         if not in_mesh(mesh):
             return
     run = batched_pipeline(name, cfg, mesh=mesh)
+    on_card = torch.device(device).type == "cuda"
     it = iter(pairs)
-    while batch := list(itertools.islice(it, batch_size)):
+    first = 0                                       # the stream index of the batch's first pair
+    while True:
+        with span("stereo/serve_next", pair=first):
+            batch = list(itertools.islice(it, batch_size))
+        if not batch:
+            return
         n = len(batch)
         if mesh is not None:
             batch += batch[-1:] * (batch_size - n)
-        ls, rs = (torch.from_numpy(np.stack(side)).to(device) for side in zip(*batch))
-        res = run(ls, rs)
-        disp = res.disp_final if res.disp_final is not None else res.disp_left
-        yield from disp[:n].cpu().numpy()
+        with span("stereo/serve_upload", pair=first):
+            ls, rs = (torch.from_numpy(np.stack(side)).to(device) for side in zip(*batch))
+        with span("stereo/serve_run", pair=first):
+            res = run(ls, rs)
+            disp = res.disp_final if res.disp_final is not None else res.disp_left
+        if on_card:
+            with span("stereo/serve_wait", pair=first):
+                torch.cuda.current_stream(disp.device).synchronize()
+        with span("stereo/serve_download", pair=first):
+            maps = disp[:n].cpu().numpy()
+        count("serve.pairs", n)
+        count("serve.bytes_up", ls.nbytes + rs.nbytes)
+        count("serve.bytes_down", maps.nbytes)
+        first += n
+        yield from maps

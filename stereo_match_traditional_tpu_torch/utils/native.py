@@ -36,6 +36,8 @@ from typing import Iterable, Tuple
 
 import numpy as np
 
+from stereo_match_traditional_tpu_torch.utils.profiling import span
+
 _HERE = Path(__file__).resolve().parent
 SOURCE = _HERE.parents[1] / "native" / "stereo_host" / "stereo_host.cpp"
 BUILD_DIR = _HERE / "_build"
@@ -269,6 +271,11 @@ class PairLoader:
     uint8 ``[H, W]`` arrays in submission order.  A pair larger than
     ``max_bytes`` a side stays queued on the C side, which reports its
     geometry; the buffers grow and the pair is taken on the retry.
+
+    Each ``next()`` is two :func:`utils.profiling.span` s with ``pair=``
+    the pair's index in the loader's stream: ``stereo/loader_wait`` (the
+    wait on the pool, both tries where the buffers grow) and
+    ``stereo/loader_copy`` (the pair copied out of the buffers).
     """
 
     def __init__(
@@ -301,12 +308,13 @@ class PairLoader:
         if self._handle is None:
             raise StopIteration
         h, w = ctypes.c_int(), ctypes.c_int()
-        rc = self._next(h, w)
-        if rc == -3:
-            need = h.value * w.value
-            self._buf_l = np.empty(need, np.uint8)
-            self._buf_r = np.empty(need, np.uint8)
+        with span("stereo/loader_wait", pair=self._taken):
             rc = self._next(h, w)
+            if rc == -3:
+                need = h.value * w.value
+                self._buf_l = np.empty(need, np.uint8)
+                self._buf_r = np.empty(need, np.uint8)
+                rc = self._next(h, w)
         if rc == 1:
             self.close()
             raise StopIteration
@@ -315,8 +323,9 @@ class PairLoader:
             raise IOError(f"native PairLoader: pair {self._taken - 1} failed to decode "
                           f"(error {rc})")
         n = h.value * w.value
-        left = self._buf_l[:n].reshape(h.value, w.value).copy()
-        right = self._buf_r[:n].reshape(h.value, w.value).copy()
+        with span("stereo/loader_copy", pair=self._taken - 1):
+            left = self._buf_l[:n].reshape(h.value, w.value).copy()
+            right = self._buf_r[:n].reshape(h.value, w.value).copy()
         return left, right
 
     def close(self) -> None:
