@@ -154,6 +154,11 @@ SCANLINE_EDGE_GEOMETRIES = [(1, 40, 7), (33, 1, 9), (1, 1, 3), (21, 45, 100),
                             (3, 1100, 20), (2, 1061, 130)]
 AD_CENSUS_RTOL = AD_CENSUS_ATOL = 1e-6   # expf's last ulp; AD and Hamming exact
 SERVING = (720, 1280, 128)
+KITTI = (375, 1242, 128)                 # the benchmark's size (cardbench/traffic/)
+# The cross aggregation's later iterations against the plain version: within
+# 2 float32 ulps or 2^-40 (tests/test_torch_kernels_cuda.py's CROSS_ULPS,
+# CROSS_ATOL give the reason)
+CROSS_ULPS, CROSS_ATOL = 2, 2.0**-40
 WIDE_D = 200                             # a D above 128, timed for the scanline at Teddy's size
 MIN_WTA_AGREE = 0.995                    # card vs the CPU plain path
 
@@ -729,7 +734,14 @@ def main() -> None:
             "route": "cuda",
             "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/scanline_canonical.cu",
             "replaces": "stereo_match_traditional_tpu/ops/scanline.py:326",
-            **canon,
+            **{k: v for k, v in canon.items() if k != "cross_aggregate_f32"},
+        },
+        {
+            "name": "cross_aggregate_f32",
+            "route": "cuda",
+            "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/cross_aggregate.cu",
+            "replaces": "stereo_match_traditional_tpu/ops/aggregate.py:792",
+            **canon["cross_aggregate_f32"],
         },
         {
             "name": "scanline_banded_f32",
@@ -1676,7 +1688,7 @@ def canonical_phases() -> dict:
     from stereo_match_traditional_tpu_torch.models import get_pipeline
     from stereo_match_traditional_tpu_torch.ops import aggregate, scanline
     from stereo_match_traditional_tpu_torch.ops.kernels import (
-        ad_census_cuda, scanline_canonical_cuda, scanline_cuda,
+        ad_census_cuda, aggregate_cuda, scanline_canonical_cuda, scanline_cuda,
     )
     from stereo_match_traditional_tpu_torch.utils.convert import (
         pair_to_torch, result_to_numpy,
@@ -1718,7 +1730,10 @@ def canonical_phases() -> dict:
     h, w, d = TEDDY
     fn = get_pipeline("ad_census")[0]
     full_scan = ScanlineConfig()
-    runs = [  # (pipeline, label, config, shape, launches per call: cost, canonical, scanline.cu)
+    # (pipeline, label, config, shape, launches per call: cost, canonical,
+    # scanline.cu); each call also launches a cross support and num_iters
+    # cross iterations a view
+    runs = [
         ("ad_census", "canonical active", ADCensusConfig(
             disp_range=d, aggregation="cross_two_pass"), TEDDY, (1, 0, 0)),
         ("ad_census", "canonical FULL", ADCensusConfig(
@@ -1739,14 +1754,18 @@ def canonical_phases() -> dict:
         lt, rt = pair_to_torch(L, R, "cuda")
         pfn = get_pipeline(name)[0]
         ad_census_cuda.LAUNCHES = scanline_canonical_cuda.LAUNCHES = scanline_cuda.LAUNCHES = 0
+        aggregate_cuda.LAUNCHES.update(dict.fromkeys(aggregate_cuda.LAUNCHES, 0))
         res = pfn(lt, rt, cfg)
         torch.cuda.synchronize()
         launches = {"ad_census_volume_f32": ad_census_cuda.LAUNCHES,
                     "scanline_canonical_f32": scanline_canonical_cuda.LAUNCHES,
-                    "scanline_optimize_f32": scanline_cuda.LAUNCHES}
-        check(tuple(launches.values()) == per_call, (name, label, launches))
+                    "scanline_optimize_f32": scanline_cuda.LAUNCHES,
+                    "cross_support_f32": aggregate_cuda.LAUNCHES["cross_support_f32"],
+                    "cross_aggregate_f32": aggregate_cuda.LAUNCHES["cross_aggregate_f32"]}
+        check(tuple(launches.values()) == (*per_call, 2, 2 * cfg.cross_params.num_iters),
+              (name, label, launches))
         if (name, label, hh) == ("ad_census", "canonical FULL", h):
-            counted = launches["scanline_canonical_f32"]
+            counted = launches
         out = result_to_numpy(res)
         rec = {"phase": "slice", "pipeline": name, "config": label, "shape": [hh, ww],
                "disp_range": dd, "launches": launches}
@@ -1798,7 +1817,8 @@ def canonical_phases() -> dict:
         # (median) and back to back
         cp = cfg.cross_params
         vols = ad_census_cuda.ad_census_volumes_cuda(lt, rt, dd)
-        aggs = [aggregate.cross_aggregate(v, aggregate.canonical_cross_arms(img, cp), cp.num_iters)
+        aggs = [aggregate.cross_aggregate(v, aggregate.canonical_cross_arms(img, cp),
+                                          cp.num_iters, span_cap=cp.cross_l1)
                 for v, img in zip(vols, (lt, rt))]
         del vols
         rec = {}
@@ -1829,13 +1849,73 @@ def canonical_phases() -> dict:
         del aggs, agg_l
         torch.cuda.empty_cache()
     emit({"phase": "timing_kernels", "scanline_canonical_f32 (one view)": kernel})
+
+    # -- 14b. the cross aggregation kernel on the main path's inputs (left
+    # view, canonical arms, the pipelines' cap): the first iteration bit for
+    # bit with its plain version, four within an ulp; one view's four
+    # iterations timed (median and back to back) beside the plain version
+    cp = ADCensusConfig().cross_params
+    cross = {}
+    for hh, ww, dd in (TEDDY, KITTI, SERVING):
+        L, R, _ = make_pair(hh, ww, dd, seed=0)
+        lt, rt = pair_to_torch(L, R, "cuda")
+        vol = ad_census_cuda.ad_census_volumes_cuda(lt, rt, dd)[0]
+        arms = aggregate.canonical_cross_arms(lt, cp)
+        one = lambda: aggregate.cross_aggregate(  # noqa: E731
+            vol, arms, cp.num_iters, span_cap=cp.cross_l1)
+        plain = lambda: aggregate._cross_aggregate_plain(vol, arms, cp.num_iters)  # noqa: E731
+        aggregate_cuda.arms_over_cap("cuda", reset=True)
+        before = dict(aggregate_cuda.LAUNCHES)
+        got = one()
+        torch.cuda.synchronize()
+        launched = {k: aggregate_cuda.LAUNCHES[k] - before[k] for k in before
+                    if aggregate_cuda.LAUNCHES[k] != before[k]}
+        want = plain()
+        diff = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+        far = (diff > CROSS_ULPS) & ((got - want).abs() > CROSS_ATOL)
+        rec = {"launches": launched, "values_off": int((diff > 0).sum()),
+               "max_ulps": int(diff.max()), "values_beyond_tolerance": int(far.sum()),
+               "first_iteration_bit_exact": torch.equal(
+                   aggregate.cross_aggregate(vol, arms, 1, span_cap=cp.cross_l1),
+                   aggregate._cross_aggregate_plain(vol, arms, 1)),
+               "arms_over_cap": aggregate_cuda.arms_over_cap("cuda", reset=True)}
+        check(rec["first_iteration_bit_exact"] and rec["values_beyond_tolerance"] == 0
+              and rec["arms_over_cap"] == 0
+              and launched == {"cross_support_f32": 1, "cross_aggregate_f32": cp.num_iters},
+              ("cross_aggregate_f32", hh, ww, dd, rec))
+        del got, want, diff, far
+        kernel_ms, plain_ms = alternate(plain, one, 2, 5)
+        rec.update(kernel_ms=kernel_ms, plain_ms=plain_ms,
+                   back_to_back_ms=back_to_back_ms(one, 20 if hh == h else 10))
+        # the volume in and out once, the four int32 arms in
+        rec.update(bound(8 * dd * hh * ww + 16 * hh * ww, 0.0))
+        rec["share_of_bound"] = rec["bound_ms"] / rec["kernel_ms"]
+        rec["share_of_bound_back_to_back"] = rec["bound_ms"] / rec["back_to_back_ms"]
+        cross[f"{hh}x{ww}/D={dd}"] = rec
+        del vol, arms
+        torch.cuda.empty_cache()
+    emit({"phase": "timing_kernels", "cross_aggregate_f32 (one view, four iterations)": cross})
     teddy = kernel[f"{h}x{w}/D={d}"]
-    return {"launches": counted, "launches_per_call": counted, "max_abs_err": max_abs,
+    cross_teddy = cross[f"{h}x{w}/D={d}"]
+    return {"launches": counted["scanline_canonical_f32"],
+            "launches_per_call": counted["scanline_canonical_f32"], "max_abs_err": max_abs,
             "ms": teddy["kernel_ms"], "plain_ms": teddy["plain_ms"],
             "bound_ms": teddy["bound_ms"], "bound_by": teddy["bound_by"], "library_ms": None,
             "ms_covers": "one view (one C-entry call)",
             "back_to_back_ms": teddy["back_to_back_ms"],
-            "at_720p": kernel[f"{SERVING[0]}x{SERVING[1]}/D={SERVING[2]}"]}
+            "at_720p": kernel[f"{SERVING[0]}x{SERVING[1]}/D={SERVING[2]}"],
+            "cross_aggregate_f32": {  # launches: canonical FULL at Teddy, one call
+                "launches": counted["cross_aggregate_f32"],
+                "launches_per_call": counted["cross_aggregate_f32"],
+                "support_launches_per_call": counted["cross_support_f32"],
+                "max_ulps": max(r["max_ulps"] for r in cross.values()),
+                "tolerance": {"ulps": CROSS_ULPS, "or_abs": CROSS_ATOL},
+                "ms": cross_teddy["kernel_ms"], "plain_ms": cross_teddy["plain_ms"],
+                "bound_ms": cross_teddy["bound_ms"], "bound_by": cross_teddy["bound_by"],
+                "library_ms": None, "ms_covers": "one view (a support and four iterations)",
+                "back_to_back_ms": cross_teddy["back_to_back_ms"],
+                "at_kitti": cross[f"{KITTI[0]}x{KITTI[1]}/D={KITTI[2]}"],
+                "at_720p": cross[f"{SERVING[0]}x{SERVING[1]}/D={SERVING[2]}"]}}
 
 
 def variants_phase() -> dict:

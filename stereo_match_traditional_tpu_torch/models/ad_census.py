@@ -117,8 +117,8 @@ def ad_census_pipeline(
             arms_r = aggregate.canonical_cross_arms(
                 right if right_color is None else right_color, cp)
         with stage_scope("aggregate"):
-            agg_l = aggregate.cross_aggregate(vol_l, arms_l, cp.num_iters)
-            agg_r = aggregate.cross_aggregate(vol_r, arms_r, cp.num_iters)
+            agg_l = aggregate.cross_aggregate(vol_l, arms_l, cp.num_iters, span_cap=cp.cross_l1)
+            agg_r = aggregate.cross_aggregate(vol_r, arms_r, cp.num_iters, span_cap=cp.cross_l1)
 
     if cfg.scanline is not None:
         with stage_scope("scanline"):

@@ -134,8 +134,8 @@ def cblsm_pipeline(
             arms_l = aggregate.canonical_cross_arms(left, cp)
             arms_r = aggregate.canonical_cross_arms(right, cp)
         with stage_scope("aggregate"):
-            agg_l = aggregate.cross_aggregate(agg_l, arms_l, cp.num_iters)
-            agg_r = aggregate.cross_aggregate(agg_r, arms_r, cp.num_iters)
+            agg_l = aggregate.cross_aggregate(agg_l, arms_l, cp.num_iters, span_cap=cp.cross_l1)
+            agg_r = aggregate.cross_aggregate(agg_r, arms_r, cp.num_iters, span_cap=cp.cross_l1)
 
     result = cblsm_finish(agg_l, agg_r, cfg)
     if return_stages:

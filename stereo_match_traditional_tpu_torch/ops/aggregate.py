@@ -283,7 +283,10 @@ def _span_sum(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, dim: int) -> 
     first-pass span sums add exactly there whatever the summation order, and
     later passes carry 29 bits more than float32 keeps, so the CPU and the
     card give the same float32 but for a sum within ~2^-29 of a rounding
-    boundary.  Integer ``x`` sums in its own dtype, exactly."""
+    boundary, and a sum of tiny values (below ~1e-6), whose float32 ulp is
+    finer than the prefix's float64 error (~1e-13 at 720p), differs by more
+    ulps but not by more absolutely.  Integer ``x`` sums in its own dtype,
+    exactly."""
     acc = torch.float64 if x.is_floating_point() else x.dtype
     h, w = x.shape[-2:]
     pad = (1, 0) if dim == -1 else (0, 0, 1, 0)
@@ -339,11 +342,37 @@ def cross_aggregate(
     pixel-major layout, its row-chunk halos): the TPU layouts are not
     ported, so every ``method`` runs the port's one layout, a float64
     prefix sum along the axis and two picks rounded to float32 once a pass,
-    and ``max_arm`` and ``span_cap`` change nothing.  An unknown ``method``
-    raises ``ValueError``.
+    and ``max_arm`` changes nothing.  ``span_cap`` is, as there, a static
+    bound on the arm lengths (the callers pass ``cross_l1``): on the card it
+    sizes the kernel's halo and ring (no cap: 255, the most
+    :func:`canonical_cross_arms` gives), on the CPU it changes nothing.  A
+    cap below the arms breaks that contract: the card clamps such arms to
+    the cap (and counts them, ``aggregate_cuda.arms_over_cap``), the CPU
+    does not.  An unknown ``method`` raises ``ValueError``.
+
+    A CUDA volume launches the span walker
+    (``ops.kernels.aggregate_cuda.cross_aggregate_cuda``: one launch an
+    iteration, both passes in shared memory), a CPU volume runs the plain
+    version below: bit for bit the same first iteration on AD-Census
+    volumes, whose float64 sums are exact; later ones within two float32
+    ulps, or within 2^-40 for means below ~1e-6 (:func:`_span_sum`).
     """
     if method not in CROSS_METHODS:
         raise ValueError(f"method must be one of {CROSS_METHODS}: {method!r}")
+    if vol.is_cuda:
+        from stereo_match_traditional_tpu_torch.ops.kernels.aggregate_cuda import (
+            cross_aggregate_cuda,
+        )
+
+        return cross_aggregate_cuda(vol, arms, num_iters, horizontal_first, span_cap)
+    return _cross_aggregate_plain(vol, arms, num_iters, horizontal_first)
+
+
+def _cross_aggregate_plain(vol: torch.Tensor, arms: Arms, num_iters: int = 4,
+                           horizontal_first: bool = True) -> torch.Tensor:
+    """The plain version of :func:`cross_aggregate`: per pass a float64
+    prefix sum along the axis and two picks a pixel (:func:`_hsum`,
+    :func:`_vsum`), rounded to float32."""
     ones = torch.ones(vol.shape[-2:], dtype=torch.float32, device=vol.device)
     sup_h_first = _vsum(_hsum(ones, arms.left, arms.right), arms.up, arms.down)
     sup_v_first = _hsum(_vsum(ones, arms.up, arms.down), arms.left, arms.right)

@@ -1,19 +1,25 @@
-"""CUDA cross arms and arm-rectangle mean (``csrc/aggregate.cu``).
+"""CUDA cross arms, arm-rectangle mean (``csrc/aggregate.cu``) and cross
+aggregation (``csrc/cross_aggregate.cu``).
 
-Counterparts of ``ops.aggregate.cross_arms`` and
-``ops.aggregate.rect_mean_aggregate``, whose private ``_plain`` bodies are
-their plain versions.  No Pallas kernel stands behind them: they replace the
-XLA ops of the JAX package's ``cross_arms``
-(`stereo_match_traditional_tpu/ops/aggregate.py:119`) and
-``rect_mean_aggregate`` (`:486`).  Dispatch is by the device of the inputs,
-never by a fallback: CPU tensors take the plain version; CUDA tensors launch
-the kernel or raise.  ``ops.aggregate``'s public functions call these for
-CUDA tensors.
+Counterparts of ``ops.aggregate.cross_arms``,
+``ops.aggregate.rect_mean_aggregate`` and ``ops.aggregate.cross_aggregate``,
+whose private ``_plain`` bodies are their plain versions.  No Pallas kernel
+stands behind them: they replace the XLA ops of the JAX package's
+``cross_arms`` (`stereo_match_traditional_tpu/ops/aggregate.py:119`),
+``rect_mean_aggregate`` (`:486`) and ``cross_aggregate`` (`:792`).  Dispatch
+is by the device of the inputs, never by a fallback: CPU tensors take the
+plain version; CUDA tensors launch the kernel or raise.
+``ops.aggregate``'s public functions call these for CUDA tensors.
 
-Both are bit-exact with their plain versions: the arms are integer counts
-of float32 comparisons, and the rectangle sums are float64 sums of a
-summed-area table, exact for AD-Census volumes in any order (otherwise
-within a float32 ulp of the mean).
+The arms and the rect mean are bit-exact with their plain versions: the
+arms are integer counts of float32 comparisons, and the rectangle sums are
+float64 sums of a summed-area table, exact for AD-Census volumes in any
+order (otherwise within a float32 ulp of the mean).  The cross
+aggregation's float64 span sums are exact on AD-Census volumes in its first
+iteration (bit for bit); later iterations sum float32 means, whose float64
+sums the kernel and the plain version round alike but where a sum lies near
+a float32 rounding boundary (one ulp of the sum, two of the mean it is
+divided into) or is tiny (below ~1e-6: more ulps, under 2^-40).
 
 The rect mean takes one of two routes, chosen by its arguments and not by a
 failure: with a cap on the arms (``max_span``, as the JAX package's call
@@ -39,7 +45,8 @@ from stereo_match_traditional_tpu_torch.ops.kernels.launch import (
 # Kernel launches so far, one per call of each C entry point; a run resets
 # them to show its path went through the kernels.  Only the launches below
 # increment them.
-LAUNCHES = {"cross_arms_i32": 0, "rect_mean_f32": 0, "rect_mean_walker_f32": 0}
+LAUNCHES = {"cross_arms_i32": 0, "rect_mean_f32": 0, "rect_mean_walker_f32": 0,
+            "cross_support_f32": 0, "cross_aggregate_f32": 0}
 
 # The three-kernel route builds its float64 summed-area table a chunk of
 # slices at a time in a scratch of at most this many bytes (one slice at the
@@ -53,8 +60,14 @@ SCRATCH_BYTES = 1 << 30
 WALKER_STRIP = 128
 WALKER_MAX_SPAN = 48
 
-# A word a device that the walker adds the arms outside [0, max_span] to
-# (read by :func:`arms_over_cap`; the main path reads nothing back).
+# The cross aggregation's largest cap, and the one a call without
+# ``span_cap`` takes: the most ``ops.aggregate.canonical_cross_arms`` gives
+# (min(cross_l1, 255)).  ``csrc/cross_aggregate.cu`` picks its instance
+# (strip width, rows a step) by the pass order and the cap.
+CROSS_MAX_SPAN = 255
+
+# A word a device that the walkers add the arms outside their cap to (read
+# by :func:`arms_over_cap`; the main path reads nothing back).
 _OVER_CAP = {}
 
 
@@ -76,7 +89,7 @@ def _over_cap_word(device: torch.device) -> torch.Tensor:
 
 
 def arms_over_cap(device, reset: bool = False) -> int:
-    """The number of arms outside [0, max_span] that the walker has met on
+    """The number of arms outside their cap that the walkers have met on
     ``device`` since the word was last reset (a host sync: for checks, not
     for the main path); ``reset`` sets the word to 0 after reading it."""
     word = _over_cap_word(torch.device(device))
@@ -178,4 +191,71 @@ def rect_mean_cuda(vol: torch.Tensor, arms, inclusive: bool = True,
         )
     raise_on_error(lib, "rect_mean_f32", err)
     LAUNCHES["rect_mean_f32"] += 1
+    return out
+
+
+def cross_checks(vol: torch.Tensor, arms, span_cap: Optional[int]) -> int:
+    """Raise ``ValueError`` for what ``cross_aggregate_f32`` does not take
+    (a volume that is not float32 ``[D, H, W]`` and contiguous, arms that
+    are not int32 ``[H, W]`` on its device, a negative cap); return the
+    kernel's cap."""
+    if vol.dim() != 3 or vol.dtype != torch.float32:
+        raise ValueError(f"vol must be float32 [D, H, W], got {vol.dtype} {tuple(vol.shape)}")
+    if not vol.is_contiguous():
+        raise ValueError("vol must be contiguous")
+    n, h, w = vol.shape
+    if n < 1 or h < 1 or w < 1 or n > 65535 or h * w >= 2**31:
+        raise ValueError(f"volume outside the kernel's shapes: {tuple(vol.shape)}")
+    for name in ("left", "right", "up", "down"):
+        a = getattr(arms, name)
+        if a.shape != (h, w) or a.device != vol.device or a.dtype != torch.int32:
+            raise ValueError(f"arms.{name} must be int32 [{h}, {w}] on {vol.device}, got "
+                             f"{a.dtype} {tuple(a.shape)} on {a.device}")
+    cap = CROSS_MAX_SPAN if span_cap is None else int(span_cap)
+    if cap < 0:
+        raise ValueError(f"span_cap must be >= 0, got {span_cap}")
+    return min(cap, CROSS_MAX_SPAN)
+
+
+def cross_aggregate_cuda(vol: torch.Tensor, arms, num_iters: int = 4,
+                         horizontal_first: bool = True,
+                         span_cap: Optional[int] = None) -> torch.Tensor:
+    """Drop-in for ``ops.aggregate.cross_aggregate`` (its ``max_arm`` and
+    ``method`` change nothing there either) for a CUDA volume (float32
+    ``[D, H, W]``, contiguous; int32 ``[H, W]`` arms on its device), the
+    plain version for a CPU volume.  One launch of ``cross_support_f32`` (the
+    packed arms and both supports), then one of ``cross_aggregate_f32`` an
+    iteration.  The cap is ``span_cap``, at most :data:`CROSS_MAX_SPAN`
+    (none: that); arms outside [0, cap] are clamped and counted, see
+    :func:`arms_over_cap`."""
+    from stereo_match_traditional_tpu_torch.ops import aggregate
+
+    if not vol.is_cuda:
+        return aggregate._cross_aggregate_plain(vol, arms, num_iters, horizontal_first)
+    from stereo_match_traditional_tpu_torch.ops.kernels.build import library
+
+    cap = cross_checks(vol, arms, span_cap)
+    if num_iters < 1:
+        return vol
+    n, h, w = vol.shape
+    maps = [a.contiguous() for a in (arms.left, arms.right, arms.up, arms.down)]
+    packed = torch.empty((h, w), dtype=torch.int32, device=vol.device)
+    sups = torch.empty((2, h, w), dtype=torch.float32, device=vol.device)
+    lib = library()
+    st = stream(vol.device)
+    with current(vol.device):
+        err = lib.cross_support_f32(
+            *(a.data_ptr() for a in maps), h, w, cap, packed.data_ptr(), sups[0].data_ptr(),
+            sups[1].data_ptr(), _over_cap_word(vol.device).data_ptr(), st)
+        raise_on_error(lib, "cross_support_f32", err)
+        LAUNCHES["cross_support_f32"] += 1
+        out, hf = vol, bool(horizontal_first)
+        for _ in range(num_iters):
+            nxt = torch.empty_like(vol)
+            err = lib.cross_aggregate_f32(
+                out.data_ptr(), n, h, w, packed.data_ptr(), sups[0 if hf else 1].data_ptr(),
+                cap, int(hf), nxt.data_ptr(), st)
+            raise_on_error(lib, "cross_aggregate_f32", err)
+            LAUNCHES["cross_aggregate_f32"] += 1
+            out, hf = nxt, not hf
     return out

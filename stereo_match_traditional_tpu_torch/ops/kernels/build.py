@@ -149,6 +149,10 @@ def library() -> ctypes.CDLL:
     lib.rect_mean_walker_f32.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, i32, i32, vp, vp,
                                          vp, vp, vp]
     lib.rect_mean_walker_f32.restype = i32
+    lib.cross_support_f32.argtypes = [vp, vp, vp, vp, i32, i32, i32, vp, vp, vp, vp, vp]
+    lib.cross_support_f32.restype = i32
+    lib.cross_aggregate_f32.argtypes = [vp, i64, i32, i32, vp, vp, i32, i32, vp, vp]
+    lib.cross_aggregate_f32.restype = i32
     lib.fill_pass_f32.argtypes = [vp, vp, vp, vp, i32, i32, i32, f32, i32, i32, i32, i32, i32,
                                   vp]
     lib.fill_pass_f32.restype = i32

@@ -95,6 +95,8 @@
 
 #include <atomic>
 
+#include "walker.cuh"
+
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -410,8 +412,6 @@ constexpr int WALK_STAGES = 2;   // input steps in flight
 constexpr int WALK_PRE = WALK_R * WALK_S / WALK_NT;  // outputs a thread in a steady step
 constexpr int WALK_MAX_SPAN = 48;                    // the largest cap whose ring fits a block
 constexpr int WALK_PER = (WALK_S + 2 * WALK_MAX_SPAN + 31) / 32;  // input columns a lane, at most
-constexpr size_t WALK_SHARED_LIMIT = 232448;         // dynamic shared memory a block may use
-constexpr int MAX_DEVICES = 64;  // devices whose launch attributes a process keeps
 
 // The walker's shared memory at cap L: the ring of 2L + 1 + WALK_R table rows
 // of WALK_S + 2L + 1 doubles, then WALK_STAGES steps of WALK_R carries
@@ -420,22 +420,6 @@ __host__ __device__ constexpr size_t walker_shared_bytes(int span) {
   return (size_t)(2 * span + 1 + WALK_R) * (WALK_S + 2 * span + 1) * sizeof(double) +
          (size_t)WALK_STAGES * WALK_R * sizeof(double) +
          (size_t)WALK_STAGES * WALK_R * (WALK_S + 2 * span) * sizeof(float);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(a), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The pre-pass: one warp a (slice, row).  The row prefix P[e] = sum x[:e]

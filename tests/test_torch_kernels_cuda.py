@@ -1959,7 +1959,8 @@ def test_ad_census_full_launches_agg_post_kernels_on_card(monkeypatch):
     after = {**aggregate_cuda.LAUNCHES, **post_cuda.LAUNCHES}
     assert {k: after[k] - before[k] for k in after} == {
         "cross_arms_i32": 2, "rect_mean_f32": 0, "rect_mean_walker_f32": 2, "fill_pass_f32": 0,
-        "fill_holes_8dir_f32": 1, "remove_speckles_f32": 1}
+        "fill_holes_8dir_f32": 1, "remove_speckles_f32": 1, "cross_support_f32": 0,
+        "cross_aggregate_f32": 0}
     def rect_plain(vol, arms, inclusive=True, max_span=None, layout="auto"):
         return aggregate._rect_mean_aggregate_plain(vol, arms, inclusive)
 
@@ -1976,3 +1977,220 @@ def test_ad_census_full_launches_agg_post_kernels_on_card(monkeypatch):
     assert {**aggregate_cuda.LAUNCHES, **post_cuda.LAUNCHES} == after
     for f in ("disp_left", "disp_right", "disp_final", "occlusion", "mismatch"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+# -- the cross aggregation's span walker (cross_support_f32, cross_aggregate_f32)
+
+CROSS_SPAN = ADCensusConfig().cross_params.cross_l1
+
+# (h, w, D, seed): one row, one column, W % 4 != 0, Teddy/D=60, KITTI
+# 375x1242/D=128 (the benchmark's size) and 720p/D=128
+CROSS_GEOMETRIES = [(1, 67, 9, 1), (53, 1, 7, 2), (37, 61, 13, 3), (375, 450, 60, 0),
+                    (375, 1242, 128, 4), (720, 1280, 128, 1)]
+
+
+def _cross_launches(aggregate_cuda, fn):
+    """``fn()``, the aggregation and post entries it launched (those it
+    launched at all) and the arms over the cap it met (the device word)."""
+    before = dict(aggregate_cuda.LAUNCHES)
+    aggregate_cuda.arms_over_cap("cuda", reset=True)
+    out = fn()
+    torch.cuda.synchronize()
+    launched = {k: aggregate_cuda.LAUNCHES[k] - before[k] for k in aggregate_cuda.LAUNCHES}
+    return (out, {k: v for k, v in launched.items() if v},
+            aggregate_cuda.arms_over_cap("cuda", reset=True))
+
+
+# Later iterations sum float32 means in float64 prefixes that the kernel
+# starts at its strip's halo and PyTorch's cumsum at lane 0, adding in
+# another order: a sum rounds alike but where it lies within the prefixes'
+# error of a float32 rounding boundary (one ulp of the sum, up to two of the
+# mean it is divided into), and a sum of means below ~1e-6, whose float32
+# ulp is finer than that error, may differ by more ulps but by no more than
+# 2^-40 (the largest seen on the card: 1.7e-13 at KITTI and 720p).
+CROSS_ULPS, CROSS_ATOL = 2, 2.0**-40
+
+
+def _ulps_off(got, want):
+    """The values outside (CROSS_ULPS, CROSS_ATOL), the values off at all,
+    and the largest distance in float32 ulps."""
+    ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+    far = (ulps > CROSS_ULPS) & ((got - want).abs() > CROSS_ATOL)
+    return int(far.sum()), int((ulps > 0).sum()), int(ulps.max())
+
+
+def _hold_cross(vol, arms, cap, horizontal_first):
+    """Each of four iterations on the plain version's input of that
+    iteration (the first bit for bit, later ones within CROSS_ULPS or
+    CROSS_ATOL), and the four-iteration call within them; one support and
+    one iteration launch a one-iteration call, 1 + 4 a four-iteration one,
+    no arm over the cap.  Returns the values off (and their largest ulps) in
+    each iteration and in the call."""
+    aggregate, _, aggregate_cuda, _ = _agg_post_modules()
+    x, hf, off = vol, horizontal_first, []
+    for it in range(4):
+        got, launched, over = _cross_launches(
+            aggregate_cuda, lambda: aggregate.cross_aggregate(x, arms, 1, hf, span_cap=cap))
+        assert launched == {"cross_support_f32": 1, "cross_aggregate_f32": 1} and over == 0
+        want = aggregate._cross_aggregate_plain(x, arms, 1, hf)
+        far, n, ulps = _ulps_off(got, want)
+        assert (n if it == 0 else far) == 0, (it, far, n, ulps)
+        off.append((n, ulps))
+        x, hf = want, not hf
+    got, launched, _ = _cross_launches(
+        aggregate_cuda, lambda: aggregate.cross_aggregate(vol, arms, 4, horizontal_first,
+                                                          span_cap=cap))
+    assert launched == {"cross_support_f32": 1, "cross_aggregate_f32": 4}
+    far, n, ulps = _ulps_off(got, aggregate._cross_aggregate_plain(vol, arms, 4,
+                                                                   horizontal_first))
+    assert far == 0, (far, n, ulps)
+    return off + [(n, ulps)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("horizontal_first", [True, False])
+@pytest.mark.parametrize("cap", [CROSS_SPAN, None], ids=["cap34", "no_cap"])
+@pytest.mark.parametrize("h,w,d,seed", CROSS_GEOMETRIES)
+def test_cross_aggregate_kernel_on_card(h, w, d, seed, cap, horizontal_first):
+    """The main path's inputs (AD-Census volumes of both views, canonical
+    arms) through the kernel at the pipelines' cap and without one (255:
+    the narrowest strip at the larger sizes)."""
+    aggregate, _, _, _ = _agg_post_modules()
+    _need_card()
+    lt, rt = _images(h, w, d, seed)
+    cp = ADCensusConfig().cross_params
+    for vol, img in zip(ad_census_cuda.ad_census_volumes_cuda(lt, rt, d), (lt, rt)):
+        off = _hold_cross(vol, aggregate.canonical_cross_arms(img, cp), cap, horizontal_first)
+        print("values off (count, largest ulps)", (h, w, d), cap, horizontal_first, off)
+
+
+# (n, h, w, cap): widths 128 does not divide, a walk shorter than the ring,
+# one row, one column, one pixel, the cap 0, the largest caps of the
+# 32-row and the 16-row steps of 128 lanes and the first past each (37, 38,
+# 67, 68), the widest cap (255) both ways round, and short walks across
+# wide images at caps past a 128-lane strip's (a ring that would fit, a
+# halo that its scan lanes' registers would not)
+CROSS_EDGES = [(5, 40, 65, 34), (4, 33, 255, 34), (3, 1, 300, 34), (3, 300, 1, 34),
+               (2, 1, 1, 34), (4, 26, 95, 0), (2, 300, 301, 37), (2, 300, 301, 38),
+               (2, 300, 301, 67), (2, 300, 301, 68), (2, 200, 700, 255), (2, 700, 200, 255),
+               (3, 50, 129, 255), (2, 40, 640, 255), (2, 57, 300, 100), (2, 300, 40, 255),
+               (2, 400, 60, 60)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("horizontal_first", [True, False])
+@pytest.mark.parametrize("n,h,w,cap", CROSS_EDGES)
+def test_cross_aggregate_edges_on_card(n, h, w, cap, horizontal_first):
+    """Integer volumes with arms at 0 and at the cap (half of them) through
+    every strip width; all-zero arms give the volume back."""
+    aggregate, _, aggregate_cuda, _ = _agg_post_modules()
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(n + h + w + cap)
+    vol = torch.randint(0, 9, (n, h, w), device="cuda", generator=gen).float()
+    _hold_cross(vol, _capped_arms(h, w, cap, h * w + cap), cap, horizontal_first)
+    zero = aggregate.Arms(*(torch.zeros((h, w), dtype=torch.int32, device="cuda"),) * 4)
+    assert torch.equal(aggregate.cross_aggregate(vol, zero, 4, horizontal_first, span_cap=cap),
+                       vol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_offset,global_rows", [(0, 96), (30, 96), (61, 96)])
+def test_cross_aggregate_band_on_card(row_offset, global_rows):
+    """A tiled band's volumes and its arms placed in a taller image (the
+    executors' ``row_offset`` arms, which stop at the image's borders and
+    reach past the band's)."""
+    aggregate, _, _, _ = _agg_post_modules()
+    _need_card()
+    lt, rt = _images(global_rows, 128, 24, 6)
+    rows = slice(row_offset, min(row_offset + 35, global_rows))
+    bl, br = lt[rows].contiguous(), rt[rows].contiguous()
+    cp = ADCensusConfig().cross_params
+    vols = ad_census_cuda.ad_census_volumes_cuda(bl, br, 24, row_offset=row_offset,
+                                                 global_rows=global_rows)
+    for vol, img in zip(vols, (bl, br)):
+        arms = aggregate.canonical_cross_arms(img, cp, row_offset, global_rows)
+        _hold_cross(vol, arms, cp.cross_l1, True)
+
+
+@pytest.mark.cuda
+def test_cross_aggregate_cblsm_volumes_on_card():
+    """cblsm's AD volumes (``cost='ad'``) with its canonical arms."""
+    aggregate, _, _, _ = _agg_post_modules()
+    _need_card()
+    lt, rt = _images(60, 90, 16, 2)
+    cfg = CBLSMConfig(disp_range=16, aggregation="cross_two_pass")
+    _, stages = get_pipeline("cblsm")[0](lt, rt, cfg, return_stages=True)
+    cp = cfg.cross_params
+    for view, img in (("cost_left", lt), ("cost_right", rt)):
+        _hold_cross(stages[view].contiguous(), aggregate.canonical_cross_arms(img, cp),
+                    cp.cross_l1, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,d,seed", [(48, 80, 16, 1), (375, 450, 60, 0)])
+def test_canonical_full_launches_cross_kernel_on_card(h, w, d, seed, monkeypatch):
+    """Canonical FULL launches one support and four iterations a view and
+    nothing else of the aggregation kernels (region voting keeps its plain
+    span sums); its maps equal the same call's with the plain version."""
+    aggregate, _, aggregate_cuda, _ = _agg_post_modules()
+    _need_card()
+    lt, rt = _images(h, w, d, seed)
+    fn = get_pipeline("ad_census")[0]
+    cfg = ADCensusConfig(disp_range=d, aggregation="cross_two_pass", scanline=ScanlineConfig(),
+                         run_post=True)
+    got, launched, over = _cross_launches(aggregate_cuda, lambda: fn(lt, rt, cfg))
+    assert launched == {"cross_support_f32": 2, "cross_aggregate_f32": 8} and over == 0
+
+    def plain(vol, arms, num_iters=4, horizontal_first=True, max_arm=None, method="auto",
+              span_cap=None):
+        return aggregate._cross_aggregate_plain(vol, arms, num_iters, horizontal_first)
+
+    monkeypatch.setattr(aggregate, "cross_aggregate", plain)
+    want = fn(lt, rt, cfg)
+    for f in ("disp_left", "disp_right", "disp_final"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.cuda
+def test_cross_aggregate_counts_arms_over_the_cap_on_card():
+    """Arms above the cap are clamped into it and counted in the device
+    word; the result is the plain version's on the clamped arms."""
+    aggregate, _, aggregate_cuda, _ = _agg_post_modules()
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    vol = torch.randint(0, 9, (9, 90, 170), device="cuda", generator=gen).float()
+    arms = _capped_arms(90, 170, 20, 3)
+    got, launched, over = _cross_launches(
+        aggregate_cuda, lambda: aggregate.cross_aggregate(vol, arms, 1, True, span_cap=7))
+    assert launched == {"cross_support_f32": 1, "cross_aggregate_f32": 1}
+    assert over == sum(int((a > 7).sum()) for a in arms) > 0
+    clamped = aggregate.Arms(*(a.clamp(max=7) for a in arms))
+    assert torch.equal(got, aggregate._cross_aggregate_plain(vol, clamped, 1, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["dtype", "contiguous", "arms_shape", "arms_dtype",
+                                 "arms_device", "cap"])
+def test_cross_aggregate_checks_inputs_on_card(bad):
+    """What the kernel does not take raises before any launch."""
+    aggregate, _, aggregate_cuda, _ = _agg_post_modules()
+    _need_card()
+    vol = torch.zeros((3, 12, 20), device="cuda")
+    arms = _capped_arms(12, 20, 4, 1)
+    cap = 4
+    if bad == "dtype":
+        vol = vol.double()
+    elif bad == "contiguous":
+        vol = torch.zeros((3, 20, 12), device="cuda").transpose(1, 2)
+    elif bad == "arms_shape":
+        arms = aggregate.Arms(*(a[:, 1:] for a in arms))
+    elif bad == "arms_dtype":
+        arms = aggregate.Arms(*(a.long() for a in arms))
+    elif bad == "arms_device":
+        arms = aggregate.Arms(*(a.cpu() for a in arms))
+    else:
+        cap = -3
+    before = dict(aggregate_cuda.LAUNCHES)
+    with pytest.raises(ValueError):
+        aggregate.cross_aggregate(vol, arms, 4, span_cap=cap)
+    assert aggregate_cuda.LAUNCHES == before
