@@ -62,7 +62,8 @@ kernel timed against plain at Teddy's size, the Middlebury 2014 full-size
 volume and a D=800 band, and ad_census FULL and canonical FULL through
 ``get_pipeline`` with their launch counts, on a small pair, direct at
 994x1440/D=320 and streamed at 1988x2880/D=290 (their scanline passes held
-to plain on the card).  Then the port's two examples
+to plain on the card), and ad_census FULL served at 1988x2880/D=290 through
+``serve_pairs`` (its route, peak memory, ms a pair and ``stereo/`` ranges).  Then the port's two examples
 (phase 24) in this process at 375x450, D=60: ``examples/demo_torch.py``
 (the five pipelines, each bad-2.0 within its limit and equal to a direct
 call's) and ``examples/serving_torch.py`` (ad_census FULL over the native
@@ -303,6 +304,8 @@ WIDE_PAIR = (24, 320)
 WIDE_HALF = (994, 1440, 320)
 WIDE_FULL = (1988, 2880, 290)
 WIDE_ENTRIES = ("scanline_banded_wide_f32", "scanline_banded_wide_canonical_f32")
+# ad_census FULL served at WIDE_FULL through serve_pairs (phase 23c): pairs timed
+SERVED_PAIRS = 8
 # The port's examples (phase 24): the serving example's pairs and batch
 EXAMPLE_PAIRS = 16
 EXAMPLE_BATCH = 4
@@ -3116,6 +3119,7 @@ def wide_phase() -> dict:
               else min(rec["agree_outside_the_clamp_triangle"].values()) >= MIN_WTA_AGREE, rec)
         launches[entry] = counts[entry]
     wide_pipelines_at_scale()
+    served_full_size()
     emit({"phase": "wide", "part": "done", "seconds": time.perf_counter() - start})
 
     out = {}
@@ -3287,6 +3291,60 @@ def wide_pipelines_at_scale() -> None:
               and reserved < rec["card_memory_bytes"], rec)
         torch.cuda.empty_cache()
     del lt, rt
+    torch.cuda.empty_cache()
+
+
+def served_full_size() -> None:
+    """Phase 23c: ad_census FULL at the full-size geometry (WIDE_FULL)
+    through ``models.batch.serve_pairs``, the users' entry, one pair a
+    batch: the route it takes (the direct pipeline: ``serve_pairs`` has no
+    other), the peak memory allocated and reserved while it serves, ms a
+    pair over SERVED_PAIRS pairs (the host's clock: ``serve_pairs`` waits for
+    each map), the spans' counters, and device ms by ``stereo/`` range, the
+    ranges of the rect mean and of the composed scanline's rows and columns
+    among them."""
+    import numpy as np
+    import torch
+
+    from stereo_match_traditional_tpu_torch import config as C
+    from stereo_match_traditional_tpu_torch.models import get_pipeline
+    from stereo_match_traditional_tpu_torch.models.batch import serve_pairs
+    from stereo_match_traditional_tpu_torch.utils.profiling import record_spans
+    from stereo_match_traditional_tpu_torch.utils.synthetic import make_pair
+
+    h, w, d = WIDE_FULL
+    cfg = C.ADCensusConfig(disp_range=d, scanline=C.ScanlineConfig(), run_post=True)
+    pairs = [make_pair(h, w, d, seed=s)[:2] for s in (0, 1)]
+
+    def serve(n):
+        return list(serve_pairs("ad_census", (pairs[k % 2] for k in range(n)), cfg))
+
+    serve(1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with record_spans() as rec:
+        t0 = time.perf_counter()
+        maps = serve(SERVED_PAIRS)
+        seconds = time.perf_counter() - t0
+    # the stage ranges of the pipeline call that serve_pairs runs inside
+    # stereo/serve_run (the serving spans have no card work of their own)
+    lt, rt = (torch.from_numpy(x).cuda() for x in pairs[0])
+    stages = profiled_stages(lambda: get_pipeline("ad_census")[0](lt, rt, cfg), 1)
+    ranges = {"rect_mean", "scanline_rows", "scanline_columns", "post"}
+    out = {"phase": "wide", "part": "served at full size", "config": "FULL", "shape": [h, w],
+           "disp_range": d, "route": "direct (models.batch.serve_pairs)", "pairs": len(maps),
+           "ms_a_pair": 1e3 * seconds / len(maps),
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "card_memory_bytes": torch.cuda.get_device_properties(0).total_memory,
+           "counters": dict(rec.counters), "stage_ms": stages}
+    emit(out)
+    check(len(maps) == SERVED_PAIRS and all(np.isfinite(m).any() for m in maps)
+          and rec.counters.get("ad_census.volume_elements") == SERVED_PAIRS * d * h * w
+          and rec.counters.get("scanline.wide_passes") == 4 * SERVED_PAIRS
+          and ranges <= set(stages), out)
+    del maps, lt, rt
     torch.cuda.empty_cache()
 
 

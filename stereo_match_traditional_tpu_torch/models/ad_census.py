@@ -11,7 +11,7 @@ from stereo_match_traditional_tpu_torch.ops.kernels import (
     scanline_optimize_canonical_cuda,
     scanline_optimize_cuda,
 )
-from stereo_match_traditional_tpu_torch.utils.profiling import stage_scope
+from stereo_match_traditional_tpu_torch.utils.profiling import count, stage_scope
 
 
 def ad_census_post(disp_l, disp_r, cfg: ADCensusConfig):
@@ -82,6 +82,10 @@ def ad_census_pipeline(
     The cost volumes (both views in one launch) and both scanlines are CUDA
     kernels for CUDA tensors and their plain versions for CPU tensors.
 
+    The rect-mean family's ``stereo/aggregate`` range holds ``stereo/arms``
+    and ``stereo/rect_mean``, and each call counts its volume's D·H·W in
+    ``ad_census.volume_elements`` (``utils.profiling``).
+
     ``return_stages=True`` returns ``(result, stages)``: ``cost_left``,
     ``cost_right``, ``aggregated_left`` and ``aggregated_right`` (the
     scanline's output where it runs: a ``[D, H, W]`` view of rows padded to
@@ -103,13 +107,17 @@ def ad_census_pipeline(
     cp = cfg.cross_params
     agg_l, agg_r = vol_l, vol_r
     if cfg.aggregation == "rect_mean":
+        count("ad_census.volume_elements", vol_l.numel())
         with stage_scope("aggregate"):
             with stage_scope("arms"):
                 arms_l = aggregate.cross_arms(left, cfg.arms)
                 arms_r = aggregate.cross_arms(right, cfg.arms)
-            for _ in range(cfg.agg_iters):
-                agg_l = aggregate.rect_mean_aggregate(agg_l, arms_l, max_span=cfg.arms.max_length)
-                agg_r = aggregate.rect_mean_aggregate(agg_r, arms_r, max_span=cfg.arms.max_length)
+            with stage_scope("rect_mean"):
+                for _ in range(cfg.agg_iters):
+                    agg_l = aggregate.rect_mean_aggregate(agg_l, arms_l,
+                                                          max_span=cfg.arms.max_length)
+                    agg_r = aggregate.rect_mean_aggregate(agg_r, arms_r,
+                                                          max_span=cfg.arms.max_length)
     elif canonical:
         with stage_scope("arms"):
             arms_l = aggregate.canonical_cross_arms(

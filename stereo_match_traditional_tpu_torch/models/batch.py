@@ -82,6 +82,34 @@ def batched_pipeline(name: str, cfg=None, method: str = "map",
     return sharded
 
 
+def _upload(side, device, pinned: bool) -> torch.Tensor:
+    """The images ``side`` stacked ``[B, H, W]`` on ``device``; with
+    ``pinned``, copied from page-locked host memory: a single image that
+    lies there already (``utils.native.PairLoader``'s on a card host) as
+    it is, else stacked into it.  The caller keeps ``side`` until its
+    stream has drained."""
+    if not pinned:
+        return torch.from_numpy(np.stack(side)).to(device)
+    first = np.asarray(side[0])
+    if len(side) == 1 and first.flags.writeable:
+        one = torch.from_numpy(first)
+        if one.is_pinned():
+            return one[None].to(device, non_blocking=True)
+    dtype = torch.from_numpy(np.empty(0, first.dtype)).dtype
+    buf = torch.empty((len(side),) + first.shape, dtype=dtype, pin_memory=True)
+    np.stack(side, out=buf.numpy())
+    return buf.to(device, non_blocking=True)
+
+
+def _download(maps: torch.Tensor, pinned: bool) -> np.ndarray:
+    """``maps`` on the host as NumPy; with ``pinned``, in page-locked memory."""
+    if not pinned:
+        return maps.cpu().numpy()
+    out = torch.empty(maps.shape, dtype=maps.dtype, pin_memory=True)
+    out.copy_(maps)
+    return out.numpy()
+
+
 def serve_pairs(
     name: str,
     pairs: Iterable[Tuple[np.ndarray, np.ndarray]],
@@ -94,9 +122,16 @@ def serve_pairs(
     arrays) for an iterable of ``(left, right)`` uint8 pairs: one map a
     pair, in order, the last batch partial where the pairs run out.
 
-    Each batch is uploaded with a plain copy: a Teddy pair is 2 x 169 KB,
-    and a copy stream with pinned staging measured no faster on the card
-    (PERF.md).  Pass a pair loader as ``pairs`` to decode the pairs
+    On the card each batch is copied up from page-locked host memory (a
+    single pair from `utils.native.PairLoader` lies there already; other
+    pairs are stacked into it), and its maps are copied down into
+    page-locked memory that the yielded arrays keep until they are
+    dropped: a pageable copy stages each byte through a bounce buffer once more
+    and faults in a fresh array's pages, host work serial with the card
+    whose time swings from run to run (the 23 MB map of a full-resolution
+    Middlebury pair took 2.4 to 5.3 ms to come down, PERF.md).  The copies
+    stay in the loop, in order: a copy stream with pinned staging measured
+    no faster at Teddy's size.  Pass a pair loader as ``pairs`` to decode the pairs
     ahead while the card runs: `utils.native.PairLoader` (C++ threads) or
     `utils.loader.PairLoader` (Python threads).  ``device`` is the card
     unless the caller asks for the CPU.  With ``mesh`` each batch is split over its
@@ -133,7 +168,7 @@ def serve_pairs(
         if mesh is not None:
             batch += batch[-1:] * (batch_size - n)
         with span("stereo/serve_upload", pair=first):
-            ls, rs = (torch.from_numpy(np.stack(side)).to(device) for side in zip(*batch))
+            ls, rs = (_upload(side, device, on_card) for side in zip(*batch))
         with span("stereo/serve_run", pair=first):
             res = run(ls, rs)
             disp = res.disp_final if res.disp_final is not None else res.disp_left
@@ -141,7 +176,7 @@ def serve_pairs(
             with span("stereo/serve_wait", pair=first):
                 torch.cuda.current_stream(disp.device).synchronize()
         with span("stereo/serve_download", pair=first):
-            maps = disp[:n].cpu().numpy()
+            maps = _download(disp[:n], on_card)
         count("serve.pairs", n)
         count("serve.bytes_up", ls.nbytes + rs.nbytes)
         count("serve.bytes_down", maps.nbytes)

@@ -25,7 +25,11 @@ is contiguous).  ``LAUNCHES`` counts each by its C entry.  Above 256
 disparities the band entries and the whole-image scanline wrappers run
 their horizontal passes as two wide launches on the d-major volume as it
 lies (:func:`scanline_optimize_composed`,
-:func:`scanline_canonical_composed`), bit for bit the plain versions.
+:func:`scanline_canonical_composed`), bit for bit the plain versions.  The
+two composed routes open the ranges ``stereo/scanline_rows`` and
+``stereo/scanline_columns`` around their horizontal and vertical passes,
+and each pass from a zero carry counts in ``scanline.wide_passes``
+(``utils.profiling``).
 
 The kernels read ``cost`` and the penalties and write the result through
 their strides, so a caller hands them a permuted view of a ``[D, t, W]``
@@ -44,6 +48,7 @@ from stereo_match_traditional_tpu_torch.ops import scanline
 from stereo_match_traditional_tpu_torch.ops.kernels.launch import (
     current, edge_bit_words, kernel_inputs, raise_on_error, stream,
 )
+from stereo_match_traditional_tpu_torch.utils.profiling import count, stage_scope
 
 # Kernel launches so far, one per call of each C entry point; a run resets
 # them to show its path went through the kernel.  Only the launches below
@@ -213,7 +218,9 @@ def canonical_pass_banded_cuda(
 def _pass(canonical, cost, pen, a, b, dm1, reverse):
     """One pass from a zero carry (the exact path seed) by the family's
     wrapper: the plain version on CPU tensors; on the card the kernel
-    :func:`pass_entry` picks (the wide one above 256 disparities)."""
+    :func:`pass_entry` picks (the wide one above 256 disparities).  Counted
+    in ``scanline.wide_passes``."""
+    count("scanline.wide_passes")
     zero = cost.new_zeros(cost.shape[1:]), cost.new_zeros(cost.shape[2:])
     if canonical:
         return canonical_pass_banded_cuda(cost, pen, zero, None, a, b, reverse=reverse)[0]
@@ -257,9 +264,11 @@ def scanline_optimize_composed(cost: torch.Tensor, gray: torch.Tensor, p1: float
     ``cost`` [D, H, W] and ``gray`` [H, W] on one device; returns a
     contiguous ``[D, H, W]`` volume."""
     c = cost.to(torch.float32)
-    lr, rl = _rows(False, c, *scanline.horizontal_p2(gray, p1, p2_init), p1, 0.0)
-    vert = _columns(False, c, *scanline.vertical_p2(gray, p1, p2_init, first_ref), p1, 0.0,
-                    vert_dm1)
+    with stage_scope("scanline_rows"):
+        lr, rl = _rows(False, c, *scanline.horizontal_p2(gray, p1, p2_init), p1, 0.0)
+    with stage_scope("scanline_columns"):
+        vert = _columns(False, c, *scanline.vertical_p2(gray, p1, p2_init, first_ref), p1, 0.0,
+                        vert_dm1)
     out = torch.add(lr, rl, out=torch.empty(c.shape, dtype=torch.float32, device=c.device))
     out += vert
     return out
@@ -279,10 +288,12 @@ def scanline_canonical_composed(cost: torch.Tensor, left: torch.Tensor, right: t
     d = c.shape[0]
     right_view = view == "right"
     base, match = (right, left) if right_view else (left, right)
-    s = scanline.horizontal_scales(d, base, match, tso, right_view)            # [W + 1, D, H]
-    lr, rl = _rows(True, c, s[:-1], s[1:], p1, p2)
-    s = scanline.vertical_scales(d, base, match, tso, right_view)              # [H + 1, D, W]
-    vert = _columns(True, c, s[:-1], s[1:], p1, p2, True)
+    with stage_scope("scanline_rows"):
+        s = scanline.horizontal_scales(d, base, match, tso, right_view)        # [W + 1, D, H]
+        lr, rl = _rows(True, c, s[:-1], s[1:], p1, p2)
+    with stage_scope("scanline_columns"):
+        s = scanline.vertical_scales(d, base, match, tso, right_view)          # [H + 1, D, W]
+        vert = _columns(True, c, s[:-1], s[1:], p1, p2, True)
     del s
     out = torch.add(lr, rl, out=torch.empty(c.shape, dtype=torch.float32, device=c.device))
     out += vert

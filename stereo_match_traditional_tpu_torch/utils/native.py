@@ -35,6 +35,7 @@ from pathlib import Path
 from typing import Iterable, Tuple
 
 import numpy as np
+import torch
 
 from stereo_match_traditional_tpu_torch.utils.profiling import span
 
@@ -272,10 +273,18 @@ class PairLoader:
     ``max_bytes`` a side stays queued on the C side, which reports its
     geometry; the buffers grow and the pair is taken on the retry.
 
+    The C side copies each pair into buffers that the yielded arrays then
+    own: fresh buffers, sized to the last pair, are made for the next one.
+    Where a card is present they are page-locked (from torch's caching
+    host allocator, so a block freed by an earlier pair is reused without
+    faulting its pages in again), and ``models.batch.serve_pairs`` copies a
+    single pair to the card straight from them.
+
     Each ``next()`` is two :func:`utils.profiling.span` s with ``pair=``
     the pair's index in the loader's stream: ``stereo/loader_wait`` (the
-    wait on the pool, both tries where the buffers grow) and
-    ``stereo/loader_copy`` (the pair copied out of the buffers).
+    wait on the pool and the C side's copy, both tries where the buffers
+    grow) and ``stereo/loader_copy`` (the pair handed over and the next
+    pair's buffers made).
     """
 
     def __init__(
@@ -293,9 +302,16 @@ class PairLoader:
         rights = (ctypes.c_char_p * len(items))(*[b for _, b in items])
         # the C side copies the paths before it returns
         self._handle = lib.smt_loader_create(lefts, rights, len(items), threads, depth)
-        self._buf_l = np.empty(max_bytes, np.uint8)
-        self._buf_r = np.empty(max_bytes, np.uint8)
+        self._pinned = torch.cuda.is_available()
+        self._buf_l, self._buf_r = self._buffers(max_bytes)
         self._taken = 0
+
+    def _buffers(self, nbytes: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Two fresh uint8 buffers of ``nbytes``, page-locked where a card is present."""
+        if self._pinned:
+            return tuple(torch.empty(nbytes, dtype=torch.uint8, pin_memory=True).numpy()
+                         for _ in range(2))
+        return np.empty(nbytes, np.uint8), np.empty(nbytes, np.uint8)
 
     def __iter__(self):
         return self
@@ -311,9 +327,7 @@ class PairLoader:
         with span("stereo/loader_wait", pair=self._taken):
             rc = self._next(h, w)
             if rc == -3:
-                need = h.value * w.value
-                self._buf_l = np.empty(need, np.uint8)
-                self._buf_r = np.empty(need, np.uint8)
+                self._buf_l, self._buf_r = self._buffers(h.value * w.value)
                 rc = self._next(h, w)
         if rc == 1:
             self.close()
@@ -324,8 +338,9 @@ class PairLoader:
                           f"(error {rc})")
         n = h.value * w.value
         with span("stereo/loader_copy", pair=self._taken - 1):
-            left = self._buf_l[:n].reshape(h.value, w.value).copy()
-            right = self._buf_r[:n].reshape(h.value, w.value).copy()
+            left = self._buf_l[:n].reshape(h.value, w.value)
+            right = self._buf_r[:n].reshape(h.value, w.value)
+            self._buf_l, self._buf_r = self._buffers(n)
         return left, right
 
     def close(self) -> None:

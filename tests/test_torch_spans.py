@@ -321,7 +321,8 @@ def test_legacy_full_ranges_nest_arms_in_aggregate_and_the_post_chain_in_post():
     rec, tree = _stage_tree(cfgs.ADCensusConfig(disp_range=8, scanline=cfgs.ScanlineConfig(),
                                                 run_post=True))
     assert tree == {("stereo/cost_volume", None), ("stereo/aggregate", None),
-                    ("stereo/arms", "stereo/aggregate"), ("stereo/scanline", None),
+                    ("stereo/arms", "stereo/aggregate"), ("stereo/rect_mean", "stereo/aggregate"),
+                    ("stereo/scanline", None),
                     ("stereo/wta", None), ("stereo/post", None),
                     ("stereo/lr_check", "stereo/post"), ("stereo/speckle", "stereo/post"),
                     ("stereo/fill", "stereo/post"), ("stereo/median", "stereo/post")}
@@ -339,3 +340,49 @@ def test_canonical_ranges_are_unchanged():
                     ("stereo/wta", None), ("stereo/post", None),
                     ("stereo/lr_check", "stereo/post"), ("stereo/region_voting", "stereo/post"),
                     ("stereo/median", "stereo/post")}
+
+
+def _full(d):
+    return cfgs.ADCensusConfig(disp_range=d, scanline=cfgs.ScanlineConfig(), run_post=True)
+
+
+@pytest.mark.parametrize("d", [8, 300])
+def test_full_counts_its_volume_elements_a_pair(d):
+    pairs = _pairs(3, d=d)
+    with record_spans() as rec:
+        maps = list(serve_pairs("ad_census", pairs, _full(d), device="cpu"))
+    assert len(maps) == 3 and rec.counters["ad_census.volume_elements"] == 3 * d * 24 * 40
+    rect = [s for s in rec.spans if s.name == "stereo/rect_mean"]
+    assert [s.pair for s in rect] == [0, 1, 2]
+    assert all(rec.spans[s.parent].name == "stereo/aggregate" for s in rect)
+
+
+@pytest.mark.parametrize("d", [8, 300])
+def test_full_maps_are_unchanged_while_recording(d):
+    left, right, _ = make_pair(24, 40, d, seed=4)
+    fn, _ = get_pipeline("ad_census")
+    args = (torch.from_numpy(left), torch.from_numpy(right), _full(d))
+    off = fn(*args)
+    with record_spans():
+        on = fn(*args)
+    for a, b in zip(off, on):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+def test_the_composed_route_spans_its_rows_and_columns_and_counts_its_passes(canonical):
+    from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
+
+    gen = torch.Generator().manual_seed(5)
+    cost = torch.rand((9, 7, 10), generator=gen) * 4
+    grey = [torch.randint(0, 256, (7, 10), generator=gen, dtype=torch.uint8) for _ in range(2)]
+    with record_spans() as rec:
+        with span("stereo/scanline"):
+            if canonical:
+                banded.scanline_canonical_composed(cost, *grey, 1.0, 3.0, 15.0, "left")
+            else:
+                banded.scanline_optimize_composed(cost, grey[0], 10.0, 150.0, True, False)
+    tree = [(s.name, rec.spans[s.parent].name if s.parent >= 0 else None) for s in rec.spans]
+    assert tree == [("stereo/scanline", None), ("stereo/scanline_rows", "stereo/scanline"),
+                    ("stereo/scanline_columns", "stereo/scanline")]
+    assert rec.counters == {"scanline.wide_passes": 4}

@@ -132,3 +132,47 @@ def test_serve_pairs_on_card_equals_single_calls(tmp_path):
     batched = batched_pipeline("ad_census", cfg)(ls, rs)
     for k in range(3):
         np.testing.assert_array_equal(batched.disp_left[k].cpu().numpy(), want[k])
+
+
+@pytest.mark.cuda
+def test_serve_pairs_on_card_copies_through_page_locked_memory():
+    """Five pairs in batches of 2 (the last partial): each map the single
+    call's bit for bit and held in page-locked host memory, which stays
+    valid after later batches reuse the allocator's blocks."""
+    _need_card()
+    cfg = ADCensusConfig(disp_range=D, scanline=ScanlineConfig(), run_post=True)
+    pairs = [make_pair(H, W, D, seed=s)[:2] for s in range(5)]
+    fn = get_pipeline("ad_census")[0]
+    want = [fn(*pair_to_torch(l, r, "cuda"), cfg).disp_final.cpu().numpy() for l, r in pairs]
+    got = list(serve_pairs("ad_census", iter(pairs), cfg, batch_size=2))
+    assert len(got) == 5
+    for g, w in zip(got, want):
+        assert torch.from_numpy(g).is_pinned()
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_native_loader_pairs_are_page_locked_and_served_as_they_lie(tmp_path):
+    """On a card host the native loader yields each pair in page-locked
+    buffers of its own; ``serve_pairs`` copies them up as they lie (batches
+    of one) and its maps are the single calls', bit for bit."""
+    _need_card()
+    from stereo_match_traditional_tpu_torch.utils import native
+
+    cfg = ADCensusConfig(disp_range=D, scanline=ScanlineConfig(), run_post=True)
+    pairs = [make_pair(H, W, D, seed=s)[:2] for s in range(4)]
+    paths = []
+    for k, (l, r) in enumerate(pairs):
+        paths.append((str(tmp_path / f"l{k}.pgm"), str(tmp_path / f"r{k}.pgm")))
+        native.write_pnm(paths[-1][0], l)
+        native.write_pnm(paths[-1][1], r)
+    got = list(native.PairLoader(paths, threads=2, depth=2))
+    for (gl, gr), (wl, wr) in zip(got, pairs, strict=True):
+        assert torch.from_numpy(gl).is_pinned() and torch.from_numpy(gr).is_pinned()
+        np.testing.assert_array_equal(gl, wl)
+        np.testing.assert_array_equal(gr, wr)
+    fn = get_pipeline("ad_census")[0]
+    want = [fn(*pair_to_torch(l, r, "cuda"), cfg).disp_final.cpu().numpy() for l, r in pairs]
+    served = list(serve_pairs("ad_census", native.PairLoader(paths, threads=2, depth=2), cfg))
+    for g, w in zip(served, want, strict=True):
+        np.testing.assert_array_equal(g, w)
