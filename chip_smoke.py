@@ -77,7 +77,11 @@ ad_census FULL at both sizes with its launch counts, device kernels and
 stage times beside the same calls on the plain bodies, whose maps it
 equals bit for bit, as do sad, asw and cblsm with post there, the 4K
 legacy FULL call of phase 21 (its peak memory not above) and the tiled
-legacy FULL calls of phase 22.  Each
+legacy FULL calls of phase 22.  Then the region voting kernel (phase 26)
+on the maps and arms the canonical post hands it at 375x450/D=60,
+375x1242/D=128, 720x1280/D=128 and the 4K streamed canonical call's whole
+map: bit for bit against the plain body, its targets and launches, timed
+in turns with the plain body, back to back and by kernel.  Each
 phase prints one JSON line; any failure raises and exits non-zero.  The
 last three lines are the card's ``nvidia-smi`` name and power limit, the
 kernel summary ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -86,7 +90,7 @@ bound: the least time the card could take for the same function at the
 same shape, the larger of its bytes (every input once, the output once)
 over the card's memory rate and its operations (by the cheapest exact
 algorithm known) over the card's float32 rate.  No single PyTorch call
-computes any of the eighteen entries' functions, so ``library_ms`` is null.
+computes any of the nineteen entries' functions, so ``library_ms`` is null.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -96,6 +100,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import inspect
 import json
 import os
 import re
@@ -264,6 +269,11 @@ HUGE_ACCURACY = {("representative", "FULL parity"): 0.1524, ("legacy", "active")
                  ("legacy", "canonical FULL"): 0.4107}
 HUGE_BAD2_TOL = 0.005
 HUGE_TIMED_CALLS = 2
+# The region voting kernel's phase: the canonical post's own inputs at
+# Teddy, KITTI (the benchmark's pairs: feature_scale 24 * D // 60) and 720p,
+# and the 4K streamed canonical call's whole map
+VOTING_SHAPES = [(*TEDDY, 24), (375, 1242, 128, 51), (720, 1280, 128, 51)]
+VOTING_KERNELS = ("vote_prep_kernel", "vote_count_kernel", "vote_apply_kernel")
 # The tiled executor (phase 22): the d-slices of the two kernels with
 # d_offset at Teddy (D=60 in three slices, ncc's committed D=200 in four),
 # two ranks on the one card for the two-rank run, timed calls a Teddy run
@@ -679,6 +689,7 @@ def main() -> None:
     wide = wide_phase()
     examples_phase()
     agg = agg_post_phase()
+    voting = region_voting_phase()
 
     for banned in ("jax", "stereo_match_traditional_tpu"):   # the name or a dotted prefix
         loaded = [m for m in sys.modules if m == banned or m.startswith(banned + ".")]
@@ -737,7 +748,8 @@ def main() -> None:
             "route": "cuda",
             "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/scanline_canonical.cu",
             "replaces": "stereo_match_traditional_tpu/ops/scanline.py:326",
-            **{k: v for k, v in canon.items() if k != "cross_aggregate_f32"},
+            **{k: v for k, v in canon.items()
+               if k not in ("cross_aggregate_f32", "region_voting_f32")},
         },
         {
             "name": "cross_aggregate_f32",
@@ -814,6 +826,14 @@ def main() -> None:
               ("fill_pass_f32", "post.cu", "post.py:629"),
               ("fill_holes_8dir_f32", "post.cu", "post.py:658"),
               ("remove_speckles_f32", "post.cu", "post.py:169"))),
+        {
+            "name": "region_voting_f32",
+            "route": "cuda",
+            "source": "stereo_match_traditional_tpu_torch/ops/kernels/csrc/region_voting.cu",
+            "replaces": "stereo_match_traditional_tpu/ops/post.py:886",
+            **canon["region_voting_f32"],
+            **voting,
+        },
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -1683,7 +1703,9 @@ def canonical_phases() -> dict:
     its plain version, ``get_pipeline("ad_census")`` with
     ``aggregation='cross_two_pass'`` active and FULL at the reference size
     and at 720p, ``get_pipeline("cblsm")`` with it at the reference size, and
-    timings.  Returns the kernel's summary fields."""
+    timings.  Returns the kernel's summary fields, the cross aggregation's
+    and, for the voting's row, the voting launches of the main path's
+    canonical FULL call at Teddy."""
     import numpy as np
     import torch
 
@@ -1691,7 +1713,7 @@ def canonical_phases() -> dict:
     from stereo_match_traditional_tpu_torch.models import get_pipeline
     from stereo_match_traditional_tpu_torch.ops import aggregate, scanline
     from stereo_match_traditional_tpu_torch.ops.kernels import (
-        ad_census_cuda, aggregate_cuda, scanline_canonical_cuda, scanline_cuda,
+        ad_census_cuda, aggregate_cuda, post_cuda, scanline_canonical_cuda, scanline_cuda,
     )
     from stereo_match_traditional_tpu_torch.utils.convert import (
         pair_to_torch, result_to_numpy,
@@ -1758,6 +1780,7 @@ def canonical_phases() -> dict:
         pfn = get_pipeline(name)[0]
         ad_census_cuda.LAUNCHES = scanline_canonical_cuda.LAUNCHES = scanline_cuda.LAUNCHES = 0
         aggregate_cuda.LAUNCHES.update(dict.fromkeys(aggregate_cuda.LAUNCHES, 0))
+        post_cuda.LAUNCHES["region_voting_f32"] = 0
         res = pfn(lt, rt, cfg)
         torch.cuda.synchronize()
         launches = {"ad_census_volume_f32": ad_census_cuda.LAUNCHES,
@@ -1766,6 +1789,10 @@ def canonical_phases() -> dict:
                     "cross_support_f32": aggregate_cuda.LAUNCHES["cross_support_f32"],
                     "cross_aggregate_f32": aggregate_cuda.LAUNCHES["cross_aggregate_f32"]}
         check(tuple(launches.values()) == (*per_call, 2, 2 * cfg.cross_params.num_iters),
+              (name, label, launches))
+        # the canonical post votes by one launch; cblsm does not vote
+        launches["region_voting_f32"] = post_cuda.LAUNCHES["region_voting_f32"]
+        check(launches["region_voting_f32"] == int(name == "ad_census" and cfg.run_post),
               (name, label, launches))
         if (name, label, hh) == ("ad_census", "canonical FULL", h):
             counted = launches
@@ -1918,7 +1945,10 @@ def canonical_phases() -> dict:
                 "library_ms": None, "ms_covers": "one view (a support and four iterations)",
                 "back_to_back_ms": cross_teddy["back_to_back_ms"],
                 "at_kitti": cross[f"{KITTI[0]}x{KITTI[1]}/D={KITTI[2]}"],
-                "at_720p": cross[f"{SERVING[0]}x{SERVING[1]}/D={SERVING[2]}"]}}
+                "at_720p": cross[f"{SERVING[0]}x{SERVING[1]}/D={SERVING[2]}"]},
+            "region_voting_f32": {  # launches: canonical FULL at Teddy, one call
+                "launches": counted["region_voting_f32"],
+                "launches_per_call": counted["region_voting_f32"]}}
 
 
 def variants_phase() -> dict:
@@ -3654,6 +3684,122 @@ def tiled_phase(kind: str) -> dict:
         summary[k]["launches"] = n
     emit({"phase": "tiled", "part": "done", "seconds": time.perf_counter() - start})
     return summary
+
+
+def _voting_inputs(call):
+    """The arguments of the first ``post.iterative_region_voting`` call that
+    ``call()`` makes: the canonical post's LR-checked map, the left arms,
+    and the rest as the post passes them."""
+    from stereo_match_traditional_tpu_torch.ops import post
+
+    seen = []
+    real = post.iterative_region_voting
+
+    def spy(disp, arms, *a, **k):
+        if not seen:
+            seen.append((disp.clone(), arms, a, k))
+        return real(disp, arms, *a, **k)
+
+    post.iterative_region_voting = spy
+    try:
+        call()
+    finally:
+        post.iterative_region_voting = real
+    check(len(seen) == 1, "the call voted")
+    return seen[0]
+
+
+def region_voting_phase() -> dict:
+    """Phase 26, the region voting kernel (``csrc/region_voting.cu``) on the
+    inputs the canonical post hands it (ad_census canonical FULL at Teddy,
+    KITTI and 720p, the streamed canonical call at 4K/D=256): the map bit
+    for bit against the plain body's, the targets (``region_voting.targets``
+    inside ``record_spans()``) and launches, and the kernel and the plain
+    body timed by CUDA events in turns, back to back and by kernel.
+    Returns the kernel's summary fields but its launches, which phase 13
+    counts on the main path; ``max_abs_err`` is the largest over the
+    shapes.  Runs alone:
+    ``TEARDOWN_CUPTI=0 python3 -c "import chip_smoke; chip_smoke.region_voting_phase()"``."""
+    import torch
+
+    from stereo_match_traditional_tpu_torch import ADCensusConfig, ScanlineConfig
+    from stereo_match_traditional_tpu_torch.models import get_pipeline
+    from stereo_match_traditional_tpu_torch.ops import post
+    from stereo_match_traditional_tpu_torch.ops.kernels import post_cuda
+    from stereo_match_traditional_tpu_torch.parallel.streamed import streamed_canonical_staged
+    from stereo_match_traditional_tpu_torch.utils import profiling
+    from stereo_match_traditional_tpu_torch.utils.convert import pair_to_torch
+    from stereo_match_traditional_tpu_torch.utils.synthetic import make_pair
+
+    start = time.perf_counter()
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
+    fn = get_pipeline("ad_census")[0]
+    cases = []
+    for hh, ww, dd, scale in VOTING_SHAPES:
+        cfg = ADCensusConfig(disp_range=dd, aggregation="cross_two_pass",
+                             scanline=ScanlineConfig(), run_post=True)
+        lt, rt = pair_to_torch(*make_pair(hh, ww, dd, seed=0, feature_scale=scale)[:2], "cuda")
+        cases.append((f"{hh}x{ww}/D={dd}", cfg,
+                      lambda lt=lt, rt=rt, cfg=cfg: fn(lt, rt, cfg)))
+    hh, hw, hd = HUGE
+    cfg = ADCensusConfig(disp_range=hd, aggregation="cross_two_pass", scanline=ScanlineConfig(),
+                         run_post=True)
+    lt4, rt4 = pair_to_torch(*make_pair(hh, hw, hd, seed=0, feature_scale=HUGE_PAIR_SCALE)[:2],
+                             "cuda")
+    staged = streamed_canonical_staged(cfg)
+    cases.append((f"{hh}x{hw}/D={hd} streamed whole map", cfg, lambda: staged(lt4, rt4)))
+
+    out = {}
+    for label, cfg, call in cases:
+        disp, arms, a, k = _voting_inputs(call)
+        torch.cuda.empty_cache()
+        h, w = disp.shape
+        called = inspect.signature(post.iterative_region_voting).bind(disp, arms, *a, **k)
+        called.apply_defaults()
+        nd, iters = called.arguments["disp_range"], called.arguments["num_iters"]
+        kernel = lambda: post.iterative_region_voting(disp, arms, *a, **k)  # noqa: E731
+        plain = lambda: post._iterative_region_voting_plain(disp, arms, *a, **k)  # noqa: E731
+        before = post_cuda.LAUNCHES["region_voting_f32"]
+        with profiling.record_spans() as rec:
+            got = kernel()
+        torch.cuda.synchronize()
+        launches = post_cuda.LAUNCHES["region_voting_f32"] - before
+        targets = rec.counters.get("region_voting.targets", 0)
+        want = plain()
+        invalid = int((disp == post.INVALID).sum())
+        # 0 where the two agree, invalid pixels included (inf - inf is nan)
+        err = torch.where(got == want, 0.0, (got - want).abs()).max().item()
+        r = {"phase": "region_voting", "shape": [h, w], "disp_range": nd, "config": label,
+             "bit_exact": torch.equal(got.view(torch.int32), want.view(torch.int32)),
+             "max_abs_err": err, "launches": launches, "invalid_before": invalid,
+             "invalid_after": int((got == post.INVALID).sum()), "targets": targets,
+             "targets_share_of_pixel_iterations": targets / (h * w * iters)}
+        check(r["bit_exact"] and launches == 1 and 0 < targets <= invalid * iters, r)
+        del got, want
+        reps = 1 if h * w > 4e6 else 3
+        kernel_ms, plain_ms = alternate(plain, kernel, reps, 10)
+        r.update(kernel_ms=kernel_ms, plain_ms=plain_ms, back_to_back_ms=back_to_back_ms(kernel),
+                 kernels_ms={}, **bound(24.0 * h * w, 0.0))
+        # by kernel, and the launches each made in the trace (the count and
+        # apply kernels once an iteration)
+        events = traced_events(kernel, 5)
+        for name in VOTING_KERNELS:
+            durs = [e["dur"] for e in events if e.get("cat") == "kernel" and name in e["name"]]
+            r["kernels_ms"][name] = {"ms": sum(durs) / 1e3 / 5, "launches": len(durs) / 5,
+                                     "each_ms": [d / 1e3 for d in durs[:iters]]}
+        r["share_of_bound"] = r["bound_ms"] / r["kernel_ms"]
+        r["share_of_bound_back_to_back"] = r["bound_ms"] / r["back_to_back_ms"]
+        emit(r)
+        out[label] = r
+        del disp, arms
+        torch.cuda.empty_cache()
+    emit({"phase": "region_voting", "part": "done", "seconds": time.perf_counter() - start})
+    teddy = out[f"{TEDDY[0]}x{TEDDY[1]}/D={TEDDY[2]}"]
+    return {"max_abs_err": max(r["max_abs_err"] for r in out.values()), "ms": teddy["kernel_ms"], "plain_ms": teddy["plain_ms"],
+            "bound_ms": teddy["bound_ms"], "bound_by": teddy["bound_by"], "library_ms": None,
+            "ms_covers": "one call: five iterations (2 kernels each), the prep and a memset",
+            "back_to_back_ms": teddy["back_to_back_ms"], "kernels_ms": teddy["kernels_ms"],
+            "at": {k: v for k, v in out.items() if v is not teddy}}
 
 
 @contextlib.contextmanager

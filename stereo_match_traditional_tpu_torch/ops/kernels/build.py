@@ -161,6 +161,9 @@ def library() -> ctypes.CDLL:
     lib.remove_speckles_f32.argtypes = [vp, vp, vp, i32, i32, f32, f32, i32, i32, i32, f32,
                                         vp]
     lib.remove_speckles_f32.restype = i32
+    lib.region_voting_f32.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, f32, f32, i32, f32,
+                                      vp, vp, vp]
+    lib.region_voting_f32.restype = i32
     lib.stereo_kernels_error_string.argtypes = [i32]
     lib.stereo_kernels_error_string.restype = ctypes.c_char_p
     return lib

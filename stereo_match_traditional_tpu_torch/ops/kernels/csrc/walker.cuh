@@ -13,10 +13,11 @@
 
 #include <cstddef>
 
+#include "device.cuh"
+
 namespace {
 
 constexpr size_t WALK_SHARED_LIMIT = 232448;  // dynamic shared memory a block may use
-constexpr int MAX_DEVICES = 64;  // devices whose launch attributes a process keeps
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned a = (unsigned)__cvta_generic_to_shared(dst);

@@ -1,13 +1,15 @@
-"""CUDA 8-direction hole fill and speckle removal (``csrc/post.cu``).
+"""CUDA 8-direction hole fill and speckle removal (``csrc/post.cu``) and
+iterative region voting (``csrc/region_voting.cu``).
 
 Counterparts of ``ops.post.fill_holes_8dir`` (and of one of its passes,
-``ops.post._fill_from_candidates``) and ``ops.post.remove_speckles``,
-whose private ``_plain`` bodies are their plain versions.  No Pallas kernel
-stands behind them: they replace the XLA ops of the JAX package's
-``fill_holes_8dir`` (`stereo_match_traditional_tpu/ops/post.py:658`) and
-``remove_speckles`` (`:169`).  Dispatch is by the device of the inputs,
-never by a fallback: CPU tensors take the plain version; CUDA tensors launch
-the kernel or raise.  ``ops.post``'s public functions call these for CUDA
+``ops.post._fill_from_candidates``), ``ops.post.remove_speckles`` and
+``ops.post.iterative_region_voting``, whose private ``_plain`` bodies are
+their plain versions.  No Pallas kernel stands behind them: they replace
+the XLA ops of the JAX package's ``fill_holes_8dir``
+(`stereo_match_traditional_tpu/ops/post.py:658`), ``remove_speckles``
+(`:169`) and ``iterative_region_voting`` (`:886`).  Dispatch is by the
+device of the inputs, never by a fallback: CPU tensors take the plain
+version; CUDA tensors launch the kernel or raise.  ``ops.post``'s public functions call these for CUDA
 tensors.
 
 The fill's kernels search bitsets of the map's finite pixels along its
@@ -18,7 +20,9 @@ values, and the speckle filter's output depends only on the component
 areas, which any exact labelling gives.  The speckle kernel
 labels to the fixpoint on the device, so the plain version's ``max_iters``
 cap has no counterpart: an explicit cap below the plain version's default
-raises rather than give another result.
+raises rather than give another result.  The voting counts each invalid
+pixel's region in a histogram of its own, integers in any order, and
+decides by the plain version's float32 tests: bit for bit too.
 """
 
 from __future__ import annotations
@@ -33,12 +37,19 @@ from stereo_match_traditional_tpu_torch.ops.kernels.launch import (
     raise_on_error,
     stream,
 )
+from stereo_match_traditional_tpu_torch.utils import profiling
 
 # Kernel launches so far, one per call of each C entry point (a
 # fill_holes_8dir call is one of fill_holes_8dir_f32: three passes, each the
 # tile kernel and the search kernel); a run resets them to show its path
 # went through the kernels.  Only the launches below increment them.
-LAUNCHES = {"fill_pass_f32": 0, "fill_holes_8dir_f32": 0, "remove_speckles_f32": 0}
+LAUNCHES = {"fill_pass_f32": 0, "fill_holes_8dir_f32": 0, "remove_speckles_f32": 0,
+            "region_voting_f32": 0}
+
+# The voting's bins are int16 (-1 for a pixel that votes in none) and its
+# spans two uint16 columns: the disparities and the widths it takes.
+VOTE_MAX_DISPARITIES = 32767
+VOTE_MAX_WIDTH = 65536
 
 
 def fill_bits_words(h: int, w: int) -> int:
@@ -212,4 +223,63 @@ def remove_speckles_cuda(
         )
     raise_on_error(lib, "remove_speckles_f32", err)
     LAUNCHES["remove_speckles_f32"] += 1
+    return out
+
+
+def voting_scratch_words(h: int, w: int, num_iters: int) -> int:
+    """A voting call's scratch in 32-bit words: ``num_iters + 1`` target
+    counts (rounded up to 4 words), each pixel's packed horizontal span, two
+    target lists and a decision a target, and an int16 bin a pixel."""
+    n = h * w
+    return (num_iters + 4) // 4 * 4 + 4 * n + -(-n // 2)
+
+
+def region_voting_cuda(disp, arms, disp_range: int, ts: float = 20.0, th: float = 0.4,
+                       num_iters: int = 5, invalid_value: float = float("inf")):
+    """Drop-in for ``ops.post.iterative_region_voting`` (its ``max_arm`` and
+    ``d_chunk`` change nothing here) for a CUDA map (float32 ``[H, W]``; the
+    arms int32 ``[H, W]`` on its device), the plain version for a CPU map.
+    One launch of ``region_voting_f32``: the bins, spans and target list,
+    then two kernels an iteration (each target's region counted by a warp,
+    then the fills applied and the targets left listed); no ``[D, H, W]``
+    tensor.  Arms below 0 are read as 0.  Inside ``record_spans()`` the
+    counter ``region_voting.targets`` gets the targets counted, summed over
+    the iterations (a host sync; nothing is read outside a record)."""
+    from stereo_match_traditional_tpu_torch.ops import post
+
+    if not disp.is_cuda:
+        return post._iterative_region_voting_plain(disp, arms, disp_range, ts, th, num_iters,
+                                                   invalid_value)
+    from stereo_match_traditional_tpu_torch.ops.kernels.build import library
+
+    _check_map("disp", disp)
+    if disp.dtype != torch.float32:
+        raise ValueError(f"disp must be float32, got {disp.dtype}")
+    h, w = disp.shape
+    if not 1 <= disp_range <= VOTE_MAX_DISPARITIES:
+        raise ValueError(f"disp_range must lie in [1, {VOTE_MAX_DISPARITIES}], got {disp_range}")
+    if w > VOTE_MAX_WIDTH or h * w >= 2**31:
+        raise ValueError(f"map outside the kernel's shapes: {h}x{w}")
+    maps = [getattr(arms, k) for k in ("left", "right", "up", "down")]
+    for name, a in zip(("left", "right", "up", "down"), maps):
+        if a.shape != disp.shape or a.device != disp.device or a.dtype != torch.int32:
+            raise ValueError(f"arms.{name} must be int32 [{h}, {w}] on {disp.device}, got "
+                             f"{a.dtype} {tuple(a.shape)} on {a.device}")
+    if num_iters < 1:
+        return disp
+    maps = [a.contiguous() for a in maps]
+    src = disp.contiguous()
+    out = torch.empty_like(src)
+    scratch = torch.empty(voting_scratch_words(h, w, num_iters), dtype=torch.int32,
+                          device=src.device)
+    lib = library()
+    with current(src.device):
+        err = lib.region_voting_f32(
+            src.data_ptr(), *(a.data_ptr() for a in maps), h, w, int(disp_range), float(ts),
+            float(th), int(num_iters), float(invalid_value), out.data_ptr(), scratch.data_ptr(),
+            stream(src.device))
+    raise_on_error(lib, "region_voting_f32", err)
+    LAUNCHES["region_voting_f32"] += 1
+    if profiling.recording():
+        profiling.count("region_voting.targets", int(scratch[:num_iters].sum()))
     return out

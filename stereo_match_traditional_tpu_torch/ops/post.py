@@ -489,13 +489,30 @@ def iterative_region_voting(
     bin more than ``th`` of them.  Pixels filled in one iteration vote in
     the next.  ``arms`` is an `aggregate.Arms`.
 
-    The votes are integer prefix sums of the one-hot slices, so every count
-    is exact; ``d_chunk`` bounds memory to ``d_chunk`` slices at a time, and
-    the strict ``>`` running argmax over ascending chunks keeps argmax's
-    first-maximum rule, so chunked and monolithic results agree bit for bit.
-    ``max_arm`` takes the JAX package's position (a TPU pick strategy there)
-    and changes nothing.
+    A CUDA map takes one call of the voting's C entry
+    (``ops.kernels.post_cuda.region_voting_cuda``: a histogram of each
+    invalid pixel's region, counted by a warp, with no [D, H, W] tensor), a
+    CPU map runs the plain version below; the two agree bit for bit.  The
+    kernel ignores ``d_chunk``, which only bounds the plain version's
+    memory: the result is exact either way.  ``max_arm`` takes the JAX
+    package's position (a TPU pick strategy there) and changes nothing.
     """
+    if disp.is_cuda:
+        from stereo_match_traditional_tpu_torch.ops.kernels.post_cuda import region_voting_cuda
+
+        return region_voting_cuda(disp, arms, disp_range, ts, th, num_iters, invalid_value)
+    return _iterative_region_voting_plain(disp, arms, disp_range, ts, th, num_iters,
+                                          invalid_value, d_chunk)
+
+
+def _iterative_region_voting_plain(disp, arms, disp_range, ts=20.0, th=0.4, num_iters=5,
+                                   invalid_value=INVALID, d_chunk=None):
+    """The plain version of :func:`iterative_region_voting`: the votes are
+    integer prefix sums of the one-hot slices, so every count is exact;
+    ``d_chunk`` bounds memory to ``d_chunk`` slices at a time, and the
+    strict ``>`` running argmax over ascending chunks keeps argmax's
+    first-maximum rule, so chunked and monolithic results agree bit for
+    bit."""
     d_chunk = disp_range if d_chunk is None else min(d_chunk, disp_range)
 
     def bin_votes(dint, ds):

@@ -179,6 +179,12 @@ def count(name: str, n: int = 1) -> None:
             rec.counters[name] = rec.counters.get(name, 0) + n
 
 
+def recording() -> bool:
+    """Whether a :func:`record_spans` record is open: a counter that costs
+    a host sync to read (a word on the card) is read only then."""
+    return _record is not None
+
+
 @contextlib.contextmanager
 def record_spans():
     """Record every span and count of the process while the block runs;

@@ -1960,7 +1960,7 @@ def test_ad_census_full_launches_agg_post_kernels_on_card(monkeypatch):
     assert {k: after[k] - before[k] for k in after} == {
         "cross_arms_i32": 2, "rect_mean_f32": 0, "rect_mean_walker_f32": 2, "fill_pass_f32": 0,
         "fill_holes_8dir_f32": 1, "remove_speckles_f32": 1, "cross_support_f32": 0,
-        "cross_aggregate_f32": 0}
+        "cross_aggregate_f32": 0, "region_voting_f32": 0}
     def rect_plain(vol, arms, inclusive=True, max_span=None, layout="auto"):
         return aggregate._rect_mean_aggregate_plain(vol, arms, inclusive)
 
