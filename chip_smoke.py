@@ -595,8 +595,8 @@ def main() -> None:
     for h, w, d, win, seed, view in KERNEL_GEOMETRIES:
         L, R, _ = make_pair(h, w, d, seed=seed)
         lt, rt = pair_to_torch(L, R, "cuda")
-        got = asw_cuda.asw_volume_cuda(lt, rt, d, win, view=view)
-        want = volume.asw_volume(lt, rt, d, win, view=view)
+        got = volume.asw_volume(lt, rt, d, win, view=view)
+        want = volume._asw_volume_plain(lt, rt, d, win, view=view)
         torch.cuda.synchronize()
         err = (got - want).abs()
         rec = {"phase": "kernel_check", "geometry": [h, w, d, win, view],
@@ -645,13 +645,13 @@ def main() -> None:
         L2, R2, _ = make_pair(th, tw, td, seed=seed)
         l2, r2 = pair_to_torch(L2, R2, "cuda")
         k_ms, p_ms = alternate(
+            lambda: volume._asw_volume_plain(l2, r2, td, 11),
             lambda: volume.asw_volume(l2, r2, td, 11),
-            lambda: asw_cuda.asw_volume_cuda(l2, r2, td, 11),
             plain_reps=2, kernel_reps=10,
         )
         lf, rf = l2.float(), r2.float()
         raw_ms = statistics.median(cuda_ms(
-            lambda: asw_cuda._launch_left(lf, rf, td, 12, 50.0, 30.0, 40.0), 20))
+            lambda: asw_cuda.asw_volume_left_cuda(lf, rf, td, 12, 50.0, 30.0, 40.0), 20))
         timing[th, tw, td] = {"kernel_ms": k_ms, "plain_ms": p_ms}
         emit({"phase": "timing_volume", "shape": [th, tw], "disp_range": td,
               "kernel_ms": k_ms, "launch_only_ms": raw_ms, "plain_ms": p_ms,
@@ -659,12 +659,12 @@ def main() -> None:
 
     fn(lt, rt, cfg)
     pipe_ms = statistics.median(cuda_ms(lambda: fn(lt, rt, cfg), 10))
-    vol_l = asw_cuda.asw_volume_cuda(lt, rt, d, 11)
+    vol_l = volume.asw_volume(lt, rt, d, 11)
     vol_r = volume.right_volume_from_left(vol_l)
     dl, dr = wta.wta(vol_l), wta.wta(vol_r)
     scaled = _minmax_u8(post.lr_check_simple(dl, dr, cfg.lr_gate, invalid_value=0.0).disp)
     stages = {
-        "cost_volume_left": lambda: asw_cuda.asw_volume_cuda(lt, rt, d, 11),
+        "cost_volume_left": lambda: volume.asw_volume(lt, rt, d, 11),
         "right_volume_from_left": lambda: volume.right_volume_from_left(vol_l),
         "wta_both": lambda: (wta.wta(vol_l), wta.wta(vol_r)),
         "post": lambda: asw_post(dl, dr, cfg),
@@ -868,7 +868,7 @@ def ad_census_phases() -> dict:
         # images against the same integers as float32 (tables against the
         # direct formula), and the single-view entries (one null output)
         got = ad_census_cuda.ad_census_volumes_cuda(lt, rt, d)
-        want = volume.ad_census_volumes(lt, rt, d)
+        want = volume._ad_census_volumes_plain(lt, rt, d)
         ad = ad_census_cuda.ad_volumes_cuda(lt, rt, d)
         cen = ad_census_cuda._launch(lt, rt, d, 9, 7, 1.0, 1.0, "both", "census")
         as_float = ad_census_cuda.ad_census_volumes_cuda(lt.float(), rt.float(), d)
@@ -877,8 +877,9 @@ def ad_census_phases() -> dict:
         rec = {"phase": "kernel_check", "kernel": "ad_census_volume_f32", "geometry": [h, w, d]}
         for i, view in enumerate(("left", "right")):
             rec[view] = {
-                "ad_exact": torch.equal(ad[i], volume.ad_volume(lt, rt, d, view)),
-                "census_exact": torch.equal(cen[i], volume.census_volume(lt, rt, d, view=view)),
+                "ad_exact": torch.equal(ad[i], volume._ad_volume_plain(lt, rt, d, view)),
+                "census_exact": torch.equal(cen[i],
+                                            volume._census_volume_plain(lt, rt, d, view=view)),
                 "u8_equals_float32": torch.equal(got[i], as_float[i]),
                 "single_view_equal": torch.equal(got[i], single[i]),
                 "max_abs_err": (got[i] - want[i]).abs().max().item(),
@@ -899,11 +900,12 @@ def ad_census_phases() -> dict:
     for rows, cols in OTHER_WINDOWS:
         cen = ad_census_cuda._launch(lt, rt, d, rows, cols, 1.0, 1.0, "both", "census")
         got = ad_census_cuda.ad_census_volumes_cuda(lt, rt, d, 10.0, 30.0, rows, cols)
-        want = volume.ad_census_volumes(lt, rt, d, 10.0, 30.0, rows, cols)
+        want = volume._ad_census_volumes_plain(lt, rt, d, 10.0, 30.0, rows, cols)
         torch.cuda.synchronize()
         rec = {"phase": "kernel_check", "kernel": "ad_census_volume_f32",
                "geometry": [h, w, d, f"census {rows}x{cols}"],
-               "census_exact": [torch.equal(c, volume.census_volume(lt, rt, d, rows, cols, v))
+               "census_exact": [torch.equal(c, volume._census_volume_plain(lt, rt, d, rows, cols,
+                                                                           v))
                                 for c, v in zip(cen, ("left", "right"))],
                "max_abs_err": max((g - x).abs().max().item() for g, x in zip(got, want))}
         emit(rec)
@@ -914,10 +916,10 @@ def ad_census_phases() -> dict:
     cost_err = max(cost_err, huge_check())
     for h, w, d, seed in AD_CENSUS_GEOMETRIES:
         lt, rt = cuda_pair(h, w, d, seed)
-        vol = volume.ad_census_volume(lt, rt, d)
+        vol = volume._ad_census_volume_plain(lt, rt, d)
         for cfg in flags:
             got = scanline_cuda.scanline_optimize_cuda(vol, lt, cfg)
-            want = scanline.scanline_optimize(vol, lt, cfg)
+            want = scanline._scanline_optimize_plain(vol, lt, cfg)
             torch.cuda.synchronize()
             rec = {"phase": "kernel_check", "kernel": "scanline_optimize_f32",
                    "geometry": [h, w, d], "faithful_vertical_l2": cfg.faithful_vertical_l2,
@@ -934,7 +936,7 @@ def ad_census_phases() -> dict:
         exact = []
         for cfg in flags:
             got = scanline_cuda.scanline_optimize_cuda(vol, img, cfg)
-            want = scanline.scanline_optimize(vol, img, cfg)
+            want = scanline._scanline_optimize_plain(vol, img, cfg)
             torch.cuda.synchronize()
             exact.append(torch.equal(got, want))
             scan_err = max(scan_err, (got - want).abs().max().item())
@@ -987,7 +989,7 @@ def ad_census_phases() -> dict:
     arms_r = aggregate.cross_arms(rt, full.arms)
     agg_l = aggregate.rect_mean_aggregate(vol_l, arms_l)
     agg_r = aggregate.rect_mean_aggregate(vol_r, arms_r)
-    sk_ms, sp_ms = alternate(lambda: scanline.scanline_optimize(agg_l, lt, full.scanline),
+    sk_ms, sp_ms = alternate(lambda: scanline._scanline_optimize_plain(agg_l, lt, full.scanline),
                              lambda: scanline_cuda.scanline_optimize_cuda(agg_l, lt, full.scanline),
                              plain_reps=1, kernel_reps=10)
     emit({"phase": "timing_kernels", "shape": [h, w], "disp_range": d,
@@ -1081,7 +1083,8 @@ def cost_timing() -> dict:
         a, b = cuda_pair(hh, ww, dd, seed)
         rec = {}
         rec["kernel_ms"], rec["plain_ms"] = alternate(
-            lambda: volume.ad_census_volumes(a, b, dd), lambda: ac.ad_census_volumes_cuda(a, b, dd),
+            lambda: volume._ad_census_volumes_plain(a, b, dd),
+            lambda: ac.ad_census_volumes_cuda(a, b, dd),
             plain_reps=3 if hh == TEDDY[0] else 2, kernel_reps=10)
         rec["kernel_back_to_back_ms"] = back_to_back_ms(lambda: ac.ad_census_volumes_cuda(a, b, dd))
         ac.ad_volumes_cuda(a, b, dd)
@@ -1114,8 +1117,8 @@ def huge_check() -> float:
               for _ in range(2))
     y = h - 5
     bl, br = lt[y - 4 : y + 5].contiguous(), rt[y - 4 : y + 5].contiguous()
-    plain = {"ad": volume.ad_volume, "census": volume.census_volume,
-             "cost": volume.ad_census_volume}
+    plain = {"ad": volume._ad_volume_plain, "census": volume._census_volume_plain,
+             "cost": volume._ad_census_volume_plain}
     rec = {"phase": "kernel_check", "kernel": "ad_census_volume_f32", "geometry": [h, w, d, "left"],
            "values": d * h * w, "row": y}
     for part, fn in plain.items():
@@ -1174,7 +1177,7 @@ def window_phases() -> dict:
         for view in ("left", "right"):
             for mean in (False, True):
                 got = wc.sad_volume_cuda(lt, rt, d, win, view, mean)
-                want = volume.sad_volume(lt, rt, d, win, view, mean)
+                want = volume._sad_volume_plain(lt, rt, d, win, view, mean)
                 torch.cuda.synchronize()
                 exact[f"{view}{'_mean' if mean else ''}"] = torch.equal(got, want)
                 err["sad_volume_f32"] = max(err["sad_volume_f32"],
@@ -1187,7 +1190,7 @@ def window_phases() -> dict:
         rec = {"phase": "kernel_check", "kernel": "ncc_volume_f32", "geometry": [h, w, d, win]}
         # the sums kernel alone: bit-exact while every sum is an exact integer
         sums = wc.ncc_sums_cuda(lt, rt, win)
-        want_sums = volume.ncc_sums(lt, rt, win)[2]
+        want_sums = volume._ncc_sums_plain(lt, rt, win)[2]
         rec["window_sums_bit_exact"] = [torch.equal(g, t) for g, t in zip(sums, want_sums)]
         if win <= 15:
             check(all(rec["window_sums_bit_exact"]), rec)
@@ -1195,8 +1198,8 @@ def window_phases() -> dict:
             for g, t in zip(sums, want_sums):
                 torch.testing.assert_close(g, t, rtol=NCC_WIDE_TOL, atol=0.0)
         for mode in ("ignore", "sentinel"):
-            got, interior = wc.ncc_volume_cuda(lt, rt, d, win, mode)
-            want, want_in = volume.ncc_volume(lt, rt, d, win, mode)
+            got, interior = volume.ncc_volume(lt, rt, d, win, mode)
+            want, want_in = volume._ncc_volume_plain(lt, rt, d, win, mode)
             torch.cuda.synchronize()
             e = (got - want).abs().max().item()
             err["ncc_volume_f32"] = max(err["ncc_volume_f32"], e)
@@ -1221,18 +1224,18 @@ def window_phases() -> dict:
            "rtol": wc.FLOAT_RTOL}
     for view in ("left", "right"):
         got = wc.sad_volume_cuda(lt, rt, d, win, view)
-        want = volume.sad_volume(lt, rt, d, win, view)
+        want = volume._sad_volume_plain(lt, rt, d, win, view)
         rec[f"sad_{view}_max_rel_err"] = ((got - want).abs() / want).max().item()
         torch.testing.assert_close(got, want, rtol=wc.FLOAT_RTOL, atol=0.0)
     lt = torch.rand((h, w), device="cuda", generator=gen) * 255.0
     rt = torch.roll(lt, -3, 1) + torch.rand((h, w), device="cuda", generator=gen) * 8.0
     n = float((2 * win + 1) ** 2)
-    for g, t, one_sign in zip(wc.ncc_sums_cuda(lt, rt, win), volume.ncc_sums(lt, rt, win)[2],
-                              (False, True, False, True)):
+    for g, t, one_sign in zip(wc.ncc_sums_cuda(lt, rt, win),
+                              volume._ncc_sums_plain(lt, rt, win)[2], (False, True, False, True)):
         torch.testing.assert_close(g, t, rtol=wc.FLOAT_RTOL,
                                    atol=0.0 if one_sign else wc.FLOAT_RTOL * n * 128.0)
-    got = wc.ncc_volume_cuda(lt, rt, d, win)[0]
-    want = volume.ncc_volume(lt, rt, d, win)[0]
+    got = volume.ncc_volume(lt, rt, d, win)[0]
+    want = volume._ncc_volume_plain(lt, rt, d, win)[0]
     rec["ncc_max_abs_err"] = (got - want).abs().max().item()
     emit(rec)
     torch.testing.assert_close(got, want, rtol=0.0, atol=2 * wc.FLOAT_RTOL)
@@ -1292,10 +1295,10 @@ def window_phases() -> dict:
 
     # -- 11. timing (CUDA events, after warm-up) ---------------------------
     versions = {  # (plain, kernel) at the reference windows, 9x9 and 21x21
-        "sad_volume_f32": (lambda a, b, dd: volume.sad_volume(a, b, dd, 3),
+        "sad_volume_f32": (lambda a, b, dd: volume._sad_volume_plain(a, b, dd, 3),
                            lambda a, b, dd: wc.sad_volume_cuda(a, b, dd, 3)),
-        "ncc_volume_f32": (lambda a, b, dd: volume.ncc_volume(a, b, dd, 10),
-                           lambda a, b, dd: wc.ncc_volume_cuda(a, b, dd, 10)),
+        "ncc_volume_f32": (lambda a, b, dd: volume._ncc_volume_plain(a, b, dd, 10),
+                           lambda a, b, dd: volume.ncc_volume(a, b, dd, 10)),
     }
     serving = cuda_pair(*SERVING, 1)
 
@@ -1359,7 +1362,7 @@ def window_phases() -> dict:
     clr = post.lr_check_consistency(cdl, cdr, cb.lr_gate, post.INVALID)
     cspk = post.remove_speckles(clr.disp, cb.speckle_diff, cb.speckle_area,
                                 invalid_value=post.INVALID)
-    ncc_vol = wc.ncc_volume_cuda(lt, rt, 200, 10)[0]
+    ncc_vol = volume.ncc_volume(lt, rt, 200, 10)[0]
     stages = {
         "sad run_post": {
             "cost_left": lambda: wc.sad_volume_cuda(lt, rt, d, sc.winsize),
@@ -1393,8 +1396,8 @@ def window_phases() -> dict:
         },
         "ncc D=200": {
             "window_sums (wrapper of the sums kernel)": lambda: wc.ncc_sums_cuda(lt, rt, 10),
-            "window_sums (plain: 4 box sums)": lambda: volume.ncc_sums(lt, rt, 10),
-            "cost (wrapper, sums included)": lambda: wc.ncc_volume_cuda(lt, rt, 200, 10),
+            "window_sums (plain: 4 box sums)": lambda: volume._ncc_sums_plain(lt, rt, 10),
+            "cost (wrapper, sums included)": lambda: volume.ncc_volume(lt, rt, 200, 10),
             "wta_argmax": lambda: wta.wta(ncc_vol, "max"),
         },
     }
@@ -1743,7 +1746,7 @@ def canonical_phases() -> dict:
                "images": str(dtype).replace("torch.", ""), "p1_p2_tso": [p1, p2, tso]}
         for view in ("left", "right"):
             got = canonical(vol, lt, rt, p1, p2, tso, view)
-            want = scanline.scanline_optimize_canonical(vol, lt, rt, p1, p2, tso, view)
+            want = scanline._scanline_optimize_canonical_plain(vol, lt, rt, p1, p2, tso, view)
             torch.cuda.synchronize()
             rec[view] = {"bit_exact": torch.equal(got, want),
                          "max_abs_err": (got - want).abs().max().item()}
@@ -1854,7 +1857,7 @@ def canonical_phases() -> dict:
         rec = {}
         for view, agg in zip(("left", "right"), aggs):
             got = canonical(agg, lt, rt, cp.so_p1, cp.so_p2, cp.so_tso, view)
-            want = scanline.scanline_optimize_canonical(agg, lt, rt, cp.so_p1, cp.so_p2,
+            want = scanline._scanline_optimize_canonical_plain(agg, lt, rt, cp.so_p1, cp.so_p2,
                                                         cp.so_tso, view)
             torch.cuda.synchronize()
             rec[f"bit_exact_{view}"] = torch.equal(got, want)
@@ -1868,8 +1871,9 @@ def canonical_phases() -> dict:
                    back_to_back_ms=back_to_back_ms(one, 20 if hh == h else 5),
                    **c_entry_footprint(one))
         if (hh, ww, dd) == TEDDY:
-            rec["plain_ms"] = statistics.median(cuda_ms(lambda: scanline.scanline_optimize_canonical(
-                agg_l, lt, rt, cp.so_p1, cp.so_p2, cp.so_tso, "left"), 2))
+            rec["plain_ms"] = statistics.median(cuda_ms(
+                lambda: scanline._scanline_optimize_canonical_plain(
+                    agg_l, lt, rt, cp.so_p1, cp.so_p2, cp.so_tso, "left"), 2))
         # the volume in and out once and the two u8 images; ~15 operations a
         # value and direction
         rec.update(bound(8 * dd * hh * ww + 2 * hh * ww, 60.0 * dd * hh * ww))
@@ -1993,7 +1997,7 @@ def variants_phase() -> dict:
             for view in ("left", "right"):
                 for mean in (False, True):
                     got = wc.sad_volume_cuda(a, b, d, r - 1, view, mean, True)
-                    want = volume.sad_volume(a, b, d, r - 1, view, mean, True)
+                    want = volume._sad_volume_plain(a, b, d, r - 1, view, mean, True)
                     torch.cuda.synchronize()
                     exact[f"{dtype} {view}{' mean' if mean else ''}"] = torch.equal(got, want)
                     del got, want
@@ -2008,7 +2012,7 @@ def variants_phase() -> dict:
     lt, rt = (t.float() + torch.rand(t.shape, device="cuda", generator=gen)
               for t in colour_pair(40, 70, 100, 3))
     got = wc.sad_volume_cuda(lt, rt, 100, 4, "left", False, True)
-    want = volume.sad_volume(lt, rt, 100, 4, "left", False, True)
+    want = volume._sad_volume_plain(lt, rt, 100, 4, "left", False, True)
     float_err = (got - want).abs().max().item()
     emit({"phase": "variants", "part": "kernel_check", "kernel": "sad_volume_f32 (channel_min)",
           "inputs": "non-integer float32", "geometry": [40, 70, 100, 5], "max_abs_err": float_err,
@@ -2019,7 +2023,7 @@ def variants_phase() -> dict:
     timing = {}
     for h, w, d in (TEDDY, SERVING):
         lt, rt = colour_pair(h, w, d, 0)
-        k_ms, p_ms = alternate(lambda: volume.sad_volume(lt, rt, d, 1, "left", True, True),
+        k_ms, p_ms = alternate(lambda: volume._sad_volume_plain(lt, rt, d, 1, "left", True, True),
                                lambda: wc.sad_volume_cuda(lt, rt, d, 1, "left", True, True),
                                plain_reps=3, kernel_reps=10)
         # two u8 colour images in and the volume out; a term is three
@@ -2205,12 +2209,12 @@ def strided_pair(fn, cost, pen_lr, pen_rl, a, b):
 
 @contextlib.contextmanager
 def strided_horizontal_passes():
-    """The streamed executor with its horizontal passes as it ran them
-    before the band entries: the strided banded kernels on each band's
-    [W, D, t] view (``strided_pair``)."""
+    """The row executors with their horizontal passes as the streamed one
+    ran them before the band entries: the band entries' launchers replaced
+    by the strided banded kernels on each band's [W, D, t] view
+    (``strided_pair``)."""
     from stereo_match_traditional_tpu_torch.ops import scanline
     from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
-    from stereo_match_traditional_tpu_torch.parallel import streamed
 
     def legacy(cost, grey, p1, p2_init):
         return strided_pair(banded.directional_pass_banded_cuda, cost,
@@ -2220,15 +2224,14 @@ def strided_horizontal_passes():
         s = scanline.horizontal_scales(cost.shape[0], base, match, tso, right_view)
         return strided_pair(banded.canonical_pass_banded_cuda, cost, s[:-1], s[1:], p1, p2)
 
-    saved = (streamed.horizontal_passes_banded_cuda,
-             streamed.canonical_horizontal_passes_banded_cuda)
-    streamed.horizontal_passes_banded_cuda = legacy
-    streamed.canonical_horizontal_passes_banded_cuda = canonical
+    saved = (banded.horizontal_passes_banded_cuda, banded.canonical_horizontal_passes_banded_cuda)
+    banded.horizontal_passes_banded_cuda = legacy
+    banded.canonical_horizontal_passes_banded_cuda = canonical
     try:
         yield
     finally:
-        (streamed.horizontal_passes_banded_cuda,
-         streamed.canonical_horizontal_passes_banded_cuda) = saved
+        (banded.horizontal_passes_banded_cuda,
+         banded.canonical_horizontal_passes_banded_cuda) = saved
 
 
 @contextlib.contextmanager
@@ -2370,11 +2373,11 @@ def streamed_phase() -> dict:
         "scanline_banded_f32": (
             lambda c, p, cr, rs, **k: banded.directional_pass_banded_cuda(c, p, cr, rs, 0.5,
                                                                           True, **k),
-            lambda c, p, cr, rs: scanline.directional_pass_banded(c, p, cr, rs, 0.5, True)),
+            lambda c, p, cr, rs: scanline._directional_pass_banded_plain(c, p, cr, rs, 0.5, True)),
         "scanline_banded_canonical_f32": (
             lambda c, p, cr, rs, **k: banded.canonical_pass_banded_cuda(c, p, cr, rs, 1.0, 3.0,
                                                                         **k),
-            lambda c, p, cr, rs: scanline.canonical_pass_banded(c, p, cr, rs, 1.0, 3.0)),
+            lambda c, p, cr, rs: scanline._canonical_pass_banded_plain(c, p, cr, rs, 1.0, 3.0)),
     }
 
     def band_inputs(t, d, w, name, layout):
@@ -2446,7 +2449,7 @@ def streamed_phase() -> dict:
         grey = imgs[0].float()
         calls = [(BAND_ENTRIES[0], "grey float32",
                   lambda: banded.horizontal_passes_banded_cuda(agg, grey, 0.5, 4.0),
-                  lambda: scanline.horizontal_passes_banded(agg, grey, 0.5, 4.0))]
+                  lambda: scanline._horizontal_passes_banded_plain(agg, grey, 0.5, 4.0))]
         for right_view in (False, True):
             for u8 in (True, False):
                 b, m = imgs if u8 else [x.float() for x in imgs]
@@ -2455,8 +2458,9 @@ def streamed_phase() -> dict:
                     f"{'right' if right_view else 'left'} view, {'u8' if u8 else 'float32'}",
                     lambda b=b, m=m, rv=right_view: banded.canonical_horizontal_passes_banded_cuda(
                         agg, b, m, 1.0, 3.0, 15.0, rv),
-                    lambda b=b, m=m, rv=right_view: scanline.canonical_horizontal_passes_banded(
-                        agg, b, m, 1.0, 3.0, 15.0, rv)))
+                    lambda b=b, m=m, rv=right_view:
+                        scanline._canonical_horizontal_passes_banded_plain(
+                            agg, b, m, 1.0, 3.0, 15.0, rv)))
         return calls
 
     def band_of(t, d, w, halo):
@@ -2503,7 +2507,8 @@ def streamed_phase() -> dict:
                 new = lambda: banded.horizontal_passes_banded_cuda(agg, grey, 0.5, 4.0)  # noqa: E731
                 old = lambda: strided_pair(banded.directional_pass_banded_cuda, agg,  # noqa: E731
                                            *pens, 0.5, True)
-                plain = lambda: scanline.horizontal_passes_banded(agg, grey, 0.5, 4.0)  # noqa: E731
+                plain = lambda: scanline._horizontal_passes_banded_plain(  # noqa: E731
+                    agg, grey, 0.5, 4.0)
                 in_bytes, ops = 4 * t * hw, 20.0
             else:
                 pens = scanline.horizontal_scales(hd, imgs[0], imgs[1], 15.0, False)
@@ -2511,7 +2516,7 @@ def streamed_phase() -> dict:
                     agg, imgs[0], imgs[1], 1.0, 3.0, 15.0, False)
                 old = lambda: strided_pair(banded.canonical_pass_banded_cuda, agg,  # noqa: E731
                                            pens[:-1], pens[1:], 1.0, 3.0)
-                plain = lambda: scanline.canonical_horizontal_passes_banded(  # noqa: E731
+                plain = lambda: scanline._canonical_horizontal_passes_banded_plain(  # noqa: E731
                     agg, imgs[0], imgs[1], 1.0, 3.0, 15.0, False)
                 in_bytes, ops = 2 * t * hw, 30.0
             new_ms, old_ms = alternate(old, new, plain_reps=2, kernel_reps=5)
@@ -2815,13 +2820,15 @@ def banded_vertical_checks(shapes, phase: str) -> dict:
             if canonical:
                 pen = levels[torch.randint(0, 3, (h, d, w), device="cuda", generator=gen)]
                 a, b, dm1 = 1.0, 3.0, True
-                plain_fn = lambda c, p, cr, rs: scanline.canonical_pass_banded(  # noqa: E731
-                    c, p, cr, rs, 1.0, 3.0)
+
+                def plain_fn(c, p, cr, rs):
+                    return scanline._canonical_pass_banded_plain(c, p, cr, rs, 1.0, 3.0)
             else:
                 pen = torch.rand((h, w), device="cuda", generator=gen) * 3 + 0.5
                 a, b, dm1 = 0.5, 0.0, True
-                plain_fn = lambda c, p, cr, rs: scanline.directional_pass_banded(  # noqa: E731
-                    c, p, cr, rs, 0.5, True)
+
+                def plain_fn(c, p, cr, rs):
+                    return scanline._directional_pass_banded_plain(c, p, cr, rs, 0.5, True)
             prev = torch.rand((d, w), device="cuda", generator=gen) * 5
             zero = (torch.zeros_like(prev), torch.zeros((w,), device="cuda"))
             rec = {"phase": phase, "part": "kernel_check", "kernel": name, "shape": [d, h, w]}
@@ -3010,21 +3017,21 @@ def wide_phase() -> dict:
         cfg = C.ScanlineConfig(faithful_vertical_l2=quirks, faithful_vertical_p2=quirks)
         held(f"scanline_optimize_cuda, quirks {quirks}", WIDE_ENTRIES[0], 4,
              lambda: scanline_cuda.scanline_optimize_cuda(cost, lu, cfg),
-             scanline.scanline_optimize(cc, lc, cfg))
+             scanline._scanline_optimize_plain(cc, lc, cfg))
     for view in ("left", "right"):
         held(f"scanline_optimize_canonical_cuda, {view} view", WIDE_ENTRIES[1], 4,
              lambda: scanline_canonical_cuda.scanline_optimize_canonical_cuda(
                  cost, lu, ru, 1.0, 3.0, 15.0, view),
-             scanline.scanline_optimize_canonical(cc, lc, rc, 1.0, 3.0, 15.0, view))
+             scanline._scanline_optimize_canonical_plain(cc, lc, rc, 1.0, 3.0, 15.0, view))
     band, bc = crop_row_halo(cost, 2, 1), crop_row_halo(cc, 2, 1)      # [D, h - 4, w]
     rows, rows_c = (lu[2:-2], ru[2:-2]), (lc[2:-2], rc[2:-2])
     held("horizontal_passes_banded_cuda", WIDE_ENTRIES[0], 2,
          lambda: banded.horizontal_passes_banded_cuda(band, rows[0].float(), 0.5, 4.0),
-         scanline.horizontal_passes_banded(bc, rows_c[0].float(), 0.5, 4.0))
+         scanline._horizontal_passes_banded_plain(bc, rows_c[0].float(), 0.5, 4.0))
     held("canonical_horizontal_passes_banded_cuda", WIDE_ENTRIES[1], 2,
          lambda: banded.canonical_horizontal_passes_banded_cuda(band, *rows, 1.0, 3.0, 15.0,
                                                                 True),
-         scanline.canonical_horizontal_passes_banded(bc, *rows_c, 1.0, 3.0, 15.0, True))
+         scanline._canonical_horizontal_passes_banded_plain(bc, *rows_c, 1.0, 3.0, 15.0, True))
     p2 = torch.rand((h, w), device="cuda", generator=gen) * 3 + 0.5
     levels = torch.tensor([1.0, 0.25, 0.1], device="cuda")
     scale = levels[torch.randint(0, 3, (h, d, w), device="cuda", generator=gen)]
@@ -3035,13 +3042,13 @@ def wide_phase() -> dict:
         held(f"directional_pass_banded_cuda, reverse {reverse}", WIDE_ENTRIES[0], 1,
              lambda: banded.directional_pass_banded_cuda(cv, p2, carry, h // 3, 0.5, True,
                                                          reverse=reverse),
-             banded.directional_pass_banded_cuda(cv_c, p2.cpu(), carry_c, h // 3, 0.5, True,
-                                                 reverse=reverse))
+             scanline.directional_pass_banded(cv_c, p2.cpu(), carry_c, h // 3, 0.5, True,
+                                              reverse=reverse))
         held(f"canonical_pass_banded_cuda, reverse {reverse}", WIDE_ENTRIES[1], 1,
              lambda: banded.canonical_pass_banded_cuda(cv, scale, carry, h // 3, 1.0, 3.0,
                                                        reverse=reverse),
-             banded.canonical_pass_banded_cuda(cv_c, scale.cpu(), carry_c, h // 3, 1.0, 3.0,
-                                               reverse=reverse))
+             scanline.canonical_pass_banded(cv_c, scale.cpu(), carry_c, h // 3, 1.0, 3.0,
+                                            reverse=reverse))
 
     # the wide kernel at WIDE_TIMED's [D, H, W] volumes, against plain on the
     # same card tensors and its bound: a vertical pass (lanes contiguous) and
@@ -3060,8 +3067,8 @@ def wide_phase() -> dict:
 
             def fn(c, p, cr, rs, canonical=canonical, a=a, b=b):
                 if canonical:
-                    return scanline.canonical_pass_banded(c, p, cr, rs, a, b)
-                return scanline.directional_pass_banded(c, p, cr, rs, a, True)
+                    return scanline._canonical_pass_banded_plain(c, p, cr, rs, a, b)
+                return scanline._directional_pass_banded_plain(c, p, cr, rs, a, True)
 
             for layout in ("vertical", "horizontal"):
                 if layout == "vertical":
@@ -3077,7 +3084,8 @@ def wide_phase() -> dict:
                 for reverse, pen in ((False, lr), (True, rl)):
                     call = lambda: banded._launch(  # noqa: E731
                         bool(canonical), c, pen, zero, None, a, b, True, reverse, True)
-                    plain = lambda: banded._plain(fn, c, pen, zero, None, reverse, True)  # noqa
+                    plain = lambda: scanline._along_path(  # noqa: E731
+                        fn, c, pen, zero, None, reverse, True)
                     got, want = call()[0], plain()[0]
                     torch.cuda.synchronize()
                     exact = bool(torch.equal(got, want))
@@ -3204,10 +3212,13 @@ def wide_pipelines_at_scale() -> None:
     import torch
 
     from stereo_match_traditional_tpu_torch import config as C
-    from stereo_match_traditional_tpu_torch.models import ad_census as ad_model
     from stereo_match_traditional_tpu_torch.models import get_pipeline
     from stereo_match_traditional_tpu_torch.ops import scanline
     from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
+    from stereo_match_traditional_tpu_torch.ops.kernels import (
+        scanline_canonical_cuda,
+        scanline_cuda,
+    )
     from stereo_match_traditional_tpu_torch.parallel import (
         auto_row_tile, run_streamed, streamed_canonical_staged,
     )
@@ -3226,18 +3237,19 @@ def wide_pipelines_at_scale() -> None:
     L, R, _ = make_pair(h, w, d, seed=0)
     lt, rt = pair_to_torch(L, R, "cuda")
     fn = get_pipeline("ad_census")[0]
-    for label, cfg, name, plain_fn, entry in (
-            ("ad_census FULL", full(d), "scanline_optimize_cuda", scanline.scanline_optimize,
-             WIDE_ENTRIES[0]),
-            ("ad_census canonical FULL", canonical_full(d), "scanline_optimize_canonical_cuda",
-             scanline.scanline_optimize_canonical, WIDE_ENTRIES[1])):
+    for label, cfg, launcher, name, plain_fn, entry in (
+            ("ad_census FULL", full(d), scanline_cuda, "scanline_optimize_cuda",
+             scanline._scanline_optimize_plain, WIDE_ENTRIES[0]),
+            ("ad_census canonical FULL", canonical_full(d), scanline_canonical_cuda,
+             "scanline_optimize_canonical_cuda", scanline._scanline_optimize_canonical_plain,
+             WIDE_ENTRIES[1])):
         def hold(args, kwargs, result, plain_fn=plain_fn):
             want = plain_fn(*args, **kwargs)
             torch.cuda.synchronize()
             return bool(torch.equal(result, want)) and result.is_contiguous()
 
         _reset_launches()
-        with held_to_plain(ad_model, name, hold) as held:
+        with held_to_plain(launcher, name, hold) as held:
             res = fn(lt, rt, cfg)
             torch.cuda.synchronize()
         counts = {k: v for k, v in _launches().items() if v}
@@ -3281,10 +3293,10 @@ def wide_pipelines_at_scale() -> None:
 
             def plain_fn(c, p, cr, rs):
                 if canonical:
-                    return scanline.canonical_pass_banded(c, p, cr, rs, p1, p2)
-                return scanline.directional_pass_banded(c, p, cr, rs, p1, dm1)
+                    return scanline._canonical_pass_banded_plain(c, p, cr, rs, p1, p2)
+                return scanline._directional_pass_banded_plain(c, p, cr, rs, p1, dm1)
 
-            want = banded._plain(plain_fn, cost, pen, carry, reset, reverse, store)
+            want = scanline._along_path(plain_fn, cost, pen, carry, reset, reverse, store)
             torch.cuda.synchronize()
             same = [torch.equal(x, y) for x, y in zip(
                 (result[0], *result[1]), (want[0], *want[1])) if x is not None]
@@ -3548,9 +3560,11 @@ def tiled_phase(kind: str) -> dict:
         return joined, err
 
     cost_kernel = lambda a, b, n, o: ac.ad_census_volumes_cuda(a, b, n, d_offset=o)  # noqa: E731
-    cost_plain = lambda a, b, n, o: volume.ad_census_volumes(a, b, n, d_offset=o)  # noqa: E731
-    ncc_kernel = lambda a, b, n, o: wc.ncc_volume_cuda(a, b, n, 10, d_offset=o)[:1]  # noqa: E731
-    ncc_plain = lambda a, b, n, o: volume.ncc_volume(a, b, n, 10, d_offset=o)[:1]  # noqa: E731
+    cost_plain = lambda a, b, n, o: volume._ad_census_volumes_plain(  # noqa: E731
+        a, b, n, d_offset=o)
+    ncc_kernel = lambda a, b, n, o: volume.ncc_volume(a, b, n, 10, d_offset=o)[:1]  # noqa: E731
+    ncc_plain = lambda a, b, n, o: volume._ncc_volume_plain(  # noqa: E731
+        a, b, n, 10, d_offset=o)[:1]
     err = {"ad_census_volume_f32": 0.0, "ncc_volume_f32": 0.0}
     for kernel_name, kernel, plain, views, total, offsets in (
             ("ad_census_volume_f32", cost_kernel, cost_plain, 2, d, TILED_OFFSETS),
@@ -3565,8 +3579,8 @@ def tiled_phase(kind: str) -> dict:
         check(e <= (AD_CENSUS_ATOL if views == 2 else 0.0), rec)
         err[kernel_name] = max(err[kernel_name], e)
     # the AD and Hamming parts of a slice: exact
-    for part, fn, pl in (("ad", ac.ad_volume_cuda, volume.ad_volume),
-                         ("census", ac.census_volume_cuda, volume.census_volume)):
+    for part, fn, pl in (("ad", ac.ad_volume_cuda, volume._ad_volume_plain),
+                         ("census", ac.census_volume_cuda, volume._census_volume_plain)):
         for view in ("left", "right"):
             check(torch.equal(fn(lt, rt, 30, view=view, d_offset=15).cpu(),
                               pl(lc, rc, 30, view=view, d_offset=15)), (part, view))
@@ -3574,10 +3588,10 @@ def tiled_phase(kind: str) -> dict:
     for kernel_name, n, o, call, plain_call, out_bytes, flop in (
             ("ad_census_volume_f32", 30, 15,
              lambda: ac.ad_census_volumes_cuda(lt, rt, 30, d_offset=15),
-             lambda: volume.ad_census_volumes(lt, rt, 30, d_offset=15), 8, 12.0),
+             lambda: volume._ad_census_volumes_plain(lt, rt, 30, d_offset=15), 8, 12.0),
             ("ncc_volume_f32", 100, 100,
-             lambda: wc.ncc_volume_cuda(lt, rt, 100, 10, d_offset=100),
-             lambda: volume.ncc_volume(lt, rt, 100, 10, d_offset=100), 4, 10.0)):
+             lambda: volume.ncc_volume(lt, rt, 100, 10, d_offset=100),
+             lambda: volume._ncc_volume_plain(lt, rt, 100, 10, d_offset=100), 4, 10.0)):
         ms, plain_ms = alternate(plain_call, call, 2, 10)
         summary[kernel_name] = {
             "max_abs_err": err[kernel_name], "ms": ms, "plain_ms": plain_ms,

@@ -1,30 +1,20 @@
 """stereo_match_traditional_tpu_torch — the PyTorch/CUDA port of
 ``stereo_match_traditional_tpu``.
 
-The port runs on torch tensors and never imports jax.  It grows slice by
-slice beside the JAX package, which stays the reference it is tested
-against.  Ported so far, through ``models.get_pipeline``: all five
-pipelines.  ``asw`` (active path), whose cost volume is a hand-written CUDA
-kernel (``ops/kernels/csrc/asw_volume.cu``); the flagship ``ad_census``
-with ``aggregation='rect_mean'`` in its active and FULL forms, whose cost
-volume and 4-path scanline are hand-written CUDA kernels
-(``csrc/ad_census_cost.cu``, ``csrc/scanline.cu``); ``sad`` and ``ncc``,
-whose windowed cost volumes are one hand-written CUDA kernel
-(``csrc/window_cost.cu``); and ``cblsm`` (active and post), whose AD
-volumes are the AD part of the AD-Census kernel; the canonical family
-(``aggregation='cross_two_pass'``) with its own scanline kernel
-(``csrc/scanline_canonical.cu``).  Around them: stage re-entry
-(``return_stages``, ``utils.checkpoint``, ``models.registry.
-finish_from_volumes``), ``utils.io``, batching and serving
-(``models.batch`` over ``utils.loader.PairLoader``) and the command line
-``cli`` (``stereo-torch``); the dormant variants (ncc ``shifted``, asw
-``lab`` and ``grid``, cblsm's other costs and aggregations, the fills, the
-block speckle filter, ``ops.filters``); and the single-card streamed
-executor (``parallel.streamed``: every pipeline over sequential row bands,
-the scanline's band passes as hand-written CUDA kernels,
-``csrc/scanline_banded.cu``).  The bench and the multi-device executors
-(tiled, the sharded scanline, WTA and post, the distributed mesh) are not
-ported (``ROADMAP.md`` Queue 1 items 8a and 9).
+The port runs on torch tensors and never imports jax.  It stands beside the
+JAX package, which stays the reference it is tested against on the CPU.
+Everything of the JAX package is ported but ``parallel.gspmd_pipeline`` (a
+sharded-input XLA program with no torch counterpart): all five pipelines
+through ``models.get_pipeline`` (``asw``, ``ad_census`` in its reference
+and canonical families, ``sad``, ``ncc``, ``cblsm``) with their dormant
+variants; stage re-entry (``return_stages``, ``utils.checkpoint``,
+``models.registry.finish_from_volumes``); ``utils.io``; batching and
+serving (``models.batch.serve_pairs`` over ``utils.native.PairLoader``, the
+C++ decode pool of ``native/stereo_host``); the command line ``cli``
+(``stereo-torch``); and the executors of ``parallel``: streamed row bands
+on one card, tiles over a mesh of cards, the sharded scanline, WTA and
+post, and the ``(tile, disp)`` runners.  The benchmark that measures the
+port on the card is ``cardbench/``.
 
 The port imports nothing of the JAX package.  ``config``, ``utils.io``
 and ``utils.synthetic`` are its own copies of the JAX package's modules of the
@@ -32,9 +22,18 @@ same names (same classes, fields, defaults and bytes), and
 ``utils.convert.config_from_dict`` carries a JAX-package config across as
 plain data.
 
-Device rule: every op takes the device of its input tensors.  A kernel's
-plain PyTorch version runs only for tensors on the CPU; for a CUDA tensor
-the kernel launches or the call raises.
+Layers, each calling only the one below it: ``models`` and ``parallel``
+call the public functions of ``ops``; those call the launchers of
+``ops.kernels``; the launchers call the C entries of the hand-written CUDA
+kernels (``ops/kernels/csrc``).
+
+Device rule: every op takes the device of its input tensors.  A public
+function of ``ops`` that has a kernel decides once, by ``ops.on_cuda``:
+for CUDA tensors it calls its kernel's launcher, for CPU tensors it runs
+its plain PyTorch body (``_<name>_plain`` beside it), and for tensors split
+between the two it raises ``ValueError``.  A launcher takes CUDA tensors
+only and raises ``ValueError`` for a CPU tensor: no plain body runs for a
+CUDA tensor unless a caller names it (``ASWConfig.use_pallas=False``).
 """
 
 __version__ = "0.1.0"

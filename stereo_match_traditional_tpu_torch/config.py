@@ -94,10 +94,10 @@ class ASWConfig:
     median_first: int = 5            # ASWeight.cpp:74
     median_second: int = 3           # ASWeight.cpp:78
     run_post: bool = True            # ASWeight.cpp:66-78 (active)
-    use_pallas: Optional[bool] = None  # None/True = the hand-written
-                                     # kernel (kernels/asw_cuda; its plain
-                                     # version for CPU tensors), False = the
-                                     # plain ops.volume.asw_volume
+    use_pallas: Optional[bool] = None  # None/True = ops.volume.asw_volume
+                                     # (the hand-written kernel for CUDA
+                                     # tensors, its plain body for CPU
+                                     # ones), False = the plain body always
     approx: str = "none"             # 'none' (exact, reference parity) |
                                      # 'grid' (opt-in intensity-binned
                                      # bilateral grid, non-parity — see

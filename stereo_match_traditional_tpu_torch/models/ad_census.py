@@ -5,12 +5,7 @@ from __future__ import annotations
 
 from stereo_match_traditional_tpu_torch.config import ADCensusConfig
 from stereo_match_traditional_tpu_torch.models.base import StereoResult
-from stereo_match_traditional_tpu_torch.ops import aggregate, post, wta
-from stereo_match_traditional_tpu_torch.ops.kernels import (
-    ad_census_volumes_cuda,
-    scanline_optimize_canonical_cuda,
-    scanline_optimize_cuda,
-)
+from stereo_match_traditional_tpu_torch.ops import aggregate, post, scanline, volume, wta
 from stereo_match_traditional_tpu_torch.utils.profiling import count, stage_scope
 
 
@@ -101,7 +96,7 @@ def ad_census_pipeline(
     kw = dict(sigma_c=cfg.sigma_c, sigma_s=cfg.sigma_s,
               census_rows=cfg.census_rows, census_cols=cfg.census_cols)
     with stage_scope("cost_volume"):
-        vol_l, vol_r = ad_census_volumes_cuda(left, right, d, **kw)
+        vol_l, vol_r = volume.ad_census_volumes(left, right, d, **kw)
 
     canonical = cfg.aggregation == "cross_two_pass"
     cp = cfg.cross_params
@@ -131,12 +126,12 @@ def ad_census_pipeline(
     if cfg.scanline is not None:
         with stage_scope("scanline"):
             if canonical:
-                agg_l = scanline_optimize_canonical_cuda(
+                agg_l = scanline.scanline_optimize_canonical(
                     agg_l, left, right, cp.so_p1, cp.so_p2, cp.so_tso, "left")
-                agg_r = scanline_optimize_canonical_cuda(
+                agg_r = scanline.scanline_optimize_canonical(
                     agg_r, left, right, cp.so_p1, cp.so_p2, cp.so_tso, "right")
             else:
-                agg_l = scanline_optimize_cuda(agg_l, left, cfg.scanline)
+                agg_l = scanline.scanline_optimize(agg_l, left, cfg.scanline)
 
     result = ad_census_finish(agg_l, agg_r, cfg, arms_l if canonical else None)
     if return_stages:

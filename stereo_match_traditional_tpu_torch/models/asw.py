@@ -8,7 +8,6 @@ import torch
 from stereo_match_traditional_tpu_torch.config import ASWConfig
 from stereo_match_traditional_tpu_torch.models.base import StereoResult
 from stereo_match_traditional_tpu_torch.ops import post, volume, wta
-from stereo_match_traditional_tpu_torch.ops.kernels import asw_volume_cuda
 from stereo_match_traditional_tpu_torch.utils.profiling import stage_scope
 
 
@@ -64,9 +63,9 @@ def asw_pipeline(
     truncated-AD volume (left; right by the shift identity) -> dual WTA ->
     :func:`asw_post`.
 
-    ``cfg.use_pallas`` None or True takes the CUDA kernel
-    (`ops.kernels.asw_volume_cuda`, which runs the plain version for CPU
-    tensors); False takes the plain ``ops.volume.asw_volume``.
+    ``cfg.use_pallas`` None or True takes ``ops.volume.asw_volume``: the
+    CUDA kernel for CUDA tensors, its plain body for CPU tensors; False
+    takes the plain body on any device.
 
     The dormant variants run in plain PyTorch on every device:
     ``variant='lab'``, the Yoon-Kweon Lab-weight volume
@@ -102,9 +101,9 @@ def asw_pipeline(
         elif cfg.approx == "grid":
             vol_l = volume.asw_volume_approx_grid(left, right, bins=cfg.approx_bins, **kw)
         elif cfg.use_pallas is False:
-            vol_l = volume.asw_volume(left, right, **kw)
+            vol_l = volume._asw_volume_plain(left, right, **kw)
         else:
-            vol_l = asw_volume_cuda(left, right, view="left", **kw)
+            vol_l = volume.asw_volume(left, right, view="left", **kw)
         # Right view (`ASW/ASW.h:382-431`) by costR(q,d) = costL(q+d,d).
         vol_r = volume.right_volume_from_left(vol_l)
     result = asw_finish(vol_l, vol_r, cfg)

@@ -7,9 +7,7 @@ import torch
 
 from stereo_match_traditional_tpu_torch.config import CBLSMConfig
 from stereo_match_traditional_tpu_torch.models.base import StereoResult
-from stereo_match_traditional_tpu_torch.ops import aggregate, post, wta
-from stereo_match_traditional_tpu_torch.ops.kernels.ad_census_cuda import ad_volumes_cuda
-from stereo_match_traditional_tpu_torch.ops.kernels.window_cost_cuda import sad_volume_cuda
+from stereo_match_traditional_tpu_torch.ops import aggregate, post, volume, wta
 from stereo_match_traditional_tpu_torch.utils.profiling import stage_scope
 
 
@@ -55,13 +53,13 @@ def _cost_volumes(left, right, cfg: CBLSMConfig, arms_l, arms_r):
     """Both views' cost volumes of ``cfg.cost``."""
     d = cfg.disp_range
     if cfg.cost == "ad":
-        return ad_volumes_cuda(left, right, d)
+        return volume.ad_volumes(left, right, d)
     if cfg.cost in ("sad_mean", "sad_mean_v4"):
         # dormant ComputeDispLeft/Right (`CBLSM.h:409-489`), the window mean;
         # sad_mean_v4 is ComputeDispV4 (`CBLSM.h:494-532`), the minimum-channel
         # colour SAD of [H, W, 3] images
         cm = cfg.cost == "sad_mean_v4"
-        return tuple(sad_volume_cuda(left, right, d, cfg.win_size, view, True, cm)
+        return tuple(volume.sad_volume(left, right, d, cfg.win_size, view, True, cm)
                      for view in ("left", "right"))
     # dormant on-the-fly aggregated cost (`CBLSM.h:969-1085`); the right view
     # is the left-view problem on the mirrored pair

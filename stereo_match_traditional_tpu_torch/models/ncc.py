@@ -8,7 +8,6 @@ import torch
 from stereo_match_traditional_tpu_torch.config import NCCConfig
 from stereo_match_traditional_tpu_torch.models.base import StereoResult
 from stereo_match_traditional_tpu_torch.ops import volume, wta
-from stereo_match_traditional_tpu_torch.ops.kernels import ncc_volume_cuda
 from stereo_match_traditional_tpu_torch.utils.profiling import stage_scope
 
 
@@ -51,7 +50,7 @@ def ncc_pipeline(
     if cfg.variant != "window":
         raise ValueError(f"unknown NCC variant {cfg.variant!r}; expected 'window' or 'shifted'")
     with stage_scope("cost_volume"):
-        vol, interior = ncc_volume_cuda(
+        vol, interior = volume.ncc_volume(
             left, right, cfg.disp_range, cfg.win_size, cfg.invalid_mode, cfg.eps
         )
     result = ncc_finish(vol, cfg, interior)

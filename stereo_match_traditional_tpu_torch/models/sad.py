@@ -5,8 +5,7 @@ from __future__ import annotations
 
 from stereo_match_traditional_tpu_torch.config import SADConfig
 from stereo_match_traditional_tpu_torch.models.base import StereoResult
-from stereo_match_traditional_tpu_torch.ops import post, wta
-from stereo_match_traditional_tpu_torch.ops.kernels import sad_volume_cuda
+from stereo_match_traditional_tpu_torch.ops import post, volume, wta
 from stereo_match_traditional_tpu_torch.utils.profiling import stage_scope
 
 
@@ -55,11 +54,11 @@ def sad_pipeline(
     """
     d, win = cfg.max_disparity, cfg.winsize
     with stage_scope("cost_volume"):
-        vol_l = sad_volume_cuda(left, right, d, win, "left")
+        vol_l = volume.sad_volume(left, right, d, win, "left")
     vol_r = None
     if cfg.compute_right or cfg.run_post:
         with stage_scope("cost_volume_right"):
-            vol_r = sad_volume_cuda(left, right, d, win, "right")
+            vol_r = volume.sad_volume(left, right, d, win, "right")
     result = sad_finish(vol_l, vol_r, cfg)
     if return_stages:
         stages = {"cost_left": vol_l}

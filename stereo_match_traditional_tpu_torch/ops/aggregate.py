@@ -16,6 +16,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from stereo_match_traditional_tpu_torch.config import CrossAggregatorParams, CrossArmConfig
+from stereo_match_traditional_tpu_torch.ops import on_cuda
+from stereo_match_traditional_tpu_torch.ops.kernels import aggregate_cuda
 
 # The JAX package's rect_mean_aggregate layouts; each runs the port's one layout
 RECT_LAYOUTS = ("auto", "dmajor", "pixel_major")
@@ -104,20 +106,18 @@ def cross_arms(
     A CUDA image launches the arm kernel
     (``ops.kernels.aggregate_cuda.cross_arms_cuda``: a grey uint8 image four
     pixels a thread, an offset of the four tested by SIMD instructions on
-    one word), a CPU image runs the plain version below; the two agree bit
+    one word), a CPU image runs the plain body below; the two agree bit
     for bit."""
-    if img.is_cuda:
-        from stereo_match_traditional_tpu_torch.ops.kernels.aggregate_cuda import cross_arms_cuda
-
-        return cross_arms_cuda(img, cfg, row_offset, global_rows)
+    if on_cuda(img):
+        return Arms(*aggregate_cuda.cross_arms_cuda(img, cfg, row_offset, global_rows).unbind(0))
     return _cross_arms_plain(img, cfg, row_offset, global_rows)
 
 
 def _cross_arms_plain(
     img: torch.Tensor, cfg: CrossArmConfig, row_offset: int = 0, global_rows: int = None
 ) -> Arms:
-    """The plain version of :func:`cross_arms`: a stack of shifted images
-    and a leading-ones count a direction."""
+    """The plain body of :func:`cross_arms`: a stack of shifted images and
+    a leading-ones count a direction."""
     return Arms(
         left=_arm_one_direction(img, cfg, 1, -1),
         right=_arm_one_direction(img, cfg, 1, +1),
@@ -239,21 +239,19 @@ def rect_mean_aggregate(
 
     A CUDA volume launches a rect-mean kernel
     (``ops.kernels.aggregate_cuda.rect_mean_cuda``), a CPU volume runs the
-    plain version below: bit for bit the same on AD-Census volumes, whose
+    plain body below: bit for bit the same on AD-Census volumes, whose
     float64 sums are exact, and within a float32 ulp on others.
     """
     if layout not in RECT_LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; expected one of {RECT_LAYOUTS}")
-    if vol.is_cuda:
-        from stereo_match_traditional_tpu_torch.ops.kernels.aggregate_cuda import rect_mean_cuda
-
-        return rect_mean_cuda(vol, arms, inclusive, max_span)
+    if on_cuda(vol, *arms):
+        return aggregate_cuda.rect_mean_cuda(vol, arms, inclusive, max_span)
     return _rect_mean_aggregate_plain(vol, arms, inclusive)
 
 
 def _rect_mean_aggregate_plain(vol: torch.Tensor, arms: Arms, inclusive: bool = True):
-    """The plain version of :func:`rect_mean_aggregate`: a float64 SAT of
-    the whole volume and four corner gathers."""
+    """The plain body of :func:`rect_mean_aggregate`: a float64 SAT of the
+    whole volume and four corner gathers."""
     h, w = vol.shape[-2:]
     ii = torch.arange(h, device=vol.device, dtype=torch.int64)[:, None]
     jj = torch.arange(w, device=vol.device, dtype=torch.int64)[None, :]
@@ -359,18 +357,15 @@ def cross_aggregate(
     """
     if method not in CROSS_METHODS:
         raise ValueError(f"method must be one of {CROSS_METHODS}: {method!r}")
-    if vol.is_cuda:
-        from stereo_match_traditional_tpu_torch.ops.kernels.aggregate_cuda import (
-            cross_aggregate_cuda,
-        )
-
-        return cross_aggregate_cuda(vol, arms, num_iters, horizontal_first, span_cap)
+    if on_cuda(vol, *arms):
+        return aggregate_cuda.cross_aggregate_cuda(vol, arms, num_iters, horizontal_first,
+                                                   span_cap)
     return _cross_aggregate_plain(vol, arms, num_iters, horizontal_first)
 
 
 def _cross_aggregate_plain(vol: torch.Tensor, arms: Arms, num_iters: int = 4,
                            horizontal_first: bool = True) -> torch.Tensor:
-    """The plain version of :func:`cross_aggregate`: per pass a float64
+    """The plain body of :func:`cross_aggregate`: per pass a float64
     prefix sum along the axis and two picks a pixel (:func:`_hsum`,
     :func:`_vsum`), rounded to float32."""
     ones = torch.ones(vol.shape[-2:], dtype=torch.float32, device=vol.device)

@@ -1,10 +1,10 @@
 """CUDA AD / Census / fused AD-Census cost volumes (``csrc/ad_census_cost.cu``).
 
-Counterparts of ``ops.volume.ad_volume``, ``census_volume``,
+The launchers of ``ops.volume.ad_volume``, ``census_volume``,
 ``ad_census_volume`` and of the both-view ``ad_volumes`` and
-``ad_census_volumes``, which are their plain versions.  Dispatch is by the
-device of the inputs, never by a fallback: CPU tensors take the plain
-version; CUDA tensors launch the kernel or raise.
+``ad_census_volumes``, which call them for CUDA tensors and run their plain
+bodies for CPU tensors.  A launcher takes CUDA tensors only: a CPU tensor
+raises ``ValueError``.
 
 One call of the C entry ``ad_census_volume_f32`` computes the census of
 both images once and writes the left view, the right view or both: each
@@ -16,7 +16,7 @@ direct formula); anything else is handed over as float32.
 larger image for the census, as the plain ``ops.volume.census_transform``
 does (the row executors, ``parallel``): the C entry's row window.
 ``d_offset`` builds the slice of global disparities ``d_offset ..
-d_offset + disp_range - 1`` of either view, as the plain versions do (the
+d_offset + disp_range - 1`` of either view, as the plain bodies do (the
 ``(tile, disp)`` runners): the C entry's disparity slice, both views still
 from one launch.
 """
@@ -25,12 +25,11 @@ from __future__ import annotations
 
 import torch
 
-from stereo_match_traditional_tpu_torch.ops import volume
 from stereo_match_traditional_tpu_torch.ops.kernels.launch import (
     current,
     kernel_inputs,
-    on_cuda,
     raise_on_error,
+    require_cuda,
     stream,
 )
 
@@ -75,8 +74,7 @@ def _launch(left, right, disp_range, rows, cols, sigma_c, sigma_s, view, part,
         raise ValueError(f"global_rows must be >= 1, got {global_rows}")
     if d_offset < 0:
         raise ValueError(f"d_offset must be >= 0, got {d_offset}")
-    if not left.is_cuda:
-        raise ValueError(f"the kernel needs CUDA tensors, got {left.device}")
+    require_cuda(left=left, right=right)
     lk, rk, u8 = kernel_inputs(left, right)
     # The views written share one allocation (one allocation less of host
     # time beside a ~0.05 ms kernel): a view keeps the other's memory alive.
@@ -124,13 +122,7 @@ def ad_census_volume_cuda(
     global_rows: int = None,
     d_offset: int = 0,
 ) -> torch.Tensor:
-    """Drop-in for ``ops.volume.ad_census_volume``: one launch per call for
-    CUDA inputs, the plain version for CPU inputs."""
-    if not on_cuda(left, right):
-        return volume.ad_census_volume(
-            left, right, disp_range, sigma_c, sigma_s, census_rows, census_cols, view,
-            row_offset, global_rows, d_offset,
-        )
+    """``ops.volume.ad_census_volume`` of one view: one launch."""
     return _launch(left, right, disp_range, census_rows, census_cols, sigma_c, sigma_s,
                    _single(view), "cost", row_offset, global_rows, d_offset)
 
@@ -148,30 +140,21 @@ def ad_census_volumes_cuda(
     d_offset: int = 0,
 ):
     """Both views ``(vol_l, vol_r)`` of ``ops.volume.ad_census_volumes``:
-    one launch for CUDA inputs, the plain version for CPU inputs."""
-    if not on_cuda(left, right):
-        return volume.ad_census_volumes(
-            left, right, disp_range, sigma_c, sigma_s, census_rows, census_cols,
-            row_offset, global_rows, d_offset,
-        )
+    one launch."""
     return _launch(left, right, disp_range, census_rows, census_cols, sigma_c, sigma_s,
                    "both", "cost", row_offset, global_rows, d_offset)
 
 
 def ad_volume_cuda(left, right, disp_range: int, view: str = "left",
                    d_offset: int = 0) -> torch.Tensor:
-    """Drop-in for ``ops.volume.ad_volume`` (the kernel's AD part)."""
-    if not on_cuda(left, right):
-        return volume.ad_volume(left, right, disp_range, view, d_offset)
+    """``ops.volume.ad_volume`` (the kernel's AD part): one launch."""
     return _launch(left, right, disp_range, 1, 1, 1.0, 1.0, _single(view), "ad",
                    d_offset=d_offset)
 
 
 def ad_volumes_cuda(left, right, disp_range: int):
     """Both views ``(vol_l, vol_r)`` of ``ops.volume.ad_volumes`` (the
-    kernel's AD part): one launch for CUDA inputs."""
-    if not on_cuda(left, right):
-        return volume.ad_volumes(left, right, disp_range)
+    kernel's AD part): one launch."""
     return _launch(left, right, disp_range, 1, 1, 1.0, 1.0, "both", "ad")
 
 
@@ -179,9 +162,6 @@ def census_volume_cuda(
     left, right, disp_range: int, rows: int = 9, cols: int = 7, view: str = "left",
     row_offset: int = 0, global_rows: int = None, d_offset: int = 0,
 ) -> torch.Tensor:
-    """Drop-in for ``ops.volume.census_volume`` (the kernel's Hamming part)."""
-    if not on_cuda(left, right):
-        return volume.census_volume(left, right, disp_range, rows, cols, view, row_offset,
-                                    global_rows, d_offset)
+    """``ops.volume.census_volume`` (the kernel's Hamming part): one launch."""
     return _launch(left, right, disp_range, rows, cols, 1.0, 1.0, _single(view), "census",
                    row_offset, global_rows, d_offset)

@@ -1,23 +1,22 @@
 """CUDA cross arms, arm-rectangle mean (``csrc/aggregate.cu``) and cross
 aggregation (``csrc/cross_aggregate.cu``).
 
-Counterparts of ``ops.aggregate.cross_arms``,
+The launchers of ``ops.aggregate.cross_arms``,
 ``ops.aggregate.rect_mean_aggregate`` and ``ops.aggregate.cross_aggregate``,
-whose private ``_plain`` bodies are their plain versions.  No Pallas kernel
-stands behind them: they replace the XLA ops of the JAX package's
-``cross_arms`` (`stereo_match_traditional_tpu/ops/aggregate.py:119`),
-``rect_mean_aggregate`` (`:486`) and ``cross_aggregate`` (`:792`).  Dispatch
-is by the device of the inputs, never by a fallback: CPU tensors take the
-plain version; CUDA tensors launch the kernel or raise.
-``ops.aggregate``'s public functions call these for CUDA tensors.
+which call them for CUDA tensors and run their private ``_plain`` bodies
+for CPU tensors.  No Pallas kernel stands behind them: they replace the XLA
+ops of the JAX package's ``cross_arms``
+(`stereo_match_traditional_tpu/ops/aggregate.py:119`),
+``rect_mean_aggregate`` (`:486`) and ``cross_aggregate`` (`:792`).  A
+launcher takes CUDA tensors only: a CPU tensor raises ``ValueError``.
 
-The arms and the rect mean are bit-exact with their plain versions: the
+The arms and the rect mean are bit-exact with their plain bodies: the
 arms are integer counts of float32 comparisons, and the rectangle sums are
 float64 sums of a summed-area table, exact for AD-Census volumes in any
 order (otherwise within a float32 ulp of the mean).  The cross
 aggregation's float64 span sums are exact on AD-Census volumes in its first
 iteration (bit for bit); later iterations sum float32 means, whose float64
-sums the kernel and the plain version round alike but where a sum lies near
+sums the kernel and the plain body round alike but where a sum lies near
 a float32 rounding boundary (one ulp of the sum, two of the mean it is
 divided into) or is tiny (below ~1e-6: more ulps, under 2^-40).
 
@@ -39,6 +38,7 @@ import torch
 from stereo_match_traditional_tpu_torch.ops.kernels.launch import (
     current,
     raise_on_error,
+    require_cuda,
     stream,
 )
 
@@ -50,7 +50,7 @@ LAUNCHES = {"cross_arms_i32": 0, "rect_mean_f32": 0, "rect_mean_walker_f32": 0,
 
 # The three-kernel route builds its float64 summed-area table a chunk of
 # slices at a time in a scratch of at most this many bytes (one slice at the
-# least): a 720p slice is 7.4 MB, so 138 slices a chunk; the plain version
+# least): a 720p slice is 7.4 MB, so 138 slices a chunk; the plain body
 # holds float64 copies of the whole volume.
 SCRATCH_BYTES = 1 << 30
 
@@ -99,17 +99,13 @@ def arms_over_cap(device, reset: bool = False) -> int:
     return n
 
 
-def cross_arms_cuda(img: torch.Tensor, cfg, row_offset: int = 0, global_rows: int = None):
-    """Drop-in for ``ops.aggregate.cross_arms``: one launch of
-    ``cross_arms_i32`` for a CUDA image (grey ``[H, W]`` or colour
+def cross_arms_cuda(img: torch.Tensor, cfg, row_offset: int = 0,
+                    global_rows: int = None) -> torch.Tensor:
+    """The arms of ``ops.aggregate.cross_arms``: one launch of
+    ``cross_arms_i32`` on a CUDA image (grey ``[H, W]`` or colour
     ``[H, W, 3]``, uint8 or float32, any strides; a grey uint8 image, the
-    pipelines', takes the kernel that tests four pixels a word), the plain
-    version for a CPU image.  The four int32 maps are planes of one
-    ``[4, H, W]`` tensor."""
-    from stereo_match_traditional_tpu_torch.ops import aggregate
-
-    if not img.is_cuda:
-        return aggregate._cross_arms_plain(img, cfg, row_offset, global_rows)
+    pipelines', takes the kernel that tests four pixels a word).  Returns
+    the int32 ``[4, H, W]`` planes left, right, up, down."""
     from stereo_match_traditional_tpu_torch.ops.kernels.build import library
 
     if not (img.dim() == 2 or (img.dim() == 3 and img.shape[-1] == 3)):
@@ -125,6 +121,7 @@ def cross_arms_cuda(img: torch.Tensor, cfg, row_offset: int = 0, global_rows: in
         raise ValueError(f"image too large for int32 indices of its four maps: {h}x{w}")
     if global_rows is None:
         global_rows = h
+    require_cuda(img=img)
     img = img.contiguous()
     out = torch.empty((4, h, w), dtype=torch.int32, device=img.device)
     lib = library()
@@ -136,22 +133,17 @@ def cross_arms_cuda(img: torch.Tensor, cfg, row_offset: int = 0, global_rows: in
         )
     raise_on_error(lib, "cross_arms_i32", err)
     LAUNCHES["cross_arms_i32"] += 1
-    return aggregate.Arms(*out.unbind(0))
+    return out
 
 
 def rect_mean_cuda(vol: torch.Tensor, arms, inclusive: bool = True,
                    max_span: Optional[int] = None) -> torch.Tensor:
-    """Drop-in for ``ops.aggregate.rect_mean_aggregate`` (its ``layout``
-    changes nothing there either) for a CUDA volume (float32 ``[D, H, W]``,
-    any strides; a batch of volumes sharing the arms concatenated along D),
-    the plain version for a CPU volume.  Where :func:`walker_takes`
-    ``max_span``, one launch of ``rect_mean_walker_f32`` (arms outside
-    [0, max_span] are clamped and counted, see :func:`arms_over_cap`); else
-    one launch of ``rect_mean_f32``."""
-    from stereo_match_traditional_tpu_torch.ops import aggregate
-
-    if not vol.is_cuda:
-        return aggregate._rect_mean_aggregate_plain(vol, arms, inclusive)
+    """``ops.aggregate.rect_mean_aggregate`` on a CUDA volume (float32
+    ``[D, H, W]``, any strides; a batch of volumes sharing the arms
+    concatenated along D).  Where :func:`walker_takes` ``max_span``, one
+    launch of ``rect_mean_walker_f32`` (arms outside [0, max_span] are
+    clamped and counted, see :func:`arms_over_cap`); else one launch of
+    ``rect_mean_f32``."""
     from stereo_match_traditional_tpu_torch.ops.kernels.build import library
 
     if vol.dim() != 3 or vol.dtype != torch.float32:
@@ -164,6 +156,7 @@ def rect_mean_cuda(vol: torch.Tensor, arms, inclusive: bool = True,
         if a.shape != (h, w) or a.device != vol.device:
             raise ValueError(f"arms.{name} must be [{h}, {w}] on {vol.device}, got "
                              f"{tuple(a.shape)} on {a.device}")
+    require_cuda(vol=vol)
     maps = [a.to(torch.int32).contiguous() for a in maps]
     vol = vol.contiguous()
     out = torch.empty_like(vol)
@@ -220,21 +213,16 @@ def cross_checks(vol: torch.Tensor, arms, span_cap: Optional[int]) -> int:
 def cross_aggregate_cuda(vol: torch.Tensor, arms, num_iters: int = 4,
                          horizontal_first: bool = True,
                          span_cap: Optional[int] = None) -> torch.Tensor:
-    """Drop-in for ``ops.aggregate.cross_aggregate`` (its ``max_arm`` and
-    ``method`` change nothing there either) for a CUDA volume (float32
-    ``[D, H, W]``, contiguous; int32 ``[H, W]`` arms on its device), the
-    plain version for a CPU volume.  One launch of ``cross_support_f32`` (the
-    packed arms and both supports), then one of ``cross_aggregate_f32`` an
-    iteration.  The cap is ``span_cap``, at most :data:`CROSS_MAX_SPAN`
-    (none: that); arms outside [0, cap] are clamped and counted, see
-    :func:`arms_over_cap`."""
-    from stereo_match_traditional_tpu_torch.ops import aggregate
-
-    if not vol.is_cuda:
-        return aggregate._cross_aggregate_plain(vol, arms, num_iters, horizontal_first)
+    """``ops.aggregate.cross_aggregate`` on a CUDA volume (float32
+    ``[D, H, W]``, contiguous; int32 ``[H, W]`` arms on its device): one
+    launch of ``cross_support_f32`` (the packed arms and both supports),
+    then one of ``cross_aggregate_f32`` an iteration.  The cap is
+    ``span_cap``, at most :data:`CROSS_MAX_SPAN` (none: that); arms outside
+    [0, cap] are clamped and counted, see :func:`arms_over_cap`."""
     from stereo_match_traditional_tpu_torch.ops.kernels.build import library
 
     cap = cross_checks(vol, arms, span_cap)
+    require_cuda(vol=vol)
     if num_iters < 1:
         return vol
     n, h, w = vol.shape

@@ -1,6 +1,7 @@
-"""What every kernel wrapper does around a launch: dispatch by device, the
-images as the kernels read them, the current device and its stream, the
-error check, and the canonical kernels' edge-bit scratch."""
+"""What every kernel launcher does around a launch: the check that its
+tensors lie on one CUDA device, the images as the kernels read them, the
+current device and its stream, the error check, and the canonical kernels'
+edge-bit scratch."""
 
 from __future__ import annotations
 
@@ -9,12 +10,13 @@ import contextlib
 import torch
 
 
-def on_cuda(left: torch.Tensor, right: torch.Tensor) -> bool:
-    """Whether the pair lies on a CUDA device (then the kernel runs; on the
-    CPU the plain version does).  Raises for a pair split across devices."""
-    if left.is_cuda != right.is_cuda:
-        raise ValueError(f"left on {left.device}, right on {right.device}")
-    return left.is_cuda
+def require_cuda(**tensors: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless the named tensors lie on one CUDA device:
+    a launcher takes no CPU tensor."""
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{', '.join(f'{k} on {t.device}' for k, t in tensors.items())}: the "
+                         f"kernel takes CUDA tensors on one device")
 
 
 def kernel_inputs(left: torch.Tensor, right: torch.Tensor):

@@ -1,28 +1,26 @@
 """CUDA 8-direction hole fill and speckle removal (``csrc/post.cu``) and
 iterative region voting (``csrc/region_voting.cu``).
 
-Counterparts of ``ops.post.fill_holes_8dir`` (and of one of its passes,
+The launchers of ``ops.post.fill_holes_8dir`` (and of one of its passes,
 ``ops.post._fill_from_candidates``), ``ops.post.remove_speckles`` and
-``ops.post.iterative_region_voting``, whose private ``_plain`` bodies are
-their plain versions.  No Pallas kernel stands behind them: they replace
-the XLA ops of the JAX package's ``fill_holes_8dir``
-(`stereo_match_traditional_tpu/ops/post.py:658`), ``remove_speckles``
-(`:169`) and ``iterative_region_voting`` (`:886`).  Dispatch is by the
-device of the inputs, never by a fallback: CPU tensors take the plain
-version; CUDA tensors launch the kernel or raise.  ``ops.post``'s public functions call these for CUDA
-tensors.
+``ops.post.iterative_region_voting``, which call them for CUDA tensors and
+run their private ``_plain`` bodies for CPU tensors.  No Pallas kernel
+stands behind them: they replace the XLA ops of the JAX package's
+``fill_holes_8dir`` (`stereo_match_traditional_tpu/ops/post.py:658`),
+``remove_speckles`` (`:169`) and ``iterative_region_voting`` (`:886`).  A
+launcher takes CUDA tensors only: a CPU tensor raises ``ValueError``.
 
 The fill's kernels search bitsets of the map's finite pixels along its
 rows, columns, diagonals and anti-diagonals, not the map itself, a thread a
 target from a compacted list (``csrc/post.cu``'s header).  Both are
-bit-exact with their plain versions: the fill selects among the map's own
+bit-exact with their plain bodies: the fill selects among the map's own
 values, and the speckle filter's output depends only on the component
 areas, which any exact labelling gives.  The speckle kernel
-labels to the fixpoint on the device, so the plain version's ``max_iters``
-cap has no counterpart: an explicit cap below the plain version's default
+labels to the fixpoint on the device, so the plain body's ``max_iters``
+cap has no counterpart: an explicit cap below the plain body's default
 raises rather than give another result.  The voting counts each invalid
 pixel's region in a histogram of its own, integers in any order, and
-decides by the plain version's float32 tests: bit for bit too.
+decides by the plain body's float32 tests: bit for bit too.
 """
 
 from __future__ import annotations
@@ -35,6 +33,7 @@ import torch
 from stereo_match_traditional_tpu_torch.ops.kernels.launch import (
     current,
     raise_on_error,
+    require_cuda,
     stream,
 )
 from stereo_match_traditional_tpu_torch.utils import profiling
@@ -102,15 +101,10 @@ def _scratch(like: torch.Tensor, maps: int = 0) -> torch.Tensor:
 
 def fill_from_candidates_cuda(disp, target, second_smallest: bool, max_axis_steps,
                               max_diag_steps):
-    """Drop-in for ``ops.post._fill_from_candidates`` (one pass of the fill
-    on a float32 map, ``target`` the bool pixels to fill): one launch of
+    """``ops.post._fill_from_candidates`` (one pass of the fill on a float32
+    map, ``target`` the bool pixels to fill): one launch of
     ``fill_pass_f32`` (the map's bitsets and its target list, then the
-    targets' searches) for CUDA tensors, the plain version for CPU ones."""
-    from stereo_match_traditional_tpu_torch.ops import post
-
-    if not disp.is_cuda:
-        return post._fill_from_candidates_plain(disp, target, second_smallest, max_axis_steps,
-                                                max_diag_steps)
+    targets' searches)."""
     from stereo_match_traditional_tpu_torch.ops.kernels.build import library
 
     _check_map("disp", disp)
@@ -118,6 +112,7 @@ def fill_from_candidates_cuda(disp, target, second_smallest: bool, max_axis_step
         raise ValueError(f"disp must be float32, got {disp.dtype}")
     h, w = disp.shape
     src, mask = disp.contiguous(), _mask(target, disp)
+    require_cuda(disp=src)
     caps = _caps(max_axis_steps, max_diag_steps, h, w)
     out, scratch = torch.empty_like(src), _scratch(src)
     lib = library()
@@ -132,21 +127,16 @@ def fill_from_candidates_cuda(disp, target, second_smallest: bool, max_axis_step
 
 def fill_holes_8dir_cuda(disp, occlusion, mismatch, invalid_value: float = float("inf"),
                          max_search: Optional[int] = None):
-    """Drop-in for ``ops.post.fill_holes_8dir``: one launch of
-    ``fill_holes_8dir_f32`` (three passes: occlusions, mismatches, what stays
-    invalid; each builds the bitsets of its input map and the list of its
-    targets, then searches the targets' rays in the bitsets) for CUDA
-    tensors, the plain version for CPU ones.  The first pass reads
+    """``ops.post.fill_holes_8dir``: one launch of ``fill_holes_8dir_f32``
+    (three passes: occlusions, mismatches, what stays invalid; each builds
+    the bitsets of its input map and the list of its targets, then searches
+    the targets' rays in the bitsets).  The first pass reads
     ``invalid_value`` as +inf, the last writes it back."""
-    from stereo_match_traditional_tpu_torch.ops import post
-
-    if not disp.is_cuda:
-        return post._fill_holes_8dir_plain(disp, occlusion, mismatch, invalid_value,
-                                           max_search)
     from stereo_match_traditional_tpu_torch.ops.kernels.build import library
 
     _check_map("disp", disp)
     occlusion, mismatch = _mask(occlusion, disp), _mask(mismatch, disp)
+    require_cuda(disp=disp)
     h, w = disp.shape
     max_axis = None if max_search is None else max(max_search - 1, 0)
     max_diag = None if max_search is None else int(round(max_axis * 0.70710678))
@@ -154,7 +144,7 @@ def fill_holes_8dir_cuda(disp, occlusion, mismatch, invalid_value: float = float
     raw = disp.dtype == torch.float32
     if raw:     # the first pass maps invalid_value as it reads
         d = disp.contiguous()
-    else:       # compared in disp's own dtype, as the plain version does
+    else:       # compared in disp's own dtype, as the plain body does
         d = torch.where(disp == invalid_value, float("inf"), disp.to(torch.float32))
     out, scratch = torch.empty_like(d), _scratch(d, maps=1)
     lib = library()
@@ -169,7 +159,7 @@ def fill_holes_8dir_cuda(disp, occlusion, mismatch, invalid_value: float = float
 
 
 def speckle_iteration_cap(h: int, w: int) -> int:
-    """The plain version's default ``max_iters``: the JAX package's cap."""
+    """The plain body's default ``max_iters``: the JAX package's cap."""
     return 32 + 8 * max(1, (h * w - 1).bit_length())
 
 
@@ -182,18 +172,12 @@ def remove_speckles_cuda(
     max_iters: Optional[int] = None,
     connectivity: int = 8,
 ) -> torch.Tensor:
-    """Drop-in for ``ops.post.remove_speckles`` (``block`` changes nothing
-    there): one launch of ``remove_speckles_f32`` (four kernels: tile-local
-    labels in shared memory, the links across tile borders, the tile roots'
-    counts, the kill; no host round trip) for a CUDA map, the plain version
-    for a CPU one.  The kernel labels to the fixpoint: an explicit
-    ``max_iters`` below :func:`speckle_iteration_cap`, where the plain
-    version could stop short of it, raises ``ValueError``."""
-    from stereo_match_traditional_tpu_torch.ops import post
-
-    if not disp.is_cuda:
-        return post._remove_speckles_plain(disp, diff_insame, min_speckle_area, invalid_value,
-                                           background, max_iters, connectivity)
+    """``ops.post.remove_speckles``: one launch of ``remove_speckles_f32``
+    (four kernels: tile-local labels in shared memory, the links across tile
+    borders, the tile roots' counts, the kill; no host round trip).  The
+    kernel labels to the fixpoint: an explicit ``max_iters`` below
+    :func:`speckle_iteration_cap`, where the plain body could stop short of
+    it, raises ``ValueError``."""
     from stereo_match_traditional_tpu_torch.ops.kernels.build import library
 
     if connectivity not in (4, 8):
@@ -204,9 +188,10 @@ def remove_speckles_cuda(
     if max_iters is not None and max_iters < cap:
         raise ValueError(
             f"remove_speckles(max_iters={max_iters}): the CUDA kernel labels to the fixpoint, "
-            f"so a cap below the plain version's {cap} sweeps has no counterpart on the card")
+            f"so a cap below the plain body's {cap} sweeps has no counterpart on the card")
     if h * w >= 2**31:
         raise ValueError(f"map too large for int32 labels: {h}x{w}")
+    require_cuda(disp=disp)
     d = disp.to(torch.float32).contiguous()
     out = torch.empty_like(d)
     # 64-bit totals, then the labels and the tile roots' counts
@@ -236,20 +221,14 @@ def voting_scratch_words(h: int, w: int, num_iters: int) -> int:
 
 def region_voting_cuda(disp, arms, disp_range: int, ts: float = 20.0, th: float = 0.4,
                        num_iters: int = 5, invalid_value: float = float("inf")):
-    """Drop-in for ``ops.post.iterative_region_voting`` (its ``max_arm`` and
-    ``d_chunk`` change nothing here) for a CUDA map (float32 ``[H, W]``; the
-    arms int32 ``[H, W]`` on its device), the plain version for a CPU map.
-    One launch of ``region_voting_f32``: the bins, spans and target list,
+    """``ops.post.iterative_region_voting`` on a CUDA map (float32
+    ``[H, W]``; the arms int32 ``[H, W]`` on its device): one launch of
+    ``region_voting_f32``: the bins, spans and target list,
     then two kernels an iteration (each target's region counted by a warp,
     then the fills applied and the targets left listed); no ``[D, H, W]``
     tensor.  Arms below 0 are read as 0.  Inside ``record_spans()`` the
     counter ``region_voting.targets`` gets the targets counted, summed over
     the iterations (a host sync; nothing is read outside a record)."""
-    from stereo_match_traditional_tpu_torch.ops import post
-
-    if not disp.is_cuda:
-        return post._iterative_region_voting_plain(disp, arms, disp_range, ts, th, num_iters,
-                                                   invalid_value)
     from stereo_match_traditional_tpu_torch.ops.kernels.build import library
 
     _check_map("disp", disp)
@@ -265,6 +244,7 @@ def region_voting_cuda(disp, arms, disp_range: int, ts: float = 20.0, th: float 
         if a.shape != disp.shape or a.device != disp.device or a.dtype != torch.int32:
             raise ValueError(f"arms.{name} must be int32 [{h}, {w}] on {disp.device}, got "
                              f"{a.dtype} {tuple(a.shape)} on {a.device}")
+    require_cuda(disp=disp)
     if num_iters < 1:
         return disp
     maps = [a.contiguous() for a in maps]

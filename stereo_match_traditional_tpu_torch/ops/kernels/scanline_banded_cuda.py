@@ -1,16 +1,16 @@
 """CUDA banded scanline passes (``csrc/scanline_banded.cu``, and the band
 entries of ``csrc/scanline.cu`` and ``csrc/scanline_canonical.cu``).
 
-Counterparts of ``ops.scanline.directional_pass_banded`` and
-``canonical_pass_banded``, their plain versions: one directional pass over a
-band of path steps, continued from a carry.  And of
-``ops.scanline.horizontal_passes_banded`` and
-``canonical_horizontal_passes_banded``: both horizontal passes of a band of
-rows in one launch, by the whole-image kernels' horizontal design (a block a
-row and direction: a walker warp with the D values in registers, mover warps
-staging 128-byte runs of a row through shared memory).  Dispatch is by the
-device of the inputs, never by a fallback: CPU tensors take the plain
-version; CUDA tensors launch a kernel or raise.
+The launchers of ``ops.scanline.directional_pass_banded`` and
+``canonical_pass_banded``: one directional pass over a band of path steps,
+continued from a carry.  And of ``ops.scanline.horizontal_passes_banded``
+and ``canonical_horizontal_passes_banded``: both horizontal passes of a
+band of rows in one launch, by the whole-image kernels' horizontal design (a
+block a row and direction: a walker warp with the D values in registers,
+mover warps staging 128-byte runs of a row through shared memory).  Those
+public functions call the launchers for CUDA tensors and run their plain
+bodies for CPU tensors.  A launcher takes CUDA tensors only: a CPU tensor
+raises ``ValueError``.
 
 A pass runs on one of two kernels, chosen explicitly (:func:`pass_entry`):
 for D <= 256 with the lanes contiguous in the band, its penalties (the
@@ -22,14 +22,17 @@ memory, the wide kernel (``scanline_banded_wide_f32``,
 any strides; walker warps with the values in registers up to 1024
 disparities, its movers copying along whichever of the steps or the lanes
 is contiguous).  ``LAUNCHES`` counts each by its C entry.  Above 256
-disparities the band entries and the whole-image scanline wrappers run
+disparities the band entries and the whole-image scanline launchers run
 their horizontal passes as two wide launches on the d-major volume as it
 lies (:func:`scanline_optimize_composed`,
-:func:`scanline_canonical_composed`), bit for bit the plain versions.  The
-two composed routes open the ranges ``stereo/scanline_rows`` and
-``stereo/scanline_columns`` around their horizontal and vertical passes,
-and each pass from a zero carry counts in ``scanline.wide_passes``
-(``utils.profiling``).
+:func:`scanline_canonical_composed`), bit for bit the plain bodies.  Those
+routes take their penalties from the plain-torch helpers of
+``ops.scanline`` (``horizontal_p2``, ``vertical_p2``, ``horizontal_scales``,
+``vertical_scales``), imported where they run: the one edge from this
+module up to ``ops``.  The two composed routes open the ranges
+``stereo/scanline_rows`` and ``stereo/scanline_columns`` around their
+horizontal and vertical passes, and each pass from a zero carry counts in
+``scanline.wide_passes`` (``utils.profiling``).
 
 The kernels read ``cost`` and the penalties and write the result through
 their strides, so a caller hands them a permuted view of a ``[D, t, W]``
@@ -44,9 +47,8 @@ from __future__ import annotations
 
 import torch
 
-from stereo_match_traditional_tpu_torch.ops import scanline
 from stereo_match_traditional_tpu_torch.ops.kernels.launch import (
-    current, edge_bit_words, kernel_inputs, raise_on_error, stream,
+    current, edge_bit_words, kernel_inputs, raise_on_error, require_cuda, stream,
 )
 from stereo_match_traditional_tpu_torch.utils.profiling import count, stage_scope
 
@@ -74,20 +76,6 @@ def _reset_index(reset, n: int) -> int:
     if len(idx) > 1:
         raise ValueError(f"the banded kernel restarts a path once, got resets at {idx}")
     return idx[0] if idx else -1
-
-
-def _plain(fn, cost, pen, carry, reset, reverse, store):
-    """The plain version, run along the reversed path for ``reverse``."""
-    if reverse:
-        if reset is not None and not isinstance(reset, int):
-            reset = reset.flip(0)
-        elif reset is not None:
-            reset = cost.shape[0] - 1 - reset
-        out, carry = fn(cost.flip(0), pen.flip(0), carry, reset)
-        out = out.flip(0)
-    else:
-        out, carry = fn(cost, pen, carry, reset)
-    return (out if store else None), carry
 
 
 def _path(x: torch.Tensor, reverse: bool):
@@ -143,6 +131,7 @@ def _launch(canonical, cost, pen, carry, reset, p1, p2, dm1, reverse, store, ent
     tensors = (cost, pen, prev, prev_min)
     if any(t.dtype != torch.float32 or t.device != cost.device for t in tensors):
         raise ValueError("cost, penalties and carry must be float32 on one device")
+    require_cuda(cost=cost)
     prev, prev_min = prev.contiguous(), prev_min.contiguous()
     out = _empty_in_layout(cost) if store else None
     name = entry or pass_entry(canonical, d, cost, pen, out)
@@ -181,15 +170,10 @@ def directional_pass_banded_cuda(
 ):
     """``ops.scanline.directional_pass_banded`` on ``cost`` [T, D, M] and
     ``p2`` [T, M] (any strides): one launch of ``scanline_banded_f32`` (D <=
-    256, lanes contiguous) or ``scanline_banded_wide_f32`` for CUDA inputs,
-    the plain version for CPU inputs.  ``reset``: None, a step index or a
-    ``[T]`` bool tensor (one True at most on the card).  Returns
-    (aggregated [T, D, M], on the card in the memory order of ``cost``'s
-    dimensions, or None without ``store``; outgoing carry)."""
-    if not cost.is_cuda:
-        def fn(c, p, cr, rs):
-            return scanline.directional_pass_banded(c, p, cr, rs, p1, l2_uses_dm1)
-        return _plain(fn, cost, p2, carry, reset, reverse, store)
+    256, lanes contiguous) or ``scanline_banded_wide_f32``.  ``reset``: None,
+    a step index or a ``[T]`` bool tensor (one True at most).  Returns
+    (aggregated [T, D, M] in the memory order of ``cost``'s dimensions, or
+    None without ``store``; outgoing carry)."""
     return _launch(False, cost, p2, carry, reset, p1, 0.0, l2_uses_dm1, reverse, store)
 
 
@@ -205,38 +189,30 @@ def canonical_pass_banded_cuda(
 ):
     """``ops.scanline.canonical_pass_banded`` on ``cost`` and ``scale``
     [T, D, M] (any strides): one launch of ``scanline_banded_canonical_f32``
-    (D <= 256, lanes contiguous) or ``scanline_banded_wide_canonical_f32``
-    for CUDA inputs, the plain version for CPU inputs; the rest as
-    :func:`directional_pass_banded_cuda`."""
-    if not cost.is_cuda:
-        def fn(c, s, cr, rs):
-            return scanline.canonical_pass_banded(c, s, cr, rs, p1_base, p2_base)
-        return _plain(fn, cost, scale, carry, reset, reverse, store)
+    (D <= 256, lanes contiguous) or ``scanline_banded_wide_canonical_f32``;
+    the rest as :func:`directional_pass_banded_cuda`."""
     return _launch(True, cost, scale, carry, reset, p1_base, p2_base, True, reverse, store)
 
 
 def _pass(canonical, cost, pen, a, b, dm1, reverse):
-    """One pass from a zero carry (the exact path seed) by the family's
-    wrapper: the plain version on CPU tensors; on the card the kernel
+    """One pass from a zero carry (the exact path seed) by the kernel
     :func:`pass_entry` picks (the wide one above 256 disparities).  Counted
     in ``scanline.wide_passes``."""
     count("scanline.wide_passes")
     zero = cost.new_zeros(cost.shape[1:]), cost.new_zeros(cost.shape[2:])
-    if canonical:
-        return canonical_pass_banded_cuda(cost, pen, zero, None, a, b, reverse=reverse)[0]
-    return directional_pass_banded_cuda(cost, pen, zero, None, a, dm1, reverse=reverse)[0]
+    return _launch(canonical, cost, pen, zero, None, a, b, dm1, reverse, True)[0]
 
 
 def _rows(canonical, cost, pen_lr, pen_rl, a, b):
     """Both passes along the rows of a ``[D, t, W]`` volume, each row a
     whole path, read as it lies: the passes run on its ``[W, D, t]`` view
-    (on the card the wide kernel's movers copy along the columns, its
-    contiguous dimension) and write their results in its memory order.
+    (the wide kernel's movers copy along the columns, its contiguous
+    dimension) and write their results in its memory order.
     ``pen_lr`` / ``pen_rl``: the penalties of each direction's steps in
     column order, ``[W, t]`` (legacy; ``a, b = p1, 0``) or ``[W, D, t]``
     (canonical; ``a, b = p1, p2``).  Returns ``(lr, rl)``, ``[D, t, W]``
-    views (on the card, of a ``cost``'s layout: contiguous for a contiguous
-    or halo-cropped band)."""
+    views of ``cost``'s layout (contiguous for a contiguous or halo-cropped
+    band)."""
     ch = cost.permute(2, 0, 1)                                          # [W, D, t]
     lr = _pass(canonical, ch, pen_lr, a, b, True, False)
     rl = _pass(canonical, ch, pen_rl, a, b, True, True)
@@ -257,12 +233,13 @@ def scanline_optimize_composed(cost: torch.Tensor, gray: torch.Tensor, p1: float
     """``ops.scanline.scanline_optimize`` as four banded passes from a zero
     carry: the horizontal ones along the volume's rows with P2 of
     ``ops.scanline.horizontal_p2``, the vertical ones with ``vertical_p2``,
-    summed in the plain version's order, ``(lr + rl) + (ud + du)``; bit for
-    bit the plain version.  The route of ``scanline_optimize_cuda`` above
-    256 disparities (on the card four launches of
-    ``scanline_banded_wide_f32``); CPU tensors take the plain banded passes.
-    ``cost`` [D, H, W] and ``gray`` [H, W] on one device; returns a
-    contiguous ``[D, H, W]`` volume."""
+    summed in the plain body's order, ``(lr + rl) + (ud + du)``; bit for
+    bit the plain body.  The route of ``scanline_optimize_cuda`` above 256
+    disparities: four launches of ``scanline_banded_wide_f32``.  ``cost``
+    [D, H, W] and ``gray`` [H, W] on one CUDA device; returns a contiguous
+    ``[D, H, W]`` volume."""
+    from stereo_match_traditional_tpu_torch.ops import scanline
+
     c = cost.to(torch.float32)
     with stage_scope("scanline_rows"):
         lr, rl = _rows(False, c, *scanline.horizontal_p2(gray, p1, p2_init), p1, 0.0)
@@ -279,11 +256,13 @@ def scanline_canonical_composed(cost: torch.Tensor, left: torch.Tensor, right: t
     """``ops.scanline.scanline_optimize_canonical`` of one view as four
     canonical banded passes: the horizontal ones along the volume's rows,
     the scales of ``ops.scanline.horizontal_scales`` and
-    ``vertical_scales``, averaged in the plain version's order,
-    ``((lr + rl) + (ud + du)) * 0.25``; bit for bit the plain version.  The
-    route of ``scanline_optimize_canonical_cuda`` above 256 disparities (on
-    the card four launches of ``scanline_banded_wide_canonical_f32``).
-    Returns a contiguous ``[D, H, W]`` volume."""
+    ``vertical_scales``, averaged in the plain body's order,
+    ``((lr + rl) + (ud + du)) * 0.25``; bit for bit the plain body.  The
+    route of ``scanline_optimize_canonical_cuda`` above 256 disparities:
+    four launches of ``scanline_banded_wide_canonical_f32``.  Returns a
+    contiguous ``[D, H, W]`` volume."""
+    from stereo_match_traditional_tpu_torch.ops import scanline
+
     c = cost.to(torch.float32)
     d = c.shape[0]
     right_view = view == "right"
@@ -342,19 +321,17 @@ def horizontal_passes_banded_cuda(cost: torch.Tensor, grey: torch.Tensor, p1: fl
                                   p2_init: float):
     """``ops.scanline.horizontal_passes_banded`` on a ``[D, t, W]`` band
     (any strides; a halo-cropped view is read in place) and its ``[t, W]``
-    grey rows: for CUDA inputs one launch of ``scanline_horizontal_band_f32``
-    (D <= 256), both directions, or above 256 disparities two launches of
-    ``scanline_banded_wide_f32`` on the band as it lies (:func:`_rows`); the
-    plain version for CPU inputs.  Returns ``(lr, rl)``, on the card
-    ``[D, t, W]`` views: for D <= 256 of volumes whose rows are padded to a
-    multiple of 4 columns (contiguous when ``W % 4 == 0``), above 256
-    contiguous."""
-    if cost.is_cuda != grey.is_cuda:
-        raise ValueError(f"cost on {cost.device}, grey on {grey.device}")
-    if not cost.is_cuda:
-        return scanline.horizontal_passes_banded(cost, grey, p1, p2_init)
+    grey rows: one launch of ``scanline_horizontal_band_f32`` (D <= 256),
+    both directions, or above 256 disparities two launches of
+    ``scanline_banded_wide_f32`` on the band as it lies (:func:`_rows`).
+    Returns ``(lr, rl)``, ``[D, t, W]`` views: for D <= 256 of volumes whose
+    rows are padded to a multiple of 4 columns (contiguous when ``W % 4 ==
+    0``), above 256 contiguous."""
+    require_cuda(cost=cost, grey=grey)
     _check_band(cost, (grey,))
     if cost.shape[0] > MAX_DISP:
+        from stereo_match_traditional_tpu_torch.ops import scanline
+
         return _rows(False, cost, *scanline.horizontal_p2(grey, p1, p2_init), p1, 0.0)
 
     def call(lib, c, lr, rl):
@@ -373,20 +350,17 @@ def canonical_horizontal_passes_banded_cuda(cost: torch.Tensor, base: torch.Tens
     """``ops.scanline.canonical_horizontal_passes_banded`` on a ``[D, t, W]``
     band (any strides) and its ``[t, W]`` rows of the view's own grey image
     (``base``) and the other one (``match``; both read as they are when both
-    are uint8, else as float32): for CUDA inputs one call of
+    are uint8, else as float32): one call of
     ``scanline_canonical_horizontal_band_f32`` (D <= 256: the edge bits of
     the band's rows, then both directions in one launch), or above 256
     disparities two launches of ``scanline_banded_wide_canonical_f32`` on the
-    scales of ``ops.scanline.horizontal_scales``; the plain version for CPU
-    inputs.  Returns ``(lr, rl)`` as :func:`horizontal_passes_banded_cuda`."""
-    if len({cost.is_cuda, base.is_cuda, match.is_cuda}) != 1:
-        raise ValueError(f"cost on {cost.device}, base on {base.device}, match on "
-                         f"{match.device}")
-    if not cost.is_cuda:
-        return scanline.canonical_horizontal_passes_banded(cost, base, match, p1, p2, tso,
-                                                           right_view)
+    scales of ``ops.scanline.horizontal_scales``.  Returns ``(lr, rl)`` as
+    :func:`horizontal_passes_banded_cuda`."""
+    require_cuda(cost=cost, base=base, match=match)
     _check_band(cost, (base, match))
     if cost.shape[0] > MAX_DISP:
+        from stereo_match_traditional_tpu_torch.ops import scanline
+
         s = scanline.horizontal_scales(cost.shape[0], base, match, tso, right_view)
         return _rows(True, cost, s[:-1], s[1:], p1, p2)
 

@@ -1,9 +1,9 @@
 """CUDA canonical AD-Census scanline (``csrc/scanline_canonical.cu``).
 
-Counterpart of ``ops.scanline.scanline_optimize_canonical``, its plain
-version.  Dispatch is by the device of the inputs, never by a fallback: CPU
-tensors take the plain version; CUDA tensors launch a kernel or raise.  On
-the card the dispatch is by D alone: ``scanline_canonical_f32`` for D <=
+The launcher of ``ops.scanline.scanline_optimize_canonical``, which calls it
+for CUDA tensors and runs its plain body for CPU tensors.  The launcher
+takes CUDA tensors only: a CPU tensor raises ``ValueError``.  Its route is
+chosen by D alone: ``scanline_canonical_f32`` for D <=
 256, four launches of the wide banded kernel above
 (``scanline_banded_cuda.scanline_canonical_composed``, counted in
 ``scanline_banded_cuda.LAUNCHES``).
@@ -13,9 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from stereo_match_traditional_tpu_torch.ops import scanline
 from stereo_match_traditional_tpu_torch.ops.kernels.launch import (
-    current, edge_bit_words, kernel_inputs, raise_on_error, stream,
+    current, edge_bit_words, kernel_inputs, raise_on_error, require_cuda, stream,
 )
 from stereo_match_traditional_tpu_torch.ops.kernels.scanline_banded_cuda import (
     scanline_canonical_composed,
@@ -40,11 +39,10 @@ def scanline_optimize_canonical_cuda(
     tso: float = 15.0,
     view: str = "left",
 ) -> torch.Tensor:
-    """Drop-in for ``ops.scanline.scanline_optimize_canonical``: for CUDA
-    inputs one call of ``scanline_canonical_f32`` per view (D <= 256), or
-    above 256 disparities the wide route (four launches of
-    ``scanline_banded_wide_canonical_f32``, a contiguous result); the plain
-    version for CPU inputs.
+    """``ops.scanline.scanline_optimize_canonical``: one call of
+    ``scanline_canonical_f32`` per view (D <= 256), or above 256 disparities
+    the wide route (four launches of ``scanline_banded_wide_canonical_f32``,
+    a contiguous result).
 
     ``cost`` is the view's d-major ``[D, H, W]`` volume, ``left`` / ``right``
     the gray images (read as they are when both are uint8, else as float32).
@@ -57,8 +55,6 @@ def scanline_optimize_canonical_cuda(
     if len(devices) != 1:
         raise ValueError(f"cost, left and right must lie on one device, got "
                          f"{sorted(map(str, devices))}")
-    if not cost.is_cuda:
-        return scanline.scanline_optimize_canonical(cost, left, right, p1, p2, tso, view)
     from stereo_match_traditional_tpu_torch.ops.kernels.build import library
 
     if view not in ("left", "right"):
@@ -71,6 +67,7 @@ def scanline_optimize_canonical_cuda(
     if d < 1 or h < 1 or w < 1:
         raise ValueError(f"canonical scanline kernel takes a non-empty volume, got D={d}, "
                          f"{h}x{w}")
+    require_cuda(cost=cost, left=left, right=right)
     if d > MAX_DISP:
         return scanline_canonical_composed(cost, left, right, p1, p2, tso, view)
     if d * h * wp > MAX_VALUES:

@@ -1,9 +1,9 @@
 """CUDA 4-path scanline optimizer (``csrc/scanline.cu``).
 
-Counterpart of ``ops.scanline.scanline_optimize``, its plain version.
-Dispatch is by the device of the inputs, never by a fallback: CPU tensors
-take the plain version; CUDA tensors launch a kernel or raise.  On the card
-the dispatch is by D alone: ``scanline_optimize_f32`` for D <= 256, four
+The launcher of ``ops.scanline.scanline_optimize``, which calls it for CUDA
+tensors and runs its plain body for CPU tensors.  The launcher takes CUDA
+tensors only: a CPU tensor raises ``ValueError``.  Its route is chosen by D
+alone: ``scanline_optimize_f32`` for D <= 256, four
 launches of the wide banded kernel above (``scanline_banded_cuda.
 scanline_optimize_composed``, counted in ``scanline_banded_cuda.LAUNCHES``).
 """
@@ -13,8 +13,7 @@ from __future__ import annotations
 import torch
 
 from stereo_match_traditional_tpu_torch.config import ScanlineConfig
-from stereo_match_traditional_tpu_torch.ops import scanline
-from stereo_match_traditional_tpu_torch.ops.kernels.launch import stream
+from stereo_match_traditional_tpu_torch.ops.kernels.launch import require_cuda, stream
 from stereo_match_traditional_tpu_torch.ops.kernels.scanline_banded_cuda import (
     scanline_optimize_composed,
 )
@@ -32,20 +31,16 @@ MAX_VALUES = 2**32 - 1   # ... which keeps offsets into the volumes in 32 bits
 def scanline_optimize_cuda(
     cost: torch.Tensor, gray: torch.Tensor, cfg: ScanlineConfig = ScanlineConfig()
 ) -> torch.Tensor:
-    """Drop-in for ``ops.scanline.scanline_optimize``: for CUDA inputs one
-    launch of ``scanline_optimize_f32`` per call (D <= 256), or above 256
-    disparities the wide route (four launches of ``scanline_banded_wide_f32``,
-    a contiguous result); the plain version for CPU inputs.
+    """``ops.scanline.scanline_optimize``: one launch of
+    ``scanline_optimize_f32`` per call (D <= 256), or above 256 disparities
+    the wide route (four launches of ``scanline_banded_wide_f32``, a
+    contiguous result).
 
     ``scanline_optimize_f32`` reads ``cost`` d-major as it is and writes
     d-major volumes whose rows are padded to a multiple of 4 columns
     (16-byte rows); the result is the ``[D, H, W]`` view of such a volume,
     contiguous when ``W`` is a multiple of 4."""
     global LAUNCHES
-    if cost.is_cuda != gray.is_cuda:
-        raise ValueError(f"cost on {cost.device}, gray on {gray.device}")
-    if not cost.is_cuda:
-        return scanline.scanline_optimize(cost, gray, cfg)
     from stereo_match_traditional_tpu_torch.ops.kernels.build import library
 
     if cost.dim() != 3 or gray.shape != cost.shape[1:] or cost.device != gray.device:
@@ -57,6 +52,7 @@ def scanline_optimize_cuda(
     wp = -(-w // 4) * 4
     if d < 1 or h < 1 or w < 1:
         raise ValueError(f"scanline kernel takes a non-empty volume, got D={d}, {h}x{w}")
+    require_cuda(cost=cost, gray=gray)
     p1, p2 = cfg.effective_penalties(d)
     if d > MAX_DISP:
         return scanline_optimize_composed(cost, gray, p1, p2, not cfg.faithful_vertical_l2,

@@ -1,23 +1,22 @@
 """CUDA windowed SAD and NCC cost volumes (``csrc/window_cost.cu``).
 
-Counterparts of ``ops.volume.sad_volume``, ``ops.volume.ncc_volume`` and
-``ops.volume.ncc_sums``, which are their plain versions; the kernels
-replace the JAX package's ``volume.sad_volume``
-(`stereo_match_traditional_tpu/ops/volume.py:224`) and
-``volume.ncc_volume`` (`:296`).  Dispatch is by the device of the inputs,
-never by a fallback: CPU tensors take the plain version; CUDA tensors
-launch the kernel or raise.
+The launchers of ``ops.volume.sad_volume``, ``ops.volume.ncc_volume`` and
+``ops.volume.ncc_sums``, which call them for CUDA tensors and run their
+plain bodies for CPU tensors; the kernels replace the JAX package's
+``volume.sad_volume`` (`stereo_match_traditional_tpu/ops/volume.py:224`)
+and ``volume.ncc_volume`` (`:296`).  A launcher takes CUDA tensors only: a
+CPU tensor raises ``ValueError``.
 
 The kernels slide their sums (a column sum down the rows of a run, a window
 sum along a short run of columns) instead of summing each window anew.
 Exactness: for u8-valued inputs every partial sum is an integer below 2^24,
 so SAD volumes (any radius the kernel takes), the four NCC window sums and
-NCC volumes up to ``win_size`` 15 are bit-exact with the plain versions.
+NCC volumes up to ``win_size`` 15 are bit-exact with the plain bodies.
 Above that only the last, horizontal sums round (differences of ~1e-6,
 held to 1e-5).  For non-integer inputs a sliding float32 sum carries its
 roundings along the walk, which the kernel restarts every run of at most 24
 rows and 8 columns: a sum of terms of one sign (SAD, the sums of squares)
-stays within ``FLOAT_RTOL`` of the plain version's float64 sum, and a
+stays within ``FLOAT_RTOL`` of the plain body's float64 sum, and a
 signed sum (the NCC cross sums) within ``FLOAT_RTOL`` of the sum of its
 terms' magnitudes.  Both images uint8 are read by the kernels as they are;
 anything else is handed over as float32.
@@ -41,12 +40,11 @@ from __future__ import annotations
 
 import torch
 
-from stereo_match_traditional_tpu_torch.ops import volume
 from stereo_match_traditional_tpu_torch.ops.kernels.launch import (
     current,
     kernel_inputs,
-    on_cuda,
     raise_on_error,
+    require_cuda,
     stream,
 )
 
@@ -64,7 +62,7 @@ MAX_RADIUS = 32
 # float32 colour pairs stage three planes of each band: 226 KB of shared
 # memory at radius 15, the most that fits
 MAX_RADIUS_RGBF = 15
-# What non-integer inputs are held to against the plain version (above): at
+# What non-integer inputs are held to against the plain body (above): at
 # most 2 * 24 + 65 + 16 roundings of half an ulp (2^-24) each, were they all
 # of one sign.
 FLOAT_RTOL = 1e-5
@@ -101,17 +99,15 @@ def sad_volume_cuda(
     mean: bool = False,
     channel_min: bool = False,
 ) -> torch.Tensor:
-    """Drop-in for ``ops.volume.sad_volume``: one launch of
-    ``sad_volume_f32`` per call for CUDA inputs (one kernel writes the
-    window sums and the border triangle; ``channel_min`` its colour mode on
-    ``[H, W, 3]`` pairs), the plain version for CPU inputs."""
-    if not on_cuda(left, right):
-        return volume.sad_volume(left, right, disp_range, winsize, view, mean, channel_min)
+    """``ops.volume.sad_volume``: one launch of ``sad_volume_f32`` (one
+    kernel writes the window sums and the border triangle; ``channel_min``
+    its colour mode on ``[H, W, 3]`` pairs)."""
     from stereo_match_traditional_tpu_torch.ops.kernels.build import library
 
     if view not in ("left", "right"):
         raise ValueError(f"view must be 'left' or 'right', got {view!r}")
     _check(left, right, disp_range, winsize + 1, channel_min)
+    require_cuda(left=left, right=right)
     lk, rk, u8 = kernel_inputs(left, right)
     h, w = lk.shape[:2]
     out = torch.empty((disp_range, h, w), dtype=torch.float32, device=lk.device)
@@ -137,13 +133,12 @@ def ncc_sums_cuda(left: torch.Tensor, right: torch.Tensor, win_size: int):
     """The four window sums of ``ops.volume.ncc_sums`` (``sum_l, sum_l2,
     sum_r, sum_r2`` of the 128-centred images, zero-padded, float32
     ``[H, W]``): the sums kernel alone (``ncc_window_sums_f32``, the first of
-    ``ncc_volume_f32``'s two kernels) for CUDA inputs, the plain version for
-    CPU inputs.  It is no launch of ``ncc_volume_f32`` and is not counted."""
-    if not on_cuda(left, right):
-        return volume.ncc_sums(left, right, win_size)[2]
+    ``ncc_volume_f32``'s two kernels).  It is no launch of
+    ``ncc_volume_f32`` and is not counted."""
     from stereo_match_traditional_tpu_torch.ops.kernels.build import library
 
     _check(left, right, 1, win_size)
+    require_cuda(left=left, right=right)
     lk, rk, u8 = kernel_inputs(left, right)
     planes = _ncc_planes(lk)
     h, w = lk.shape
@@ -162,27 +157,21 @@ def ncc_volume_cuda(
     right: torch.Tensor,
     disp_range: int,
     win_size: int,
-    invalid_mode: str = "ignore",
+    sentinel: float,
     eps: float = 1e-12,
-    row_offset: int = 0,
-    global_rows: int = None,
     d_offset: int = 0,
-):
-    """Drop-in for ``ops.volume.ncc_volume`` -> ``(volume, interior)``: one
-    launch of ``ncc_volume_f32`` for CUDA inputs (the sums kernel, then the
-    cross sums fused with the epilogue); the plain version for CPU inputs.
-    ``row_offset`` / ``global_rows`` place a row band for the interior mask;
-    ``d_offset`` builds the slice of global disparities ``d_offset ..
-    d_offset + disp_range - 1``."""
-    if not on_cuda(left, right):
-        return volume.ncc_volume(left, right, disp_range, win_size, invalid_mode, eps,
-                                 row_offset, global_rows, d_offset)
+) -> torch.Tensor:
+    """The volume of ``ops.volume.ncc_volume``, ``sentinel`` where the right
+    window would cross the left edge: one launch of ``ncc_volume_f32`` (the
+    sums kernel, then the cross sums fused with the epilogue).  ``d_offset``
+    builds the slice of global disparities ``d_offset .. d_offset +
+    disp_range - 1``."""
     from stereo_match_traditional_tpu_torch.ops.kernels.build import library
 
-    sentinel = volume._ncc_sentinel(invalid_mode)
     _check(left, right, disp_range, win_size)
     if d_offset < 0:
         raise ValueError(f"d_offset must be >= 0, got {d_offset}")
+    require_cuda(left=left, right=right)
     lk, rk, u8 = kernel_inputs(left, right)
     planes = _ncc_planes(lk)
     h, w = lk.shape
@@ -191,9 +180,9 @@ def ncc_volume_cuda(
     with current(lk.device):
         err = lib.ncc_volume_f32(
             lk.data_ptr(), rk.data_ptr(), u8, planes.data_ptr(), out.data_ptr(), h, w,
-            disp_range, int(d_offset), win_size, float(eps), sentinel,
+            disp_range, int(d_offset), win_size, float(eps), float(sentinel),
             stream(lk.device),
         )
     raise_on_error(lib, "ncc_volume_f32", err)
     LAUNCHES["ncc_volume_f32"] += 1
-    return out, volume.ncc_interior_mask(h, w, win_size, row_offset, global_rows, lk.device)
+    return out

@@ -9,7 +9,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from stereo_match_traditional_tpu_torch.ops import on_cuda
 from stereo_match_traditional_tpu_torch.ops.aggregate import _hsum, _vsum
+from stereo_match_traditional_tpu_torch.ops.kernels import post_cuda
 from stereo_match_traditional_tpu_torch.ops.volume import INVALID, replicate_pad
 
 
@@ -171,18 +173,17 @@ def remove_speckles(
         raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
     if block == 0:
         raise ValueError("remove_speckles(block=0): a block has at least one row and column")
-    if disp.is_cuda:
-        from stereo_match_traditional_tpu_torch.ops.kernels.post_cuda import remove_speckles_cuda
-
-        return remove_speckles_cuda(disp, diff_insame, min_speckle_area, invalid_value,
-                                    background, max_iters, connectivity)
+    if on_cuda(disp):
+        return post_cuda.remove_speckles_cuda(disp, diff_insame, min_speckle_area,
+                                              invalid_value, background, max_iters,
+                                              connectivity)
     return _remove_speckles_plain(disp, diff_insame, min_speckle_area, invalid_value,
                                   background, max_iters, connectivity)
 
 
 def _remove_speckles_plain(disp, diff_insame, min_speckle_area, invalid_value, background,
                            max_iters, connectivity):
-    """The plain version of :func:`remove_speckles`: label sweeps with a
+    """The plain body of :func:`remove_speckles`: label sweeps with a
     host check of the fixpoint after each."""
     h, w = disp.shape
     if max_iters is None:
@@ -392,21 +393,17 @@ def _fill_from_candidates(disp, target, second_smallest: bool, max_axis_steps, m
     call of the fill's C entry (``ops.kernels.post_cuda.
     fill_from_candidates_cuda``: the map's bitsets and target list, then a
     thread a target searching its rays in the bitsets), a CPU map runs the
-    plain version below."""
-    if disp.is_cuda:
-        from stereo_match_traditional_tpu_torch.ops.kernels.post_cuda import (
-            fill_from_candidates_cuda,
-        )
-
-        return fill_from_candidates_cuda(disp, target, second_smallest, max_axis_steps,
-                                         max_diag_steps)
+    plain body below."""
+    if on_cuda(disp, target):
+        return post_cuda.fill_from_candidates_cuda(disp, target, second_smallest,
+                                                   max_axis_steps, max_diag_steps)
     return _fill_from_candidates_plain(disp, target, second_smallest, max_axis_steps,
                                        max_diag_steps)
 
 
 def _fill_from_candidates_plain(disp, target, second_smallest: bool, max_axis_steps,
                                 max_diag_steps):
-    """The plain version of :func:`_fill_from_candidates`: the 8 rays'
+    """The plain body of :func:`_fill_from_candidates`: the 8 rays'
     candidates of :func:`directional_candidates`, sorted."""
     cand, steps = directional_candidates(disp, torch.isfinite(disp))
     if max_axis_steps is not None:
@@ -441,17 +438,16 @@ def fill_holes_8dir(
     (``ops.kernels.post_cuda.fill_holes_8dir_cuda``: each builds bitsets of
     its input's finite pixels along rows, columns and both diagonals and a
     list of its targets, then searches the targets' rays in the bitsets), a
-    CPU map runs the plain version below; the two agree bit for bit.
+    CPU map runs the plain body below; the two agree bit for bit.
     """
-    if disp.is_cuda:
-        from stereo_match_traditional_tpu_torch.ops.kernels.post_cuda import fill_holes_8dir_cuda
-
-        return fill_holes_8dir_cuda(disp, occlusion, mismatch, invalid_value, max_search)
+    if on_cuda(disp, occlusion, mismatch):
+        return post_cuda.fill_holes_8dir_cuda(disp, occlusion, mismatch, invalid_value,
+                                              max_search)
     return _fill_holes_8dir_plain(disp, occlusion, mismatch, invalid_value, max_search)
 
 
 def _fill_holes_8dir_plain(disp, occlusion, mismatch, invalid_value=INVALID, max_search=None):
-    """The plain version of :func:`fill_holes_8dir`: three passes of
+    """The plain body of :func:`fill_holes_8dir`: three passes of
     :func:`_fill_from_candidates_plain`."""
     max_axis = None if max_search is None else max(max_search - 1, 0)
     max_diag = None if max_search is None else int(round(max_axis * 0.70710678))
@@ -492,22 +488,21 @@ def iterative_region_voting(
     A CUDA map takes one call of the voting's C entry
     (``ops.kernels.post_cuda.region_voting_cuda``: a histogram of each
     invalid pixel's region, counted by a warp, with no [D, H, W] tensor), a
-    CPU map runs the plain version below; the two agree bit for bit.  The
-    kernel ignores ``d_chunk``, which only bounds the plain version's
+    CPU map runs the plain body below; the two agree bit for bit.  The
+    kernel ignores ``d_chunk``, which only bounds the plain body's
     memory: the result is exact either way.  ``max_arm`` takes the JAX
     package's position (a TPU pick strategy there) and changes nothing.
     """
-    if disp.is_cuda:
-        from stereo_match_traditional_tpu_torch.ops.kernels.post_cuda import region_voting_cuda
-
-        return region_voting_cuda(disp, arms, disp_range, ts, th, num_iters, invalid_value)
+    if on_cuda(disp, *arms):
+        return post_cuda.region_voting_cuda(disp, arms, disp_range, ts, th, num_iters,
+                                            invalid_value)
     return _iterative_region_voting_plain(disp, arms, disp_range, ts, th, num_iters,
                                           invalid_value, d_chunk)
 
 
 def _iterative_region_voting_plain(disp, arms, disp_range, ts=20.0, th=0.4, num_iters=5,
                                    invalid_value=INVALID, d_chunk=None):
-    """The plain version of :func:`iterative_region_voting`: the votes are
+    """The plain body of :func:`iterative_region_voting`: the votes are
     integer prefix sums of the one-hot slices, so every count is exact;
     ``d_chunk`` bounds memory to ``d_chunk`` slices at a time, and the
     strict ``>`` running argmax over ascending chunks keeps argmax's

@@ -9,23 +9,20 @@ The recurrence (`AD-CensusV1/ScanlineOptimizer.h:173-183`):
                             min_d' L(p-1, d') + P2) - min_d' L(p-1, d')
     P2 = max(P1, P2_init / (|I(p) - I(p-1)| + 1))        (:171,232)
 
-with +inf pads at d = -1 and d = D.  ``scanline_optimize`` here is the
-plain version of the CUDA kernel (`ops.kernels.scanline_cuda`): a Python
-loop over the path steps of each of the four passes, every line of the
-perpendicular axis in one ``[D, M]`` step, in the JAX package's float
-order, so the two agree bit for bit.
+with +inf pads at d = -1 and d = D.  ``scanline_optimize`` runs the four
+passes of it; its plain body is a Python loop over the path steps of each
+pass, every line of the perpendicular axis in one ``[D, M]`` step, in the
+JAX package's float order, so the two agree bit for bit.
 
 ``scanline_optimize_canonical`` is the canonical AD-Census form of the same
 recurrence (penalties scaled per step, disparity and line by the colour
-differences along the path in both images), the plain version of
-`ops.kernels.scanline_canonical_cuda`.
+differences along the path in both images).
 
 ``directional_pass_banded`` and ``canonical_pass_banded`` continue one pass
 of either family over a band of path steps from a carry handed over by the
 neighbouring band (the streamed executor, ``parallel.streamed``), and
 ``horizontal_passes_banded`` / ``canonical_horizontal_passes_banded`` run
-both horizontal passes of a band of rows, each row a whole path: the plain
-versions of `ops.kernels.scanline_banded_cuda`.
+both horizontal passes of a band of rows, each row a whole path.
 """
 
 from __future__ import annotations
@@ -33,6 +30,12 @@ from __future__ import annotations
 import torch
 
 from stereo_match_traditional_tpu_torch.config import ScanlineConfig
+from stereo_match_traditional_tpu_torch.ops import on_cuda
+from stereo_match_traditional_tpu_torch.ops.kernels import (
+    scanline_banded_cuda,
+    scanline_canonical_cuda,
+    scanline_cuda,
+)
 from stereo_match_traditional_tpu_torch.ops.volume import shifted_stack
 
 
@@ -77,6 +80,23 @@ def _banded(step, cost, pen, carry, reset):
     return out, (prev, prev_min)
 
 
+def _along_path(banded_pass, cost, pen, carry, reset, reverse, store):
+    """``banded_pass(cost, pen, carry, reset)`` along the path from its last
+    step to its first for ``reverse`` (the result and ``reset`` keep the
+    array's order), the result dropped without ``store``: the banded
+    kernels' ``reverse`` and ``store`` on a plain body."""
+    if reverse:
+        if reset is not None and not isinstance(reset, int):
+            reset = reset.flip(0)
+        elif reset is not None:
+            reset = cost.shape[0] - 1 - reset
+        out, carry = banded_pass(cost.flip(0), pen.flip(0), carry, reset)
+        out = out.flip(0)
+    else:
+        out, carry = banded_pass(cost, pen, carry, reset)
+    return (out if store else None), carry
+
+
 def directional_pass_banded(
     cost: torch.Tensor,
     p2: torch.Tensor,
@@ -85,6 +105,8 @@ def directional_pass_banded(
     p1: float,
     l2_uses_dm1: bool = True,
     unroll: int = 4,
+    reverse: bool = False,
+    store: bool = True,
 ):
     """Band continuation of one directional pass: ``cost`` [T, D, M] (T the
     band's path steps, M the lines), ``p2`` [T, M] the penalty of each step,
@@ -97,9 +119,27 @@ def directional_pass_banded(
     last row when its rows were padded to whole bands): the carry is zero
     there.  Returns (aggregated [T, D, M], outgoing carry).  ``unroll`` takes
     the JAX package's position; a loop has nothing to unroll.
+    ``reverse=True`` runs the path from the last step to the first (the
+    result and ``reset`` keep the array's order); ``store=False`` returns
+    None for the result and keeps only the outgoing carry.
 
-    The plain version of ``ops.kernels.scanline_banded_cuda.
-    directional_pass_banded_cuda``."""
+    CUDA tensors launch ``scanline_banded_cuda.directional_pass_banded_cuda``
+    (any strides; the result in the memory order of ``cost``'s dimensions;
+    one reset at most), CPU tensors run
+    :func:`_directional_pass_banded_plain`."""
+    if on_cuda(cost, p2, *carry):
+        return scanline_banded_cuda.directional_pass_banded_cuda(
+            cost, p2, carry, reset, p1, l2_uses_dm1, reverse, store)
+
+    def plain(c, p, cr, rs):
+        return _directional_pass_banded_plain(c, p, cr, rs, p1, l2_uses_dm1)
+
+    return _along_path(plain, cost, p2, carry, reset, reverse, store)
+
+
+def _directional_pass_banded_plain(cost, p2, carry, reset, p1, l2_uses_dm1=True):
+    """The plain body of :func:`directional_pass_banded` along the path in
+    array order: a Python loop over the steps."""
 
     def step(prev, prev_min, c, p2_col):
         return _step(prev, prev_min, c, p2_col, p1, l2_uses_dm1)
@@ -162,10 +202,19 @@ def horizontal_passes_banded(cost: torch.Tensor, grey: torch.Tensor, p1: float,
     P2 of :func:`horizontal_p2`, ``l2`` reading ``prev[d - 1]``.  Returns
     ``(lr, rl)``, [D, t, W] each.
 
-    The plain version of ``ops.kernels.scanline_banded_cuda.
-    horizontal_passes_banded_cuda``."""
-    return _along_rows(directional_pass_banded, cost, *horizontal_p2(grey, p1, p2_init), p1,
-                       True)
+    CUDA tensors launch ``scanline_banded_cuda.horizontal_passes_banded_cuda``
+    (one launch of the band entry for D <= 256; the results are views of
+    volumes whose rows are padded to a multiple of 4 columns), CPU tensors
+    run :func:`_horizontal_passes_banded_plain`."""
+    if on_cuda(cost, grey):
+        return scanline_banded_cuda.horizontal_passes_banded_cuda(cost, grey, p1, p2_init)
+    return _horizontal_passes_banded_plain(cost, grey, p1, p2_init)
+
+
+def _horizontal_passes_banded_plain(cost, grey, p1, p2_init):
+    """The plain body of :func:`horizontal_passes_banded`."""
+    return _along_rows(_directional_pass_banded_plain, cost, *horizontal_p2(grey, p1, p2_init),
+                       p1, True)
 
 
 def _directional_pass(
@@ -214,7 +263,19 @@ def scanline_optimize(
 
     cost: [D, H, W]; gray: [H, W] (the left image drives the adaptive P2,
     `AD-CensusV1/main.cpp:88`).
+
+    CUDA tensors launch ``scanline_cuda.scanline_optimize_cuda`` (the
+    result a view of a volume whose rows are padded to a multiple of 4
+    columns, for D <= 256), CPU tensors run :func:`_scanline_optimize_plain`.
     """
+    if on_cuda(cost, gray):
+        return scanline_cuda.scanline_optimize_cuda(cost, gray, cfg)
+    return _scanline_optimize_plain(cost, gray, cfg)
+
+
+def _scanline_optimize_plain(cost, gray, cfg=ScanlineConfig()):
+    """The plain body of :func:`scanline_optimize`: four whole-image passes
+    of :func:`_directional_pass`."""
     p1, p2 = cfg.effective_penalties(cost.shape[0])
     vert_dm1 = not cfg.faithful_vertical_l2
     vert_p2 = "first" if cfg.faithful_vertical_p2 else "prev"
@@ -265,15 +326,30 @@ def canonical_pass_banded(
     p1_base: float,
     p2_base: float,
     unroll: int = 4,
+    reverse: bool = False,
+    store: bool = True,
 ):
     """Band continuation of one canonical directional pass, the tso-scheduled
     analogue of :func:`directional_pass_banded`: ``scale`` [T, D, M] is the
     penalty scale of :func:`canonical_scale`, already evaluated against the
-    neighbour each step consumes; ``carry``, ``reset`` and the result as
-    there (a zero carry is the exact path seed).
+    neighbour each step consumes; ``carry``, ``reset``, ``reverse``,
+    ``store`` and the result as there (a zero carry is the exact path seed).
 
-    The plain version of ``ops.kernels.scanline_banded_cuda.
-    canonical_pass_banded_cuda``."""
+    CUDA tensors launch ``scanline_banded_cuda.canonical_pass_banded_cuda``,
+    CPU tensors run :func:`_canonical_pass_banded_plain`."""
+    if on_cuda(cost, scale, *carry):
+        return scanline_banded_cuda.canonical_pass_banded_cuda(
+            cost, scale, carry, reset, p1_base, p2_base, reverse, store)
+
+    def plain(c, s, cr, rs):
+        return _canonical_pass_banded_plain(c, s, cr, rs, p1_base, p2_base)
+
+    return _along_path(plain, cost, scale, carry, reset, reverse, store)
+
+
+def _canonical_pass_banded_plain(cost, scale, carry, reset, p1_base, p2_base):
+    """The plain body of :func:`canonical_pass_banded` along the path in
+    array order."""
     return _banded(_make_canonical_step(p1_base, p2_base), cost, scale, carry, reset)
 
 
@@ -321,10 +397,21 @@ def canonical_horizontal_passes_banded(cost: torch.Tensor, base: torch.Tensor,
     Each row is a whole path: two :func:`canonical_pass_banded` along the
     columns from a zero carry.  Returns ``(lr, rl)``, [D, t, W] each.
 
-    The plain version of ``ops.kernels.scanline_banded_cuda.
-    canonical_horizontal_passes_banded_cuda``."""
+    CUDA tensors launch ``scanline_banded_cuda.
+    canonical_horizontal_passes_banded_cuda`` (the edge bits of the band's
+    rows, then both directions in one launch for D <= 256), CPU tensors run
+    :func:`_canonical_horizontal_passes_banded_plain`."""
+    if on_cuda(cost, base, match):
+        return scanline_banded_cuda.canonical_horizontal_passes_banded_cuda(
+            cost, base, match, p1, p2, tso, right_view)
+    return _canonical_horizontal_passes_banded_plain(cost, base, match, p1, p2, tso,
+                                                     right_view)
+
+
+def _canonical_horizontal_passes_banded_plain(cost, base, match, p1, p2, tso, right_view):
+    """The plain body of :func:`canonical_horizontal_passes_banded`."""
     scale = horizontal_scales(cost.shape[0], base, match, tso, right_view)
-    return _along_rows(canonical_pass_banded, cost, scale[:-1], scale[1:], p1, p2)
+    return _along_rows(_canonical_pass_banded_plain, cost, scale[:-1], scale[1:], p1, p2)
 
 
 def _canonical_pass(cost, g1, g2, p1_base: float, p2_base: float, tso: float) -> torch.Tensor:
@@ -363,7 +450,21 @@ def scanline_optimize_canonical(
     The base image is the view's own gray image, the match image the other
     one, read at column ``x - d`` (left view) or ``x + d`` (right view),
     clamped to the image, as :func:`volume.shifted_stack` builds it.
+
+    CUDA tensors launch ``scanline_canonical_cuda.
+    scanline_optimize_canonical_cuda`` (one call a view for D <= 256), CPU
+    tensors run :func:`_scanline_optimize_canonical_plain`.
     """
+    if on_cuda(cost, left, right):
+        return scanline_canonical_cuda.scanline_optimize_canonical_cuda(cost, left, right, p1,
+                                                                        p2, tso, view)
+    return _scanline_optimize_canonical_plain(cost, left, right, p1, p2, tso, view)
+
+
+def _scanline_optimize_canonical_plain(cost, left, right, p1=1.0, p2=3.0, tso=15.0,
+                                       view="left"):
+    """The plain body of :func:`scanline_optimize_canonical`: four
+    whole-image passes of :func:`_canonical_pass`, averaged."""
     d = cost.shape[0]
     base = (left if view == "left" else right).to(torch.float32)
     match = (right if view == "left" else left).to(torch.float32)

@@ -14,6 +14,13 @@ from __future__ import annotations
 
 import torch
 
+from stereo_match_traditional_tpu_torch.ops import on_cuda
+from stereo_match_traditional_tpu_torch.ops.kernels import (
+    ad_census_cuda,
+    asw_cuda,
+    window_cost_cuda,
+)
+
 # The invalid-disparity marker of the post chains (``ops.post.INVALID``)
 INVALID = float("inf")
 
@@ -153,8 +160,19 @@ def sad_volume(
     the minimum over channels of ``|L_c - R_c|`` (the reference's uchar
     accumulator overflow is not reproduced, as in the JAX package).
 
-    The plain version of ``ops.kernels.window_cost_cuda.sad_volume_cuda``.
+    CUDA tensors launch ``window_cost_cuda.sad_volume_cuda``, CPU tensors
+    run :func:`_sad_volume_plain`.
     """
+    if on_cuda(left, right):
+        return window_cost_cuda.sad_volume_cuda(left, right, disp_range, winsize, view, mean,
+                                                channel_min)
+    return _sad_volume_plain(left, right, disp_range, winsize, view, mean, channel_min)
+
+
+def _sad_volume_plain(left, right, disp_range, winsize, view="left", mean=False,
+                      channel_min=False):
+    """The plain body of :func:`sad_volume`: the shifted stack of the
+    padded image, differenced, box-summed and border-filled."""
     if view not in ("left", "right"):
         raise ValueError(f"view must be 'left' or 'right', got {view!r}")
     if channel_min and (left.dim() != 3 or left.shape != right.shape):
@@ -207,7 +225,17 @@ def ncc_sums(left: torch.Tensor, right: torch.Tensor, win_size: int):
 
     Centring at 128 is exact for u8 inputs and keeps the one-pass
     sum-of-products formula from cancelling on raw u8 magnitudes (sums near
-    1.7e7, where the float32 ulp is 2)."""
+    1.7e7, where the float32 ulp is 2).  CUDA tensors take the sums from
+    ``window_cost_cuda.ncc_sums_cuda``, CPU tensors from
+    :func:`_ncc_sums_plain`."""
+    if on_cuda(left, right):
+        sums = window_cost_cuda.ncc_sums_cuda(left, right, win_size)
+        return left.to(torch.float32) - 128.0, right.to(torch.float32) - 128.0, sums
+    return _ncc_sums_plain(left, right, win_size)
+
+
+def _ncc_sums_plain(left, right, win_size):
+    """The plain body of :func:`ncc_sums`: four box sums."""
     lf = left.to(torch.float32) - 128.0
     rf = right.to(torch.float32) - 128.0
     sums = box_sum_same(torch.stack([lf, lf * lf, rf, rf * rf]), win_size, win_size)
@@ -255,13 +283,27 @@ def ncc_volume(
     device: torch's CPU float32 ``sqrt`` is not (it is an ulp off for ~0.6 %
     of inputs), so the root is taken in float64 and rounded once.
 
-    The plain version of ``ops.kernels.window_cost_cuda.ncc_volume_cuda``.
+    CUDA tensors launch ``window_cost_cuda.ncc_volume_cuda`` (the mask is
+    built beside it), CPU tensors run :func:`_ncc_volume_plain`.
     """
+    if on_cuda(left, right):
+        vol = window_cost_cuda.ncc_volume_cuda(left, right, disp_range, win_size,
+                                               _ncc_sentinel(invalid_mode), eps, d_offset)
+        h, w = left.shape
+        return vol, ncc_interior_mask(h, w, win_size, row_offset, global_rows, left.device)
+    return _ncc_volume_plain(left, right, disp_range, win_size, invalid_mode, eps, row_offset,
+                             global_rows, d_offset)
+
+
+def _ncc_volume_plain(left, right, disp_range, win_size, invalid_mode="ignore", eps=1e-12,
+                      row_offset=0, global_rows=None, d_offset=0):
+    """The plain body of :func:`ncc_volume`: box sums of the centred images
+    and of their shifted products."""
     sentinel = _ncc_sentinel(invalid_mode)
     w = win_size
     n = float((2 * w + 1) ** 2)
     h, wd = left.shape
-    lf, rf, (sum_l, sum_l2, sum_r, sum_r2) = ncc_sums(left, right, w)
+    lf, rf, (sum_l, sum_l2, sum_r, sum_r2) = _ncc_sums_plain(left, right, w)
     sum_lr = box_sum_same(lf[None] * shifted_stack(rf, disp_range, "left", d_offset), w, w)
     sum_r_d = shifted_stack(sum_r, disp_range, "left", d_offset)
     sum_r2_d = shifted_stack(sum_r2, disp_range, "left", d_offset)
@@ -383,7 +425,17 @@ def ad_volume(
     reference's previous-d copy at the border equals the clamped-column
     gather for a pixelwise cost, so no fill pass is needed, which also makes
     any slice of disparities ``d_offset .. d_offset + disp_range - 1``
-    computable on its own (the ``(tile, disp)`` runners, ``parallel``)."""
+    computable on its own (the ``(tile, disp)`` runners, ``parallel``).
+
+    CUDA tensors launch ``ad_census_cuda.ad_volume_cuda``, CPU tensors run
+    :func:`_ad_volume_plain`."""
+    if on_cuda(left, right):
+        return ad_census_cuda.ad_volume_cuda(left, right, disp_range, view, d_offset)
+    return _ad_volume_plain(left, right, disp_range, view, d_offset)
+
+
+def _ad_volume_plain(left, right, disp_range, view="left", d_offset=0):
+    """The plain body of :func:`ad_volume`: the shifted stack, differenced."""
     left = left.to(torch.float32)
     right = right.to(torch.float32)
     if view == "left":
@@ -464,7 +516,21 @@ def census_volume(
     the C++ reference, which recomputes the right signature per (pixel, d).
     ``row_offset`` / ``global_rows`` as in :func:`census_transform`;
     ``d_offset`` as in :func:`ad_volume`.
+
+    CUDA tensors launch ``ad_census_cuda.census_volume_cuda``, CPU tensors
+    run :func:`_census_volume_plain`.
     """
+    if on_cuda(left, right):
+        return ad_census_cuda.census_volume_cuda(left, right, disp_range, rows, cols, view,
+                                                 row_offset, global_rows, d_offset)
+    return _census_volume_plain(left, right, disp_range, rows, cols, view, row_offset,
+                                global_rows, d_offset)
+
+
+def _census_volume_plain(left, right, disp_range, rows=9, cols=7, view="left", row_offset=0,
+                         global_rows=None, d_offset=0):
+    """The plain body of :func:`census_volume`: both signatures, the
+    shifted stack of one, XOR and a popcount."""
     cl = census_transform(left, rows, cols, row_offset, global_rows)
     cr = census_transform(right, rows, cols, row_offset, global_rows)
     if view == "left":
@@ -492,11 +558,25 @@ def ad_census_volume(
     ``global_rows`` as in :func:`census_transform`, ``d_offset`` as in
     :func:`ad_volume`.
 
-    The plain version of the CUDA kernel (`ops.kernels.ad_census_cuda`).
+    CUDA tensors launch ``ad_census_cuda.ad_census_volume_cuda``, CPU
+    tensors run :func:`_ad_census_volume_plain`.
     """
-    ad = ad_volume(left, right, disp_range, view, d_offset)
-    cen = census_volume(left, right, disp_range, census_rows, census_cols, view,
-                        row_offset, global_rows, d_offset)
+    if on_cuda(left, right):
+        return ad_census_cuda.ad_census_volume_cuda(
+            left, right, disp_range, sigma_c, sigma_s, census_rows, census_cols, view,
+            row_offset, global_rows, d_offset)
+    return _ad_census_volume_plain(left, right, disp_range, sigma_c, sigma_s, census_rows,
+                                   census_cols, view, row_offset, global_rows, d_offset)
+
+
+def _ad_census_volume_plain(left, right, disp_range, sigma_c=10.0, sigma_s=30.0,
+                            census_rows=9, census_cols=7, view="left", row_offset=0,
+                            global_rows=None, d_offset=0):
+    """The plain body of :func:`ad_census_volume`: the AD and census
+    volumes' plain bodies, each through its exponential."""
+    ad = _ad_volume_plain(left, right, disp_range, view, d_offset)
+    cen = _census_volume_plain(left, right, disp_range, census_rows, census_cols, view,
+                               row_offset, global_rows, d_offset)
     return (1.0 - torch.exp(-ad / sigma_c)) + (1.0 - torch.exp(-cen / sigma_s))
 
 
@@ -512,19 +592,41 @@ def ad_census_volumes(
     global_rows: int = None,
     d_offset: int = 0,
 ):
-    """Both views ``(vol_l, vol_r)`` of :func:`ad_census_volume`: the plain
-    version of ``ops.kernels.ad_census_cuda.ad_census_volumes_cuda``."""
+    """Both views ``(vol_l, vol_r)`` of :func:`ad_census_volume`: one launch
+    of ``ad_census_cuda.ad_census_volumes_cuda`` for CUDA tensors (each
+    value computed once and stored to both views), a plain body a view for
+    CPU tensors."""
+    if on_cuda(left, right):
+        return ad_census_cuda.ad_census_volumes_cuda(
+            left, right, disp_range, sigma_c, sigma_s, census_rows, census_cols, row_offset,
+            global_rows, d_offset)
+    return _ad_census_volumes_plain(left, right, disp_range, sigma_c, sigma_s, census_rows,
+                                    census_cols, row_offset, global_rows, d_offset)
+
+
+def _ad_census_volumes_plain(left, right, disp_range, sigma_c=10.0, sigma_s=30.0,
+                             census_rows=9, census_cols=7, row_offset=0, global_rows=None,
+                             d_offset=0):
+    """The plain body of :func:`ad_census_volumes`."""
     return tuple(
-        ad_census_volume(left, right, disp_range, sigma_c, sigma_s, census_rows, census_cols, v,
-                         row_offset, global_rows, d_offset)
+        _ad_census_volume_plain(left, right, disp_range, sigma_c, sigma_s, census_rows,
+                                census_cols, v, row_offset, global_rows, d_offset)
         for v in ("left", "right")
     )
 
 
 def ad_volumes(left: torch.Tensor, right: torch.Tensor, disp_range: int):
-    """Both views ``(vol_l, vol_r)`` of :func:`ad_volume`: the plain version
-    of ``ops.kernels.ad_census_cuda.ad_volumes_cuda``."""
-    return tuple(ad_volume(left, right, disp_range, v) for v in ("left", "right"))
+    """Both views ``(vol_l, vol_r)`` of :func:`ad_volume`: one launch of
+    ``ad_census_cuda.ad_volumes_cuda`` for CUDA tensors, a plain body a view
+    for CPU tensors."""
+    if on_cuda(left, right):
+        return ad_census_cuda.ad_volumes_cuda(left, right, disp_range)
+    return _ad_volumes_plain(left, right, disp_range)
+
+
+def _ad_volumes_plain(left, right, disp_range):
+    """The plain body of :func:`ad_volumes`."""
+    return tuple(_ad_volume_plain(left, right, disp_range, v) for v in ("left", "right"))
 
 
 # ---------------------------------------------------------------------------
@@ -555,11 +657,30 @@ def asw_volume(
     w(p,o) = exp(-|I(p)-I(p+o)|^2 / 2 sigma_c^2) * exp(-|o|^2 / 2 sigma_s^2)
     and e = min(|L(p+o) - R(p+o-d)|, T).
 
-    The plain version of the CUDA kernel (`ops.kernels.asw_cuda`): a loop
-    over the (2R+1)^2 window offsets, R = win_size + 1, doing the JAX
-    reference's ``lax.scan`` step math in the same order on [D, H, W]
-    tensors.
+    CUDA tensors launch ``asw_cuda.asw_volume_left_cuda`` on the pair (the
+    right view on the mirrored pair, as :func:`asw_volume_right` takes it)
+    and fill its border triangle; CPU tensors run :func:`_asw_volume_plain`.
     """
+    if not on_cuda(left, right):
+        return _asw_volume_plain(left, right, disp_range, win_size, space_sigma, color_sigma,
+                                 truncation, view)
+    if view not in ("left", "right"):
+        raise ValueError(view)
+    lf = left.to(torch.float32).contiguous()
+    rf = right.to(torch.float32).contiguous()
+    if view == "right":
+        lf, rf = torch.flip(rf, [1]), torch.flip(lf, [1])
+    raw = asw_cuda.asw_volume_left_cuda(lf, rf, disp_range, win_size + 1, space_sigma,
+                                        color_sigma, truncation)
+    vol = border_fill(raw, "left")
+    return torch.flip(vol, [2]) if view == "right" else vol
+
+
+def _asw_volume_plain(left, right, disp_range, win_size=11, space_sigma=50.0,
+                      color_sigma=30.0, truncation=40.0, view="left"):
+    """The plain body of :func:`asw_volume`: a loop over the (2R+1)^2
+    window offsets, R = win_size + 1, doing the JAX reference's
+    ``lax.scan`` step math in the same order on [D, H, W] tensors."""
     if view == "right":
         return asw_volume_right(
             left, right, disp_range, win_size, space_sigma, color_sigma, truncation
@@ -609,8 +730,8 @@ def asw_volume_right(
 ) -> torch.Tensor:
     """Right-view ASW volume (`ASW/ASW.h:382-431`) by mirror symmetry: the
     left-view problem on horizontally flipped images with the roles
-    swapped."""
-    vol = asw_volume(
+    swapped: plain PyTorch on every device."""
+    vol = _asw_volume_plain(
         torch.flip(right, [1]), torch.flip(left, [1]), disp_range, win_size,
         space_sigma, color_sigma, truncation, "left",
     )

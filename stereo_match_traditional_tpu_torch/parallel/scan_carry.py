@@ -4,13 +4,13 @@
 The recurrence (`AD-CensusV1/ScanlineOptimizer.h:130-253`) runs serially
 along each row and column.  Under row tiling the two horizontal passes are
 row-local: each rank owns whole rows, and both run in one launch of a band
-entry (``ops.kernels.scanline_banded_cuda.horizontal_passes_banded_cuda``,
-``canonical_horizontal_passes_banded_cuda``) on its tile.  The two vertical
+entry (``ops.scanline.horizontal_passes_banded``,
+``canonical_horizontal_passes_banded``) on its tile.  The two vertical
 passes would serialize across tiles, so the volume is resharded with one
 ``all_to_all`` from rows to columns: each rank then owns every row of a
 slab of columns, and both vertical passes run over the whole height on it
-(``directional_pass_banded_cuda`` / ``canonical_pass_banded_cuda`` from a
-zero carry, the exact path seed), before a second ``all_to_all`` brings the
+(``ops.scanline.directional_pass_banded`` / ``canonical_pass_banded`` from
+a zero carry, the exact path seed), before a second ``all_to_all`` brings the
 result back to row tiles.  The math is the whole-image pass's: no carry is
 approximated, and the sums keep the direct kernel's order,
 ``(lr + rl) + (ud + du)`` (canonical: ``* 0.25``).
@@ -29,12 +29,7 @@ from __future__ import annotations
 import torch
 
 from stereo_match_traditional_tpu_torch.config import ScanlineConfig
-from stereo_match_traditional_tpu_torch.ops.kernels.scanline_banded_cuda import (
-    canonical_horizontal_passes_banded_cuda,
-    canonical_pass_banded_cuda,
-    directional_pass_banded_cuda,
-    horizontal_passes_banded_cuda,
-)
+from stereo_match_traditional_tpu_torch.ops import scanline
 from stereo_match_traditional_tpu_torch.ops.scanline import canonical_scale, vertical_p2
 from stereo_match_traditional_tpu_torch.ops.volume import shifted_stack
 from stereo_match_traditional_tpu_torch.parallel import comm
@@ -87,7 +82,7 @@ def scanline_optimize_sharded(
         true_rows = t * axis_name.size
 
     with stage_scope("scanline_horizontal"):
-        lr, rl = horizontal_passes_banded_cuda(cost, gray, p1, p2)
+        lr, rl = scanline.horizontal_passes_banded(cost, gray, p1, p2)
         horiz = lr + rl
         del lr, rl
 
@@ -99,8 +94,8 @@ def scanline_optimize_sharded(
     p2_dn, p2_up = vertical_p2(g, p1, p2, cfg.faithful_vertical_p2)
     zero = (cv.new_zeros(cv.shape[1:]), cv.new_zeros(cv.shape[2:]))
     with stage_scope("scanline_vertical"):
-        ud, _ = directional_pass_banded_cuda(cv, p2_dn, zero, None, p1, vert_dm1)
-        du, _ = directional_pass_banded_cuda(cv, p2_up, zero, None, p1, vert_dm1, reverse=True)
+        ud, _ = scanline.directional_pass_banded(cv, p2_dn, zero, None, p1, vert_dm1)
+        du, _ = scanline.directional_pass_banded(cv, p2_up, zero, None, p1, vert_dm1, reverse=True)
         del cv
         ud += du
         del du
@@ -139,7 +134,7 @@ def scanline_canonical_sharded(
         true_rows = t * axis_name.size
 
     with stage_scope("scanline_horizontal"):
-        lr, rl = canonical_horizontal_passes_banded_cuda(cost, base, match, p1, p2, tso,
+        lr, rl = scanline.canonical_horizontal_passes_banded(cost, base, match, p1, p2, tso,
                                                          view == "right")
         horiz = lr + rl
         del lr, rl
@@ -157,10 +152,10 @@ def scanline_canonical_sharded(
         del scale
     zero = (cv.new_zeros(cv.shape[1:]), cv.new_zeros(cv.shape[2:]))
     with stage_scope("scanline_vertical"):
-        ud, _ = canonical_pass_banded_cuda(cv, sc, zero, None, p1, p2)
+        ud, _ = scanline.canonical_pass_banded(cv, sc, zero, None, p1, p2)
         # the bottom-up step at row y takes the scale between y and y + 1;
         # the last row's (the path's first step) is unused
-        du, _ = canonical_pass_banded_cuda(cv, torch.cat([sc[1:], sc[-1:]]), zero, None, p1,
+        du, _ = scanline.canonical_pass_banded(cv, torch.cat([sc[1:], sc[-1:]]), zero, None, p1,
                                            p2, reverse=True)
         del cv, sc
         ud += du

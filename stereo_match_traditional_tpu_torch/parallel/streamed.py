@@ -17,11 +17,13 @@ last band up, re-derives each band's aggregated left volume and runs the
 bottom-up pass to collect each band's incoming carry (only those ``[D, W]``
 rows are kept); the second, from the top, re-derives both views' volumes,
 runs both horizontal passes (one launch of a band entry, each row a whole
-path) and both vertical continuations with the banded pass kernels
-(``ops.kernels.scanline_banded_cuda``), sums the four and takes the WTA.  The aggregation is computed twice a band: memory traded for
-operations.  A zero carry is the exact path seed, and the bottom-up pass
-restarts at the image's true last row (rows beyond it pad the last band), so
-the vertical chains equal the whole-image passes bit for bit.
+path) and both vertical continuations with the banded passes
+(``ops.scanline.directional_pass_banded`` and its kin, a kernel launch
+each on the card), sums the four and takes the WTA.  The aggregation is
+computed twice a band: memory traded for operations.  A zero carry is the
+exact path seed, and the bottom-up pass restarts at the image's true last
+row (rows beyond it pad the last band), so the vertical chains equal the
+whole-image passes bit for bit.
 
 The canonical family (cross_two_pass with the tso-scheduled scanline on both
 views) streams the same way, with two carries a sweep and eight band passes
@@ -49,13 +51,7 @@ import torch
 
 from stereo_match_traditional_tpu_torch.models.base import StereoResult
 from stereo_match_traditional_tpu_torch.models.registry import _tensor, get_pipeline
-from stereo_match_traditional_tpu_torch.ops import post, wta
-from stereo_match_traditional_tpu_torch.ops.kernels.scanline_banded_cuda import (
-    canonical_horizontal_passes_banded_cuda,
-    canonical_pass_banded_cuda,
-    directional_pass_banded_cuda,
-    horizontal_passes_banded_cuda,
-)
+from stereo_match_traditional_tpu_torch.ops import post, scanline, wta
 from stereo_match_traditional_tpu_torch.ops.scanline import canonical_scale
 from stereo_match_traditional_tpu_torch.ops.volume import shifted_stack
 from stereo_match_traditional_tpu_torch.parallel.halo import crop_row_halo
@@ -335,7 +331,7 @@ def _ad_census_canonical_streamed(cfg, row_tile):
             for v in (0, 1):
                 vert = scales(b0, v)
                 with stage_scope("banded_passes"):
-                    _, carry[v] = canonical_pass_banded_cuda(
+                    _, carry[v] = scanline.canonical_pass_banded(
                         aggs[v].permute(1, 0, 2), vert[1:], carry[v], _reset_row(h, b0, t),
                         p1, p2, reverse=True, store=False)
                 aggs[v] = vert = None
@@ -352,13 +348,13 @@ def _ad_census_canonical_streamed(cfg, row_tile):
                 vert = scales(b0, v)
                 cv = agg.permute(1, 0, 2)                                     # [t, D, W]
                 with stage_scope("banded_passes"):
-                    ud, carry[v] = canonical_pass_banded_cuda(cv, vert[:-1], carry[v], None,
+                    ud, carry[v] = scanline.canonical_pass_banded(cv, vert[:-1], carry[v], None,
                                                               p1, p2)
-                    du, _ = canonical_pass_banded_cuda(cv, vert[1:], up_in[i][v],
+                    du, _ = scanline.canonical_pass_banded(cv, vert[1:], up_in[i][v],
                                                        _reset_row(h, b0, t), p1, p2,
                                                        reverse=True)
                     vert = cv = None
-                    lr, rl = canonical_horizontal_passes_banded_cuda(
+                    lr, rl = scanline.canonical_horizontal_passes_banded(
                         agg, rows[v], rows[1 - v], p1, p2, tso, v == 1)
                     agg = None
                 with stage_scope("sum_wta"):
@@ -435,7 +431,7 @@ def _ad_census_scanline_streamed(cfg, row_tile):
             up_in[i] = carry
             agg_l, _, g, _, gn = band_parts(b0, left_only=True)
             with stage_scope("banded_passes"):
-                _, carry = directional_pass_banded_cuda(
+                _, carry = scanline.directional_pass_banded(
                     agg_l.permute(1, 0, 2), up_p2(g, gn), carry, _reset_row(h, b0, t), p1,
                     vert_dm1, reverse=True, store=False)
             del agg_l
@@ -451,19 +447,19 @@ def _ad_census_scanline_streamed(cfg, row_tile):
             del agg_r
             cv = agg_l.permute(1, 0, 2)                                       # [t, D, W]
             with stage_scope("banded_passes"):
-                lr, rl = horizontal_passes_banded_cuda(agg_l, g, p1, p2_init)
+                lr, rl = scanline.horizontal_passes_banded(agg_l, g, p1, p2_init)
             with stage_scope("sum_wta"):
                 total = lr                                                    # [D, t, W]
                 total += rl
                 del rl
             with stage_scope("banded_passes"):
                 p2_dn = p2_of(g, grey[0][None] if vert_first else gp)
-                dn, carry = directional_pass_banded_cuda(cv, p2_dn, carry, None, p1, vert_dm1)
+                dn, carry = scanline.directional_pass_banded(cv, p2_dn, carry, None, p1, vert_dm1)
             with stage_scope("sum_wta"):
                 total += dn.permute(1, 0, 2)
                 del dn
             with stage_scope("banded_passes"):
-                up, _ = directional_pass_banded_cuda(cv, up_p2(g, gn), up_in[i],
+                up, _ = scanline.directional_pass_banded(cv, up_p2(g, gn), up_in[i],
                                                      _reset_row(h, b0, t), p1, vert_dm1,
                                                      reverse=True)
             del agg_l, cv

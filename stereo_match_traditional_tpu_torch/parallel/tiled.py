@@ -45,16 +45,6 @@ from stereo_match_traditional_tpu_torch.models.cblsm import cblsm_post
 from stereo_match_traditional_tpu_torch.models.base import StereoResult
 from stereo_match_traditional_tpu_torch.models.sad import sad_post
 from stereo_match_traditional_tpu_torch.ops import aggregate, post, volume, wta
-from stereo_match_traditional_tpu_torch.ops.kernels.ad_census_cuda import (
-    ad_census_volume_cuda,
-    ad_census_volumes_cuda,
-    ad_volumes_cuda,
-)
-from stereo_match_traditional_tpu_torch.ops.kernels.asw_cuda import asw_volume_cuda
-from stereo_match_traditional_tpu_torch.ops.kernels.window_cost_cuda import (
-    ncc_volume_cuda,
-    sad_volume_cuda,
-)
 from stereo_match_traditional_tpu_torch.parallel import comm
 from stereo_match_traditional_tpu_torch.parallel.halo import add_row_halo, crop_row_halo
 from stereo_match_traditional_tpu_torch.parallel.mesh import MeshAxis, axis_size, in_mesh
@@ -111,14 +101,14 @@ def receptive_field_rows(name: str, cfg) -> int:
 
 
 def _sad_tile(le, re, cfg, ro_ext, rows, halo, axis_name=None, aux=()):
-    vol_l = sad_volume_cuda(le, re, cfg.max_disparity, cfg.winsize, "left")
+    vol_l = volume.sad_volume(le, re, cfg.max_disparity, cfg.winsize, "left")
     out = {
         "disp_left": crop_row_halo(
             wta.optimal_disparity(vol_l, cfg.uniqueness_eps, cfg.subpixel), halo, 0
         )
     }
     if cfg.compute_right or cfg.run_post:
-        vol_r = sad_volume_cuda(le, re, cfg.max_disparity, cfg.winsize, "right")
+        vol_r = volume.sad_volume(le, re, cfg.max_disparity, cfg.winsize, "right")
         out["disp_right"] = crop_row_halo(wta.wta(vol_r, "min"), halo, 0)
     return out
 
@@ -131,7 +121,7 @@ def _ncc_tile(le, re, cfg, ro_ext, rows, halo, axis_name=None, aux=()):
             row_offset=ro_ext, global_rows=rows,
         )
         return {"disp_left": crop_row_halo(depth, halo, 0)}
-    vol, interior = ncc_volume_cuda(
+    vol, interior = volume.ncc_volume(
         le, re, cfg.disp_range, cfg.win_size, cfg.invalid_mode, cfg.eps,
         row_offset=ro_ext, global_rows=rows,
     )
@@ -165,10 +155,10 @@ def _asw_tile(le, re, cfg, ro_ext, rows, halo, axis_name=None, aux=()):
             le, re, bins=cfg.approx_bins, row_offset=ro_ext, global_rows=rows, **kw
         )
     elif cfg.use_pallas is False:
-        vol_l = volume.asw_volume(le, re, **kw)
+        vol_l = volume._asw_volume_plain(le, re, **kw)
     else:
         # the CUDA kernel where the JAX package calls its Pallas kernel
-        vol_l = asw_volume_cuda(le, re, view="left", **kw)
+        vol_l = volume.asw_volume(le, re, view="left", **kw)
     # the exact shift identity costR(q, d) = costL(q + d, d) is row-local
     vol_r = volume.right_volume_from_left(vol_l)
     return {
@@ -186,9 +176,9 @@ def _ad_census_band_volumes(le, re, cfg, ro_ext, rows, left_only=False):
     kw = dict(sigma_c=cfg.sigma_c, sigma_s=cfg.sigma_s, census_rows=cfg.census_rows,
               census_cols=cfg.census_cols, row_offset=ro_ext, global_rows=rows)
     if left_only:
-        vols = (ad_census_volume_cuda(le, re, d, view="left", **kw), None)
+        vols = (volume.ad_census_volume(le, re, d, view="left", **kw), None)
     else:
-        vols = ad_census_volumes_cuda(le, re, d, **kw)
+        vols = volume.ad_census_volumes(le, re, d, **kw)
     out = []
     for vol, img in zip(vols, (le, re)):
         if vol is None:
@@ -245,10 +235,10 @@ def _cblsm_tile(le, re, cfg, ro_ext, rows, halo, axis_name=None, aux=()):
     arms_r = aggregate.cross_arms(re, cfg.arms, ro_ext, rows)
 
     if cfg.cost == "ad":
-        vol_l, vol_r = ad_volumes_cuda(le, re, d)
+        vol_l, vol_r = volume.ad_volumes(le, re, d)
     elif cfg.cost in ("sad_mean", "sad_mean_v4"):
         cm = cfg.cost == "sad_mean_v4"
-        vol_l, vol_r = (sad_volume_cuda(le, re, d, cfg.win_size, view, True, cm)
+        vol_l, vol_r = (volume.sad_volume(le, re, d, cfg.win_size, view, True, cm)
                         for view in ("left", "right"))
     elif cfg.cost == "local_mean":
         vol_l = aggregate.local_mean_cost(le, re, arms_l, arms_r, d)
@@ -576,7 +566,7 @@ def ad_census_tile_disp(cfg, mesh, tile_axis: str = "tile", disp_axis: str = "di
     halo = receptive_field_rows("ad_census", cfg)
 
     def body(le, re, ro_ext, rows, d_off, pad_mask, disp):
-        vols = ad_census_volumes_cuda(
+        vols = volume.ad_census_volumes(
             le, re, pad_mask.shape[0], cfg.sigma_c, cfg.sigma_s, cfg.census_rows,
             cfg.census_cols, row_offset=ro_ext, global_rows=rows, d_offset=d_off)
         out = {}
@@ -622,7 +612,7 @@ def ncc_tile_disp(cfg, mesh, tile_axis: str = "tile", disp_axis: str = "disp"):
     halo = receptive_field_rows("ncc", cfg)
 
     def body(le, re, ro_ext, rows, d_off, pad_mask, disp):
-        vol, interior = ncc_volume_cuda(
+        vol, interior = volume.ncc_volume(
             le, re, pad_mask.shape[0], cfg.win_size, cfg.invalid_mode, cfg.eps,
             row_offset=ro_ext, global_rows=rows, d_offset=d_off)
         vol = torch.where(pad_mask, float("-inf"), crop_row_halo(vol, halo, 1))

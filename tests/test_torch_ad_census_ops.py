@@ -89,15 +89,16 @@ def test_ad_census_volume_matches_jax(h, w, d, seed, view):
 
 @pytest.mark.parametrize("view", ["left", "right"])
 def test_kernel_wrappers_take_plain_version_on_cpu(view):
-    """CPU tensors go to the plain versions and launch nothing."""
+    """The public cost functions on CPU tensors run their plain bodies and
+    launch nothing."""
     _, _, (lt, rt) = _pair(13, 17, 5, 3)
     before = ad_census_cuda.LAUNCHES
     pairs = [
-        (ad_census_cuda.ad_census_volume_cuda(lt, rt, 5, view=view),
-         tvol.ad_census_volume(lt, rt, 5, view=view)),
-        (ad_census_cuda.ad_volume_cuda(lt, rt, 5, view), tvol.ad_volume(lt, rt, 5, view)),
-        (ad_census_cuda.census_volume_cuda(lt, rt, 5, view=view),
-         tvol.census_volume(lt, rt, 5, view=view)),
+        (tvol.ad_census_volume(lt, rt, 5, view=view),
+         tvol._ad_census_volume_plain(lt, rt, 5, view=view)),
+        (tvol.ad_volume(lt, rt, 5, view), tvol._ad_volume_plain(lt, rt, 5, view)),
+        (tvol.census_volume(lt, rt, 5, view=view),
+         tvol._census_volume_plain(lt, rt, 5, view=view)),
     ]
     assert ad_census_cuda.LAUNCHES == before
     for got, want in pairs:
@@ -182,13 +183,14 @@ def test_both_view_volumes_match_jax(h, w, d, seed):
 
 
 def test_both_view_wrappers_take_plain_version_on_cpu():
-    """CPU tensors go to the plain both-view versions and launch nothing."""
+    """The both-view functions on CPU tensors run their plain bodies and
+    launch nothing."""
     _, _, (lt, rt) = _pair(13, 17, 5, 3)
     before = ad_census_cuda.LAUNCHES
-    got = [ad_census_cuda.ad_census_volumes_cuda(lt, rt, 5), ad_census_cuda.ad_volumes_cuda(lt, rt, 5)]
+    got = [tvol.ad_census_volumes(lt, rt, 5), tvol.ad_volumes(lt, rt, 5)]
     assert ad_census_cuda.LAUNCHES == before
-    for pair, want in zip(got, (tvol.ad_census_volumes(lt, rt, 5), tvol.ad_volumes(lt, rt, 5)),
-                          strict=True):
+    want_both = (tvol._ad_census_volumes_plain(lt, rt, 5), tvol._ad_volumes_plain(lt, rt, 5))
+    for pair, want in zip(got, want_both, strict=True):
         assert all(torch.equal(a, b) for a, b in zip(pair, want, strict=True))
 
 

@@ -426,22 +426,23 @@ def test_public_functions_take_plain_bodies_on_cpu(monkeypatch):
 
 
 def test_wrappers_take_plain_versions_on_cpu():
-    """The kernel wrappers themselves, given CPU tensors, return the plain
-    versions' results and launch nothing."""
+    """The public functions, given CPU tensors (a colour image, a row band,
+    the exclusive rectangle, the SAD speckle background), return their
+    plain bodies' results and launch nothing."""
     before = _all_launches()
     rng = np.random.default_rng(3)
     img = _t(rng.integers(0, 255, size=(8, 11, 3)).astype(np.uint8))
     arm_cfg = config_from_dict("CrossArmConfig", dataclasses.asdict(cfgs.CrossArmConfig()))
-    arms = aggregate_cuda.cross_arms_cuda(img, arm_cfg, 2, 12)
+    arms = tagg.cross_arms(img, arm_cfg, 2, 12)
     for a, b in zip(arms, tagg._cross_arms_plain(img, arm_cfg, 2, 12)):
         assert torch.equal(a, b)
     vol = _t(rng.random((4, 8, 11)).astype(np.float32))
-    assert torch.equal(aggregate_cuda.rect_mean_cuda(vol, arms, False),
+    assert torch.equal(tagg.rect_mean_aggregate(vol, arms, False),
                        tagg._rect_mean_aggregate_plain(vol, arms, False))
     d, occl, mism = _holes(6, 8, 11)
-    assert torch.equal(post_cuda.fill_holes_8dir_cuda(_t(d), _t(occl), _t(mism)),
+    assert torch.equal(tpost.fill_holes_8dir(_t(d), _t(occl), _t(mism)),
                        tpost._fill_holes_8dir_plain(_t(d), _t(occl), _t(mism)))
-    assert torch.equal(post_cuda.remove_speckles_cuda(_t(d), 1.0, 5, background=0.0),
+    assert torch.equal(tpost.remove_speckles(_t(d), 1.0, 5, background=0.0),
                        tpost._remove_speckles_plain(_t(d), 1.0, 5, float("inf"), 0.0, None, 8))
     assert _all_launches() == before
 

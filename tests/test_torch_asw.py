@@ -79,8 +79,8 @@ def test_asw_slice_matches_golden():
 
 @pytest.mark.parametrize("use_pallas", [None, True])
 def test_kernel_route_on_cpu_is_the_plain_version(use_pallas):
-    """``use_pallas`` None/True routes through ``asw_volume_cuda``, which
-    takes the plain version for CPU tensors and launches nothing."""
+    """``use_pallas`` None/True routes through ``ops.volume.asw_volume``,
+    which runs its plain body for CPU tensors and launches nothing."""
     before = asw_cuda.LAUNCHES
     got = _port_result(use_pallas)
     assert asw_cuda.LAUNCHES == before

@@ -1,8 +1,8 @@
 """The banded scanline passes (``ops.scanline.directional_pass_banded`` and
-``canonical_pass_banded``, the plain versions of
-``ops.kernels.scanline_banded_cuda``) against the JAX package's, and chained
-over bands against the port's whole-path passes; the CUDA wrapper's CPU
-path (reverse, reset forms, carry only).  Inputs are seeded NumPy arrays."""
+``canonical_pass_banded``, whose kernels are ``ops.kernels.
+scanline_banded_cuda``) against the JAX package's, and chained over bands
+against the port's whole-path passes; the public passes' CPU path (reverse,
+reset forms, carry only).  Inputs are seeded NumPy arrays."""
 
 import jax
 import jax.numpy as jnp
@@ -104,8 +104,8 @@ def test_chained_bands_equal_the_whole_pass(reverse, dm1, p2_ref):
     got = torch.empty_like(cost)
     for b0 in (reversed(starts) if reverse else starts):
         band = cost[:, b0:b0 + bt].permute(1, 0, 2)
-        out, carry = banded.directional_pass_banded_cuda(band, p2[b0:b0 + bt], carry, None, p1,
-                                                         dm1, reverse=reverse)
+        out, carry = tscan.directional_pass_banded(band, p2[b0:b0 + bt], carry, None, p1, dm1,
+                                                   reverse=reverse)
         got[:, b0:b0 + bt] = out.permute(1, 0, 2)
     assert torch.equal(got, want)
 
@@ -131,26 +131,26 @@ def test_chained_canonical_bands_equal_the_whole_pass():
 
 @pytest.mark.parametrize("family", ["legacy", "canonical"])
 def test_wrapper_reverse_reset_and_carry_only_on_cpu(family):
-    """On CPU tensors the wrapper runs the plain version: ``reverse`` is the
-    pass over the flipped band, flipped back; a reset given as a step index
-    equals the bool mask; ``store=False`` returns the same carry and no
-    volume; a strided view gives the same as a contiguous copy."""
+    """On CPU tensors the public pass runs its plain body: ``reverse`` is
+    the pass over the flipped band, flipped back; a reset given as a step
+    index equals the bool mask; ``store=False`` returns the same carry and
+    no volume; a strided view gives the same as a contiguous copy."""
     cost, p2, scale, carry = _inputs(5)
     cost, p2, scale = _t(cost, p2, scale)
     carry = _t(*carry)
     pen = p2 if family == "legacy" else scale
     if family == "legacy":
         def call(*a, **k):
-            return banded.directional_pass_banded_cuda(*a, 0.5, True, **k)
+            return tscan.directional_pass_banded(*a, 0.5, True, **k)
 
         def plain(c, p, cr, rs):
-            return tscan.directional_pass_banded(c, p, cr, rs, 0.5, True)
+            return tscan._directional_pass_banded_plain(c, p, cr, rs, 0.5, True)
     else:
         def call(*a, **k):
-            return banded.canonical_pass_banded_cuda(*a, 1.0, 3.0, **k)
+            return tscan.canonical_pass_banded(*a, 1.0, 3.0, **k)
 
         def plain(c, p, cr, rs):
-            return tscan.canonical_pass_banded(c, p, cr, rs, 1.0, 3.0)
+            return tscan._canonical_pass_banded_plain(c, p, cr, rs, 1.0, 3.0)
     mask = torch.zeros(T, dtype=torch.bool)
     mask[9] = True
     out, (cp, cm) = call(cost, pen, carry, 9, reverse=True)

@@ -1,10 +1,10 @@
 """Both horizontal passes of a band of rows (``ops.scanline.
-horizontal_passes_banded`` and ``canonical_horizontal_passes_banded``, the
-plain versions of ``ops.kernels.scanline_banded_cuda``'s band entries):
-against the composition the streamed executor ran before them (two banded
-passes along the columns from a zero carry, their penalties from the band's
-grey rows), against the JAX package's streamed horizontal step, and through
-the wrappers' CPU path.  Inputs are seeded NumPy arrays."""
+horizontal_passes_banded`` and ``canonical_horizontal_passes_banded``, whose
+kernels are ``ops.kernels.scanline_banded_cuda``'s band entries): against
+the composition the streamed executor ran before them (two banded passes
+along the columns from a zero carry, their penalties from the band's grey
+rows), against the JAX package's streamed horizontal step, and through the
+public functions' CPU path.  Inputs are seeded NumPy arrays."""
 
 import jax
 import jax.numpy as jnp
@@ -64,9 +64,9 @@ def _legacy_composition(agg, g):
     z = _zero(d, t)
     prev_col = torch.cat([g[:, :1], g[:, :-1]], 1)
     next_col = torch.cat([g[:, 1:], g[:, -1:]], 1)
-    lr, _ = banded.directional_pass_banded_cuda(ch, p2_of(g, prev_col).T, z, None, P1, True)
-    rl, _ = banded.directional_pass_banded_cuda(ch, p2_of(g, next_col).T, z, None, P1, True,
-                                                reverse=True)
+    lr, _ = tscan.directional_pass_banded(ch, p2_of(g, prev_col).T, z, None, P1, True)
+    rl, _ = tscan.directional_pass_banded(ch, p2_of(g, next_col).T, z, None, P1, True,
+                                          reverse=True)
     return lr.permute(1, 2, 0), rl.permute(1, 2, 0)
 
 
@@ -87,8 +87,8 @@ def _canonical_composition(agg, left, right, b0, v):
     horiz = tscan.canonical_scale(gh[1:], gh[:-1], g2h[1:], g2h[:-1], TSO)
     ch = agg.permute(2, 0, 1)
     z = _zero(d, t)
-    lr, _ = banded.canonical_pass_banded_cuda(ch, horiz[:-1], z, None, CP1, CP2)
-    rl, _ = banded.canonical_pass_banded_cuda(ch, horiz[1:], z, None, CP1, CP2, reverse=True)
+    lr, _ = tscan.canonical_pass_banded(ch, horiz[:-1], z, None, CP1, CP2)
+    rl, _ = tscan.canonical_pass_banded(ch, horiz[1:], z, None, CP1, CP2, reverse=True)
     return lr.permute(1, 2, 0), rl.permute(1, 2, 0)
 
 
@@ -180,19 +180,19 @@ def test_canonical_plain_equals_jax_streamed_step(t, d, w, view):
 
 @pytest.mark.parametrize("cropped", [False, True], ids=["contiguous", "halo_cropped"])
 def test_wrappers_on_cpu_run_the_plain_versions(cropped):
-    """On CPU tensors each wrapper returns its plain version's lr and rl and
-    launches nothing."""
+    """On CPU tensors each public band function returns its plain body's lr
+    and rl and launches nothing."""
     t, d, w = BANDS[0]
     agg = _band(7, t, d, w, cropped)
     g = _image(8, t, w, True)
     m = _image(9, t, w, True)
     before = dict(banded.LAUNCHES)
-    _assert_pair_equal(banded.horizontal_passes_banded_cuda(agg, g.float(), P1, P2_INIT),
-                       tscan.horizontal_passes_banded(agg, g.float(), P1, P2_INIT))
+    _assert_pair_equal(tscan.horizontal_passes_banded(agg, g.float(), P1, P2_INIT),
+                       tscan._horizontal_passes_banded_plain(agg, g.float(), P1, P2_INIT))
     for view in (False, True):
         _assert_pair_equal(
-            banded.canonical_horizontal_passes_banded_cuda(agg, g, m, CP1, CP2, TSO, view),
-            tscan.canonical_horizontal_passes_banded(agg, g, m, CP1, CP2, TSO, view))
+            tscan.canonical_horizontal_passes_banded(agg, g, m, CP1, CP2, TSO, view),
+            tscan._canonical_horizontal_passes_banded_plain(agg, g, m, CP1, CP2, TSO, view))
     assert banded.LAUNCHES == before
 
 

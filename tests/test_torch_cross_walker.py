@@ -320,14 +320,18 @@ def test_instance_fits_its_block_and_registers(cap, walk, across, horizontal_fir
 
 
 def test_cross_aggregate_cpu_routes_to_plain():
-    """On CPU tensors the public function is the plain version, whatever
-    ``span_cap`` and ``method``; an unknown method raises."""
+    """On CPU tensors the public function is the plain body, whatever
+    ``span_cap``, ``max_arm`` and ``method``, and launches nothing; an
+    unknown method raises."""
     vol = torch.from_numpy(_ad_census_like(3, 12, 17, seed=9))
     arms = _arms(12, 17, 4, seed=1)
     want = aggregate._cross_aggregate_plain(vol, arms, 4, True)
+    before = dict(aggregate_cuda.LAUNCHES)
     for cap in (None, 4, 255):
         assert torch.equal(aggregate.cross_aggregate(vol, arms, 4, span_cap=cap), want)
-        assert torch.equal(aggregate_cuda.cross_aggregate_cuda(vol, arms, 4, True, cap), want)
+        assert torch.equal(aggregate.cross_aggregate(vol, arms, 4, True, cap, "matmul", cap),
+                           want)
+    assert aggregate_cuda.LAUNCHES == before
     with pytest.raises(ValueError):
         aggregate.cross_aggregate(vol, arms, method="bogus")
 

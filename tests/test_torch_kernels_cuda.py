@@ -60,10 +60,10 @@ def test_kernel_matches_plain_on_card(h, w, d, win, seed, view):
     L, R, _ = make_pair(h, w, min(d, w - 1), seed=seed)
     lt, rt = pair_to_torch(L, R, "cuda")
     before = asw_cuda.LAUNCHES
-    got = asw_cuda.asw_volume_cuda(lt, rt, d, win, view=view)
+    got = volume.asw_volume(lt, rt, d, win, view=view)
     torch.cuda.synchronize()
     assert asw_cuda.LAUNCHES == before + 1
-    want = volume.asw_volume(lt, rt, d, win, view=view)
+    want = volume._asw_volume_plain(lt, rt, d, win, view=view)
     assert got.shape == (d, h, w)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
 
@@ -99,7 +99,7 @@ def test_launch_checks_inputs(bad):
     if bad != "device" and torch.cuda.is_available():
         left, right = left.cuda(), right.cuda()
     with pytest.raises(ValueError):
-        asw_cuda._launch_left(left, right, 4, 2, 50.0, 30.0, 40.0)
+        asw_cuda.asw_volume_left_cuda(left, right, 4, 2, 50.0, 30.0, 40.0)
 
 
 @pytest.mark.cuda
@@ -108,7 +108,7 @@ def test_mixed_devices_rejected():
         pytest.skip("needs a CUDA device")
     x = torch.zeros((8, 9), dtype=torch.uint8)
     with pytest.raises(ValueError):
-        asw_cuda.asw_volume_cuda(x.cuda(), x, 4, 2)
+        volume.asw_volume(x.cuda(), x, 4, 2)
 
 
 # (h, w, D, seed) for the AD-Census kernels: odd shapes, D > W, Teddy
@@ -131,9 +131,9 @@ def test_ad_census_kernel_matches_plain_on_card(h, w, d, seed, view):
     cen = ad_census_cuda.census_volume_cuda(lt, rt, d, view=view)
     torch.cuda.synchronize()
     assert ad_census_cuda.LAUNCHES == before + 3
-    assert torch.equal(ad, volume.ad_volume(lt, rt, d, view))
-    assert torch.equal(cen, volume.census_volume(lt, rt, d, view=view))
-    torch.testing.assert_close(got, volume.ad_census_volume(lt, rt, d, view=view),
+    assert torch.equal(ad, volume._ad_volume_plain(lt, rt, d, view))
+    assert torch.equal(cen, volume._census_volume_plain(lt, rt, d, view=view))
+    torch.testing.assert_close(got, volume._ad_census_volume_plain(lt, rt, d, view=view),
                                rtol=1e-6, atol=1e-6)
 
 
@@ -160,7 +160,7 @@ def test_scanline_kernel_bit_exact_on_card(cfg, h, w, d, seed):
     if min(h, w) > 1 and w < 1000:
         L, R, _ = make_pair(h, w, min(d, w - 1), seed=seed)
         lt, rt = pair_to_torch(L, R, "cuda")
-        vol = volume.ad_census_volume(lt, rt, d)
+        vol = volume._ad_census_volume_plain(lt, rt, d)
     else:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         lt = torch.randint(0, 256, (h, w), device="cuda", generator=gen, dtype=torch.uint8)
@@ -169,7 +169,7 @@ def test_scanline_kernel_bit_exact_on_card(cfg, h, w, d, seed):
     got = scanline_cuda.scanline_optimize_cuda(vol, lt, cfg)
     torch.cuda.synchronize()
     assert scanline_cuda.LAUNCHES == before + 1
-    assert torch.equal(got, scanline.scanline_optimize(vol, lt, cfg))
+    assert torch.equal(got, scanline._scanline_optimize_plain(vol, lt, cfg))
 
 
 # (h, w, D, seed) beyond AD_CENSUS_GEOMETRIES for the both-view entry: one
@@ -192,15 +192,16 @@ def test_ad_census_both_views_on_card(h, w, d, seed):
     vol_l, vol_r = ad_census_cuda.ad_census_volumes_cuda(lt, rt, d)
     torch.cuda.synchronize()
     assert ad_census_cuda.LAUNCHES == before + 1
-    for got, want in zip((vol_l, vol_r), volume.ad_census_volumes(lt, rt, d), strict=True):
+    for got, want in zip((vol_l, vol_r), volume._ad_census_volumes_plain(lt, rt, d), strict=True):
         assert got.shape == (d, h, w) and got.is_contiguous()
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
-    for got, want in zip(ad_census_cuda.ad_volumes_cuda(lt, rt, d), volume.ad_volumes(lt, rt, d),
+    for got, want in zip(ad_census_cuda.ad_volumes_cuda(lt, rt, d),
+                         volume._ad_volumes_plain(lt, rt, d),
                          strict=True):
         assert torch.equal(got, want)
     census = ad_census_cuda._launch(lt, rt, d, 9, 7, 1.0, 1.0, "both", "census")
     for got, view in zip(census, ("left", "right"), strict=True):
-        assert torch.equal(got, volume.census_volume(lt, rt, d, view=view))
+        assert torch.equal(got, volume._census_volume_plain(lt, rt, d, view=view))
     as_float = ad_census_cuda.ad_census_volumes_cuda(lt.float(), rt.float(), d)
     assert torch.equal(as_float[0], vol_l) and torch.equal(as_float[1], vol_r)
 
@@ -219,9 +220,9 @@ def test_ad_census_other_windows_on_card(rows, cols):
     torch.cuda.synchronize()
     assert ad_census_cuda.LAUNCHES == before + 2
     for i, view in enumerate(("left", "right")):
-        assert torch.equal(cen[i], volume.census_volume(lt, rt, 20, rows, cols, view))
+        assert torch.equal(cen[i], volume._census_volume_plain(lt, rt, 20, rows, cols, view))
         torch.testing.assert_close(
-            cost[i], volume.ad_census_volume(lt, rt, 20, 10.0, 30.0, rows, cols, view),
+            cost[i], volume._ad_census_volume_plain(lt, rt, 20, 10.0, 30.0, rows, cols, view),
             rtol=1e-6, atol=1e-6)
 
 
@@ -294,7 +295,7 @@ def test_scanline_kernel_checks_inputs():
             got = scanline_cuda.scanline_optimize_cuda(cost, gray, cfg)
             torch.cuda.synchronize()
             assert banded.LAUNCHES["scanline_banded_wide_f32"] == wide + 4
-            want = scanline.scanline_optimize(cost, gray, cfg)
+            want = scanline._scanline_optimize_plain(cost, gray, cfg)
             assert got.shape == (d, 8, 9) and got.is_contiguous() and torch.equal(got, want), d
     assert scanline_cuda.LAUNCHES == before
 
@@ -334,7 +335,7 @@ def test_sad_kernel_bit_exact_on_card(h, w, d, winsize, seed, view, mean):
     got = window_cost_cuda.sad_volume_cuda(lt, rt, d, winsize, view, mean)
     torch.cuda.synchronize()
     assert window_cost_cuda.LAUNCHES["sad_volume_f32"] == before + 1
-    assert torch.equal(got, volume.sad_volume(lt, rt, d, winsize, view, mean))
+    assert torch.equal(got, volume._sad_volume_plain(lt, rt, d, winsize, view, mean))
     # float32 images holding the same integers take the kernel's other load path
     assert torch.equal(window_cost_cuda.sad_volume_cuda(lt.float(), rt.float(), d, winsize,
                                                         view, mean), got)
@@ -357,12 +358,12 @@ def test_ncc_kernel_bit_exact_on_card(h, w, d, win, seed, mode):
     _need_card()
     lt, rt = _pair_on_card(h, w, d, seed)
     before = window_cost_cuda.LAUNCHES["ncc_volume_f32"]
-    got, interior = window_cost_cuda.ncc_volume_cuda(lt, rt, d, win, mode)
+    got, interior = volume.ncc_volume(lt, rt, d, win, mode)
     torch.cuda.synchronize()
     assert window_cost_cuda.LAUNCHES["ncc_volume_f32"] == before + 1
-    want, want_in = volume.ncc_volume(lt, rt, d, win, mode)
+    want, want_in = volume._ncc_volume_plain(lt, rt, d, win, mode)
     assert torch.equal(got, want) and torch.equal(interior, want_in)
-    assert torch.equal(window_cost_cuda.ncc_volume_cuda(lt.float(), rt.float(), d, win, mode)[0],
+    assert torch.equal(volume.ncc_volume(lt.float(), rt.float(), d, win, mode)[0],
                        got)
 
 
@@ -377,7 +378,7 @@ def test_ncc_sums_kernel_bit_exact_on_card(h, w, d, win, seed):
     got = window_cost_cuda.ncc_sums_cuda(lt, rt, win)
     torch.cuda.synchronize()
     assert window_cost_cuda.LAUNCHES == before
-    for g, want in zip(got, volume.ncc_sums(lt, rt, win)[2], strict=True):
+    for g, want in zip(got, volume._ncc_sums_plain(lt, rt, win)[2], strict=True):
         assert torch.equal(g, want)
 
 
@@ -391,10 +392,11 @@ def test_ncc_kernel_wide_window_on_card(h, w, d, win):
     _need_card()
     L, R, _ = make_pair(h, w, d, seed=2)
     lt, rt = pair_to_torch(L, R, "cuda")
-    got, _ = window_cost_cuda.ncc_volume_cuda(lt, rt, d, win)
-    torch.testing.assert_close(got, volume.ncc_volume(lt, rt, d, win)[0], rtol=1e-5, atol=1e-5)
+    got, _ = volume.ncc_volume(lt, rt, d, win)
+    torch.testing.assert_close(got, volume._ncc_volume_plain(lt, rt, d, win)[0], rtol=1e-5,
+                               atol=1e-5)
     for g, want in zip(window_cost_cuda.ncc_sums_cuda(lt, rt, win),
-                       volume.ncc_sums(lt, rt, win)[2], strict=True):
+                       volume._ncc_sums_plain(lt, rt, win)[2], strict=True):
         torch.testing.assert_close(g, want, rtol=1e-5, atol=0.0)
 
 
@@ -414,16 +416,18 @@ def test_window_kernels_float_inputs_on_card():
               for t in _pair_on_card(h, w, d, 5))
     for view in ("left", "right"):
         torch.testing.assert_close(window_cost_cuda.sad_volume_cuda(lt, rt, d, win, view),
-                                   volume.sad_volume(lt, rt, d, win, view), rtol=rtol, atol=0.0)
+                                   volume._sad_volume_plain(lt, rt, d, win, view), rtol=rtol,
+                                   atol=0.0)
     lt = torch.rand((h, w), device="cuda", generator=gen) * 255.0
     rt = torch.roll(lt, -3, 1) + torch.rand((h, w), device="cuda", generator=gen) * 8.0
     n = float((2 * win + 1) ** 2)
     for g, want, one_sign in zip(window_cost_cuda.ncc_sums_cuda(lt, rt, win),
-                                 volume.ncc_sums(lt, rt, win)[2], (False, True, False, True),
-                                 strict=True):
+                                 volume._ncc_sums_plain(lt, rt, win)[2],
+                                 (False, True, False, True), strict=True):
         torch.testing.assert_close(g, want, rtol=rtol, atol=0.0 if one_sign else rtol * n * 128.0)
-    torch.testing.assert_close(window_cost_cuda.ncc_volume_cuda(lt, rt, d, win)[0],
-                               volume.ncc_volume(lt, rt, d, win)[0], rtol=0.0, atol=2 * rtol)
+    torch.testing.assert_close(volume.ncc_volume(lt, rt, d, win)[0],
+                               volume._ncc_volume_plain(lt, rt, d, win)[0], rtol=0.0,
+                               atol=2 * rtol)
 
 
 @pytest.mark.cuda
@@ -508,7 +512,7 @@ def test_window_kernels_reject_mixed_devices():
     with pytest.raises(ValueError):
         window_cost_cuda.sad_volume_cuda(x.cuda(), x, 4, 1)
     with pytest.raises(ValueError):
-        window_cost_cuda.ncc_volume_cuda(x, x.cuda(), 4, 2)
+        volume.ncc_volume(x, x.cuda(), 4, 2)
     with pytest.raises(ValueError):
         window_cost_cuda.ncc_sums_cuda(x.cuda(), x, 2)
 
@@ -523,7 +527,7 @@ def test_window_kernels_reject_radius_without_launch():
     with pytest.raises(ValueError, match="radius"):
         window_cost_cuda.sad_volume_cuda(x, x, 4, big - 1)     # radius = winsize + 1
     with pytest.raises(ValueError, match="radius"):
-        window_cost_cuda.ncc_volume_cuda(x, x, 4, big)
+        volume.ncc_volume(x, x, 4, big)
     with pytest.raises(ValueError, match="radius"):
         window_cost_cuda.ncc_sums_cuda(x, x, big)
     assert window_cost_cuda.LAUNCHES == before
@@ -562,7 +566,7 @@ def test_sad_kernel_channel_min_raises_without_launch():
                 got = window_cost_cuda.sad_volume_cuda(lt, rt, d, winsize, view, mean, True)
                 torch.cuda.synchronize()
                 assert window_cost_cuda.LAUNCHES["sad_volume_f32"] == before + 1
-                want = volume.sad_volume(lt, rt, d, winsize, view, mean, True)
+                want = volume._sad_volume_plain(lt, rt, d, winsize, view, mean, True)
                 assert torch.equal(got, want), (h, w, d, winsize, view, mean)
                 assert torch.equal(window_cost_cuda.sad_volume_cuda(
                     lt.float(), rt.float(), d, winsize, view, mean, True), got)
@@ -574,7 +578,7 @@ def test_sad_kernel_channel_min_raises_without_launch():
         # passed, so its roundings are bounded by the largest window sum, not
         # by the sum at hand (colour terms, the least of three differences,
         # vary more from window to window than grey ones)
-        want = volume.sad_volume(lt, rt, 20, 3, view, False, True)
+        want = volume._sad_volume_plain(lt, rt, 20, 3, view, False, True)
         torch.testing.assert_close(
             window_cost_cuda.sad_volume_cuda(lt, rt, 20, 3, view, False, True), want,
             rtol=0.0, atol=window_cost_cuda.FLOAT_RTOL * want.max().item())
@@ -672,7 +676,7 @@ def test_canonical_scanline_kernel_bit_exact_on_card(h, w, d, view):
     assert scanline_canonical_cuda.LAUNCHES == before + 1
     # a view of rows padded to a multiple of 4 columns
     assert got.shape == (d, h, w) and got.is_contiguous() == (w % 4 == 0)
-    want = scanline.scanline_optimize_canonical(vol, lt, rt, 1.0, 3.0, 15.0, view)
+    want = scanline._scanline_optimize_canonical_plain(vol, lt, rt, 1.0, 3.0, 15.0, view)
     assert torch.equal(got, want)
 
 
@@ -692,7 +696,7 @@ def test_canonical_scanline_kernel_other_parameters_on_card(h, w, d, p1, p2, tso
               for _ in range(2))
     got = scanline_canonical_cuda.scanline_optimize_canonical_cuda(vol, lt, rt, p1, p2, tso,
                                                                    view)
-    want = scanline.scanline_optimize_canonical(vol, lt, rt, p1, p2, tso, view)
+    want = scanline._scanline_optimize_canonical_plain(vol, lt, rt, p1, p2, tso, view)
     assert torch.equal(got, want)
 
 
@@ -709,7 +713,7 @@ def test_canonical_scanline_kernel_float_images_on_card(h, w, d, view):
     lt, rt = (torch.rand((h, w), device="cuda", generator=gen) * 255.0 for _ in range(2))
     fn = scanline_canonical_cuda.scanline_optimize_canonical_cuda
     got = fn(vol, lt, rt, 1.0, 3.0, 15.0, view)
-    want = scanline.scanline_optimize_canonical(vol, lt, rt, 1.0, 3.0, 15.0, view)
+    want = scanline._scanline_optimize_canonical_plain(vol, lt, rt, 1.0, 3.0, 15.0, view)
     assert torch.equal(got, want)
     lu, ru = lt.to(torch.uint8), rt.to(torch.uint8)
     assert torch.equal(fn(vol, lu, ru, 1.0, 3.0, 15.0, view),
@@ -735,7 +739,7 @@ def test_canonical_scanline_kernel_checks_inputs():
             got = fn(cost, lu, ru, 1.0, 3.0, 15.0, view)
             torch.cuda.synchronize()
             assert banded.LAUNCHES["scanline_banded_wide_canonical_f32"] == wide + 4
-            want = scanline.scanline_optimize_canonical(cost, lu, ru, 1.0, 3.0, 15.0, view)
+            want = scanline._scanline_optimize_canonical_plain(cost, lu, ru, 1.0, 3.0, 15.0, view)
             assert got.shape == (d, 8, 9) and got.is_contiguous(), (d, view)
             assert torch.equal(got, want), (d, view)
     img = torch.zeros((8, 9), dtype=torch.uint8, device="cuda")
@@ -818,13 +822,13 @@ def _banded_pair(family):
             return banded.directional_pass_banded_cuda(c, p, cr, rs, 0.5, True, **k)
 
         def plain(c, p, cr, rs):
-            return scanline.directional_pass_banded(c, p, cr, rs, 0.5, True)
+            return scanline._directional_pass_banded_plain(c, p, cr, rs, 0.5, True)
     else:
         def kernel(c, p, cr, rs, **k):
             return banded.canonical_pass_banded_cuda(c, p, cr, rs, 1.0, 3.0, **k)
 
         def plain(c, p, cr, rs):
-            return scanline.canonical_pass_banded(c, p, cr, rs, 1.0, 3.0)
+            return scanline._canonical_pass_banded_plain(c, p, cr, rs, 1.0, 3.0)
     return banded, kernel, plain
 
 
@@ -1166,13 +1170,14 @@ def _entry_case(case, t, d, w, halo, seed):
         grey = imgs[0].float()
         return ("scanline_horizontal_band_f32",
                 lambda: banded.horizontal_passes_banded_cuda(agg, grey, 0.5, 4.0),
-                lambda: scanline.horizontal_passes_banded(agg, grey, 0.5, 4.0), agg)
+                lambda: scanline._horizontal_passes_banded_plain(agg, grey, 0.5, 4.0), agg)
     view, kind = case.split()
     b, m = imgs if kind == "u8" else [x.float() for x in imgs]
     rv = view == "right"
     return ("scanline_canonical_horizontal_band_f32",
             lambda: banded.canonical_horizontal_passes_banded_cuda(agg, b, m, 1.0, 3.0, 15.0, rv),
-            lambda: scanline.canonical_horizontal_passes_banded(agg, b, m, 1.0, 3.0, 15.0, rv),
+            lambda: scanline._canonical_horizontal_passes_banded_plain(agg, b, m, 1.0, 3.0, 15.0,
+                                                                       rv),
             agg)
 
 
@@ -1278,9 +1283,9 @@ def test_ad_census_row_window_on_card(row_offset, rows, cols):
                                                  row_offset, rows_total)
     torch.cuda.synchronize()
     for v, view in enumerate(("left", "right")):
-        want = volume.census_volume(lt, rt, 20, rows, cols, view, row_offset, rows_total)
+        want = volume._census_volume_plain(lt, rt, 20, rows, cols, view, row_offset, rows_total)
         assert torch.equal(cen[v], want), view
-        want = volume.ad_census_volume(lt, rt, 20, 10.0, 30.0, rows, cols, view, row_offset,
+        want = volume._ad_census_volume_plain(lt, rt, 20, 10.0, 30.0, rows, cols, view, row_offset,
                                        rows_total)
         torch.testing.assert_close(cost[v], want, rtol=0, atol=1e-6)
     if row_offset == 0:
@@ -1354,16 +1359,17 @@ def test_d_offset_slices_on_card(h, w, d, offsets):
             assert torch.equal(torch.cat([p[v] for p in parts]), whole[v]), (part, view)
             for (o, e), p in zip(spans, parts):
                 if part == "cost":
-                    want = volume.ad_census_volume(lc, rc, e - o, view=view, d_offset=o)
+                    want = volume._ad_census_volume_plain(lc, rc, e - o, view=view, d_offset=o)
                     torch.testing.assert_close(p[v].cpu(), want, rtol=1e-6, atol=1e-6)
                 else:
-                    fn = volume.ad_volume if part == "ad" else volume.census_volume
+                    fn = (volume._ad_volume_plain if part == "ad"
+                          else volume._census_volume_plain)
                     assert torch.equal(p[v].cpu(), fn(lc, rc, e - o, view=view, d_offset=o))
-    whole = window_cost_cuda.ncc_volume_cuda(lt, rt, d, 3)[0]
-    parts = [window_cost_cuda.ncc_volume_cuda(lt, rt, e - o, 3, d_offset=o)[0] for o, e in spans]
+    whole = volume.ncc_volume(lt, rt, d, 3)[0]
+    parts = [volume.ncc_volume(lt, rt, e - o, 3, d_offset=o)[0] for o, e in spans]
     assert torch.equal(torch.cat(parts), whole)
     for (o, e), p in zip(spans, parts):
-        assert torch.equal(p.cpu(), volume.ncc_volume(lc, rc, e - o, 3, d_offset=o)[0])
+        assert torch.equal(p.cpu(), volume._ncc_volume_plain(lc, rc, e - o, 3, d_offset=o)[0])
 
 
 @pytest.mark.cuda
@@ -1373,7 +1379,7 @@ def test_d_offset_rejects_negative_offsets():
     with pytest.raises(ValueError, match="d_offset"):
         ad_census_cuda.ad_census_volumes_cuda(lt, lt, 3, d_offset=-1)
     with pytest.raises(ValueError, match="d_offset"):
-        window_cost_cuda.ncc_volume_cuda(lt, lt, 3, 1, d_offset=-1)
+        volume.ncc_volume(lt, lt, 3, 1, d_offset=-1)
 
 
 # ---------------------------------------------------------------------------

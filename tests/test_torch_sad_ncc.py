@@ -104,12 +104,13 @@ def test_sad_volume_bit_exact(h, w, d, winsize, seed, view, mean):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("fn", [tvol.sad_volume, window_cost_cuda.sad_volume_cuda],
+@pytest.mark.parametrize("fn", [tvol._sad_volume_plain, tvol.sad_volume],
                          ids=["plain", "wrapper"])
 def test_sad_volume_channel_min_not_ported(fn):
     """``channel_min`` (the minimum-channel colour SAD) on u8 ``[H, W, 3]``
-    pairs equals JAX's bit for bit, both views, mean on and off; the wrapper
-    takes the plain version for CPU tensors and launches nothing."""
+    pairs equals JAX's bit for bit, both views, mean on and off, in the
+    plain body and through ``sad_volume``, which runs it for CPU tensors
+    and launches nothing."""
     L, R, _ = make_pair(9, 13, 5, seed=3, color=True)
     lt, rt = torch.from_numpy(L), torch.from_numpy(R)
     before = dict(window_cost_cuda.LAUNCHES)
@@ -126,9 +127,9 @@ def test_sad_volume_cuda_takes_plain_version_on_cpu():
     L, R, _ = make_pair(14, 18, 5, seed=2)
     lt, rt = pair_to_torch(L, R, "cpu")
     before = dict(window_cost_cuda.LAUNCHES)
-    got = window_cost_cuda.sad_volume_cuda(lt, rt, 5, 2, "right", True)
+    got = tvol.sad_volume(lt, rt, 5, 2, "right", True)
     assert window_cost_cuda.LAUNCHES == before
-    assert torch.equal(got, tvol.sad_volume(lt, rt, 5, 2, "right", True))
+    assert torch.equal(got, tvol._sad_volume_plain(lt, rt, 5, 2, "right", True))
 
 
 # -- uniqueness WTA ------------------------------------------------------------
@@ -303,19 +304,21 @@ def test_ncc_sums_cuda_takes_plain_version_on_cpu():
     L, R, _ = make_pair(20, 30, 6, seed=13)
     lt, rt = pair_to_torch(L, R, "cpu")
     before = dict(window_cost_cuda.LAUNCHES)
-    got = window_cost_cuda.ncc_sums_cuda(lt, rt, 3)
+    got = tvol.ncc_sums(lt, rt, 3)
     assert window_cost_cuda.LAUNCHES == before
-    for g, want in zip(got, tvol.ncc_sums(lt, rt, 3)[2], strict=True):
-        assert torch.equal(g, want)
+    want = tvol._ncc_sums_plain(lt, rt, 3)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for g, w in zip(got[2], want[2], strict=True):
+        assert torch.equal(g, w)
 
 
 def test_ncc_volume_cuda_takes_plain_version_on_cpu():
     L, R, _ = make_pair(20, 30, 6, seed=13)
     lt, rt = pair_to_torch(L, R, "cpu")
     before = dict(window_cost_cuda.LAUNCHES)
-    got, interior = window_cost_cuda.ncc_volume_cuda(lt, rt, 6, 3, "sentinel")
+    got, interior = tvol.ncc_volume(lt, rt, 6, 3, "sentinel")
     assert window_cost_cuda.LAUNCHES == before
-    want, want_in = tvol.ncc_volume(lt, rt, 6, 3, "sentinel")
+    want, want_in = tvol._ncc_volume_plain(lt, rt, 6, 3, "sentinel")
     assert torch.equal(got, want) and torch.equal(interior, want_in)
 
 

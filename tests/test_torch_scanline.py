@@ -60,8 +60,10 @@ def test_single_disparity_and_single_line():
 
 
 def test_kernel_wrapper_takes_plain_version_on_cpu():
+    """``scanline_optimize`` on CPU tensors runs its plain body and launches
+    nothing."""
     vol, gray = _inputs(24, 32, 10, 1)
     before = scanline_cuda.LAUNCHES
-    got = scanline_cuda.scanline_optimize_cuda(torch.tensor(vol), torch.tensor(gray))
+    got = tscan.scanline_optimize(torch.tensor(vol), torch.tensor(gray))
     assert scanline_cuda.LAUNCHES == before
-    assert torch.equal(got, tscan.scanline_optimize(torch.tensor(vol), torch.tensor(gray)))
+    assert torch.equal(got, tscan._scanline_optimize_plain(torch.tensor(vol), torch.tensor(gray)))

@@ -61,10 +61,16 @@ ABSENT = {("ops.scanline", "rev_materialized"): TPU_ONLY,
 # a torch device, where JAX's takes the executors' row offset; serve_pairs
 # takes its pairs from the host to the card unless asked for the CPU;
 # initialize takes the process group's backend (NCCL on the card, gloo on
-# the CPU or for processes that share a card).
+# the CPU or for processes that share a card); the banded passes take their
+# kernels' direction along the path and whether to keep the band or only the
+# outgoing carry (the streamed executor's bottom-up sweep), which JAX's
+# callers express by flipping the band and dropping the result.
+BANDED_KERNEL_ARGS = ("reverse", "store")
 PORT_ONLY = {("ops.volume", "ncc_interior_mask"): ("device",),
              ("models.batch", "serve_pairs"): ("device",),
-             ("parallel.distributed", "initialize"): ("backend",)}
+             ("parallel.distributed", "initialize"): ("backend",),
+             ("ops.scanline", "directional_pass_banded"): BANDED_KERNEL_ARGS,
+             ("ops.scanline", "canonical_pass_banded"): BANDED_KERNEL_ARGS}
 
 
 def _public_pairs(module):

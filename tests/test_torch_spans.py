@@ -370,9 +370,14 @@ def test_full_maps_are_unchanged_while_recording(d):
 
 
 @pytest.mark.parametrize("canonical", [False, True])
-def test_the_composed_route_spans_its_rows_and_columns_and_counts_its_passes(canonical):
+def test_the_composed_route_spans_its_rows_and_columns_and_counts_its_passes(canonical,
+                                                                             monkeypatch):
+    """The composed route above 256 disparities, its launches stood in for
+    by the plain passes on CPU tensors (``banded_on_cpu``)."""
+    from banded_on_cpu import plain_launch
     from stereo_match_traditional_tpu_torch.ops.kernels import scanline_banded_cuda as banded
 
+    monkeypatch.setattr(banded, "_launch", plain_launch)
     gen = torch.Generator().manual_seed(5)
     cost = torch.rand((9, 7, 10), generator=gen) * 4
     grey = [torch.randint(0, 256, (7, 10), generator=gen, dtype=torch.uint8) for _ in range(2)]

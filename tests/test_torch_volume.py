@@ -87,13 +87,14 @@ def test_asw_volume_matches_jax_pallas_interpret(h, w, d, win, seed, view):
 
 @pytest.mark.parametrize("view", ["left", "right"])
 def test_asw_volume_cuda_takes_plain_version_on_cpu(view):
-    """A CPU tensor goes to the plain version and launches nothing."""
+    """``asw_volume`` on CPU tensors runs its plain body and launches
+    nothing."""
     L, R, _ = make_pair(14, 18, 5, seed=2)
     lt, rt = pair_to_torch(L, R, "cpu")
     before = asw_cuda.LAUNCHES
-    got = asw_cuda.asw_volume_cuda(lt, rt, 5, 2, view=view)
+    got = tvol.asw_volume(lt, rt, 5, 2, view=view)
     assert asw_cuda.LAUNCHES == before
-    want = tvol.asw_volume(lt, rt, 5, 2, view=view)
+    want = tvol._asw_volume_plain(lt, rt, 5, 2, view=view)
     assert torch.equal(got, want)
 
 

@@ -6,9 +6,10 @@ On the card, above 256 disparities ``scanline_optimize_cuda`` and
 from a zero carry (``ops.kernels.scanline_banded_cuda.
 scanline_optimize_composed`` / ``scanline_canonical_composed``, each pass a
 launch of the wide kernel), and the band entries their two horizontal
-passes.  On CPU tensors the same compositions run the plain banded passes:
-they are held here bit for bit to the port's whole-image plain versions and
-to the JAX package's ``scanline_optimize`` (bit for bit) and
+passes.  Here the same compositions run on CPU tensors with each launch
+stood in for by the plain banded pass (``banded_on_cpu``): they are held
+bit for bit to the port's whole-image plain bodies and to the JAX
+package's ``scanline_optimize`` (bit for bit) and
 ``scanline_optimize_canonical`` (bit for bit op by op; within 8 ulp of its
 compiled scans, ROADMAP.md Queue 3); and the flagship FULL pipeline at D =
 300 to JAX's under ``tests/test_torch_ad_census.py``'s envelopes.  Inputs
@@ -34,6 +35,7 @@ from stereo_match_traditional_tpu_torch.utils.convert import (
     config_from_dict, pair_to_torch, result_to_numpy,
 )
 from stereo_match_traditional_tpu_torch.utils.synthetic import make_pair
+from banded_on_cpu import plain_launch
 from test_torch_ad_census import _agreement
 
 # (D, H, W) above 256 disparities, D > W, and the wide kernel's route edges
@@ -49,6 +51,12 @@ def _torch_exp_warmed_up():
     """torch's CPU exp has been seen to be ~1e-4 off on the first call of a
     process (see tests/test_torch_ad_census.py)."""
     torch.exp(-torch.rand(8, 9, 10).permute(1, 0, 2))
+
+
+@pytest.fixture
+def launch_on_cpu(monkeypatch):
+    """The banded kernels' raw launch stood in for by the plain passes."""
+    monkeypatch.setattr(banded, "_launch", plain_launch)
 
 
 def _inputs(d, h, w, seed):
@@ -67,7 +75,7 @@ def _ulps(a, b):
 
 @pytest.mark.parametrize("cfg", CONFIGS, ids=["default", "vertical_quirks"])
 @pytest.mark.parametrize("d,h,w", SHAPES)
-def test_composed_scanline_matches_plain_and_jax(d, h, w, cfg):
+def test_composed_scanline_matches_plain_and_jax(d, h, w, cfg, launch_on_cpu):
     """The legacy composition bit for bit with the port's plain
     ``scanline_optimize`` and the JAX package's, both vertical quirks."""
     cost, gray, _ = _inputs(d, h, w, d + h)
@@ -85,7 +93,7 @@ def test_composed_scanline_matches_plain_and_jax(d, h, w, cfg):
 
 @pytest.mark.parametrize("view", ["left", "right"])
 @pytest.mark.parametrize("d,h,w", SHAPES)
-def test_composed_canonical_matches_plain_and_jax(d, h, w, view):
+def test_composed_canonical_matches_plain_and_jax(d, h, w, view, launch_on_cpu):
     """The canonical composition bit for bit with the port's plain
     ``scanline_optimize_canonical`` and with JAX's run op by op."""
     cost, left, right = _inputs(d, h, w, d + w)
@@ -100,7 +108,7 @@ def test_composed_canonical_matches_plain_and_jax(d, h, w, view):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_composed_canonical_near_compiled_jax():
+def test_composed_canonical_near_compiled_jax(launch_on_cpu):
     """Within 8 ulp of JAX's compiled scans (four passes, ROADMAP.md Queue 3's
     envelope of a few ulp a pass)."""
     d, h, w = SHAPES[0]
@@ -113,14 +121,14 @@ def test_composed_canonical_near_compiled_jax():
 
 
 def test_wrappers_on_cpu_take_the_plain_versions_above_256():
-    """On CPU tensors the whole-image wrappers at D = 300 return their plain
-    versions and launch nothing."""
+    """On CPU tensors the whole-image scanlines at D = 300 run their plain
+    bodies and launch nothing."""
     cost, left, right = (torch.from_numpy(x) for x in _inputs(*SHAPES[0], 3))
     before = (dict(banded.LAUNCHES), scanline_cuda.LAUNCHES, scanline_canonical_cuda.LAUNCHES)
-    got = scanline_cuda.scanline_optimize_cuda(cost, left)
-    assert torch.equal(got, tscan.scanline_optimize(cost, left))
-    got = scanline_canonical_cuda.scanline_optimize_canonical_cuda(cost, left, right)
-    assert torch.equal(got, tscan.scanline_optimize_canonical(cost, left, right))
+    got = tscan.scanline_optimize(cost, left)
+    assert torch.equal(got, tscan._scanline_optimize_plain(cost, left))
+    got = tscan.scanline_optimize_canonical(cost, left, right)
+    assert torch.equal(got, tscan._scanline_optimize_canonical_plain(cost, left, right))
     assert before == (banded.LAUNCHES, scanline_cuda.LAUNCHES, scanline_canonical_cuda.LAUNCHES)
 
 
@@ -156,11 +164,12 @@ def test_full_pipeline_at_300_disparities_matches_jax():
 
 
 @pytest.mark.parametrize("canonical", [False, True], ids=["legacy", "canonical"])
-def test_rows_pass_the_band_as_it_lies(canonical, monkeypatch):
+def test_rows_pass_the_band_as_it_lies(canonical, monkeypatch, launch_on_cpu):
     """The horizontal passes above 256 disparities (``_rows``, under both
     band entries and both composed routes) hand the passes the band's own
     ``[W, D, t]`` view, a halo-cropped one too: no row-contiguous copy.  The
-    results equal the plain horizontal passes."""
+    results (the launches stood in for by the plain passes) equal the plain
+    horizontal passes."""
     d, t, w = 300, 4, 9
     cost, left, right = (torch.from_numpy(x) for x in _inputs(d, t + 4, w, 11))
     band = cost.narrow(1, 2, t)
